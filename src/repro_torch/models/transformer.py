@@ -1,0 +1,228 @@
+"""Dense decoder, ported from ``repro.models.transformer`` (serving path).
+
+Parameters are a nested dict of tensors with the JAX tree's keys and its
+layer-stacked ``(L, ...)`` leaves; a Python loop over layers takes the
+place of ``lax.scan``. Attention goes through ``kernels.ops`` on
+un-repeated K/V: the kernels index the shared KV head themselves.
+
+Entry points:
+  prefill      tokens -> (last-token logits, KV caches, positions)
+  decode_step  one token per row + caches -> (logits, caches); the new
+               token's K/V is written into the caches in place
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..kernels import ops
+from .layers import (apply_rope, dense_init, rms_norm, rope_tables, swiglu)
+
+# config flags this slice does not cover, with the ROADMAP item that will
+UNPORTED = {
+    "is_moe": "MoE family (ROADMAP.md queue 1, item 3)",
+    "attn_free": "SSM/RWKV family (ROADMAP.md queue 1, item 3)",
+    "hybrid_ssm": "hybrid family (ROADMAP.md queue 1, item 3)",
+    "embedding_stub": "stub-frontend family (ROADMAP.md queue 1, item 3)",
+}
+
+
+def _check_ported(cfg: ArchConfig) -> None:
+    for flag, item in UNPORTED.items():
+        if getattr(cfg, flag):
+            raise NotImplementedError(
+                f"{cfg.name}: {flag} is not ported yet: {item}")
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+# ================================================================= init
+def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    """Random parameters on ``gen``'s device, in the JAX tree's layout.
+    The values differ from JAX's for the same seed; parity tests bring
+    weights over with ``bridge.params_from_numpy``."""
+    _check_ported(cfg)
+    dtype, dev = _dtype(cfg), gen.device
+    L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    attn = {
+        "wq": dense_init(gen, (L, d, h * hd), dtype),
+        "wk": dense_init(gen, (L, d, hkv * hd), dtype),
+        "wv": dense_init(gen, (L, d, hkv * hd), dtype),
+        "wo": dense_init(gen, (L, h * hd, d), dtype),
+    }
+    if cfg.qkv_bias:
+        attn.update(bq=zeros(L, h * hd), bk=zeros(L, hkv * hd),
+                    bv=zeros(L, hkv * hd))
+    if cfg.qk_norm:
+        attn.update(q_norm=ones(L, hd), k_norm=ones(L, hd))
+    params = {
+        "embed": dense_init(gen, (cfg.vocab_size, d), dtype),
+        "layers": {
+            "ln1": ones(L, d),
+            "ln2": ones(L, d),
+            "attn": attn,
+            "mlp": {
+                "w_gate": dense_init(gen, (L, d, f), dtype),
+                "w_up": dense_init(gen, (L, d, f), dtype),
+                "w_down": dense_init(gen, (L, f, d), dtype),
+            },
+        },
+        "final_norm": ones(d),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (d, cfg.vocab_size), dtype)
+    return params
+
+
+def _layer(tree: dict, i: int) -> dict:
+    """Layer i's parameters: views into the stacked leaves."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+# ============================================================ attention
+def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig):
+    b, s, _ = x.shape
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.view(b, s, cfg.n_heads, cfg.hd)
+    k = k.view(b, s, cfg.n_kv_heads, cfg.hd)
+    v = v.view(b, s, cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def apply_attn_seq(p: dict, x: torch.Tensor, cfg: ArchConfig, rope: tuple,
+                   impl: str = "kernel") -> tuple[torch.Tensor, dict]:
+    """Full-sequence attention; returns the output and (k, v) to cache."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, x, cfg)
+    q = apply_rope(q, rope)
+    k = apply_rope(k, rope)
+    out = ops.flash_attention(q, k, v, window=cfg.sliding_window, impl=impl)
+    out = out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
+    return out, {"k": k, "v": v}
+
+
+def apply_attn_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
+                      pos: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
+    """One-token decode against a (possibly ring-buffered) KV cache.
+
+    cache: {"k": (B, C, Hkv, hd), "v": ...}, written in place at slot
+    ``pos % C``. pos: (B,) absolute position of the new token.
+    """
+    b = x.shape[0]
+    q, k, v = _qkv(p, x, cfg)
+    rope = rope_tables(pos[:, None], cfg.hd, cfg.rope_theta)
+    q = apply_rope(q, rope)
+    k = apply_rope(k, rope)
+    cache_size = cache["k"].shape[1]
+    rows = torch.arange(b, device=x.device)
+    slot = (pos % cache_size).long()
+    cache["k"][rows, slot] = k[:, 0]
+    cache["v"][rows, slot] = v[:, 0]
+    cache_len = torch.clamp(pos + 1, max=cache_size).to(torch.int32)
+    # the ring holds exactly the window: mask by valid slot count only
+    grp = cfg.n_heads // cfg.n_kv_heads
+    out = ops.decode_attention(q.view(b, cfg.n_kv_heads, grp, cfg.hd),
+                               cache["k"], cache["v"], cache_len, impl=impl)
+    return out.reshape(b, 1, cfg.n_heads * cfg.hd) @ p["wo"]
+
+
+# =============================================================== blocks
+def apply_block_seq(lp: dict, x: torch.Tensor, cfg: ArchConfig, rope: tuple,
+                    impl: str = "kernel") -> tuple[torch.Tensor, dict]:
+    """One layer over a full sequence. Returns (x, kv cache)."""
+    attn_out, kv = apply_attn_seq(lp["attn"], rms_norm(x, lp["ln1"],
+                                                       cfg.norm_eps),
+                                  cfg, rope, impl)
+    x = x + attn_out
+    m = lp["mlp"]
+    x = x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), m["w_gate"],
+                   m["w_up"], m["w_down"])
+    return x, kv
+
+
+def apply_block_decode(lp: dict, x: torch.Tensor, cfg: ArchConfig,
+                       cache: dict, pos: torch.Tensor,
+                       impl: str = "kernel") -> torch.Tensor:
+    """One layer for one decode token; writes its K/V into ``cache``."""
+    x = x + apply_attn_decode(lp["attn"], rms_norm(x, lp["ln1"],
+                                                   cfg.norm_eps),
+                              cfg, cache, pos, impl)
+    m = lp["mlp"]
+    return x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), m["w_gate"],
+                      m["w_up"], m["w_down"])
+
+
+# ============================================================== forward
+def lm_head_weight(params: dict, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["lm_head"]
+
+
+def prefill(params: dict, cfg: ArchConfig, batch: dict,
+            impl: str = "kernel"):
+    """Returns (last-token logits (B, V) fp32, caches, positions (B,)).
+    caches: {"kv": {"k": (L, B, S, Hkv, hd), "v": ...}} as in JAX."""
+    _check_ported(cfg)
+    x = params["embed"][batch["tokens"]]
+    b, s, _ = x.shape
+    rope = rope_tables(torch.arange(s, device=x.device), cfg.hd,
+                       cfg.rope_theta)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, kv = apply_block_seq(_layer(params["layers"], i), x, cfg, rope,
+                                impl)
+        ks.append(kv["k"])
+        vs.append(kv["v"])
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x[:, -1, :] @ lm_head_weight(params, cfg)).float()
+    caches = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    return logits, caches, torch.full((b,), s, dtype=torch.int32,
+                                      device=x.device)
+
+
+def init_decode_cache(cfg: ArchConfig, batch_size: int, max_len: int,
+                      device=None) -> dict:
+    """Blank decode caches; a sliding-window config gets a ring of
+    ``min(max_len, window)`` slots."""
+    _check_ported(cfg)
+    size = max_len if cfg.sliding_window is None \
+        else min(max_len, cfg.sliding_window)
+    shape = (cfg.n_layers, batch_size, size, cfg.n_kv_heads, cfg.hd)
+    return {"kv": {
+        "k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
+        "v": torch.zeros(shape, dtype=_dtype(cfg), device=device),
+    }}
+
+
+def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                caches: dict, pos: torch.Tensor, impl: str = "kernel"):
+    """One decoding step. tokens: (B,) ids; pos: (B,) absolute positions.
+    Unlike JAX, which returns new caches, this writes the token's K/V into
+    ``caches`` in place (no per-step copy of the cache) and returns them."""
+    _check_ported(cfg)
+    x = params["embed"][tokens][:, None, :]
+    ck, cv = caches["kv"]["k"], caches["kv"]["v"]
+    for i in range(cfg.n_layers):
+        x = apply_block_decode(_layer(params["layers"], i), x, cfg,
+                               {"k": ck[i], "v": cv[i]}, pos, impl)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x[:, 0, :] @ lm_head_weight(params, cfg)).float()
+    return logits, caches

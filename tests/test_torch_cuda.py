@@ -1,0 +1,74 @@
+"""The port's CUDA kernels against their plain versions on the card. Every
+test here needs a CUDA device and skips without one; this file imports no
+JAX, so it runs where only PyTorch is installed:
+
+  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: bf16 2e-2; fp32 1e-4, because the kernel sums in another order
+than the plain version.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_cases import DECODE_CASES, FA_CASES, decode_inputs, fa_inputs
+from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+
+pytestmark = pytest.mark.cuda
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def close(got, want, tol):
+    np.testing.assert_allclose(got.cpu().float().numpy(),
+                               want.cpu().float().numpy(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("bh,bhkv,s,hd,window,bq,bk,dtype", FA_CASES)
+def test_flash_attention_matches_plain(cuda, bh, bhkv, s, hd, window, bq,
+                                       bk, dtype):
+    q, k, v = (torch.from_numpy(x).to(cuda, getattr(torch, dtype))
+               for x in fa_inputs(bh, bhkv, s, hd, bh * s + hd))
+    before = flash_attention.launches
+    out = ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    close(out, ops.flash_attention(q, k, v, window=window, impl="reference"),
+          TOL[dtype])
+
+
+@pytest.mark.parametrize("b,hkv,grp,s,hd,bs,dtype", DECODE_CASES)
+def test_flash_decode_matches_plain(cuda, b, hkv, grp, s, hd, bs, dtype):
+    q, kc, vc, lens = (torch.from_numpy(x).to(cuda) for x in
+                       decode_inputs(b, hkv, grp, s, hd, b * s + hd))
+    td = getattr(torch, dtype)
+    q = q.to(td).view(b, hkv, grp, hd)
+    kc, vc = kc.to(td), vc.to(td)
+    before = decode_attention.launches
+    out = ops.decode_attention(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    close(out, ops.decode_attention(q, kc, vc, lens, impl="reference"),
+          TOL[dtype])
+
+
+def test_decode_ignores_poisoned_slots(cuda):
+    q, kc, vc, _ = (torch.from_numpy(x).to(cuda) for x in
+                    decode_inputs(2, 2, 4, 256, 64, 7))
+    q = q.view(2, 2, 4, 64)
+    lens = torch.tensor([100, 1], dtype=torch.int32, device=cuda)
+    clean = ops.decode_attention(q, kc, vc, lens)
+    dead = torch.arange(256, device=cuda)[None, :] >= lens[:, None].long()
+    kc[dead], vc[dead] = 99.0, -99.0
+    assert torch.equal(ops.decode_attention(q, kc, vc, lens), clean)

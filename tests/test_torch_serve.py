@@ -1,0 +1,90 @@
+"""The port's serving engine and launcher on the CPU: greedy token ids equal
+the JAX engine's on the ``tiny`` preset in fp32, and the entry points
+default to the card and raise without one."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.launch.train import PRESETS as JAX_PRESETS
+from repro.models import init_params as jinit_params
+from repro.serve.engine import Engine as JaxEngine
+from repro.serve.engine import ServeConfig as JaxServeConfig
+from repro.train.checkpoint import _flatten
+from repro_torch.bridge import params_from_numpy
+from repro_torch.launch import serve as serve_cli
+from repro_torch.launch.train import PRESETS
+from repro_torch.serve.engine import Engine, ServeConfig
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    jparams = jinit_params(jax.random.PRNGKey(0), JAX_PRESETS["tiny"])
+    cfg = PRESETS["tiny"]
+    return cfg, jparams, params_from_numpy(_flatten(jparams), cfg, "cpu")
+
+
+def test_greedy_generate_matches_jax(tiny):
+    cfg, jparams, params = tiny
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8),
+                                                dtype=np.int32)
+    want = JaxEngine(JAX_PRESETS["tiny"], jparams,
+                     JaxServeConfig(max_new_tokens=6)).generate(
+        jnp.asarray(prompts))
+    engine = Engine(cfg, params, ServeConfig(max_new_tokens=6), device="cpu")
+    got = engine.generate(prompts)
+    assert got.dtype == np.int32 and got.shape == (2, 6)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert engine.stats["requests"] == 2 and engine.stats["new_tokens"] == 12
+    assert engine.stats["prefill_ms"] > 0
+
+
+def test_sampling_is_seeded(tiny):
+    cfg, _, params = tiny
+    prompts = torch.arange(16).reshape(2, 8)
+    scfg = ServeConfig(max_new_tokens=4, temperature=1.0, seed=3)
+    a = Engine(cfg, params, scfg, device="cpu").generate(prompts)
+    b = Engine(cfg, params, scfg, device="cpu").generate(prompts)
+    np.testing.assert_array_equal(a, b)
+    assert ((0 <= a) & (a < cfg.vocab_size)).all()
+
+
+def test_registry_contract(tiny):
+    cfg, _, params = tiny
+
+    class Registry:
+        def latest_checkpoint(self):
+            return {"step": 7}
+    engine = Engine(cfg, params, registry=Registry(), device="cpu")
+    assert engine.model_version == {"step": 7}
+    with pytest.raises(NotImplementedError, match="control plane"):
+        Engine(cfg, params, consistency="leaseguard", device="cpu")
+
+
+def test_engine_defaults_to_the_card(tiny):
+    cfg, _, params = tiny
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(cfg, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_cli.main(["--preset", "tiny"])
+
+
+def test_engine_rejects_params_on_another_device(tiny):
+    cfg, _, params = tiny
+    meta = dict(params, embed=params["embed"].to("meta"))
+    with pytest.raises(ValueError):
+        Engine(cfg, meta, device="cpu")
+
+
+def test_serve_cli_on_cpu(capsys):
+    out = serve_cli.main(["--arch", "qwen3-8b", "--smoke", "--requests", "2",
+                          "--prompt-len", "6", "--max-new", "3",
+                          "--device", "cpu"])
+    assert out["ids"].shape == (2, 3)
+    # CPU tensors take the plain versions: no kernel launches
+    assert out["flash_attention"] == 0 and out["decode_attention"] == 0
+    assert "served 2 requests" in capsys.readouterr().out
