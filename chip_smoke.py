@@ -6,19 +6,25 @@ Phases; each raises on failure, so any failure exits non-zero:
   1. environment: card, power limit, versions; build the CUDA kernels from
      src/repro_torch/kernels/csrc/ (one nvcc per source, in parallel);
   2. each kernel against its plain PyTorch version on the card, at the
-     serving shapes and in windowed, ragged, fp32 and poisoned-cache cases,
-     with its time beside the plain version's and one PyTorch library
-     call's;
-  3. serve qwen3-8b at full width (36 layers, d_model 4096, bf16, random
-     weights from a seed) through Engine.generate: 4 requests of 512
-     prompt tokens, 32 new tokens, greedy. The kernels' launch counters are
-     zeroed just before and read just after, and must show 36 prefill and
-     36 x 31 decode launches. A profile of one prefill and one decode step
-     shows where the device time goes. Then the prefill logits and three
-     decode steps fed the same tokens, through the kernels and through
-     impl="reference" (the plain versions, on the card), in bf16 and with
-     the weights widened to fp32, must agree (compare_paths);
-  4. a small fp32 model served on the card and on the CPU must agree.
+     serving shapes and in windowed, ragged, fp32, poisoned-cache and
+     carried-state cases, with its time beside the plain version's and one
+     PyTorch library call's where one computes the same function;
+  3. serve each model of SERVED at full width and full depth (bf16, random
+     weights from a seed) through Engine.generate: 4 requests, 32 new
+     tokens, greedy; qwen3-8b (36 layers, d_model 4096) with 512 prompt
+     tokens, then rwkv6-3b (32 layers, d_model 2560) with 1024. The
+     kernels' launch counters are zeroed just before and read just after,
+     and must show one launch per layer of the model's prefill kernel
+     and one per layer and decode step of its decode kernel (rwkv6: the
+     same WKV6 kernel), and none of the other kernels. A profile of one
+     prefill and one decode step shows where the device time goes, and
+     their own counts must be one launch per layer. Then the prefill
+     logits and three decode steps fed the same tokens, through the
+     kernels and through impl="reference" (the plain versions, on the
+     card), in bf16 and with the weights widened to fp32, must agree
+     (compare_paths). Each model's weights are freed before the next;
+  4. small fp32 models (dense and RWKV) served on the card and on the CPU
+     must agree.
 The last lines are a JSON line of per-kernel numbers, the card's name and
 power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 """
@@ -26,6 +32,7 @@ power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -35,8 +42,13 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
-ARCH = "qwen3-8b"
-REQUESTS, PROMPT_LEN, MAX_NEW = 4, 512, 32
+# the models served in phase 3, each with its prompt length: rwkv6's
+# recurrence is sequential in time, so its users' long prompts set the
+# kernel's critical path
+SERVED = {"qwen3-8b": 512, "rwkv6-3b": 1024}
+REQUESTS, MAX_NEW = 4, 32
+PROMPT_LEN = SERVED["qwen3-8b"]      # the attention kernels' checks
+RWKV_HEADS, RWKV_HD = 40, 64         # rwkv6-3b: d_model 2560 in heads of 64
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # kernel vs its plain version: max abs error (atol = rtol), and relative L2
@@ -47,7 +59,8 @@ REL_TOL = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
 # the softmax is peaked: a near-uniform one would make every output close
 # to the mean of V, whatever the kernel did with the scores
 QK_SCALE = 1.5
-# a wrong softmax temperature by this factor must fail REL_TOL (mutant check)
+# a wrong softmax temperature by this factor, or a decay raised to this
+# power, must fail REL_TOL (mutant checks)
 MUTANT_TEMP = 1.02
 # full-width logits against an fp32 run of the same weights (compare_paths)
 FP32_REL_TOL = 1e-4
@@ -85,9 +98,11 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, flops: float, dtype) -> tuple[float, str]:
+def bound_ms(n_bytes: float, flops: dict) -> tuple[float, str]:
+    """The larger of the bytes over the memory rate and the operations,
+    ``{dtype: flops}``, over the peak rate of each type."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = sum(n / PEAK_FLOPS[dt] for dt, n in flops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -114,15 +129,16 @@ def assert_close(name: str, got, want) -> float:
     return err
 
 
-def assert_mutant_caught(name: str, mutant, want) -> None:
-    """The check has teeth: the plain version run with the softmax
-    temperature off by MUTANT_TEMP must fail the relative limit."""
+def assert_mutant_caught(name: str, mutant, want,
+                         what: str = f"q x {MUTANT_TEMP}") -> None:
+    """The check has teeth: the plain version run with a 2 % error (the
+    softmax temperature, or the decay) must fail the relative limit."""
     rel = rel_err(mutant, want)
-    log(f"  mutant ({name}, q x {MUTANT_TEMP}): rel L2 {rel:.3e} "
+    log(f"  mutant ({name}, {what}): rel L2 {rel:.3e} "
         f"(must exceed {REL_TOL[want.dtype]})")
     if rel <= REL_TOL[want.dtype]:
-        raise AssertionError(f"{name}: the kernel check cannot tell a "
-                             f"{MUTANT_TEMP}x temperature error")
+        raise AssertionError(f"{name}: the kernel check cannot tell the "
+                             f"mutant {what}")
 
 
 # ------------------------------------------------------------ phase 1
@@ -189,7 +205,7 @@ def check_flash_attention() -> dict:
     pairs = s * (s + 1) // 2                          # causal (q, k) pairs
     # Q, K, V read once, O (the size of Q) written once
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    bound, by = bound_ms(n_bytes, 4 * b * h * hd * pairs, q.dtype)
+    bound, by = bound_ms(n_bytes, {q.dtype: 4 * b * h * hd * pairs})
     ms = time_ms(lambda: ops.flash_attention(q, k, v), 50)
     plain = time_ms(lambda: ops.flash_attention(q, k, v, impl="reference"),
                     10)
@@ -244,7 +260,7 @@ def check_decode_attention() -> dict:
 
     valid = int(lens.sum()) * hkv * hd                # K (and V) elements
     n_bytes = (2 * q.numel() + 2 * valid) * q.element_size() + 4 * b
-    bound, by = bound_ms(n_bytes, 4 * grp * valid, dtype)
+    bound, by = bound_ms(n_bytes, {dtype: 4 * grp * valid})
     ms = time_ms(lambda: ops.decode_attention(q, kc, vc, lens), 200)
     plain = time_ms(lambda: ops.decode_attention(q, kc, vc, lens,
                                                  impl="reference"), 20)
@@ -263,90 +279,198 @@ def check_decode_attention() -> dict:
             "bound_ms": bound, "bound_by": by, "library_ms": lib}
 
 
+def check_wkv6() -> dict:
+    from repro_torch.kernels import ops
+    gen = torch.Generator("cuda").manual_seed(2)
+    log("wkv6 (RWKV6 WKV recurrence) vs its plain version:")
+
+    def inputs(shape):
+        """r, k, v at scale 0.5 and per-channel decays exp(-exp(x)) with
+        x ~ N(-5, 2): from ~1 (state kept over the whole sequence) to ~0;
+        u (heads, hd) for the model layout or (BH, hd) for the 3-D one."""
+        r, k, v = (randn(gen, shape, torch.float32, 0.5) for _ in range(3))
+        w = torch.exp(-torch.exp(randn(gen, shape, torch.float32, 2.0) - 5))
+        u = randn(gen, shape[-2:] if len(shape) == 4 else
+                  (shape[0], shape[-1]), torch.float32, 0.5)
+        return r, k, v, w, u
+
+    # the serving prefill shape; its state buffer starts at zero, as the
+    # model's prefill gives it (read and written in place)
+    b, s, h, hd = REQUESTS, SERVED["rwkv6-3b"], RWKV_HEADS, RWKV_HD
+    r, k, v, w, u = inputs((b, s, h, hd))
+    zero = torch.zeros((b, h, hd, hd), device="cuda")
+    state = zero.clone()
+    got, final = ops.wkv6(r, k, v, w, u, state)
+    want, want_final = ops.wkv6(r, k, v, w, u, zero.clone(), impl="reference")
+    torch.cuda.synchronize()
+    err = assert_close("serving prefill, y", got, want)
+    assert_close("serving prefill, final state", final, want_final)
+    y0, _ = ops.wkv6(r, k, v, w, u)
+    assert_close("serving prefill, no state given", y0, want)
+    assert_mutant_caught("serving prefill", ops.wkv6(
+        r, k, v, w ** MUTANT_TEMP, u, zero.clone(), impl="reference")[0],
+        want, f"w ** {MUTANT_TEMP}")
+    # ragged S from a nonzero state, hd 32
+    r2, k2, v2, w2, u2 = inputs((2, 1000, 8, 32))
+    start = randn(gen, (2, 8, 32, 32), torch.float32, 1.0)
+    st_k, st_p = start.clone(), start.clone()
+    y2, _ = ops.wkv6(r2, k2, v2, w2, u2, st_k)
+    y2p, _ = ops.wkv6(r2, k2, v2, w2, u2, st_p, impl="reference")
+    assert_close("S=1000 from a state, hd 32, y", y2, y2p)
+    assert_close("S=1000 from a state, hd 32, final state", st_k, st_p)
+    # decode: one step, the state a layer's slice of a stacked cache
+    r3, k3, v3, w3, u3 = inputs((b, 1, h, hd))
+    cache = randn(gen, (3, b, h, hd, hd), torch.float32, 1.0)
+    before = cache.clone()
+    y3, _ = ops.wkv6(r3, k3, v3, w3, u3, cache[1])
+    plain_state = before[1].clone()
+    y3p, _ = ops.wkv6(r3, k3, v3, w3, u3, plain_state, impl="reference")
+    assert_close("decode step, y", y3, y3p)
+    assert_close("decode step, state in place", cache[1], plain_state)
+    if not (torch.equal(cache[0], before[0])
+            and torch.equal(cache[2], before[2])):
+        raise AssertionError("wkv6 wrote outside its state slice")
+    # the JAX kernel's (BH, S, hd) layout, hd 16
+    r4, k4, v4, w4, u4 = inputs((12, 300, 16))
+    assert_close("(BH, S, hd), hd 16", ops.wkv6(r4, k4, v4, w4, u4),
+                 ops.wkv6(r4, k4, v4, w4, u4, impl="reference"))
+
+    # r, k, v, w read once, y written once, the state read and written
+    # once; 5 hd^2 fp32 flops per (token, head): 2 hd^2 for r^T S and
+    # 3 hd^2 for S <- w * S + k v^T, as y_t = r_t^T S + (r_t . (u * k_t)) v_t
+    n_bytes = (5 * r.numel() + 2 * zero.numel() + u.numel()) * 4
+    bound, by = bound_ms(n_bytes, {torch.float32: 5 * hd * hd * b * s * h})
+    ms = time_ms(lambda: ops.wkv6(r, k, v, w, u, state), 20)
+    plain = time_ms(lambda: ops.wkv6(r, k, v, w, u, state, impl="reference"),
+                    2, warmup=1)
+    log(f"  time: kernel {ms:.4f} ms, plain {plain:.4f} ms, no single "
+        f"PyTorch call computes it, bound {bound:.4f} ms ({by})")
+    return {"name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/rwkv6.py:49",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
 # ------------------------------------------------------------ phase 3
-def serve_full_width() -> dict:
+def expected_counts(cfg, decode_steps: int, prefills: int = 1) -> dict:
+    """One launch per layer of the prefill kernel per prefill, and of the
+    decode kernel per decode step; none of the others."""
+    prefill_kernel, decode_kernel = ("wkv6", "wkv6") if cfg.attn_free \
+        else ("flash_attention", "decode_attention")
+    from repro_torch.kernels.ops import KERNELS
+    want = dict.fromkeys(KERNELS, 0)
+    want[prefill_kernel] += cfg.n_layers * prefills
+    want[decode_kernel] += cfg.n_layers * decode_steps
+    return want
+
+
+def check_counts(what: str, got: dict, want: dict) -> None:
+    log(f"  launches in {what}: {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"{what}: launch counts {got} != {want}")
+
+
+def serve_full_width(arch: str) -> dict:
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels import ops
     from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.serve.engine import Engine, ServeConfig, \
         preallocate_cache
-    cfg = get_arch(ARCH)
+    cfg, prompt_len = get_arch(arch), SERVED[arch]
     t0 = time.perf_counter()
     params = init_params(torch.Generator("cuda").manual_seed(0), cfg)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    log(f"{ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, vocab "
-        f"{cfg.vocab_size}; {n_params / 1e9:.3f} B params "
+    heads = f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads of " \
+        f"{cfg.rwkv_head_dim}" if cfg.attn_free else \
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}"
+    log(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, {heads}, "
+        f"vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B params "
         f"({n_bytes / 1e9:.2f} GB) initialised on the card in "
         f"{time.perf_counter() - t0:.1f} s")
     engine = Engine(cfg, params, ServeConfig(max_new_tokens=MAX_NEW),
                     device="cuda")
     gen = torch.Generator("cuda").manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab_size, (REQUESTS, PROMPT_LEN),
+    prompts = torch.randint(0, cfg.vocab_size, (REQUESTS, prompt_len),
                             generator=gen, device="cuda")
     engine.generate(prompts[:, :16], max_new_tokens=2)     # warm-up
 
-    flash_attention.launches = decode_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
     ids = engine.generate(prompts)
-    launches = {"flash_attention": flash_attention.launches,
-                "decode_attention": decode_attention.launches}
+    launches = ops.launch_counts()
     st = engine.stats
-    want = {"flash_attention": cfg.n_layers,
-            "decode_attention": cfg.n_layers * (MAX_NEW - 1)}
-    log(f"generate: {REQUESTS} requests x {PROMPT_LEN} prompt tokens -> "
+    log(f"generate: {REQUESTS} requests x {prompt_len} prompt tokens -> "
         f"{ids.shape[1]} new tokens each; prefill {st['prefill_ms']:.3f} ms, "
         f"decode {st['decode_ms_per_token']:.3f} ms/token "
         f"({REQUESTS * 1e3 / st['decode_ms_per_token']:.1f} tokens/s), "
-        f"prefill {REQUESTS * PROMPT_LEN * 1e3 / st['prefill_ms']:.0f} "
-        f"prompt tokens/s; launches {launches} (expected {want}); peak "
-        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    prefill_bound, decode_bound = serve_bounds(cfg, params)
+        f"prefill {REQUESTS * prompt_len * 1e3 / st['prefill_ms']:.0f} "
+        f"prompt tokens/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check_counts("generate", launches, expected_counts(cfg, MAX_NEW - 1))
+    prefill_bound, decode_bound = serve_bounds(cfg, params, prompt_len)
     log(f"  bounds: prefill {prefill_bound[0]:.4f} ms ({prefill_bound[1]}), "
         f"decode {decode_bound[0]:.4f} ms/token ({decode_bound[1]})")
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
     if ids.shape != (REQUESTS, MAX_NEW) or ids.min() < 0 \
             or ids.max() >= cfg.vocab_size:
         raise AssertionError(f"generated ids out of range: {ids.shape}")
 
     toks = torch.as_tensor(ids, device="cuda").long()
+    ops.reset_launches()
     profile("prefill", lambda: prefill(params, cfg, {"tokens": prompts}),
             st["prefill_ms"])
+    check_counts("one prefill", ops.launch_counts(), expected_counts(cfg, 0))
     _, pre, pos = prefill(params, cfg, {"tokens": prompts})
-    caches = preallocate_cache(cfg, pre, PROMPT_LEN + MAX_NEW)
+    caches = preallocate_cache(cfg, pre, prompt_len + MAX_NEW)
     del pre
+    ops.reset_launches()
     profile("decode step", lambda: decode_step(params, cfg, toks[:, 0],
                                                caches, pos),
             st["decode_ms_per_token"])
+    check_counts("one decode step", ops.launch_counts(),
+                 expected_counts(cfg, 1, prefills=0))
     del caches
     compare_paths(params, cfg, prompts, toks)
     return {"launches": launches, **st}
 
 
-def serve_bounds(cfg, params) -> tuple:
+def serve_bounds(cfg, params, prompt_len: int) -> tuple:
     """Least time for the prefill and for one decode step of the main path.
-    Prefill: 2 flops per layer weight per prompt token, causal attention,
-    the LM head for the last token; it reads every weight but the
-    embedding table once. Decode: it reads the layer weights, the LM head
-    and the KV cache at its mean length over the decode loop once."""
+    Prefill: 2 flops per layer weight per prompt token, causal attention
+    (or RWKV's fp32 recurrence, 5 hd^2 flops per token and head), the LM
+    head for the last token; it reads every weight but the embedding table
+    once. Decode: it reads the layer weights, the LM head, and the KV cache
+    at its mean length over the decode loop (or reads and writes RWKV's
+    WKV states) once."""
     layers = list(_leaves(params["layers"]))
     layer_params = sum(t.numel() for t in layers)
     layer_bytes = sum(t.numel() * t.element_size() for t in layers)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     head_bytes = head.numel() * head.element_size()
-    attn_flops = 4 * REQUESTS * cfg.n_heads * cfg.hd * cfg.n_layers * (
-        PROMPT_LEN * (PROMPT_LEN + 1) // 2)
-    prefill = bound_ms(layer_bytes + head_bytes,
-                       2 * layer_params * REQUESTS * PROMPT_LEN + attn_flops
-                       + 2 * head.numel() * REQUESTS, torch.bfloat16)
-    kv_bytes = 2 * cfg.n_layers * REQUESTS * (PROMPT_LEN + MAX_NEW / 2) \
-        * cfg.n_kv_heads * cfg.hd * head.element_size()
-    decode = bound_ms(layer_bytes + head_bytes + kv_bytes,
-                      2 * (layer_params + head.numel()) * REQUESTS,
-                      torch.bfloat16)
+    if cfg.attn_free:
+        hd = cfg.rwkv_head_dim
+        heads = cfg.d_model // hd
+        seq_flops = {torch.float32: 5 * hd * hd * heads * cfg.n_layers
+                     * REQUESTS * prompt_len}
+        step_flops = 5 * hd * hd * heads * cfg.n_layers * REQUESTS
+        cache_bytes = 2 * cfg.n_layers * REQUESTS * heads * hd * hd * 4
+    else:
+        seq_flops = {torch.bfloat16: 4 * REQUESTS * cfg.n_heads * cfg.hd
+                     * cfg.n_layers * (prompt_len * (prompt_len + 1) // 2)}
+        step_flops = 0
+        cache_bytes = 2 * cfg.n_layers * REQUESTS * (
+            prompt_len + MAX_NEW / 2) * cfg.n_kv_heads * cfg.hd \
+            * head.element_size()
+    dense = 2 * layer_params * REQUESTS * prompt_len \
+        + 2 * head.numel() * REQUESTS
+    prefill = bound_ms(layer_bytes + head_bytes, {
+        torch.bfloat16: dense + seq_flops.get(torch.bfloat16, 0),
+        torch.float32: seq_flops.get(torch.float32, 0)})
+    decode = bound_ms(layer_bytes + head_bytes + cache_bytes, {
+        torch.bfloat16: 2 * (layer_params + head.numel()) * REQUESTS,
+        torch.float32: step_flops})
     return prefill, decode
 
 
@@ -356,7 +480,7 @@ def model_logits(params, cfg, prompts, toks, impl: str) -> list:
     from repro_torch.models import decode_step, prefill
     from repro_torch.serve.engine import preallocate_cache
     logits, pre, pos = prefill(params, cfg, {"tokens": prompts}, impl=impl)
-    caches = preallocate_cache(cfg, pre, PROMPT_LEN + MAX_NEW)
+    caches = preallocate_cache(cfg, pre, prompts.shape[1] + MAX_NEW)
     del pre
     out = [logits]
     for i in range(3):
@@ -372,9 +496,9 @@ def compare_paths(params, cfg, prompts, toks) -> None:
     versions (impl="reference") on the card. fp32 plain is the truth.
 
     - fp32 kernels vs truth: relative L2 error <= FP32_REL_TOL; only the
-      order of the attention sums differs.
-    - bf16: rounding to bf16 in every layer of a random-init 36-layer
-      model moves the logits by ~1e-2 relative whichever attention path
+      order of the attention (or WKV) sums differs.
+    - bf16: rounding to bf16 in every layer of a random-init full-depth
+      model moves the logits by ~1e-2 relative whichever kernel path
       runs, and the two paths round independently, so they are as far
       from each other as from the truth. The kernel path must be about as
       close to the truth as the plain path: error <= BF16_ERR_RATIO x the
@@ -445,25 +569,28 @@ def _leaves(tree):
 
 
 # ------------------------------------------------------------ phase 4
-def small_model_cpu_vs_card() -> None:
+def small_models_cpu_vs_card() -> None:
+    from repro_torch.configs import get_arch
     from repro_torch.launch.train import PRESETS
     from repro_torch.models import init_params, prefill
     from repro_torch.serve.engine import Engine, ServeConfig
-    cfg = PRESETS["tiny"]
-    params = init_params(torch.Generator("cpu").manual_seed(0), cfg)
-    prompts = torch.randint(0, cfg.vocab_size, (2, 40),
-                            generator=torch.Generator("cpu").manual_seed(1))
-    on_card = _map(params, lambda t: t.to("cuda"))
-    cpu_logits, _, _ = prefill(params, cfg, {"tokens": prompts})
-    gpu_logits, _, _ = prefill(on_card, cfg, {"tokens": prompts.cuda()})
-    err = max_err(gpu_logits.cpu(), cpu_logits)
-    scfg = ServeConfig(max_new_tokens=8)
-    ids_cpu = Engine(cfg, params, scfg, device="cpu").generate(prompts)
-    ids_gpu = Engine(cfg, on_card, scfg, device="cuda").generate(prompts)
-    log(f"{cfg.name} fp32, card vs CPU: prefill logits max abs err "
-        f"{err:.3e}; greedy ids equal: {(ids_cpu == ids_gpu).all()}")
-    if err > 1e-3 or not (ids_cpu == ids_gpu).all():
-        raise AssertionError("small model: card and CPU disagree")
+    rwkv = dataclasses.replace(get_arch("rwkv6-3b").reduced(),
+                               param_dtype="float32")
+    for cfg in (PRESETS["tiny"], rwkv):
+        params = init_params(torch.Generator("cpu").manual_seed(0), cfg)
+        prompts = torch.randint(0, cfg.vocab_size, (2, 40),
+                                generator=torch.Generator("cpu").manual_seed(1))
+        on_card = _map(params, lambda t: t.to("cuda"))
+        cpu_logits, _, _ = prefill(params, cfg, {"tokens": prompts})
+        gpu_logits, _, _ = prefill(on_card, cfg, {"tokens": prompts.to("cuda")})
+        err = max_err(gpu_logits.cpu(), cpu_logits)
+        scfg = ServeConfig(max_new_tokens=8)
+        ids_cpu = Engine(cfg, params, scfg, device="cpu").generate(prompts)
+        ids_gpu = Engine(cfg, on_card, scfg, device="cuda").generate(prompts)
+        log(f"{cfg.name} fp32, card vs CPU: prefill logits max abs err "
+            f"{err:.3e}; greedy ids equal: {(ids_cpu == ids_gpu).all()}")
+        if err > 1e-3 or not (ids_cpu == ids_gpu).all():
+            raise AssertionError(f"{cfg.name}: card and CPU disagree")
 
 
 def _map(tree, fn):
@@ -479,11 +606,21 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.kernels.ops  # noqa: F401  (fails outside the repo)
     smi = environment()
-    kernels = [check_flash_attention(), check_decode_attention()]
-    served = serve_full_width()
+    kernels = [check_flash_attention(), check_decode_attention(),
+               check_wkv6()]
+    launches = {}
+    for arch in SERVED:
+        served = serve_full_width(arch)
+        # each kernel's count comes from the run of the model that serves it
+        launches.update({name: n for name, n in served["launches"].items()
+                         if n})
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+            f"still allocated")
     for k in kernels:
-        k["launches"] = served["launches"][k["name"]]
-    small_model_cpu_vs_card()
+        k["launches"] = launches[k["name"]]
+    small_models_cpu_vs_card()
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]

@@ -1,2 +1,3 @@
-"""Attention kernels: CUDA C++ for Hopper under ``csrc/``, each with its
-plain PyTorch version, and the ``ops`` dispatch the model calls."""
+"""Kernels: CUDA C++ for Hopper under ``csrc/`` (flash attention, flash
+decode, the RWKV6 WKV recurrence), each with its plain PyTorch version, and
+the ``ops`` dispatch the model calls."""

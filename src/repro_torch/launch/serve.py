@@ -1,10 +1,12 @@
 """Serving entry point: random weights from a seed, one batch of random
-prompts, greedy (or sampled) generation through the CUDA attention
-kernels.
+prompts, greedy (or sampled) generation through the CUDA kernels
+(attention, or RWKV6's WKV recurrence).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
       --requests 4 --prompt-len 512 --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+      --requests 4 --prompt-len 1024 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --preset tiny --device cpu
 """
 
@@ -15,8 +17,7 @@ import argparse
 import torch
 
 from ..configs import get_arch
-from ..kernels.decode_attention import decode_attention
-from ..kernels.flash_attention import flash_attention
+from ..kernels import ops
 from ..models import init_params
 from ..serve.engine import Engine, ServeConfig, resolve_device
 from .train import PRESETS
@@ -49,8 +50,9 @@ def main(argv=None) -> dict:
     prompts = torch.randint(0, cfg.vocab_size,
                             (args.requests, args.prompt_len), device=device,
                             generator=torch.Generator(device).manual_seed(1))
-    flash_attention.launches = decode_attention.launches = 0
+    ops.reset_launches()
     out = engine.generate(prompts)
+    launches = ops.launch_counts()
     st = engine.stats
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
@@ -58,10 +60,8 @@ def main(argv=None) -> dict:
           f"generated {out.shape[1]} tokens each ({out.size} in all); "
           f"prefill {st['prefill_ms']:.3f} ms, decode "
           f"{st['decode_ms_per_token']:.3f} ms/token; kernel launches: "
-          f"flash_attention {flash_attention.launches}, decode_attention "
-          f"{decode_attention.launches}")
-    return {"ids": out, **st, "flash_attention": flash_attention.launches,
-            "decode_attention": decode_attention.launches}
+          + ", ".join(f"{k} {n}" for k, n in launches.items()))
+    return {"ids": out, **st, **launches}
 
 
 if __name__ == "__main__":

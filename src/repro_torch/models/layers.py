@@ -28,6 +28,16 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
     return (out * w.float()).to(x.dtype)
 
 
+def group_norm_heads(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                     eps: float = 64e-5) -> torch.Tensor:
+    """Per-head LayerNorm (RWKV's group_norm over heads). x: (..., H, hd)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * w + b).to(x.dtype)
+
+
 # ---------------------------------------------------------------- RoPE
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,

@@ -1,0 +1,120 @@
+"""RWKV6 ("Finch") time-mix and channel-mix, ported from the RWKV part of
+``repro.models.ssm`` (Mamba comes with the hybrid family).
+
+Token shift, a data-dependent per-channel decay and a (hd x hd) WKV state
+per head, so decode carries O(1) state. The recurrence goes through
+``kernels.ops.wkv6`` where JAX runs its ``vmemkernel_wkv6`` scan. JAX
+returns new states; here a given WKV state is updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from ..kernels import ops
+from .layers import dense_init, group_norm_heads
+
+DECAY_LORA = 64
+
+
+# ================================================================= init
+def init_rwkv_tmix(gen: torch.Generator, cfg: ArchConfig,
+                   dtype: torch.dtype) -> dict:
+    """Time-mix parameters of all layers, stacked (L, ...) as in JAX."""
+    L, d, hd = cfg.n_layers, cfg.d_model, cfg.rwkv_head_dim
+    f32, dev = torch.float32, gen.device
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=f32, device=dev)
+
+    return {
+        "mu": full((L, 5, d), 0.5),          # r, k, v, w, g shift mixes
+        "w_r": dense_init(gen, (L, d, d), dtype),
+        "w_k": dense_init(gen, (L, d, d), dtype),
+        "w_v": dense_init(gen, (L, d, d), dtype),
+        "w_g": dense_init(gen, (L, d, d), dtype),
+        "w_o": dense_init(gen, (L, d, d), dtype),
+        "w0": full((L, d), -6.0),            # decay bias
+        "w_lora_a": dense_init(gen, (L, d, DECAY_LORA), f32),
+        "w_lora_b": dense_init(gen, (L, DECAY_LORA, d), f32, 0.1),
+        "bonus_u": dense_init(gen, (L, d // hd, hd), f32),
+        "ln_w": full((L, hd), 1.0),
+        "ln_b": full((L, hd), 0.0),
+    }
+
+
+def init_rwkv_cmix(gen: torch.Generator, cfg: ArchConfig,
+                   dtype: torch.dtype) -> dict:
+    """Channel-mix parameters of all layers, stacked (L, ...)."""
+    L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    return {
+        "mu": torch.full((L, 2, d), 0.5, dtype=torch.float32,
+                         device=gen.device),  # k, r shift mixes
+        "w_k": dense_init(gen, (L, d, f), dtype),
+        "w_v": dense_init(gen, (L, f, d), dtype),
+        "w_r": dense_init(gen, (L, d, d), dtype),
+    }
+
+
+# ================================================================ apply
+def _shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """Token shift: y_t = x_{t-1}; y_0 = prev. x: (B,S,D), prev: (B,D)."""
+    return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def rwkv_decay(p: dict, xw: torch.Tensor) -> torch.Tensor:
+    """Data-dependent decay in (0,1): exp(-exp(w0 + lora(x))), fp32."""
+    w = p["w0"] + torch.tanh(xw.float() @ p["w_lora_a"]) @ p["w_lora_b"]
+    return torch.exp(-torch.exp(w))
+
+
+def apply_rwkv_tmix(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                    state: Optional[dict] = None, impl: str = "kernel"
+                    ) -> tuple[torch.Tensor, dict]:
+    """x: (B,S,D). state: {"shift": (B,D), "wkv": (B,H,hd,hd) fp32} or None
+    (zeros). Returns (out, {"shift": x's last row, "wkv": final state});
+    a given ``state["wkv"]`` is that final state, written in place."""
+    b, s, d = x.shape
+    hd = cfg.rwkv_head_dim
+    h = d // hd
+    prev = state["shift"] if state is not None \
+        else torch.zeros((b, d), dtype=x.dtype, device=x.device)
+    xx = _shift(x, prev)
+
+    def mix(i):
+        return x + (xx - x) * p["mu"][i].to(x.dtype)
+
+    r = (mix(0) @ p["w_r"]).view(b, s, h, hd)
+    k = (mix(1) @ p["w_k"]).view(b, s, h, hd)
+    v = (mix(2) @ p["w_v"]).view(b, s, h, hd)
+    g = mix(4) @ p["w_g"]
+    decay = rwkv_decay(p, mix(3)).view(b, s, h, hd)
+    # JAX's vmemkernel_wkv6 scope: the recurrence in fp32
+    y, wkv = ops.wkv6(r.float(), k.float(), v.float(), decay, p["bonus_u"],
+                      None if state is None else state["wkv"], impl=impl)
+    y = group_norm_heads(y, p["ln_w"], p["ln_b"]).reshape(b, s, d)
+    out = (y * F.silu(g).to(y.dtype)).to(x.dtype) @ p["w_o"]
+    return out, {"shift": x[:, -1, :], "wkv": wkv}
+
+
+def apply_rwkv_cmix(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                    state: Optional[torch.Tensor] = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B,S,D), state: the previous token's (B,D) or None (zeros).
+    Returns (out, x's last row)."""
+    b, _, d = x.shape
+    prev = state if state is not None \
+        else torch.zeros((b, d), dtype=x.dtype, device=x.device)
+    xx = _shift(x, prev)
+
+    def mix(i):
+        return x + (xx - x) * p["mu"][i].to(x.dtype)
+
+    k = torch.square(F.relu(mix(0) @ p["w_k"]))
+    v = k @ p["w_v"]
+    r = torch.sigmoid(mix(1) @ p["w_r"])
+    return (r * v).to(x.dtype), x[:, -1, :]

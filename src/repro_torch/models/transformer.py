@@ -1,14 +1,17 @@
-"""Dense decoder, ported from ``repro.models.transformer`` (serving path).
+"""Decoder stack, ported from ``repro.models.transformer`` (serving path):
+the dense family and the attention-free RWKV6 family.
 
 Parameters are a nested dict of tensors with the JAX tree's keys and its
 layer-stacked ``(L, ...)`` leaves; a Python loop over layers takes the
 place of ``lax.scan``. Attention goes through ``kernels.ops`` on
-un-repeated K/V: the kernels index the shared KV head themselves.
+un-repeated K/V: the kernels index the shared KV head themselves. RWKV
+layers run ``models.ssm``, whose recurrence is ``kernels.ops.wkv6``.
 
 Entry points:
-  prefill      tokens -> (last-token logits, KV caches, positions)
+  prefill      tokens -> (last-token logits, caches, positions)
   decode_step  one token per row + caches -> (logits, caches); the new
-               token's K/V is written into the caches in place
+               token's K/V, or the new RWKV states, are written into the
+               caches in place
 """
 
 from __future__ import annotations
@@ -18,11 +21,12 @@ import torch
 from ..configs.base import ArchConfig
 from ..kernels import ops
 from .layers import (apply_rope, dense_init, rms_norm, rope_tables, swiglu)
+from .ssm import (apply_rwkv_cmix, apply_rwkv_tmix, init_rwkv_cmix,
+                  init_rwkv_tmix)
 
 # config flags this slice does not cover, with the ROADMAP item that will
 UNPORTED = {
     "is_moe": "MoE family (ROADMAP.md queue 1, item 3)",
-    "attn_free": "SSM/RWKV family (ROADMAP.md queue 1, item 3)",
     "hybrid_ssm": "hybrid family (ROADMAP.md queue 1, item 3)",
     "embedding_stub": "stub-frontend family (ROADMAP.md queue 1, item 3)",
 }
@@ -55,31 +59,34 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
-    attn = {
-        "wq": dense_init(gen, (L, d, h * hd), dtype),
-        "wk": dense_init(gen, (L, d, hkv * hd), dtype),
-        "wv": dense_init(gen, (L, d, hkv * hd), dtype),
-        "wo": dense_init(gen, (L, h * hd, d), dtype),
-    }
-    if cfg.qkv_bias:
-        attn.update(bq=zeros(L, h * hd), bk=zeros(L, hkv * hd),
-                    bv=zeros(L, hkv * hd))
-    if cfg.qk_norm:
-        attn.update(q_norm=ones(L, hd), k_norm=ones(L, hd))
+    if cfg.attn_free:
+        layers = {"ln1": ones(L, d), "ln2": ones(L, d),
+                  "tmix": init_rwkv_tmix(gen, cfg, dtype),
+                  "cmix": init_rwkv_cmix(gen, cfg, dtype)}
+    else:
+        attn = {
+            "wq": dense_init(gen, (L, d, h * hd), dtype),
+            "wk": dense_init(gen, (L, d, hkv * hd), dtype),
+            "wv": dense_init(gen, (L, d, hkv * hd), dtype),
+            "wo": dense_init(gen, (L, h * hd, d), dtype),
+        }
+        if cfg.qkv_bias:
+            attn.update(bq=zeros(L, h * hd), bk=zeros(L, hkv * hd),
+                        bv=zeros(L, hkv * hd))
+        if cfg.qk_norm:
+            attn.update(q_norm=ones(L, hd), k_norm=ones(L, hd))
+        layers = {"ln1": ones(L, d), "ln2": ones(L, d), "attn": attn}
     params = {
         "embed": dense_init(gen, (cfg.vocab_size, d), dtype),
-        "layers": {
-            "ln1": ones(L, d),
-            "ln2": ones(L, d),
-            "attn": attn,
-            "mlp": {
-                "w_gate": dense_init(gen, (L, d, f), dtype),
-                "w_up": dense_init(gen, (L, d, f), dtype),
-                "w_down": dense_init(gen, (L, f, d), dtype),
-            },
-        },
+        "layers": layers,
         "final_norm": ones(d),
     }
+    if not cfg.attn_free:
+        layers["mlp"] = {
+            "w_gate": dense_init(gen, (L, d, f), dtype),
+            "w_up": dense_init(gen, (L, d, f), dtype),
+            "w_down": dense_init(gen, (L, f, d), dtype),
+        }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (d, cfg.vocab_size), dtype)
     return params
@@ -169,6 +176,22 @@ def apply_block_decode(lp: dict, x: torch.Tensor, cfg: ArchConfig,
                       m["w_up"], m["w_down"])
 
 
+def apply_rwkv_block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
+                     cache: dict, impl: str = "kernel") -> torch.Tensor:
+    """One RWKV layer over a sequence or one decode token: JAX's attn_free
+    branch of ``apply_block_seq`` and ``apply_block_decode``. It starts from
+    the layer's states in ``cache`` ({"tmix": {"shift", "wkv"}, "cmix"};
+    zeros before a prefill) and writes the new ones there in place."""
+    normed = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    h, tstate = apply_rwkv_tmix(lp["tmix"], normed, cfg, cache["tmix"], impl)
+    x = x + h
+    cache["tmix"]["shift"].copy_(tstate["shift"])   # wkv: already in place
+    normed = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    h, cstate = apply_rwkv_cmix(lp["cmix"], normed, cfg, cache["cmix"])
+    cache["cmix"].copy_(cstate)
+    return x + h
+
+
 # ============================================================== forward
 def lm_head_weight(params: dict, cfg: ArchConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
@@ -179,50 +202,76 @@ def lm_head_weight(params: dict, cfg: ArchConfig) -> torch.Tensor:
 def prefill(params: dict, cfg: ArchConfig, batch: dict,
             impl: str = "kernel"):
     """Returns (last-token logits (B, V) fp32, caches, positions (B,)).
-    caches: {"kv": {"k": (L, B, S, Hkv, hd), "v": ...}} as in JAX."""
+    caches, as in JAX: {"kv": {"k": (L, B, S, Hkv, hd), "v": ...}}, or for
+    RWKV {"tmix": {"shift": (L, B, D), "wkv": (L, B, H, hd, hd) fp32},
+    "cmix": (L, B, D)}, which already have their decode size."""
     _check_ported(cfg)
     x = params["embed"][batch["tokens"]]
     b, s, _ = x.shape
-    rope = rope_tables(torch.arange(s, device=x.device), cfg.hd,
-                       cfg.rope_theta)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, kv = apply_block_seq(_layer(params["layers"], i), x, cfg, rope,
-                                impl)
-        ks.append(kv["k"])
-        vs.append(kv["v"])
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x[:, -1, :] @ lm_head_weight(params, cfg)).float()
-    caches = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
-    return logits, caches, torch.full((b,), s, dtype=torch.int32,
-                                      device=x.device)
+    if cfg.attn_free:
+        caches = init_decode_cache(cfg, b, s, device=x.device)
+        for i in range(cfg.n_layers):
+            x = apply_rwkv_block(_layer(params["layers"], i), x, cfg,
+                                 _layer(caches, i), impl)
+    else:
+        rope = rope_tables(torch.arange(s, device=x.device), cfg.hd,
+                           cfg.rope_theta)
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            x, kv = apply_block_seq(_layer(params["layers"], i), x, cfg,
+                                    rope, impl)
+            ks.append(kv["k"])
+            vs.append(kv["v"])
+        caches = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    return _logits(params, cfg, x[:, -1]), caches, \
+        torch.full((b,), s, dtype=torch.int32, device=x.device)
 
 
 def init_decode_cache(cfg: ArchConfig, batch_size: int, max_len: int,
                       device=None) -> dict:
     """Blank decode caches; a sliding-window config gets a ring of
-    ``min(max_len, window)`` slots."""
+    ``min(max_len, window)`` slots. RWKV's states do not grow with
+    ``max_len``."""
     _check_ported(cfg)
+    L, dtype = cfg.n_layers, _dtype(cfg)
+    if cfg.attn_free:
+        hd = cfg.rwkv_head_dim
+        h = cfg.d_model // hd
+        return {
+            "tmix": {"shift": torch.zeros((L, batch_size, cfg.d_model),
+                                          dtype=dtype, device=device),
+                     "wkv": torch.zeros((L, batch_size, h, hd, hd),
+                                        dtype=torch.float32, device=device)},
+            "cmix": torch.zeros((L, batch_size, cfg.d_model), dtype=dtype,
+                                device=device),
+        }
     size = max_len if cfg.sliding_window is None \
         else min(max_len, cfg.sliding_window)
-    shape = (cfg.n_layers, batch_size, size, cfg.n_kv_heads, cfg.hd)
+    shape = (L, batch_size, size, cfg.n_kv_heads, cfg.hd)
     return {"kv": {
-        "k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
-        "v": torch.zeros(shape, dtype=_dtype(cfg), device=device),
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
     }}
 
 
 def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                 caches: dict, pos: torch.Tensor, impl: str = "kernel"):
-    """One decoding step. tokens: (B,) ids; pos: (B,) absolute positions.
-    Unlike JAX, which returns new caches, this writes the token's K/V into
-    ``caches`` in place (no per-step copy of the cache) and returns them."""
+    """One decoding step. tokens: (B,) ids; pos: (B,) absolute positions
+    (RWKV does not read them). Unlike JAX, which returns new caches, this
+    writes the token's K/V, or the new RWKV states, into ``caches`` in place
+    (no per-step copy of the cache) and returns them."""
     _check_ported(cfg)
     x = params["embed"][tokens][:, None, :]
-    ck, cv = caches["kv"]["k"], caches["kv"]["v"]
     for i in range(cfg.n_layers):
-        x = apply_block_decode(_layer(params["layers"], i), x, cfg,
-                               {"k": ck[i], "v": cv[i]}, pos, impl)
+        lp, cache = _layer(params["layers"], i), _layer(caches, i)
+        if cfg.attn_free:
+            x = apply_rwkv_block(lp, x, cfg, cache, impl)
+        else:
+            x = apply_block_decode(lp, x, cfg, cache["kv"], pos, impl)
+    return _logits(params, cfg, x[:, 0]), caches
+
+
+def _logits(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and LM head of the last hidden state (B, D): fp32 (B, V)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x[:, 0, :] @ lm_head_weight(params, cfg)).float()
-    return logits, caches
+    return (x @ lm_head_weight(params, cfg)).float()

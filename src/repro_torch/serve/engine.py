@@ -1,5 +1,6 @@
 """Batched serving engine, ported from ``repro.serve.engine``: prefill, then
-decode over a request batch against one preallocated KV cache."""
+decode over a request batch against one preallocated cache (K/V, or RWKV's
+fixed-size states)."""
 
 from __future__ import annotations
 
@@ -40,7 +41,10 @@ def preallocate_cache(cfg: ArchConfig, caches: dict, total_len: int) -> dict:
     the window. JAX pads the full prefill cache instead, so its decode
     attends past the window (ROADMAP.md queue 3, a), and it rewrites the
     cache every step; here it is allocated once, and each decode step
-    writes its slot in place."""
+    writes its slot in place. RWKV's prefill states already have their
+    decode size and pass through, as JAX's engine skips their growth."""
+    if cfg.attn_free:
+        return caches
     k = caches["kv"]["k"]
     out = init_decode_cache(cfg, k.shape[1], total_len, device=k.device)
     s, size = k.shape[2], out["kv"]["k"].shape[2]

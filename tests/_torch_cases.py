@@ -1,9 +1,11 @@
-"""Shapes and seeded numpy inputs shared by the port's kernel tests (on the
-CPU against JAX, and on the card against the plain versions)."""
+"""Shapes and seeded numpy inputs shared by the port's tests (on the CPU
+against JAX, and on the card against the plain versions). Nothing here
+imports JAX at import time: the card's tests import this module without
+it."""
 
 import numpy as np
 
-# the rows of FA_CASES and DECODE_CASES in tests/test_kernels.py
+# the rows of FA_CASES, DECODE_CASES and WKV_CASES in tests/test_kernels.py
 FA_CASES = [
     # (BH, BHkv, S, hd, window, block_q, block_k, dtype)
     (4, 4, 128, 64, None, 64, 64, "float32"),      # MHA
@@ -21,6 +23,14 @@ DECODE_CASES = [
     (1, 4, 1, 512, 128, 128, "float32"),    # one query per kv head
     (2, 2, 8, 384, 64, 128, "float32"),     # ragged S vs block
     (2, 2, 4, 256, 64, 64, "bfloat16"),     # bf16 io
+]
+WKV_CASES = [
+    # (BH, S, hd, chunk)
+    (4, 64, 16, 16),
+    (2, 128, 32, 32),
+    (8, 128, 64, 64),
+    (3, 96, 16, 32),
+    (2, 256, 64, 128),
 ]
 
 
@@ -43,3 +53,36 @@ def decode_inputs(b, hkv, grp, s, hd, seed):
     vc = rand(rng, (b, s, hkv, hd), 1.0)
     cache_len = np.array([s // 2, s][:b] if b > 1 else [s // 2], np.int32)
     return q, kc, vc, cache_len
+
+
+def wkv_inputs(shape, seed):
+    """r, k, v, w of ``shape`` (..., hd) and u of ``shape[-2:]`` (the heads
+    and hd of the model layout, or (BH, hd) of the 3-D one), float32. The
+    decay is in (0, 0.98), like exp(-exp(x))."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rand(rng, shape) for _ in range(3))
+    w = 0.98 / (1.0 + np.exp(-rand(rng, shape, 2.0)))
+    u = rand(rng, shape[-2:] if len(shape) == 4 else (shape[0], shape[-1]))
+    return r, k, v, w.astype(np.float32), u
+
+
+def randomise_norms_and_biases(params, seed):
+    """JAX params with norm weights (init 1) and biases (init 0) -> random
+    values; so are RWKV's shift mixes (init 0.5) and decay bias (init -6),
+    so that each is really exercised."""
+    import jax
+    import jax.numpy as jnp
+    rng = np.random.default_rng(seed)
+
+    def one(path, leaf):
+        name = str(path[-1].key)
+        if name in ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "ln_w"):
+            return jnp.asarray(1.0 + rand(rng, leaf.shape, 0.2), leaf.dtype)
+        if name in ("bq", "bk", "bv", "ln_b"):
+            return jnp.asarray(rand(rng, leaf.shape, 0.2), leaf.dtype)
+        if name == "mu":
+            return jnp.asarray(rng.uniform(0, 1, leaf.shape), leaf.dtype)
+        if name == "w0":
+            return jnp.asarray(-6.0 + rand(rng, leaf.shape, 2.0), leaf.dtype)
+        return leaf
+    return jax.tree_util.tree_map_with_path(one, params)

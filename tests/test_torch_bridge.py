@@ -39,6 +39,26 @@ def test_round_trip(arch, dtype):
         np.testing.assert_array_equal(back[key], arr, err_msg=key)
 
 
+def test_round_trip_keeps_rwkv_leaves_fp32():
+    """RWKV's shift mixes, decay, LoRA, bonus and group-norm leaves stay
+    fp32 in a bf16 model, as the JAX init keeps them."""
+    jcfg = JAX_ARCHS["rwkv6-3b"].reduced()
+    cfg = ARCHS["rwkv6-3b"].reduced()
+    flat = _flatten(jinit_params(jax.random.PRNGKey(0), jcfg))
+    params = params_from_numpy(flat, cfg, "cpu")
+    tmix, cmix = params["layers"]["tmix"], params["layers"]["cmix"]
+    for name in ("mu", "w0", "w_lora_a", "w_lora_b", "bonus_u", "ln_w",
+                 "ln_b"):
+        assert tmix[name].dtype == torch.float32, name
+    assert cmix["mu"].dtype == torch.float32
+    for leaf in (tmix["w_r"], tmix["w_o"], cmix["w_k"], params["embed"]):
+        assert leaf.dtype == torch.bfloat16
+    back = params_to_numpy(params)
+    assert sorted(back) == sorted(flat)
+    for key, arr in flat.items():
+        np.testing.assert_array_equal(back[key], arr, err_msg=key)
+
+
 def test_leaf_dtypes():
     cfg = ARCHS["qwen3-8b"]
     assert leaf_dtype("layers/attn/q_norm", cfg) == torch.float32

@@ -5,17 +5,20 @@ JAX, so it runs where only PyTorch is installed:
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: bf16 2e-2; fp32 1e-4, because the kernel sums in another order
-than the plain version.
+than the plain version (the WKV6 recurrence: atol 2e-5, rtol 1e-4, the
+limits tests/test_kernels.py holds JAX's scan and Pallas kernel to).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_cases import DECODE_CASES, FA_CASES, decode_inputs, fa_inputs
+from _torch_cases import (DECODE_CASES, FA_CASES, WKV_CASES, decode_inputs,
+                          fa_inputs, wkv_inputs)
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.wkv6 import wkv6
 
 pytestmark = pytest.mark.cuda
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -72,3 +75,52 @@ def test_decode_ignores_poisoned_slots(cuda):
     dead = torch.arange(256, device=cuda)[None, :] >= lens[:, None].long()
     kc[dead], vc[dead] = 99.0, -99.0
     assert torch.equal(ops.decode_attention(q, kc, vc, lens), clean)
+
+
+def wkv_on(cuda, shape, seed):
+    return tuple(torch.from_numpy(x).to(cuda) for x in wkv_inputs(shape, seed))
+
+
+def close_wkv(got, want):
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("bh,s,hd,chunk", WKV_CASES)
+def test_wkv6_matches_plain(cuda, bh, s, hd, chunk):
+    """The JAX kernel's (BH, S, hd) layout: strided views of the kernel's."""
+    r, k, v, w, u = wkv_on(cuda, (bh, s, hd), bh * s + hd)
+    before = wkv6.launches
+    out = ops.wkv6(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    close_wkv(out, ops.wkv6(r, k, v, w, u, impl="reference"))
+
+
+def test_wkv6_state_carries_across_a_split(cuda):
+    r, k, v, w, u = wkv_on(cuda, (2, 77, 3, 64), 5)
+    y, final = ops.wkv6(r, k, v, w, u)
+    y_plain, final_plain = ops.wkv6(r, k, v, w, u, impl="reference")
+    close_wkv(y, y_plain)
+    close_wkv(final, final_plain)
+    y1, mid = ops.wkv6(r[:, :40], k[:, :40], v[:, :40], w[:, :40], u)
+    y2, end = ops.wkv6(r[:, 40:], k[:, 40:], v[:, 40:], w[:, 40:], u, mid)
+    assert end is mid
+    close_wkv(torch.cat([y1, y2], dim=1), y)
+    close_wkv(end, final)
+
+
+def test_wkv6_one_step_updates_the_state_in_place(cuda):
+    """Decode: S=1 from a carried state, read and written in one buffer
+    that is a layer's slice of a stacked (L, B, H, hd, hd) cache."""
+    r, k, v, w, u = wkv_on(cuda, (4, 1, 5, 32), 6)
+    cache = torch.randn((3, 4, 5, 32, 32), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(0))
+    start = cache.clone()
+    y, final = ops.wkv6(r, k, v, w, u, cache[1])
+    assert final.data_ptr() == cache[1].data_ptr()
+    want_state = start[1].clone()
+    want, _ = ops.wkv6(r, k, v, w, u, want_state, impl="reference")
+    close_wkv(y, want)
+    close_wkv(cache[1], want_state)
+    assert torch.equal(cache[0], start[0]) and torch.equal(cache[2], start[2])

@@ -1,9 +1,10 @@
-"""The port's layers and dense decoder against ``repro.models`` on the CPU.
+"""The port's layers and decoder (dense and RWKV6) against ``repro.models``
+on the CPU.
 
 Weights cross through ``bridge.params_from_numpy(_flatten(jax_params))``;
-tokens and activations are made with numpy from a seed. Norm weights and
-QKV biases, which the JAX init leaves at 1 and 0, are randomised first so
-that qk_norm and qkv_bias are really exercised.
+tokens and activations are made with numpy from a seed. Norm weights, QKV
+biases and RWKV's shift mixes and decay bias, which the JAX init leaves at
+constants, are randomised first so that each is really exercised.
 
 Tolerances: fp32 1e-4 (the two frameworks sum in other orders; measured
 errors are below 1e-5). bf16: 2e-2 of the tensor's largest magnitude. The
@@ -22,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_cases import randomise_norms_and_biases
 from repro.configs import ARCHS as JAX_ARCHS
 from repro.models import decode_step as jdecode_step
 from repro.models import init_decode_cache as jinit_decode_cache
@@ -147,20 +149,6 @@ def configs(name: str, dtype: str):
             dataclasses.replace(tcfg, param_dtype=dtype))
 
 
-def randomise_norms_and_biases(params, seed):
-    """Norm weights (init 1) and biases (init 0) -> random values."""
-    rng = np.random.default_rng(seed)
-
-    def one(path, leaf):
-        name = str(path[-1].key)
-        if name in ("ln1", "ln2", "final_norm", "q_norm", "k_norm"):
-            return jnp.asarray(1.0 + rand(rng, leaf.shape, 0.2), leaf.dtype)
-        if name in ("bq", "bk", "bv"):
-            return jnp.asarray(rand(rng, leaf.shape, 0.2), leaf.dtype)
-        return leaf
-    return jax.tree_util.tree_map_with_path(one, params)
-
-
 @pytest.fixture(scope="module", params=MODEL_CASES,
                 ids=[f"{n}-{d}" for n, d in MODEL_CASES])
 def model_case(request):
@@ -270,7 +258,87 @@ def test_decode_after_long_prompt_stays_in_window():
         close_model(logits, jlogits, "float32")
 
 
-@pytest.mark.parametrize("arch",["moonshot-v1-16b-a3b", "rwkv6-3b",
+# ------------------------------------------------------------------ RWKV
+RWKV_CASES = [(16, "float32"), (16, "bfloat16"), (64, "float32"),
+              (64, "bfloat16")]
+
+
+@pytest.fixture(scope="module", params=RWKV_CASES,
+                ids=[f"hd{h}-{d}" for h, d in RWKV_CASES])
+def rwkv_case(request):
+    """Reduced rwkv6-3b: 4 heads of 16 (d_model 64), or 4 heads of 64
+    (d_model 256). JAX's prefill of 9 tokens, then 3 decode steps, and the
+    port's parameters bridged from the same weights."""
+    head_dim, dtype = request.param
+    jcfg, tcfg = (dataclasses.replace(c, d_model=4 * head_dim,
+                                      rwkv_head_dim=head_dim)
+                  for c in configs("rwkv6-3b", dtype))
+    jparams = randomise_norms_and_biases(
+        jinit_params(jax.random.PRNGKey(0), jcfg), 1)
+    params = params_from_numpy(_flatten(jparams), tcfg, "cpu")
+    tokens = np.random.default_rng(2).integers(0, jcfg.vocab_size, (2, 12),
+                                               dtype=np.int32)
+    jlogits, jcaches, jpos = jax.jit(jprefill, static_argnums=1)(
+        jparams, jcfg, {"tokens": jnp.asarray(tokens[:, :9])})
+    prefilled = (jlogits, jcaches)
+    jstep = jax.jit(jdecode_step, static_argnums=1)
+    decoded = []
+    for i in range(3):
+        jlogits, jcaches = jstep(jparams, jcfg, jnp.asarray(tokens[:, 9 + i]),
+                                 jcaches, jpos + i)
+        decoded.append(jlogits)
+    return {"cfg": tcfg, "params": params, "tokens": torch.from_numpy(tokens),
+            "prefill": prefilled, "decode": (decoded, jcaches),
+            "dtype": dtype}
+
+
+def close_rwkv_caches(caches, jcaches, dtype):
+    for got, want in ((caches["tmix"]["shift"], jcaches["tmix"]["shift"]),
+                      (caches["tmix"]["wkv"], jcaches["tmix"]["wkv"]),
+                      (caches["cmix"], jcaches["cmix"])):
+        assert got.shape == want.shape
+        assert str(got.dtype) == f"torch.{want.dtype}"
+        close_model(got, want, dtype)
+
+
+def test_rwkv_prefill_matches_jax(rwkv_case):
+    c = rwkv_case
+    logits, caches, pos = prefill(c["params"], c["cfg"],
+                                  {"tokens": c["tokens"][:, :9]})
+    jlogits, jcaches = c["prefill"]
+    assert logits.dtype == torch.float32 and pos.tolist() == [9, 9]
+    close_model(logits, jlogits, c["dtype"])
+    close_rwkv_caches(caches, jcaches, c["dtype"])
+
+
+def test_rwkv_decode_steps_match_jax(rwkv_case):
+    """Three decode steps write the new states into the caches in place."""
+    c = rwkv_case
+    _, pre, pos = prefill(c["params"], c["cfg"],
+                          {"tokens": c["tokens"][:, :9]})
+    caches = preallocate_cache(c["cfg"], pre, 12)
+    assert caches is pre
+    wkv = caches["tmix"]["wkv"]
+    jdecoded, jcaches = c["decode"]
+    for i in range(3):
+        logits, caches = decode_step(c["params"], c["cfg"],
+                                     c["tokens"][:, 9 + i], caches, pos + i)
+        close_model(logits, jdecoded[i], c["dtype"])
+    assert caches["tmix"]["wkv"] is wkv
+    close_rwkv_caches(caches, jcaches, c["dtype"])
+
+
+def test_rwkv_prefill_then_decode_matches_full_forward(rwkv_case):
+    c = rwkv_case
+    full, _, _ = prefill(c["params"], c["cfg"], {"tokens": c["tokens"]})
+    _, caches, pos = prefill(c["params"], c["cfg"],
+                             {"tokens": c["tokens"][:, :-1]})
+    logits, _ = decode_step(c["params"], c["cfg"], c["tokens"][:, -1],
+                            caches, pos)
+    close_model(logits, full.numpy(), c["dtype"])
+
+
+@pytest.mark.parametrize("arch",["moonshot-v1-16b-a3b", "pixtral-12b",
                                   "hymba-1.5b", "musicgen-large"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -286,7 +354,7 @@ def test_init_params_layout_matches_jax():
             else:
                 yield f"{prefix}{k}", v
 
-    for name in ("qwen3-8b", "qwen2.5-3b"):
+    for name in ("qwen3-8b", "qwen2.5-3b", "rwkv6-3b"):
         jcfg, tcfg = configs(name, "bfloat16")
         jtree = jinit_params(jax.random.PRNGKey(0), jcfg)
         jleaves = {"/".join(str(p.key) for p in path): leaf for path, leaf in

@@ -1,6 +1,8 @@
 """The port's serving engine and launcher on the CPU: greedy token ids equal
-the JAX engine's on the ``tiny`` preset in fp32, and the entry points
-default to the card and raise without one."""
+the JAX engine's on the ``tiny`` preset and on reduced rwkv6-3b in fp32,
+and the entry points default to the card and raise without one."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -8,12 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as JAX_ARCHS
 from repro.launch.train import PRESETS as JAX_PRESETS
 from repro.models import init_params as jinit_params
 from repro.serve.engine import Engine as JaxEngine
 from repro.serve.engine import ServeConfig as JaxServeConfig
 from repro.train.checkpoint import _flatten
 from repro_torch.bridge import params_from_numpy
+from repro_torch.configs import ARCHS
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch.train import PRESETS
 from repro_torch.serve.engine import Engine, ServeConfig
@@ -39,6 +43,23 @@ def test_greedy_generate_matches_jax(tiny):
     np.testing.assert_array_equal(got, np.asarray(want))
     assert engine.stats["requests"] == 2 and engine.stats["new_tokens"] == 12
     assert engine.stats["prefill_ms"] > 0
+
+
+def test_rwkv_greedy_generate_matches_jax():
+    """RWKV's states pass from prefill to decode without growth, as in the
+    JAX engine: greedy ids match over 6 new tokens."""
+    jcfg, cfg = (dataclasses.replace(a["rwkv6-3b"].reduced(),
+                                     param_dtype="float32")
+                 for a in (JAX_ARCHS, ARCHS))
+    jparams = jinit_params(jax.random.PRNGKey(1), jcfg)
+    params = params_from_numpy(_flatten(jparams), cfg, "cpu")
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 10),
+                                                dtype=np.int32)
+    want = JaxEngine(jcfg, jparams, JaxServeConfig(max_new_tokens=6)) \
+        .generate(jnp.asarray(prompts))
+    got = Engine(cfg, params, ServeConfig(max_new_tokens=6),
+                 device="cpu").generate(prompts)
+    np.testing.assert_array_equal(got, np.asarray(want))
 
 
 def test_sampling_is_seeded(tiny):
@@ -88,3 +109,11 @@ def test_serve_cli_on_cpu(capsys):
     # CPU tensors take the plain versions: no kernel launches
     assert out["flash_attention"] == 0 and out["decode_attention"] == 0
     assert "served 2 requests" in capsys.readouterr().out
+
+
+def test_serve_cli_rwkv_on_cpu(capsys):
+    out = serve_cli.main(["--arch", "rwkv6-3b", "--smoke", "--requests", "2",
+                          "--prompt-len", "7", "--max-new", "3",
+                          "--device", "cpu"])
+    assert out["ids"].shape == (2, 3) and out["wkv6"] == 0
+    assert "wkv6 0" in capsys.readouterr().out
