@@ -4,11 +4,15 @@
 
 Phases; each raises on failure, so any failure exits non-zero:
   1. environment: card, power limit, versions; build the CUDA kernels from
-     src/repro_torch/kernels/csrc/ (one nvcc per source, in parallel);
+     src/repro_torch/kernels/csrc/ (one nvcc per source, in parallel),
+     print ptxas' registers and spills and each library's count of HMMA
+     (tensor-core) instructions, which must not be 0 for flash attention;
   2. each kernel against its plain PyTorch version on the card, at the
-     serving shapes and in windowed, ragged, fp32, poisoned-cache and
-     carried-state cases, with its time beside the plain version's and one
-     PyTorch library call's where one computes the same function;
+     serving shapes and in windowed, ragged, 3-D layout, hd 32 and 128,
+     fp32, many-split, poisoned-cache and carried-state cases, with its
+     time beside the plain version's and one PyTorch library call's where
+     one computes the same function; flash decode is also timed at batch 1
+     against a 32,768-slot cache;
   3. serve each model of SERVED at full width and full depth (bf16, random
      weights from a seed) through Engine.generate: 4 requests, 32 new
      tokens, greedy; qwen3-8b (36 layers, d_model 4096) with 512 prompt
@@ -164,7 +168,25 @@ def environment() -> str:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {lib.stem.split('-')[0]}: {line.strip()}")
+    hmma = hmma_counts(libs)
+    log(f"HMMA instructions in the SASS: {hmma}")
+    if not hmma["flash_attention"]:
+        raise AssertionError("flash attention's library has no HMMA: its "
+                             "bf16 body does not run on the tensor cores")
     return smi
+
+
+def hmma_counts(libs: dict) -> dict:
+    """{kernel source: count of HMMA instructions in cuobjdump -sass}."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    cuobjdump = Path(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    counts = {}
+    for name, lib in libs.items():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts[name] = sum("HMMA" in line for line in sass.splitlines())
+    return counts
 
 
 # ------------------------------------------------------------ phase 2
@@ -178,11 +200,17 @@ def check_flash_attention() -> dict:
     gen = torch.Generator("cuda").manual_seed(0)
     log("flash_attention (prefill) vs its plain version:")
     # (name, B, S, H, Hkv, hd, window, dtype, 3-D layout)
-    cases = [("serving prefill", 4, PROMPT_LEN, 32, 8, 128, None,
-              torch.bfloat16, False),
-             ("windowed", 2, 512, 8, 2, 64, 128, torch.bfloat16, False),
-             ("ragged fp32, (BH, S, hd)", 1, 193, 6, 2, 32, None,
-              torch.float32, True)]
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("serving prefill", 4, PROMPT_LEN, 32, 8, 128, None, bf16,
+              False),
+             ("windowed", 2, 512, 8, 2, 64, 128, bf16, False),
+             ("ragged S=193, hd 32", 2, 193, 6, 2, 32, None, bf16, False),
+             ("(BH, S, hd), ragged S=193", 1, 193, 8, 2, 64, None, bf16,
+              True),
+             ("hd 128, S=300 (not a multiple of 64), windowed", 2, 300, 8,
+              4, 128, 100, bf16, False),
+             ("ragged fp32, (BH, S, hd)", 1, 193, 6, 2, 32, None, f32,
+              True)]
     result = {}
     for name, b, s, h, hkv, hd, window, dtype, flat in cases:
         q = randn(gen, (b, s, h, hd), dtype)
@@ -223,7 +251,6 @@ def check_flash_attention() -> dict:
 
 def check_decode_attention() -> dict:
     from repro_torch.kernels import ops
-    import torch.nn.functional as F
     gen = torch.Generator("cuda").manual_seed(1)
     log("decode_attention (flash decode) vs its plain version:")
     b, hkv, grp, s, hd, dtype = REQUESTS, 8, 4, PROMPT_LEN + MAX_NEW, 128, \
@@ -257,6 +284,7 @@ def check_decode_attention() -> dict:
     assert_close("fp32 (BHkv, grp, hd), grp 8",
                  ops.decode_attention(q3, k3, v3, l3),
                  ops.decode_attention(q3, k3, v3, l3, impl="reference"))
+    check_many_splits(gen)
 
     valid = int(lens.sum()) * hkv * hd                # K (and V) elements
     n_bytes = (2 * q.numel() + 2 * valid) * q.element_size() + 4 * b
@@ -264,19 +292,83 @@ def check_decode_attention() -> dict:
     ms = time_ms(lambda: ops.decode_attention(q, kc, vc, lens), 200)
     plain = time_ms(lambda: ops.decode_attention(q, kc, vc, lens,
                                                  impl="reference"), 20)
-    qs = q.reshape(b, hkv * grp, 1, hd)
-    ks, vs = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
-    mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None].long())
-    mask = mask[:, None, None, :]
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask, enable_gqa=True), 200)
+    lib = time_ms(masked_sdpa(q, kc, vc, lens), 200)
     log(f"  time: kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} "
         f"ms, bound {bound:.4f} ms ({by})")
+    time_long_cache(gen)
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:63",
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": lib}
+
+
+def masked_sdpa(q, kc, vc, lens):
+    """One PyTorch call computing flash decode's function, for its time:
+    SDPA over the (B, H, S, hd) caches with a cache_len mask."""
+    import torch.nn.functional as F
+    b, hkv, grp, hd = q.shape
+    s = kc.shape[1]
+    qs = q.reshape(b, hkv * grp, 1, hd)
+    ks, vs = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None].long())
+    mask = mask[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def check_many_splits(gen) -> None:
+    """A 4096-slot cache split over many blocks: cache_len 1 (every split
+    but one empty), a cache_len that ends on a chunk boundary, and poison
+    past cache_len."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import _sm_count, plan_splits
+    b, hkv, grp, s, hd = 2, 8, 4, 4096, 128
+    n_split, chunk = plan_splits(b * hkv, s, _sm_count(torch.device("cuda")))
+    log(f"  4096-slot cache, {b * hkv} rows: {n_split} splits of {chunk} "
+        f"slots")
+    q = randn(gen, (b, hkv, grp, hd), torch.bfloat16)
+    kc = randn(gen, (b, s, hkv, hd), torch.bfloat16)
+    vc = randn(gen, (b, s, hkv, hd), torch.bfloat16, 1.0)
+    lens = torch.tensor([1, 3 * chunk], device="cuda", dtype=torch.int32)
+    assert_close(f"cache_len 1 and {3 * chunk} (a chunk boundary)",
+                 ops.decode_attention(q, kc, vc, lens),
+                 ops.decode_attention(q, kc, vc, lens, impl="reference"))
+    plens = torch.tensor([chunk + 1, s - 5], device="cuda",
+                         dtype=torch.int32)
+    dead = torch.arange(s, device="cuda")[None, :] >= plens[:, None].long()
+    clean = ops.decode_attention(q, kc, vc, plens)
+    kc[dead], vc[dead] = 99.0, -99.0
+    poisoned = ops.decode_attention(q, kc, vc, plens)
+    torch.cuda.synchronize()
+    if not torch.equal(clean, poisoned):
+        raise AssertionError("split decode read slots past cache_len")
+    log(f"  poisoned slots past cache_len {plens.tolist()} over {n_split} "
+        f"splits: output bit-identical ok")
+
+
+def time_long_cache(gen) -> None:
+    """Batch-1 decode at qwen3-8b's shape against a full 32,768-slot
+    cache, the shape the split exists for, beside masked SDPA and the
+    bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import _sm_count, plan_splits
+    b, hkv, grp, s, hd, dtype = 1, 8, 4, 32768, 128, torch.bfloat16
+    q = randn(gen, (b, hkv, grp, hd), dtype)
+    kc = randn(gen, (b, s, hkv, hd), dtype)
+    vc = randn(gen, (b, s, hkv, hd), dtype, 1.0)
+    lens = torch.full((b,), s, device="cuda", dtype=torch.int32)
+    assert_close("batch 1, 32768 slots",
+                 ops.decode_attention(q, kc, vc, lens),
+                 ops.decode_attention(q, kc, vc, lens, impl="reference"))
+    n_bytes = (2 * q.numel() + kc.numel() + vc.numel()) * q.element_size()
+    bound, by = bound_ms(n_bytes, {dtype: 4 * grp * kc.numel()})
+    ms = time_ms(lambda: ops.decode_attention(q, kc, vc, lens), 100)
+    lib = time_ms(masked_sdpa(q, kc, vc, lens), 100)
+    n_split, chunk = plan_splits(b * hkv, s, _sm_count(q.device))
+    log(f"decode batch 1, 32768-slot cache ({n_bytes / 1e6:.1f} MB, "
+        f"{n_split} splits of {chunk}): kernel {ms:.4f} ms, SDPA "
+        f"{lib:.4f} ms (masked), bound {bound:.4f} ms ({by})")
 
 
 def check_wkv6() -> dict:

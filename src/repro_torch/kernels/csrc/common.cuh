@@ -1,5 +1,6 @@
-// Shared helpers for the attention kernels: element conversion, paired
-// loads and stores, and the tile copy from device to shared memory.
+// Shared helpers for the kernels: element conversion, paired loads and
+// stores, tile copies from device to shared memory (plain and cp.async),
+// and the ldmatrix / mma.sync operations of the bf16 tensor-core path.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,6 +11,8 @@
 // dtype codes passed by the Python wrappers
 enum : int { DTYPE_F32 = 0, DTYPE_BF16 = 1 };
 
+constexpr float LOG2E = 1.4426950408889634f;  // softmax in the exp2 domain
+
 extern "C" const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
@@ -17,6 +20,11 @@ extern "C" const char* repro_cuda_error_string(int err) {
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+__device__ __forceinline__ void from_float(float* p, float x) { *p = x; }
+__device__ __forceinline__ void from_float(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
 }
 
 // one 16-byte vector (4 fp32 or 8 bf16 elements) as floats
@@ -72,6 +80,93 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src,
           src + (int64_t)(row0 + r) * row_stride + c * VEC);
     *reinterpret_cast<uint4*>(dst + r * LD + c * VEC) = val;
   }
+}
+
+// ---- cp.async: 16 bytes from device to shared memory, not through
+// registers. With `valid` false nothing is read and the 16 bytes are
+// zero-filled (the source operand must still be a mapped address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid = true) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// load_tile by cp.async, issued but not waited for: rows at or past
+// `limit` are zero-filled without a read of device memory.
+template <typename T, int HD, int LD, int ROWS, int NT>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* src,
+                                                int64_t row_stride, int row0,
+                                                int limit) {
+  constexpr int VEC = Vec<T>::N;
+  constexpr int CPR = HD / VEC;
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < ROWS * CPR; idx += NT) {
+    const int r = idx / CPR, c = idx % CPR;
+    const bool ok = row0 + r < limit;
+    cp_async16(dst + r * LD + c * VEC,
+               ok ? src + (int64_t)(row0 + r) * row_stride + c * VEC : src,
+               ok);
+  }
+}
+
+// ---- bf16 tensor cores (mma.sync, m16n8k16, fp32 accumulate).
+// Fragment layouts, with g = lane / 4 and t = lane % 4:
+//   A (16 x 16, row-major) a[0..3]: (g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..),
+//     (g+8, 2t+8..);
+//   B (16 x 8, k x n)      b[0..1]: (k 2t..2t+1, n g), (k 2t+8.., n g);
+//   C (16 x 8, fp32)       c[0..3]: (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// four 8x8 b16 matrices; lane i gives the address of row i % 8 of matrix
+// i / 8 and receives, of each matrix, row lane / 4, columns 2 (lane % 4)..+1
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+// the same, each matrix transposed: lane receives rows 2 (lane % 4)..+1 of
+// column lane / 4
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+// c += a * b
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// two floats as a bf16 pair, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x by the SFU in one instruction (flushes denormal results to 0;
+// 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float warp_max8(float x) {

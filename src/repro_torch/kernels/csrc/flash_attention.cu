@@ -4,29 +4,51 @@
 // (flash_attention_fwd -> _fa_kernel): causal softmax attention with an
 // optional sliding window and native GQA (query head h reads KV head
 // h / (H / Hkv)), online softmax with an fp32 running max, denominator and
-// accumulator, output clamped by max(l, 1e-30) and written in the input
-// dtype.
+// accumulator, output clamped by max(l, 1e-30) (a fully masked row gives
+// 0) and written in the input dtype.
 //
 // What bounds it: at the serving prefill shape (B=4, S=512, H=32, Hkv=8,
 // hd=128, bf16) one call moves 41.9 MB (Q, K, V read once, O written once),
 // 12.5 us at 3.35 TB/s, and does 8.6 GFLOP of causal work, 8.7 us at the
-// bf16 tensor-core peak: memory-bound on paper. This first version does
-// its arithmetic in fp32 on the CUDA cores (no mma/wgmma), so in practice
-// it is bound by fp32 FMA issue and shared-memory loads, not by HBM.
+// bf16 tensor-core peak. Both products are matrix products, so the
+// arithmetic has to run on the tensor cores to come near either bound.
 //
-// Design: one block of 128 threads per (64-query tile, batch*head). The
-// TPU kernel's sequential k-block grid axis becomes a loop inside the
-// block over 64-key tiles staged in shared memory. The loop starts at the
-// window's lower edge and stops at the causal limit, so fully masked tiles
-// cost nothing (the Pallas kernel computed and masked them). Each thread
-// owns 4 query rows (rg + 16 i) and, of the 64x64 score tile, 8 keys
-// (c + 8 j): 32 scores held in registers, with the row max and sum reduced
-// over the row group's 8 neighbouring lanes by shuffles. Probabilities go
-// through shared memory to the PV product, where the same thread owns
-// head-dim pairs (2c + 16u). Operands are read through their strides, so
-// the model hands (B, S, H, hd) projections over without a copy. Rows are
-// padded by 16 bytes in shared memory to spread them over the banks.
-// The heaviest (last) query tiles are launched first.
+// bf16 body (fa_bf16_kernel), the serving dtype: FlashAttention-2 on
+// mma.sync.m16n8k16 (bf16 in, fp32 accumulate). One block of 4 warps per
+// (64-query tile, batch*head), 2 blocks per SM; each warp owns 16 query
+// rows, whose Q fragments it loads once by ldmatrix and keeps in
+// registers. 64-key tiles of K and V stream through a ring of 3 shared-
+// memory buffers filled by cp.async (16-byte copies, rows at or past Sk
+// zero-filled without a read), so two tiles are in flight while one is
+// computed, with one barrier per tile; Q is first staged in the ring's
+// last buffer. Rows are padded by 16 bytes, so the 8 rows an ldmatrix
+// reads fall in distinct banks. S = Q K^T takes K by ldmatrix; the online
+// softmax runs in the accumulator registers (row max and sum over the 4
+// lanes of a row by two shuffles; p = 2^(s * scale * log2 e - m) as one
+// FFMA and one ex2.approx; a straddling tile masks by each row's key
+// bounds, two compares an element); P is rounded to bf16 in registers and
+// fed straight back as the A operand of the P V product, with V read by
+// ldmatrix.trans. Nothing but K and V passes through shared memory, and
+// the output is staged there only to leave in 16-byte stores. Rounding P
+// to bf16 is what JAX's model and SDPA do; the Pallas kernel and the
+// plain version keep P in fp32. What still bounds it is latency: each
+// warp runs its loads, products and softmax one after another, so taking
+// out the tile loads, or either product, each saves a tenth to a fifth of
+// the time (PERF.md). wgmma with TMA, fed by a producer warp so that the
+// parts overlap, is the next step.
+//
+// fp32 body (fa_f32_kernel), the precision path for the tests and for
+// compare_paths, not a serving dtype: TF32 tensor cores would not hold its
+// limits, so it keeps the CUDA cores. Each thread owns 4 query rows and 8
+// keys of a 64x64 score tile, row max and sum reduced over 8 lanes by
+// shuffles, probabilities through shared memory to the P V product.
+//
+// Both: the key loop starts at the window's lower edge and stops at the
+// causal limit, so fully masked tiles cost nothing (the Pallas kernel
+// computed and masked them), and masks apply only on tiles that straddle
+// an edge (bf16 body); the heaviest (last) query tiles launch first;
+// operands are read through their strides, so the model hands (B, S, H, hd)
+// projections over without a copy; hd 32, 64 and 128.
 
 #include "common.cuh"
 
@@ -34,7 +56,8 @@ namespace {
 
 constexpr int BM = 64;   // query rows per block
 constexpr int BN = 64;   // keys per tile
-constexpr int NT = 128;  // threads per block: 16 row groups x 8 lanes
+constexpr int NT = 128;  // threads per block: fp32 16 row groups x 8 lanes,
+                         // bf16 4 warps x 16 rows
 constexpr int LDP = BN + 8;
 
 struct FaParams {
@@ -51,16 +74,19 @@ struct FaParams {
   float scale;
 };
 
-template <typename T, int HD>
-struct FaShape {
-  static constexpr int LD = HD + Vec<T>::N;  // padded smem row (elements)
+// ------------------------------------------------------------ fp32 body
+template <int HD>
+struct FaF32Shape {
+  static constexpr int LD = HD + 4;  // padded smem row (elements)
   static constexpr size_t SMEM =
-      size_t(BM + 2 * BN) * LD * sizeof(T) + size_t(BM) * LDP * sizeof(float);
+      size_t(BM + 2 * BN) * LD * sizeof(float) +
+      size_t(BM) * LDP * sizeof(float);
 };
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT) fa_kernel(const FaParams p) {
-  constexpr int LD = FaShape<T, HD>::LD;
+template <int HD>
+__global__ void __launch_bounds__(NT) fa_f32_kernel(const FaParams p) {
+  using T = float;
+  constexpr int LD = FaF32Shape<HD>::LD;
   constexpr int NU = HD / 16;  // head-dim pairs per thread in PV
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
@@ -184,24 +210,231 @@ __global__ void __launch_bounds__(NT) fa_kernel(const FaParams p) {
   }
 }
 
-template <typename T, int HD>
-int launch(const FaParams& p, int B, cudaStream_t stream) {
-  const size_t smem = FaShape<T, HD>::SMEM;
+// ------------------------------------------------------------ bf16 body
+constexpr int NSTAGE = 3;  // K/V tiles in the cp.async ring
+
+template <int HD>
+struct FaBf16Shape {
+  static constexpr int LD = HD + 8;  // 16-byte pad: conflict-free ldmatrix
+  // a ring of NSTAGE (K, V) tile buffers; Q is first loaded into the last
+  static constexpr size_t SMEM =
+      size_t(NSTAGE) * 2 * BN * LD * sizeof(__nv_bfloat16);
+  static_assert(BM <= 2 * BN, "Q must fit one (K, V) buffer");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(NT, 2) fa_bf16_kernel(const FaParams p) {
+  using T = __nv_bfloat16;
+  constexpr int LD = FaBf16Shape<HD>::LD;
+  constexpr int KD = HD / 16;  // k-steps of Q K^T
+  constexpr int ND = HD / 8;   // n-blocks of the output
+  extern __shared__ __align__(16) unsigned char smem[];
+  // buffer i holds K at sKV + 2 i BN LD and V BN rows after it
+  T* sKV = reinterpret_cast<T*>(smem);
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const int q0 = qt * BM;
+  const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* K = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* V = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  T* O = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wq0 = q0 + 16 * warp;  // this warp's first query row
+
+  const int q_end = min(q0 + BM, p.Sq);  // exclusive
+  const int k_end = min(p.Sk, q_end);      // causal limit, exclusive
+  int k_begin = 0;
+  if (p.window > 0) k_begin = max(0, q0 - p.window + 1);
+  k_begin = k_begin / BN * BN;
+  const int n_tiles = (k_end - k_begin + BN - 1) / BN;  // may be <= 0
+
+  // tile n goes to buffer n % NSTAGE, one commit group per tile (empty
+  // past the last), so that wait<NSTAGE - 2> means "tile n has landed"
+  auto stage_kv = [&](int n) {
+    if (n < n_tiles) {
+      T* dst = sKV + (n % NSTAGE) * 2 * BN * LD;
+      const int k0 = k_begin + n * BN;
+      load_tile_async<T, HD, LD, BN, NT>(dst, K, p.k_ss, k0, p.Sk);
+      load_tile_async<T, HD, LD, BN, NT>(dst + BN * LD, V, p.v_ss, k0,
+                                           p.Sk);
+    }
+    cp_async_commit();
+  };
+  T* sQ = sKV + (NSTAGE - 1) * 2 * BN * LD;  // until the Q fragments load
+  load_tile_async<T, HD, LD, BM, NT>(sQ, Q, p.q_ss, q0, p.Sq);
+  stage_kv(0);  // one group with Q
+#pragma unroll
+  for (int n = 1; n < NSTAGE - 1; ++n) stage_kv(n);
+  cp_async_wait<NSTAGE - 2>();
+  __syncthreads();
+  uint32_t qf[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    ldmatrix_x4(qf[kk],
+                sQ + (16 * warp + (lane & 15)) * LD + 16 * kk + (lane >> 4) * 8);
+
+  float o[ND][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int d = 0; d < ND; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  const float sl2 = p.scale * LOG2E;  // to the exp2 domain
+  // keys a row may see: [lo, hi) (causal limit, Sk, window)
+  int lo[2], hi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = wq0 + g + 8 * r;
+    hi[r] = min(qpos + 1, p.Sk);
+    lo[r] = p.window > 0 ? qpos - p.window + 1 : 0;
+  }
+
+  for (int n = 0; n < n_tiles; ++n) {
+    cp_async_wait<NSTAGE - 2>();  // tile n has landed (this thread's part)
+    // every thread's part of tile n is visible, and every warp is done
+    // with tile n - 1's buffer, which the next copy reuses
+    __syncthreads();
+    stage_kv(n + NSTAGE - 1);
+    const int k0 = k_begin + n * BN;
+    // skip the tile for this warp if every (row, key) pair of it is
+    // masked: keys after the causal limit or below the window
+    const bool skip =
+        wq0 >= p.Sq || k0 > wq0 + 15 ||
+        (p.window > 0 && wq0 - (k0 + BN - 1) >= p.window);
+    if (!skip) {
+      const T* kb = sKV + (n % NSTAGE) * 2 * BN * LD;
+      const T* vb = kb + BN * LD;
+      float s[BN / 8][4];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+        for (int j = 0; j < BN / 16; ++j) {
+          uint32_t kf[4];
+          ldmatrix_x4(kf, kb + (16 * j + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                              16 * kk + ((lane >> 3) & 1) * 8);
+          mma_bf16(s[2 * j], qf[kk], kf[0], kf[1]);
+          mma_bf16(s[2 * j + 1], qf[kk], kf[2], kf[3]);
+        }
+      // masks only where the tile straddles the diagonal, Sk or the window
+      const bool edge = k0 + BN - 1 > wq0 || k0 + BN > p.Sk ||
+                        (p.window > 0 && wq0 + 15 - k0 >= p.window);
+      // online softmax of rows g (r = 0: c[0..1]) and g + 8 (r = 1: c[2..3])
+      // on the raw scores; p = 2^(s sl2 - m sl2), one FFMA and one ex2
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (edge) {
+          // column c = 8 j + e of this lane is key k0 + 2 t + c
+          const int c_lo = lo[r] - k0 - 2 * t, c_hi = hi[r] - k0 - 2 * t;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = 8 * j + e;
+              if (c < c_lo || c >= c_hi) s[j][2 * r + e] = -INFINITY;
+            }
+        }
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);
+        // all masked so far: m_new = -inf, and every p and alpha is 0
+        const float base = m_new == -INFINITY ? 0.f : m_new * sl2;
+        const float alpha = fast_exp2(fmaf(m[r], sl2, -base));
+        m[r] = m_new;
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          s[j][2 * r] = fast_exp2(fmaf(s[j][2 * r], sl2, -base));
+          s[j][2 * r + 1] = fast_exp2(fmaf(s[j][2 * r + 1], sl2, -base));
+          rs += s[j][2 * r] + s[j][2 * r + 1];
+        }
+        l[r] = l[r] * alpha + rs;  // this lane's share; summed at the end
+#pragma unroll
+        for (int d = 0; d < ND; ++d) {
+          o[d][2 * r] *= alpha;
+          o[d][2 * r + 1] *= alpha;
+        }
+      }
+      // O += P V: P's accumulators are the A fragments of 16-key steps
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const uint32_t a[4] = {
+            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int dd = 0; dd < ND / 2; ++dd) {
+          uint32_t vf[4];
+          ldmatrix_x4_trans(
+              vf, vb + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                      16 * dd + (lane >> 4) * 8);
+          mma_bf16(o[2 * dd], a, vf[0], vf[1]);
+          mma_bf16(o[2 * dd + 1], a, vf[2], vf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // only empty groups are left; wait all the same
+  __syncthreads();     // every warp is done with the buffers
+
+  // normalise, stage the warp's 16 rows in buffer 0 and store them 16
+  // bytes at a time
+  T* sO = sKV + 16 * warp * LD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const float inv = 1.f / fmaxf(lr, 1e-30f);
+    T* row = sO + (g + 8 * r) * LD + 2 * t;
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      store2(row + 8 * d, o[d][2 * r] * inv, o[d][2 * r + 1] * inv);
+  }
+  __syncwarp();
+  constexpr int CPR = HD / 8;  // 16-byte chunks per row
+#pragma unroll
+  for (int idx = lane; idx < 16 * CPR; idx += 32) {
+    const int r = idx / CPR, c = idx % CPR;
+    if (wq0 + r < p.Sq)
+      *reinterpret_cast<uint4*>(O + (int64_t)(wq0 + r) * p.o_ss + 8 * c) =
+          *reinterpret_cast<const uint4*>(sO + r * LD + 8 * c);
+  }
+}
+
+// ------------------------------------------------------------ launch
+template <typename Kernel>
+int launch(Kernel kernel, size_t smem, const FaParams& p, int B,
+           cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      fa_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + BM - 1) / BM, B * p.H);
-  fa_kernel<T, HD><<<grid, NT, smem, stream>>>(p);
+  kernel<<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_hd(const FaParams& p, int B, int hd, cudaStream_t stream) {
+template <int HD>
+int launch_hd(const FaParams& p, int B, bool bf16, cudaStream_t stream) {
+  if (bf16)
+    return launch(fa_bf16_kernel<HD>, FaBf16Shape<HD>::SMEM, p, B, stream);
+  return launch(fa_f32_kernel<HD>, FaF32Shape<HD>::SMEM, p, B, stream);
+}
+
+int dispatch_hd(const FaParams& p, int B, int hd, bool bf16,
+                cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<T, 32>(p, B, stream);
-    case 64: return launch<T, 64>(p, B, stream);
-    case 128: return launch<T, 128>(p, B, stream);
+    case 32: return launch_hd<32>(p, B, bf16, stream);
+    case 64: return launch_hd<64>(p, B, bf16, stream);
+    case 128: return launch_hd<128>(p, B, bf16, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -229,7 +462,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   p.window = window;
   p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32) return dispatch_hd<float>(p, B, hd, s);
-  if (dtype == DTYPE_BF16) return dispatch_hd<__nv_bfloat16>(p, B, hd, s);
-  return cudaErrorInvalidValue;
+  if (dtype != DTYPE_F32 && dtype != DTYPE_BF16) return cudaErrorInvalidValue;
+  return dispatch_hd(p, B, hd, dtype == DTYPE_BF16, s);
 }

@@ -76,13 +76,6 @@ __device__ __forceinline__ void copy4(float* dst, const float* src) {
   *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
 }
 
-// 16 bytes from device to shared memory without passing through registers
-__device__ __forceinline__ void copy4_async(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
 template <int HD>
 __global__ void __launch_bounds__(WkvShape<HD>::NT, 5) wkv6_kernel(
     const WkvParams p) {
@@ -124,16 +117,16 @@ __global__ void __launch_bounds__(WkvShape<HD>::NT, 5) wkv6_kernel(
     for (int idx = tid; idx < n * CPR; idx += NT) {
       const int t = idx / CPR, q = 4 * (idx % CPR);
       const int64_t step = t0 + t;
-      copy4_async(sR[buf] + t * HD + q, Rg + step * p.r_ss + q);
-      copy4_async(sK[buf] + t * HD + q, Kg + step * p.k_ss + q);
-      copy4_async(sW[buf] + t * HD + q, Wg + step * p.w_ss + q);
+      cp_async16(sR[buf] + t * HD + q, Rg + step * p.r_ss + q);
+      cp_async16(sK[buf] + t * HD + q, Kg + step * p.k_ss + q);
+      cp_async16(sW[buf] + t * HD + q, Wg + step * p.w_ss + q);
     }
     for (int idx = tid; idx < n * VPR; idx += NT) {
       const int t = idx / VPR, q = 4 * (idx % VPR);
-      copy4_async(sV[buf] + t * COLS + q,
+      cp_async16(sV[buf] + t * COLS + q,
                   Vg + (int64_t)(t0 + t) * p.v_ss + q);
     }
-    asm volatile("cp.async.commit_group;\n" ::);
+    cp_async_commit();
   };
 
   stage(0, 0);
@@ -143,8 +136,8 @@ __global__ void __launch_bounds__(WkvShape<HD>::NT, 5) wkv6_kernel(
     if (t0 + T < p.S)
       stage(cur ^ 1, t0 + T);
     else
-      asm volatile("cp.async.commit_group;\n" ::);  // keep the count
-    asm volatile("cp.async.wait_group 1;\n" ::);     // this chunk's copies
+      cp_async_commit();  // keep the count
+    cp_async_wait<1>();  // this chunk's copies
     __syncthreads();
     const float* cR = sR[cur];
     const float* cK = sK[cur];

@@ -2,7 +2,9 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py``
 (``flash_decode``). The kernel is ``csrc/decode_attention.cu``; its header
-says what bounds it on the H100 and how its design answers that.
+says what bounds it on the H100 and how its design answers that: the slots
+are split over blocks (``plan_splits``), whose partial results a second
+kernel merges, both launched by one call.
 
 Layout is the model's: q (B, Hkv, grp, hd) holds the group of query heads
 that share each KV head, the caches are (B, S, Hkv, hd) and cache_len (B,)
@@ -25,6 +27,27 @@ from . import _build
 from .flash_attention import DTYPE_CODES, HEAD_DIMS, _check_operand
 
 MAX_GROUP = 16
+SLOT_TILE = 64      # cache slots per tile of the kernel (csrc BS)
+WAVES = 4           # blocks to aim for, in multiples of the SM count
+
+
+def plan_splits(rows: int, capacity: int, n_sm: int) -> tuple[int, int]:
+    """(n_split, chunk): split each of ``rows`` (batch x KV head) caches of
+    ``capacity`` slots into n_split chunks of ``chunk`` slots, a multiple of
+    SLOT_TILE; the last chunk is cut at the capacity. It aims for
+    WAVES * n_sm blocks (rows * n_split) and, rounding the chunk up to
+    whole tiles, never gives fewer than WAVES / 2 * n_sm, or one tile per
+    chunk where the capacity has fewer tiles than that. The plan reads no
+    cache_len: that is a device tensor, and reading it would sync."""
+    tiles = -(-capacity // SLOT_TILE)
+    want = -(-WAVES * n_sm // rows)                 # splits per row
+    chunk = SLOT_TILE * -(-tiles // min(want, tiles))
+    return -(-capacity // chunk), chunk
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -51,7 +74,7 @@ def _lib() -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.decode_attention_launch.argtypes = [
         vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_int64),
-        i32, i32, i32, i32, i32, i32, vp]
+        i32, i32, i32, i32, i32, i32, vp, i32, i32, vp]
     lib.decode_attention_launch.restype = i32
     return lib
 
@@ -79,6 +102,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         _check_operand(name, t, q)
     lens = cache_len.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((b, hkv, grp, hd), dtype=q.dtype, device=q.device)
+    n_split, chunk = plan_splits(b * hkv, s, _sm_count(q.device))
+    # per (row, split, query): acc (hd floats), then m and l
+    ws = torch.empty(b * hkv * n_split * grp * (hd + 2), dtype=torch.float32,
+                     device=q.device)
     strides = (ctypes.c_int64 * 12)(
         *q.stride()[:3], *k_cache.stride()[:3], *v_cache.stride()[:3],
         *out.stride()[:3])
@@ -86,6 +113,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     err = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
         lens.data_ptr(), strides, b, hkv, grp, s, hd, DTYPE_CODES[q.dtype],
+        ws.data_ptr(), n_split, chunk,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "decode_attention")
     decode_attention.launches += 1

@@ -22,6 +22,19 @@ from repro_torch.kernels.wkv6 import wkv6
 
 pytestmark = pytest.mark.cuda
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# beyond the JAX tests' rows: the bf16 tensor-core body at a ragged S and
+# hd 32, at hd 128 with S not a multiple of its 64-row tile, windowed
+FA_CARD_CASES = [
+    (6, 2, 193, 32, None, 64, 64, "bfloat16"),
+    (4, 2, 300, 128, None, 64, 64, "bfloat16"),
+    (8, 2, 300, 128, 100, 64, 64, "bfloat16"),
+]
+# caches long enough to split over many blocks; grp 16, the largest group
+DECODE_CARD_CASES = [
+    (2, 2, 4, 4096, 128, 64, "bfloat16"),
+    (1, 8, 4, 2048, 64, 64, "float32"),
+    (2, 2, 16, 1024, 128, 64, "bfloat16"),
+]
 
 
 @pytest.fixture
@@ -38,7 +51,8 @@ def close(got, want, tol):
                                rtol=tol)
 
 
-@pytest.mark.parametrize("bh,bhkv,s,hd,window,bq,bk,dtype", FA_CASES)
+@pytest.mark.parametrize("bh,bhkv,s,hd,window,bq,bk,dtype",
+                         FA_CASES + FA_CARD_CASES)
 def test_flash_attention_matches_plain(cuda, bh, bhkv, s, hd, window, bq,
                                        bk, dtype):
     q, k, v = (torch.from_numpy(x).to(cuda, getattr(torch, dtype))
@@ -51,7 +65,8 @@ def test_flash_attention_matches_plain(cuda, bh, bhkv, s, hd, window, bq,
           TOL[dtype])
 
 
-@pytest.mark.parametrize("b,hkv,grp,s,hd,bs,dtype", DECODE_CASES)
+@pytest.mark.parametrize("b,hkv,grp,s,hd,bs,dtype",
+                         DECODE_CASES + DECODE_CARD_CASES)
 def test_flash_decode_matches_plain(cuda, b, hkv, grp, s, hd, bs, dtype):
     q, kc, vc, lens = (torch.from_numpy(x).to(cuda) for x in
                        decode_inputs(b, hkv, grp, s, hd, b * s + hd))
@@ -66,13 +81,16 @@ def test_flash_decode_matches_plain(cuda, b, hkv, grp, s, hd, bs, dtype):
           TOL[dtype])
 
 
-def test_decode_ignores_poisoned_slots(cuda):
+@pytest.mark.parametrize("s,lens", [(256, [100, 1]), (4096, [1, 2049]),
+                                    (4096, [4095, 1024])])
+def test_decode_ignores_poisoned_slots(cuda, s, lens):
+    """Slots at or past cache_len are never read, whatever the split."""
     q, kc, vc, _ = (torch.from_numpy(x).to(cuda) for x in
-                    decode_inputs(2, 2, 4, 256, 64, 7))
+                    decode_inputs(2, 2, 4, s, 64, 7))
     q = q.view(2, 2, 4, 64)
-    lens = torch.tensor([100, 1], dtype=torch.int32, device=cuda)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
     clean = ops.decode_attention(q, kc, vc, lens)
-    dead = torch.arange(256, device=cuda)[None, :] >= lens[:, None].long()
+    dead = torch.arange(s, device=cuda)[None, :] >= lens[:, None].long()
     kc[dead], vc[dead] = 99.0, -99.0
     assert torch.equal(ops.decode_attention(q, kc, vc, lens), clean)
 

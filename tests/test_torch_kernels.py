@@ -18,7 +18,9 @@ from repro.kernels.decode_attention import flash_decode
 from repro.kernels.flash_attention import flash_attention_fwd
 from repro.models.layers import decode_attention_ref as jdecode_ref
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import (SLOT_TILE, WAVES,
+                                                  decode_attention,
+                                                  plan_splits)
 from repro_torch.kernels.flash_attention import flash_attention
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -176,3 +178,30 @@ def test_build_raises_without_nvcc(monkeypatch):
     monkeypatch.setattr(cpp, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc"):
         _build._nvcc()
+
+
+@pytest.mark.parametrize("rows,capacity,n_sm", [
+    (32, 544, 132),      # qwen3-8b serving decode: B=4 x Hkv=8
+    (8, 32768, 132),     # batch 1 against a long cache
+    (16, 4096, 132), (1, 1, 132), (4, 130, 132), (200, 10000, 132),
+    (1000, 100, 132), (3, 65, 8), (8, 64 * 1000 + 1, 132),
+    (2000, 70000, 132)])
+def test_plan_splits_covers_the_cache(rows, capacity, n_sm):
+    n_split, chunk = plan_splits(rows, capacity, n_sm)
+    assert n_split >= 1 and chunk > 0 and chunk % SLOT_TILE == 0
+    # the chunks cover [0, capacity) exactly: none empty, none past the end
+    spans = [min(chunk, capacity - i * chunk) for i in range(n_split)]
+    assert min(spans) > 0 and sum(spans) == capacity
+    # at least WAVES / 2 SM-counts of blocks, or one tile per chunk
+    tiles = -(-capacity // SLOT_TILE)
+    assert rows * n_split >= min(WAVES // 2 * n_sm, rows * tiles)
+    # and no more splits than the aim of WAVES SM-counts needs
+    assert n_split <= max(1, -(-WAVES * n_sm // rows))
+
+
+def test_plan_splits_reads_no_cache_len():
+    """The plan is a function of the cache's shape and the card alone."""
+    import inspect
+    assert list(inspect.signature(plan_splits).parameters) == [
+        "rows", "capacity", "n_sm"]
+    assert plan_splits(32, 544, 132) == (9, 64)
