@@ -6,13 +6,17 @@ Phases; each raises on failure, so any failure exits non-zero:
   1. environment: card, power limit, versions; build the CUDA kernels from
      src/repro_torch/kernels/csrc/ (one nvcc per source, in parallel),
      print ptxas' registers and spills and each library's count of HMMA
-     (tensor-core) instructions, which must not be 0 for flash attention;
+     (tensor-core) instructions, which must not be 0 for flash attention
+     and WKV6;
   2. each kernel against its plain PyTorch version on the card, at the
      serving shapes and in windowed, ragged, 3-D layout, hd 32 and 128,
      fp32, many-split, poisoned-cache and carried-state cases, with its
      time beside the plain version's and one PyTorch library call's where
      one computes the same function; flash decode is also timed at batch 1
-     against a 32,768-slot cache;
+     against a 32,768-slot cache; WKV6 also at its chunk edges (S of T-1,
+     T, T+1, 2T+3), with decays in the model's range and with exact 0s
+     and 1s, a decay-one-step-late mutant, and timed at the decode shape
+     (B=4, S=1, H=40, hd=64);
   3. serve each model of SERVED at full width and full depth (bf16, random
      weights from a seed) through Engine.generate: 4 requests, 32 new
      tokens, greedy; qwen3-8b (36 layers, d_model 4096) with 512 prompt
@@ -170,9 +174,11 @@ def environment() -> str:
                 log(f"  ptxas {lib.stem.split('-')[0]}: {line.strip()}")
     hmma = hmma_counts(libs)
     log(f"HMMA instructions in the SASS: {hmma}")
-    if not hmma["flash_attention"]:
-        raise AssertionError("flash attention's library has no HMMA: its "
-                             "bf16 body does not run on the tensor cores")
+    for name, what in (("flash_attention", "bf16 body"),
+                       ("wkv6", "chunked body's 3xTF32 products")):
+        if not hmma[name]:
+            raise AssertionError(f"{name}'s library has no HMMA: its {what} "
+                                 f"does not run on the tensor cores")
     return smi
 
 
@@ -426,6 +432,7 @@ def check_wkv6() -> dict:
     r4, k4, v4, w4, u4 = inputs((12, 300, 16))
     assert_close("(BH, S, hd), hd 16", ops.wkv6(r4, k4, v4, w4, u4),
                  ops.wkv6(r4, k4, v4, w4, u4, impl="reference"))
+    check_wkv6_chunks(gen, inputs)
 
     # r, k, v, w read once, y written once, the state read and written
     # once; 5 hd^2 fp32 flops per (token, head): 2 hd^2 for r^T S and
@@ -437,11 +444,61 @@ def check_wkv6() -> dict:
                     2, warmup=1)
     log(f"  time: kernel {ms:.4f} ms, plain {plain:.4f} ms, no single "
         f"PyTorch call computes it, bound {bound:.4f} ms ({by})")
+    # the decode shape: one step from a carried state, the token body
+    n_bytes = (5 * r3.numel() + 2 * cache[1].numel() + u3.numel()) * 4
+    dbound, dby = bound_ms(n_bytes, {torch.float32: 5 * hd * hd * b * h})
+    dms = time_ms(lambda: ops.wkv6(r3, k3, v3, w3, u3, cache[1]), 200)
+    dplain = time_ms(lambda: ops.wkv6(r3, k3, v3, w3, u3, cache[1],
+                                      impl="reference"), 50)
+    log(f"wkv6 decode step (B={b}, S=1, H={h}, hd={hd}, "
+        f"{n_bytes / 1e6:.2f} MB): kernel {dms:.6f} ms, plain {dplain:.6f} "
+        f"ms, bound {dbound:.6f} ms ({dby})")
     return {"name": "wkv6", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/wkv6.cu",
             "replaces": "src/repro/kernels/rwkv6.py:49",
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def check_wkv6_chunks(gen, inputs) -> None:
+    """The chunked body's edges and decays, at the serving heads: S of
+    T-1 (the token body), T, T+1 and 2T+3 (a ragged last chunk) from a
+    nonzero state; decays in the model's range (0.99-0.9999, a state kept
+    over thousands of steps); decays with exact 0s (the state wiped) and
+    1s mixed in. A decay applied one step late, the slip a chunk's running
+    products invite, must fail the check."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.wkv6 import chunk_tokens
+    t = chunk_tokens()
+    h, hd = RWKV_HEADS, RWKV_HD
+
+    def case(name, s, decays):
+        r, k, v, w, u = inputs((2, s, h, hd))
+        if decays == "model":
+            w = 0.99 + 0.0099 * torch.rand(w.shape, generator=gen,
+                                            device="cuda")
+        elif decays == "0 and 1":
+            pick = torch.rand(w.shape, generator=gen, device="cuda")
+            w = torch.where(pick < 0.05, 0.0, torch.where(pick > 0.9, 1.0, w))
+        start = randn(gen, (2, h, hd, hd), torch.float32, 1.0)
+        st_k, st_p = start.clone(), start.clone()
+        y, _ = ops.wkv6(r, k, v, w, u, st_k)
+        want, _ = ops.wkv6(r, k, v, w, u, st_p, impl="reference")
+        assert_close(f"{name}, y", y, want)
+        assert_close(f"{name}, final state", st_k, st_p)
+        return r, k, v, w, u, start, want
+
+    for s in (t - 1, t, t + 1, 2 * t + 3):
+        case(f"S={s} from a state (chunk T={t})", s, "serving")
+    r, k, v, w, u, start, want = case(f"S={2 * t + 3}, decays 0.99-0.9999",
+                                      2 * t + 3, "model")
+    late = torch.cat([torch.ones_like(w[:, :1]), w[:, :-1]], dim=1)
+    assert_mutant_caught("decays 0.99-0.9999", ops.wkv6(
+        r, k, v, late, u, start.clone(), impl="reference")[0], want,
+        "each decay one step late")
+    case("S=1024, decays 0.99-0.9999", 1024, "model")
+    case(f"S={2 * t + 3}, exact 0 and 1 decays", 2 * t + 3, "0 and 1")
+    case("S=1000, exact 0 and 1 decays", 1000, "0 and 1")
 
 
 # ------------------------------------------------------------ phase 3

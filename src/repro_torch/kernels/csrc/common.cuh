@@ -1,6 +1,7 @@
 // Shared helpers for the kernels: element conversion, paired loads and
 // stores, tile copies from device to shared memory (plain and cp.async),
-// and the ldmatrix / mma.sync operations of the bf16 tensor-core path.
+// the ldmatrix / mma.sync operations of the bf16 tensor-core path, and
+// the TF32 mma.sync with its hi/lo split (WKV6's 3xTF32 products).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -159,6 +160,37 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---- TF32 tensor cores (mma.sync, m16n8k8, fp32 accumulate), the same
+// fragment layouts with k 8 deep:
+//   A (16 x 8, row-major) a[0..3]: (g, t), (g+8, t), (g, t+4), (g+8, t+4);
+//   B (8 x 8, k x n)      b[0..1]: (k t, n g), (k t+4, n g);
+//   C as for bf16.
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away), kept in an
+// fp32 word with the low 13 bits 0: two integer operations, where
+// cvt.rna.tf32.f32 also tests for NaN and infinity (NaN and infinity pass
+// through; a finite x within 2^-11 of the largest float rounds to inf)
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// x = hi + lo to ~22 bits: hi its TF32 rounding, lo = x - hi (exact in
+// fp32), handed to the mma as it is: the mma drops lo's bits below TF32,
+// an error under 2^-10 of lo, 2^-21 of x
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+// c += a * b
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 2^x by the SFU in one instruction (flushes denormal results to 0;

@@ -10,45 +10,90 @@
 // buffer, which is what the model's decode needs; with a zero start state
 // its y is the Pallas kernel's. Any S >= 1 (no S % chunk rule).
 //
-// What bounds it: the chain over time. The function needs 5 hd^2 fp32
-// flops per token and head (y_t = r_t^T S + (r_t . (u * k_t)) v_t is
-// 2 hd^2, the state update 3 hd^2) on ~5 hd floats of input; at the
-// serving prefill shape (B=4, S=1024, H=40, hd=64) that is 3.4 GFLOP
-// (50 us at the H100 SXM's 67 TFLOP/s) against 215 MB (64 us at its
-// 3.35 TB/s). This kernel evaluates the form above as written, 7 hd^2
-// flops (4.7 GFLOP, 70 us), and neither rate is the wall: the recurrence
-// is sequential in t, and only the (b, h, value column) axes are parallel.
-// PERF.md has the measured time.
+// What bounds it: bytes. The function needs 5 hd^2 fp32 flops per token
+// and head (y_t = r_t^T S + (r_t . (u * k_t)) v_t is 2 hd^2, the state
+// update 3 hd^2) on ~5 hd floats of input; at the serving prefill shape
+// (B=4, S=1024, H=40, hd=64) that is 3.4 GFLOP (50 us at the H100 SXM's
+// 67 TFLOP/s) against 215 MB (0.064170 ms at its 3.35 TB/s). A decode
+// step (S=1) moves the (B, H, hd, hd) state in and out: 0.001629 ms.
 //
-// Design: each value column j of a head's state updates on its own, so a
-// grid of (B * H, hd / COLS) blocks each owns COLS columns of one head's
-// state, held in registers for the whole sequence: no traffic between
-// blocks, and each block reads its state slice before it writes it, so the
-// state is updated in place safely. Inside a block, KS = hd / 8 neighbouring
-// lanes share a column, each holding 8 key rows, and a shuffle sum over the
-// KS lanes gives y_j: at hd = 64 that is 128 threads per block and 640
-// blocks for 160 (b, h) pairs on 132 SMs, all resident at once (the
-// launch bounds hold a thread to 102 registers so that 5 blocks fit an
-// SM), so no other block hides a block's load latency: chunks of T steps
-// of r, k, w
-// (all hd) and v (the block's columns) are copied into shared memory by
-// cp.async, 16 bytes a copy, into two buffers, so that the next chunk's
-// copies run while the per-token loop works on this one out of shared
-// memory; y is staged there too and stored 16 bytes at a time.
-// A thread's 8 rows are two runs of 4, placed so that the 8 lanes of a
-// quarter warp read 128 contiguous bytes: no bank conflicts. The chunked
-// form on tensor cores is the known next step.
+// Two bodies behind the one wkv6_launch, chosen by S:
+//
+// Chunked body, S >= CT. Token by token the recurrence is a chain of 3
+// dependent FMAs per state element per token, and only the (b, h, value
+// column) axes are parallel: the token body runs 5.3x the bound at the
+// serving shape on that chain. The chunked form cuts the chain. For a
+// run of L tokens with D[t][i] = prod_{tau<t} w[tau][i], E[s][i] =
+// prod_{s<tau<L} w[tau][i], A[i] = prod_tau w[tau][i] (running products:
+// every factor <= 1, so no division, no log, nothing to overflow, and a
+// decay of 0 wipes the state as the recurrence does) and the L x L matrix
+// M (M[t][s] = sum_i r[t][i] k[s][i] prod_{s<tau<t} w[tau][i] below the
+// diagonal, sum_i r[t][i] u[i] k[t][i] on it, 0 above),
+//
+//   y = (r * D) S + M V,        S <- diag(A) S + (k * E)^T V:
+//
+// three matrix products, and the sequential loop runs S / L times. Here
+// L = 8, the k depth of a TF32 mma: a chunk of T = 16 tokens (one round
+// of copies and barriers) is two such 8-token sub-chunks, the second
+// taking the first's tokens through the state, so only M's diagonal
+// 8 x 8 blocks are built, pairwise in fp32 FFMA (7 steps a lane, not
+// T - 1). A block owns one (b, h) and COLS value columns of its state and
+// keeps them on chip for the whole sequence (in place is safe: no two
+// blocks share a slice); each of its warps holds 16 key rows x 16
+// columns of S^T in registers, in the mma accumulator layout. The
+// products run on the tensor cores (mma.sync m16n8k8 TF32) in the
+// transposed form y^T = S^T (r*D)^T + V^T M^T, S^T <- S^T diag(A) +
+// V^T (k*E): S^T's registers are the A operand of the y product as they
+// stand (the k index permuted inside each 8-block, the same for B), so S
+// is never staged through shared memory. Each warp's y^T covers its own
+// 16 key rows; the partials are summed through shared memory.
+//
+// Why 3xTF32: plain TF32 keeps ~11 significant bits, ~1e-3 relative, and
+// the fp32 limits (1e-5 relative L2, atol 2e-5 / rtol 1e-4) need fp32.
+// Each operand is split into hi = tf32(x) and lo = x - hi, and lo*hi +
+// hi*lo + hi*hi is accumulated in fp32: ~22 bits per operand, the dropped
+// lo*lo below 2^-22 relative. The state is never an mma accumulator: each
+// update (k * E)^T V goes into fresh accumulators and is added to the
+// decayed state by FFMA. Held in the accumulators, the state took the
+// tensor cores' accumulation rounding at every sub-chunk, which compounds
+// over a sequence when decays are near 1 (PERF.md).
+//
+// A chunk: r, k, w (T x hd) and v (T x COLS) arrive by cp.async in one of
+// two shared-memory buffers (the next chunk's copies run under this one;
+// rows past S are zero-filled and their decay taken as 1, so a ragged
+// last chunk needs no other case); barrier; half the threads build M
+// (two columns of a diagonal block for 4 key rows, summed over 16 lanes
+// by a reduce-scatter; the column pair is a warp's, known at compile
+// time), the other half D, E and A (2 key rows of one sub-chunk in one
+// direction each); barrier; each warp runs the two sub-chunks' products
+// and writes its y partial where r, k, w were; barrier; the partials
+// are summed into y. COLS and T were chosen by timing (tools/ablate_kernels.py, PERF.md):
+// COLS 32 (320 blocks of 8 warps at the serving shape, all resident at 3
+// an SM: 40.7 KB of shared memory, 80 registers) builds M, D and E once
+// per 32 columns, beside each other on two halves of the block, and beat
+// COLS 16 (640 blocks of 4 warps, 5 an SM); T 32 needs twice the shared
+// memory and was slower. What the time is spent on: PERF.md.
+//
+// Token body, S < CT (every decode step, S = 1): the chunked form has
+// nothing to batch. A grid of (B * H, hd / COLS) blocks each owns COLS
+// columns of one head's state in registers; KS = hd / 8 neighbouring
+// lanes share a column, each holding 8 key rows, and a shuffle sum over
+// the KS lanes gives y_j (640 blocks of 128 threads at hd 64, all
+// resident: the launch bounds hold a thread to 102 registers). Steps are
+// staged by cp.async in 16-step chunks, two buffers; a thread's 8 rows
+// are two runs of 4, so the 8 lanes of a quarter warp read 128
+// contiguous bytes.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int T = 16;  // timesteps staged per chunk, in each of 2 buffers
-constexpr int R = 8;   // key rows of the state per thread
+constexpr int TS = 16;  // token body: steps staged per buffer, 2 buffers
+constexpr int R = 8;    // token body: key rows of the state per thread
 constexpr int G = R / 4;
 
 template <int HD>
-struct WkvShape {
+struct TokenShape {
   static constexpr int KS = HD / R;  // lanes per value column
   static constexpr int COLS = HD < 128 / KS ? HD : 128 / KS;
   static constexpr int NT = COLS * KS;
@@ -77,16 +122,16 @@ __device__ __forceinline__ void copy4(float* dst, const float* src) {
 }
 
 template <int HD>
-__global__ void __launch_bounds__(WkvShape<HD>::NT, 5) wkv6_kernel(
+__global__ void __launch_bounds__(TokenShape<HD>::NT, 5) wkv6_token_kernel(
     const WkvParams p) {
-  constexpr int KS = WkvShape<HD>::KS;
-  constexpr int COLS = WkvShape<HD>::COLS;
-  constexpr int NT = WkvShape<HD>::NT;
-  __shared__ __align__(16) float sR[2][T * HD];
-  __shared__ __align__(16) float sK[2][T * HD];
-  __shared__ __align__(16) float sW[2][T * HD];
-  __shared__ __align__(16) float sV[2][T * COLS];
-  __shared__ __align__(16) float sY[T * COLS];
+  constexpr int KS = TokenShape<HD>::KS;
+  constexpr int COLS = TokenShape<HD>::COLS;
+  constexpr int NT = TokenShape<HD>::NT;
+  __shared__ __align__(16) float sR[2][TS * HD];
+  __shared__ __align__(16) float sK[2][TS * HD];
+  __shared__ __align__(16) float sW[2][TS * HD];
+  __shared__ __align__(16) float sV[2][TS * COLS];
+  __shared__ __align__(16) float sY[TS * COLS];
 
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
   const int col0 = blockIdx.y * COLS;
@@ -111,9 +156,9 @@ __global__ void __launch_bounds__(WkvShape<HD>::NT, 5) wkv6_kernel(
 
   constexpr int CPR = HD / 4;    // 16-byte chunks per r, k, w row
   constexpr int VPR = COLS / 4;  // 16-byte chunks per v, y row
-  // issue the copies of steps [t0, t0 + T) into buffer `buf` as one group
+  // start the copies of steps [t0, t0 + TS) into buffer `buf` as one group
   auto stage = [&](int buf, int t0) {
-    const int n = min(T, p.S - t0);
+    const int n = min(TS, p.S - t0);
     for (int idx = tid; idx < n * CPR; idx += NT) {
       const int t = idx / CPR, q = 4 * (idx % CPR);
       const int64_t step = t0 + t;
@@ -130,11 +175,11 @@ __global__ void __launch_bounds__(WkvShape<HD>::NT, 5) wkv6_kernel(
   };
 
   stage(0, 0);
-  for (int t0 = 0, cur = 0; t0 < p.S; t0 += T, cur ^= 1) {
-    const int n = min(T, p.S - t0);
+  for (int t0 = 0, cur = 0; t0 < p.S; t0 += TS, cur ^= 1) {
+    const int n = min(TS, p.S - t0);
     // the other buffer's readers finished before the last chunk's y store
-    if (t0 + T < p.S)
-      stage(cur ^ 1, t0 + T);
+    if (t0 + TS < p.S)
+      stage(cur ^ 1, t0 + TS);
     else
       cp_async_commit();  // keep the count
     cp_async_wait<1>();  // this chunk's copies
@@ -185,10 +230,480 @@ __global__ void __launch_bounds__(WkvShape<HD>::NT, 5) wkv6_kernel(
 }
 
 template <int HD>
-int launch(const WkvParams& p, int B, cudaStream_t stream) {
-  const dim3 grid(B * p.H, HD / WkvShape<HD>::COLS);
-  wkv6_kernel<HD><<<grid, WkvShape<HD>::NT, 0, stream>>>(p);
+int launch_token(const WkvParams& p, int B, cudaStream_t stream) {
+  const dim3 grid(B * p.H, HD / TokenShape<HD>::COLS);
+  wkv6_token_kernel<HD><<<grid, TokenShape<HD>::NT, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ chunked body
+constexpr int CT = 16;     // chunked body: tokens per chunk (T)
+constexpr int CCOLS = 32;  // chunked body: value columns per block
+
+template <int HD>
+struct ChunkShape {
+  static constexpr int T = CT;
+  static constexpr int COLS = CCOLS < HD ? CCOLS : HD;
+  // warp (wr, wc) = (w % NWR, w / NWR) holds key rows [16 wr, +16) of
+  // value columns [16 wc, +16) of the block's COLS
+  static constexpr int NWR = HD / 16;
+  static constexpr int NWC = COLS / 16;
+  static constexpr int NW = NWR * NWC;
+  static constexpr int NT = 32 * NW;
+  static constexpr int KT = T / 8;  // 8-token sub-chunks
+  // Phase A: threads [0, 2 HD) build M's diagonal 8 x 8 blocks, KT x 4
+  // column pairs (s, 7-s) x IG lanes of RI key rows each; the DET tasks
+  // of r * D, k * E and A, DW key rows of one sub-chunk in one direction
+  // each, go to the threads from DE0 on: all of them after M, or the
+  // ones beside M's if the block has them
+  static constexpr int RI = T / 4;
+  static constexpr int IG = HD / RI;
+  static constexpr int DW = 2;
+  static constexpr int DET = 2 * KT * (HD / DW);
+  static constexpr int DE0 = NT >= 2 * HD + DET ? 2 * HD : 0;
+  // row strides in shared memory: r, k, w as copied; the fragment
+  // operands padded so that a warp's reads fall in 32 different banks
+  static constexpr int LDG = HD;        // r, k, w
+  static constexpr int LDR = HD + 8;    // r * D, k * E
+  static constexpr int LDV = COLS + 8;  // v
+  static constexpr int LDM = T + 4;     // M
+  static constexpr int LDY = COLS + 4;  // y partials, one (T x COLS) a row
+                                        // of warps
+  // layout in floats: two buffers of r, k, w, v; r * D; k * E; M; A (one
+  // row a sub-chunk)
+  static constexpr int RKW = 3 * T * LDG;
+  static constexpr int STAGE = RKW + T * LDV;
+  static constexpr int OFF_RD = 2 * STAGE;
+  static constexpr int OFF_KE = OFF_RD + T * LDR;
+  static constexpr int OFF_M = OFF_KE + T * LDR;
+  static constexpr int OFF_A = OFF_M + T * LDM;
+  static constexpr int FLOATS = OFF_A + KT * HD;
+  // blocks an SM for 20 warps: the serving shape's 2560 warps (160 heads
+  // of 16) all resident on 132 SMs
+  static constexpr int MIN_BLOCKS = (20 + NW - 1) / NW;
+  static_assert(COLS % 16 == 0 && T % 8 == 0 && HD % 16 == 0, "tiles");
+  static_assert(RI % 4 == 0 && IG <= 32 && 2 * HD <= NT, "M lanes");
+  // a chunk's y partials go where its r, k, w were
+  static_assert(NWR * T * LDY <= RKW, "y partials");
+};
+
+// an operand split for 3xTF32: x = hi + lo
+struct FragA { uint32_t hi[4], lo[4]; };
+struct FragB { uint32_t hi[2], lo[2]; };
+
+__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2,
+                                        float a3) {
+  FragA f;
+  split_tf32(a0, f.hi[0], f.lo[0]);
+  split_tf32(a1, f.hi[1], f.lo[1]);
+  split_tf32(a2, f.hi[2], f.lo[2]);
+  split_tf32(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+__device__ __forceinline__ FragB frag_b(float b0, float b1) {
+  FragB f;
+  split_tf32(b0, f.hi[0], f.lo[0]);
+  split_tf32(b1, f.hi[1], f.lo[1]);
+  return f;
+}
+// c += a * b in 3xTF32: the small terms first, lo * lo dropped
+__device__ __forceinline__ void mma3(float* c, const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
+}
+
+// Sums over the N lanes of a group (N | 32, M and N powers of 2; `group`
+// the mask of the lanes calling, the group's own at least) of v[0..M),
+// reduce-scattered: with N <= M, the group's lane l ends with the sums of
+// entries [l M/N, (l+1) M/N) in v[0..M/N), after M - M/N shuffles, where
+// a butterfly of each entry would take M log2 N; with N > M, lanes l and
+// l + M hold entry l % M in v[0].
+template <int M, int N>
+__device__ __forceinline__ void reduce_scatter(float* v, int lane,
+                                               unsigned group) {
+  if constexpr (N > M) {
+#pragma unroll
+    for (int j = 0; j < M; ++j)
+      v[j] += __shfl_xor_sync(group, v[j], N / 2);
+    reduce_scatter<M, N / 2>(v, lane, group);
+  } else if constexpr (N > 1) {
+    constexpr int half = M / 2, o = N / 2;
+    const bool upper = lane & o;
+#pragma unroll
+    for (int j = 0; j < half; ++j) {
+      const float send = upper ? v[j] : v[j + half];
+      const float keep = upper ? v[j + half] : v[j];
+      v[j] = keep + __shfl_xor_sync(group, send, o);
+    }
+    reduce_scatter<half, o>(v, lane, group);
+  }
+}
+
+// sum over N neighbouring lanes (N a power of 2; `group` as above)
+template <int N>
+__device__ __forceinline__ float sum_lanes(float x, unsigned group) {
+#pragma unroll
+  for (int o = N / 2; o > 0; o >>= 1)
+    x += __shfl_xor_sync(group, x, o);
+  return x;
+}
+
+// N floats from shared memory, 16 bytes a load
+template <int N>
+__device__ __forceinline__ void load_row(float* dst, const float* src) {
+#pragma unroll
+  for (int e = 0; e < N; e += 4) {
+    const float4 f = *reinterpret_cast<const float4*>(src + e);
+    dst[e] = f.x; dst[e + 1] = f.y; dst[e + 2] = f.z; dst[e + 3] = f.w;
+  }
+}
+
+// M's diagonal 8 x 8 blocks, one a sub-chunk, in fp32 FFMA (the y of a
+// sub-chunk takes the earlier ones' tokens through the state). Inside a
+// block, below the diagonal M[t][s] = sum_i r[t][i] k[s][i] prod_{s<tau<t}
+// w[tau][i], by a running product over t; on it sum_i r[t][i] u[i]
+// k[t][i]. A lane group takes the columns s = PR and 7-PR of one block
+// for RI key rows each: 7 steps for every lane, step q on column PR for
+// q < 7-PR, then on 7-PR. The IG lanes sum their rows once at the end.
+template <int HD, int PR>
+__device__ __forceinline__ void build_m_pair(const float* sr,
+                                             const float* sk,
+                                             const float* sw,
+                                             const float* uu, float* sM,
+                                             int h0, int gl) {
+  using C = ChunkShape<HD>;
+  constexpr int RI = C::RI, IG = C::IG, LDG = C::LDG, LDM = C::LDM;
+  constexpr int NV = 8;  // 7 steps and one diagonal
+  constexpr int TURN = 7 - PR;
+  const int i0 = RI * gl, sa = h0 + PR, sb = h0 + 7 - PR;
+  float ka[RI], kb[RI], kp[RI], rt[RI], wt[RI];
+  load_row<RI>(ka, sk + sa * LDG + i0);
+  load_row<RI>(kb, sk + sb * LDG + i0);
+  // acc[q]: step q's partial sum; acc[7]: the diagonal at t = sa
+  float acc[NV], db = 0.f;
+  acc[NV - 1] = 0.f;
+  load_row<RI>(rt, sr + sa * LDG + i0);
+#pragma unroll
+  for (int e = 0; e < RI; ++e)
+    acc[NV - 1] = fmaf(rt[e], uu[e] * ka[e], acc[NV - 1]);
+  load_row<RI>(rt, sr + sb * LDG + i0);
+#pragma unroll
+  for (int e = 0; e < RI; ++e) db = fmaf(rt[e], uu[e] * kb[e], db);
+#pragma unroll
+  for (int e = 0; e < RI; ++e) kp[e] = ka[e];
+  // step q reads row t = h0 + q + 1 (+ PR before the turn)
+  const float* rq = sr + (h0 + 1) * LDG + i0;
+  const float* wq = sw + (h0 + 1) * LDG + i0;
+#pragma unroll
+  for (int q = 0; q < NV - 1; ++q) {
+    if (q == TURN) {
+#pragma unroll
+      for (int e = 0; e < RI; ++e) kp[e] = kb[e];
+    }
+    const int off = ((q < TURN ? PR : 0) + q) * LDG;
+    load_row<RI>(rt, rq + off);
+    load_row<RI>(wt, wq + off);
+    float a = 0.f;
+#pragma unroll
+    for (int e = 0; e < RI; ++e) {
+      a = fmaf(rt[e], kp[e], a);
+      kp[e] *= wt[e];
+    }
+    acc[q] = a;
+  }
+  // the group's own lanes: a warp's groups may take other cases of
+  // build_m's switch (below hd 64)
+  const unsigned group = IG == 32 ? 0xffffffffu
+      : ((1u << IG) - 1u) << ((threadIdx.x % 32) / IG * IG);
+  db = sum_lanes<IG>(db, group);
+  reduce_scatter<NV, IG>(acc, gl, group);
+  if (gl == 0) sM[sb * LDM + sb] = db;
+  constexpr int LANES = IG < NV ? IG : NV, PER = NV / LANES;
+  if (gl < LANES) {
+#pragma unroll
+    for (int e = 0; e < PER; ++e) {
+      const int q = gl * PER + e;
+      if (q == NV - 1)
+        sM[sa * LDM + sa] = acc[e];
+      else if (q < TURN)
+        sM[(sa + 1 + q) * LDM + sa] = acc[e];
+      else
+        sM[(h0 + q + 1) * LDM + sb] = acc[e];
+    }
+  }
+}
+
+// M by all 2 HD threads: pair (pr, sub-chunk) = (pair / KT, pair % KT),
+// so that the column pair is known at compile time in each case and, at
+// hd 64, a warp takes one case
+template <int HD>
+__device__ __forceinline__ void build_m(const float* sr, const float* sk,
+                                        const float* sw, const float* uu,
+                                        float* sM, int tid) {
+  using C = ChunkShape<HD>;
+  const int pair = tid / C::IG, gl = tid % C::IG;
+  const int h0 = 8 * (pair % C::KT);
+  switch (pair / C::KT) {
+    case 0: build_m_pair<HD, 0>(sr, sk, sw, uu, sM, h0, gl); break;
+    case 1: build_m_pair<HD, 1>(sr, sk, sw, uu, sM, h0, gl); break;
+    case 2: build_m_pair<HD, 2>(sr, sk, sw, uu, sM, h0, gl); break;
+    default: build_m_pair<HD, 3>(sr, sk, sw, uu, sM, h0, gl); break;
+  }
+}
+
+// r * D, k * E and A of each 8-token sub-chunk, by running products
+// from the sub-chunk's start or to its end, DW key rows a thread: x =
+// (direction, sub-chunk, row group), so that a warp walks one way. Up:
+// r * D and A; down: k * E. Past the last step n the decay is 1 (only
+// the last chunk can be ragged).
+template <int HD, bool UP, bool RAGGED>
+__device__ __forceinline__ void decay_walk(const float* src, const float* w,
+                                           float* dst, float* a, int n) {
+  using C = ChunkShape<HD>;
+  constexpr int LDG = C::LDG, LDR = C::LDR;
+  float2 d = make_float2(1.f, 1.f);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int t = UP ? j : 7 - j;
+    const float2 v = *reinterpret_cast<const float2*>(src + t * LDG);
+    *reinterpret_cast<float2*>(dst + t * LDR) =
+        make_float2(v.x * d.x, v.y * d.y);
+    float2 wv = *reinterpret_cast<const float2*>(w + t * LDG);
+    if (RAGGED && t >= n) wv = make_float2(1.f, 1.f);
+    d.x *= wv.x;
+    d.y *= wv.y;
+  }
+  if (UP) *reinterpret_cast<float2*>(a) = d;
+}
+
+template <int HD, bool RAGGED>
+__device__ __forceinline__ void decay_products(const float* sr,
+                                               const float* sk,
+                                               const float* sw, int n,
+                                               float* sRD, float* sKE,
+                                               float* sA, int x) {
+  using C = ChunkShape<HD>;
+  constexpr int KT = C::KT, LDG = C::LDG, LDR = C::LDR, DW = C::DW;
+  const int i0 = DW * (x % (HD / DW)), h = (x / (HD / DW)) % KT;
+  const int g = 8 * h * LDG + i0, o = 8 * h * LDR + i0;
+  if (x < KT * (HD / DW))
+    decay_walk<HD, true, RAGGED>(sr + g, sw + g, sRD + o, sA + h * HD + i0,
+                                 n - 8 * h);
+  else
+    decay_walk<HD, false, RAGGED>(sk + g, sw + g, sKE + o, nullptr,
+                                  n - 8 * h);
+}
+
+// V^T's A fragment for value columns [16 mt, +16) and tokens [8 ks, +8):
+// V is [token][column] in shared memory
+template <int LDV>
+__device__ __forceinline__ FragA v_frag(const float* sv, int mt, int ks,
+                                        int g, int tq) {
+  const float* v0 = sv + (8 * ks + tq) * LDV + 16 * mt + g;
+  return frag_a(v0[0], v0[8], v0[4 * LDV], v0[4 * LDV + 8]);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(ChunkShape<HD>::NT,
+                                  ChunkShape<HD>::MIN_BLOCKS)
+    wkv6_chunk_kernel(const WkvParams p) {
+  using C = ChunkShape<HD>;
+  constexpr int T = C::T, COLS = C::COLS, NWR = C::NWR, NT = C::NT;
+  constexpr int KT = C::KT, RI = C::RI, IG = C::IG;
+  constexpr int LDG = C::LDG, LDR = C::LDR, LDV = C::LDV, LDY = C::LDY;
+  extern __shared__ __align__(16) float smem[];
+  float* sRD = smem + C::OFF_RD;
+  float* sKE = smem + C::OFF_KE;
+  float* sM = smem + C::OFF_M;
+  float* sA = smem + C::OFF_A;
+
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int col0 = blockIdx.y * COLS;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wr = warp % NWR, wc = warp / NWR;
+  const int g = lane / 4, tq = lane % 4;
+  const float* Rg = p.r + b * p.r_sb + h * p.r_sh;
+  const float* Kg = p.k + b * p.k_sb + h * p.k_sh;
+  const float* Vg = p.v + b * p.v_sb + h * p.v_sh + col0;
+  const float* Wg = p.w + b * p.w_sb + h * p.w_sh;
+  float* Yg = p.y + b * p.y_sb + h * p.y_sh + col0;
+  float* St = p.state + b * p.st_sb + h * p.st_sh;
+
+  // S^T in the mma accumulator layout: st[nn][e] is S[i][j] for value
+  // column j = col0 + 16 wc + g (+8 for e >= 2) and key row i = 16 wr +
+  // 8 nn + 2 tq (+1 for odd e)
+  float st[2][4];
+#pragma unroll
+  for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 16 * wr + 8 * nn + 2 * tq + (e & 1);
+      const int j = col0 + 16 * wc + g + 8 * (e >> 1);
+      st[nn][e] = p.has_state ? St[i * p.st_si + j] : 0.f;
+    }
+  float uu[RI];  // u of this thread's key rows in M
+#pragma unroll
+  for (int e = 0; e < RI; ++e)
+    uu[e] = p.u[h * p.u_sh + RI * (tid % IG) + e];
+  for (int idx = tid; idx < T * C::LDM; idx += NT) sM[idx] = 0.f;
+
+  // The copies of a chunk: a thread copies 16 bytes of rows ct + RS it
+  // of r, k and w, and of v through a loop.
+  constexpr int CPR = HD / 4, VPR = COLS / 4, RS = NT / CPR;
+  static_assert(T % RS == 0, "copies");
+  const int ct = tid / CPR, cq = 4 * (tid % CPR);
+  const float* gr = Rg + ct * p.r_ss + cq;
+  const float* gk = Kg + ct * p.k_ss + cq;
+  const float* gw = Wg + ct * p.w_ss + cq;
+  const int64_t rr = RS * p.r_ss, kr = RS * p.k_ss, wr_ = RS * p.w_ss;
+  // start the copies of chunk [t0, t0 + T) into buffer `buf` as one
+  // group; rows past S are zero-filled
+  auto stage = [&](int buf, int t0) {
+    float* sr = smem + buf * C::STAGE + ct * LDG + cq;
+    const int n = min(T, p.S - t0);
+#pragma unroll
+    for (int it = 0; it < T / RS; ++it) {
+      const bool ok = ct + RS * it < n;
+      cp_async16(sr + RS * it * LDG, ok ? gr + it * rr : Rg, ok);
+      cp_async16(sr + (T + RS * it) * LDG, ok ? gk + it * kr : Kg, ok);
+      cp_async16(sr + (2 * T + RS * it) * LDG, ok ? gw + it * wr_ : Wg, ok);
+    }
+    gr += T * p.r_ss;
+    gk += T * p.k_ss;
+    gw += T * p.w_ss;
+    float* sv = smem + buf * C::STAGE + C::RKW;
+    for (int idx = tid; idx < T * VPR; idx += NT) {
+      const int t = idx / VPR, q = 4 * (idx % VPR);
+      const bool ok = t < n;
+      cp_async16(sv + t * LDV + q, Vg + (ok ? t0 + t : 0) * p.v_ss + q, ok);
+    }
+    cp_async_commit();
+  };
+
+  const int nchunk = (p.S + T - 1) / T;
+  stage(0, 0);
+  for (int c = 0; c < nchunk; ++c) {
+    const int t0 = c * T, n = min(T, p.S - t0);
+    float* sr = smem + (c & 1) * C::STAGE;
+    const float* sk = sr + T * LDG;
+    const float* sw = sk + T * LDG;
+    const float* sv = sr + C::RKW;
+    cp_async_wait<0>();
+    __syncthreads();  // this chunk landed; the last one is done everywhere
+    if (c + 1 < nchunk) stage((c + 1) & 1, t0 + T);
+
+    if (NT == 2 * HD || tid < 2 * HD)
+      build_m<HD>(sr, sk, sw, uu, sM, tid);
+    for (int x = tid - C::DE0; x >= 0 && x < C::DET; x += NT - C::DE0) {
+      if (n == T)
+        decay_products<HD, false>(sr, sk, sw, n, sRD, sKE, sA, x);
+      else
+        decay_products<HD, true>(sr, sk, sw, n, sRD, sKE, sA, x);
+    }
+    __syncthreads();
+
+    // Sub-chunk by sub-chunk (8 tokens, h): y_h^T = S^T (r * D_h)^T over
+    // this warp's key rows + V_h^T M_hh^T, then S^T <- S^T diag(A_h) +
+    // V_h^T (k * E_h). S^T's registers are the A operand of the first
+    // product with k = i permuted in each 8-block (logical k tq is i 2 tq,
+    // k tq + 4 is i 2 tq + 1), and B reads r * D the same way; M_hh V_h
+    // is dealt round the warps of a column tile.
+    float y[KT][4];
+#pragma unroll
+    for (int hs = 0; hs < KT; ++hs) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[hs][e] = 0.f;
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn) {
+        const float2 bv = *reinterpret_cast<const float2*>(
+            sRD + (8 * hs + g) * LDR + 16 * wr + 8 * nn + 2 * tq);
+        const float* a = st[nn];
+        mma3(y[hs], frag_a(a[0], a[2], a[1], a[3]), frag_b(bv.x, bv.y));
+      }
+      const FragA fv = v_frag<LDV>(sv, wc, hs, g, tq);
+      if (hs % NWR == wr) {
+        const float* mrow = sM + (8 * hs + g) * C::LDM + 8 * hs + tq;
+        mma3(y[hs], fv, frag_b(mrow[0], mrow[4]));
+      }
+      // the update (k * E)^T V into fresh accumulators, then added to the
+      // decayed state in fp32 FFMA: the state is never the accumulator of
+      // an mma, whose rounding would compound over the sequence
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn) {
+        const float* ke = sKE + (8 * hs + tq) * LDR + 16 * wr + 8 * nn + g;
+        float ds[4] = {0.f, 0.f, 0.f, 0.f};
+        mma3(ds, fv, frag_b(ke[0], ke[4 * LDR]));
+        const float2 a2 = *reinterpret_cast<const float2*>(
+            sA + hs * HD + 16 * wr + 8 * nn + 2 * tq);
+        st[nn][0] = fmaf(a2.x, st[nn][0], ds[0]);
+        st[nn][1] = fmaf(a2.y, st[nn][1], ds[1]);
+        st[nn][2] = fmaf(a2.x, st[nn][2], ds[2]);
+        st[nn][3] = fmaf(a2.y, st[nn][3], ds[3]);
+      }
+    }
+
+    // each warp's y partial, [token][column], where r, k, w were: one
+    // (T x COLS) partial a row of warps
+    float* yp = sr + wr * T * LDY + 16 * wc;
+#pragma unroll
+    for (int hs = 0; hs < KT; ++hs) {
+      float* o = yp + (8 * hs + 2 * tq) * LDY + g;
+      o[0] = y[hs][0];
+      o[LDY] = y[hs][1];
+      o[8] = y[hs][2];
+      o[LDY + 8] = y[hs][3];
+    }
+    __syncthreads();
+    for (int idx = tid; idx < n * VPR; idx += NT) {
+      const int t = idx / VPR, q = 4 * (idx % VPR);
+      float4 acc = *reinterpret_cast<const float4*>(sr + t * LDY + q);
+#pragma unroll
+      for (int w = 1; w < NWR; ++w) {
+        const float4 o =
+            *reinterpret_cast<const float4*>(sr + (w * T + t) * LDY + q);
+        acc.x += o.x; acc.y += o.y; acc.z += o.z; acc.w += o.w;
+      }
+      *reinterpret_cast<float4*>(Yg + (int64_t)(t0 + t) * p.y_ss + q) = acc;
+    }
+  }
+
+#pragma unroll
+  for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 16 * wr + 8 * nn + 2 * tq + (e & 1);
+      const int j = col0 + 16 * wc + g + 8 * (e >> 1);
+      St[i * p.st_si + j] = st[nn][e];
+    }
+}
+
+template <int HD>
+int launch_chunk(const WkvParams& p, int B, cudaStream_t stream) {
+  using C = ChunkShape<HD>;
+  constexpr int bytes = C::FLOATS * sizeof(float);
+  static const int attr = [] {
+    const int e = cudaFuncSetAttribute(
+        wkv6_chunk_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    return e ? e
+             : cudaFuncSetAttribute(
+                   wkv6_chunk_kernel<HD>,
+                   cudaFuncAttributePreferredSharedMemoryCarveout,
+                   cudaSharedmemCarveoutMaxShared);
+  }();
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(B * p.H, HD / C::COLS);
+  wkv6_chunk_kernel<HD><<<grid, C::NT, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// the body by S: chunks of CT tokens, or token by token below that
+template <int HD>
+int launch(const WkvParams& p, int B, cudaStream_t stream) {
+  return p.S >= CT ? launch_chunk<HD>(p, B, stream)
+                   : launch_token<HD>(p, B, stream);
 }
 
 }  // namespace
@@ -199,7 +714,8 @@ int launch(const WkvParams& p, int B, cudaStream_t stream) {
 // key row) in strides[16..18]. The head dim and the state's value dim are
 // contiguous, and rows of r, k, v, w, y are 16-byte aligned. has_state = 0
 // starts from zero without reading `state`; the final state is written
-// into `state` either way. Returns cudaGetLastError() after the launch.
+// into `state` either way. One call is one launch: the chunked body for
+// S >= CT, the token body below. Returns cudaGetLastError() after it.
 extern "C" int wkv6_launch(const float* r, const float* k, const float* v,
                            const float* w, const float* u, float* y,
                            float* state, int has_state,
@@ -224,3 +740,6 @@ extern "C" int wkv6_launch(const float* r, const float* k, const float* v,
     default: return cudaErrorInvalidValue;
   }
 }
+
+// the chunked body's T: wkv6_launch takes it for S >= this
+extern "C" int wkv6_chunk_tokens() { return CT; }

@@ -2,7 +2,8 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/rwkv6.py`` (``wkv6_chunked``).
 The kernel is ``csrc/wkv6.cu``; its header says what bounds it on the H100
-and how its design answers that.
+and how its design answers that: a chunked body on the tensor cores for
+S >= ``chunk_tokens()``, the token-by-token body below it (decode).
 
 Layout is the model's: r, k, v, w (B, S, H, hd), u (H, hd), all fp32, and
 a state (B, H, hd, hd) indexed [key dim i, value dim j]. It computes, for
@@ -63,7 +64,14 @@ def _lib() -> ctypes.CDLL:
                                 ctypes.POINTER(ctypes.c_int64),
                                 i32, i32, i32, i32, vp]
     lib.wkv6_launch.restype = i32
+    lib.wkv6_chunk_tokens.restype = i32
     return lib
+
+
+def chunk_tokens() -> int:
+    """T of the kernel's chunked body: a call with S >= T runs the chunked
+    body, a shorter one (a decode step) the token-by-token body."""
+    return _lib().wkv6_chunk_tokens()
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

@@ -18,7 +18,7 @@ from _torch_cases import (DECODE_CASES, FA_CASES, WKV_CASES, decode_inputs,
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.wkv6 import wkv6
+from repro_torch.kernels.wkv6 import chunk_tokens, wkv6
 
 pytestmark = pytest.mark.cuda
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -29,6 +29,11 @@ FA_CARD_CASES = [
     (4, 2, 300, 128, None, 64, 64, "bfloat16"),
     (8, 2, 300, 128, 100, 64, 64, "bfloat16"),
 ]
+# WKV6's chunked body at its edges (S relative to its chunk length T; the
+# token body below T) and with the decays of wkv_inputs, the model's
+# range, or exact 0s and 1s mixed in
+WKV_CHUNK_CASES = [(s, decays) for s in ("T-1", "T", "T+1", "2T+3", "1000")
+                   for decays in ("inputs", "0.99-0.9999", "0 and 1")]
 # caches long enough to split over many blocks; grp 16, the largest group
 DECODE_CARD_CASES = [
     (2, 2, 4, 4096, 128, 64, "bfloat16"),
@@ -142,3 +147,32 @@ def test_wkv6_one_step_updates_the_state_in_place(cuda):
     close_wkv(y, want)
     close_wkv(cache[1], want_state)
     assert torch.equal(cache[0], start[0]) and torch.equal(cache[2], start[2])
+
+
+@pytest.mark.parametrize("s,decays", WKV_CHUNK_CASES)
+def test_wkv6_chunk_edges_and_decays(cuda, s, decays):
+    """From a nonzero state at rwkv6-3b's head width, y and the final
+    state against the plain version."""
+    t = chunk_tokens()
+    steps = {"T-1": t - 1, "T": t, "T+1": t + 1, "2T+3": 2 * t + 3,
+             "1000": 1000}[s]
+    r, k, v, w, u = (torch.from_numpy(x) for x in
+                     wkv_inputs((2, steps, 5, 64), steps))
+    rng = np.random.default_rng(steps + 1)
+    if decays == "0.99-0.9999":
+        w = torch.from_numpy(rng.uniform(0.99, 0.9999, w.shape)
+                             .astype(np.float32))
+    elif decays == "0 and 1":
+        pick = torch.from_numpy(rng.uniform(size=w.shape))
+        w = torch.where(pick < 0.05, 0.0, torch.where(pick > 0.9, 1.0, w))
+    start = torch.from_numpy(rng.standard_normal((2, 5, 64, 64))
+                             .astype(np.float32))
+    r, k, v, w, u, start = (x.to(cuda) for x in (r, k, v, w, u, start))
+    st_k, st_p = start.clone(), start.clone()
+    before = wkv6.launches
+    y, _ = ops.wkv6(r, k, v, w, u, st_k)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    want, _ = ops.wkv6(r, k, v, w, u, st_p, impl="reference")
+    close_wkv(y, want)
+    close_wkv(st_k, st_p)

@@ -4,6 +4,9 @@ the CPU. On the CPU ``ops.wkv6`` runs the kernel's plain version,
 on the card.
 
 Inputs are made with numpy from a seed and handed to both frameworks.
+A test-only mirror of the CUDA kernel's chunked algebra (``chunked_wkv6``)
+is held against JAX's Pallas kernel and its recurrence at chunk lengths
+8, 16 and 32.
 Tolerances: the recurrence atol 2e-5, rtol 1e-4, the limits that
 tests/test_kernels.py holds JAX's own scan and Pallas kernel to; the mixers
 fp32 1e-4, bf16 2e-2 of the tensor's largest magnitude (ROADMAP's model
@@ -11,6 +14,7 @@ limits: the frameworks round to bf16 at different points).
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -133,6 +137,106 @@ def test_wkv6_does_not_fall_back_off_the_cpu():
     with pytest.raises(ValueError):
         ops.wkv6(r, r, r, r, torch.empty(2, 16, device="meta"), impl="pallas")
     assert wkv6.launches == 0
+
+
+# ------------------------------------------------- chunked algebra (CPU)
+def chunked_wkv6(r, k, v, w, u, state, t):
+    """A test-only mirror of the CUDA kernel's chunked algebra in fp32
+    torch, model layout (B, S, H, hd), from ``state``; chunks of ``t``
+    tokens, the last one ragged. Per chunk: D, E, A by running products,
+    the pairwise M, then y = (r * D) S + M V and S <- diag(A) S +
+    (k * E)^T V as three ``@`` products. Returns (y, final state)."""
+    b, s, h, hd = r.shape
+    cur = state.clone()
+    ys = []
+    for t0 in range(0, s, t):
+        n = min(t, s - t0)
+        rc, kc, vc, wc = (x[:, t0:t0 + n].transpose(1, 2)
+                          for x in (r, k, v, w))            # (B, H, n, hd)
+        d = torch.ones_like(wc)
+        e = torch.ones_like(wc)
+        for i in range(1, n):
+            d[:, :, i] = d[:, :, i - 1] * wc[:, :, i - 1]
+        for i in range(n - 2, -1, -1):
+            e[:, :, i] = e[:, :, i + 1] * wc[:, :, i + 1]
+        a = d[:, :, n - 1] * wc[:, :, n - 1]
+        m = torch.zeros((b, h, n, n), dtype=torch.float32)
+        for j in range(n):
+            m[:, :, j, j] = (rc[:, :, j] * u * kc[:, :, j]).sum(-1)
+            kp = kc[:, :, j].clone()
+            for i in range(j + 1, n):
+                m[:, :, i, j] = (rc[:, :, i] * kp).sum(-1)
+                kp = kp * wc[:, :, i]
+        ys.append(((rc * d) @ cur + m @ vc).transpose(1, 2))
+        cur = a[..., None] * cur + (kc * e).transpose(-1, -2) @ vc
+    return torch.cat(ys, dim=1), cur
+
+
+@functools.cache
+def pallas_wkv(case: int) -> tuple:
+    """WKV_CASES[case]: its inputs, and y from the Pallas kernel (interpret
+    mode) and from the token-by-token oracle."""
+    bh, s, hd, chunk = WKV_CASES[case]
+    arrays = wkv_inputs((bh, s, hd), bh * s + hd)
+    jx = [jnp.asarray(a) for a in arrays]
+    return (arrays, np.asarray(wkv6_chunked(*jx, chunk=chunk, interpret=True)),
+            np.asarray(jref.wkv6_ref(*jx)))
+
+
+@pytest.mark.parametrize("t", [8, 16, 32])
+@pytest.mark.parametrize("case", range(len(WKV_CASES)))
+def test_chunked_algebra_matches_pallas_and_oracle(case, t):
+    """The JAX kernel's (BH, S, hd) rows as heads of one batch row, from
+    a zero state."""
+    arrays, pallas, oracle = pallas_wkv(case)
+    r, k, v, w, u = (torch.from_numpy(a) for a in arrays)
+    bh, s, hd = r.shape
+    y, _ = chunked_wkv6(*(x.transpose(0, 1)[None] for x in (r, k, v, w)), u,
+                        torch.zeros((1, bh, hd, hd)), t)
+    close(y[0].transpose(0, 1), pallas)
+    close(y[0].transpose(0, 1), oracle)
+
+
+def chunk_case(name: str, t: int) -> tuple:
+    """(S, decays) of a named case: the chunk edges with wkv_inputs'
+    decays, or S = 100 (ragged for every t) with the model's decays or
+    with exact 0s and 1s."""
+    return {"S=T-1": (t - 1, "inputs"), "S=T+1": (t + 1, "inputs"),
+            "S=1000": (1000, "inputs"), "decays 0.99-0.9999": (100, "model"),
+            "exact 0 and 1 decays": (100, "0 and 1")}[name]
+
+
+def decays_of(kind: str, w: np.ndarray, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if kind == "model":
+        return rng.uniform(0.99, 0.9999, w.shape).astype(np.float32)
+    if kind == "0 and 1":
+        pick = rng.uniform(size=w.shape)
+        return np.where(pick < 0.05, 0.0, np.where(pick > 0.9, 1.0, w)
+                        ).astype(np.float32)
+    return w
+
+
+@pytest.mark.parametrize("t", [8, 16, 32])
+@pytest.mark.parametrize("name", ["S=T-1", "S=T+1", "S=1000",
+                                  "decays 0.99-0.9999",
+                                  "exact 0 and 1 decays"])
+def test_chunked_algebra_matches_jax_time_scan(name, t):
+    """From a nonzero state, against the model's own recurrence in JAX,
+    ``chunked_time_scan`` of ``wkv_step``."""
+    s, kind = chunk_case(name, t)
+    b, h, hd = 2, 3, 16
+    r, k, v, w, u = wkv_inputs((b, s, h, hd), s + t)
+    w = decays_of(kind, w, s + t)
+    state0 = rand(np.random.default_rng(s + t + 1), (b, h, hd, hd), 1.0)
+    seq = tuple(jnp.asarray(a).transpose(1, 0, 2, 3) for a in (r, k, v, w))
+    jfinal, jys = jssm.chunked_time_scan(
+        lambda st, x: jssm.wkv_step(st, x, jnp.asarray(u)),
+        jnp.asarray(state0), seq, chunk=16)
+    y, final = chunked_wkv6(*torch_of(r, k, v, w, u),
+                            torch.from_numpy(state0), t)
+    close(y, np.asarray(jys).transpose(1, 0, 2, 3))
+    close(final, jfinal)
 
 
 # ---------------------------------------------------------------- mixers

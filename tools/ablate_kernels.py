@@ -1,17 +1,22 @@
-"""Where the attention kernels' time goes, by ablation, on one NVIDIA GPU.
+"""Where the kernels' time goes, by ablation, on one NVIDIA GPU.
 
-  python3 tools/ablate_kernels.py
+  python3 tools/ablate_kernels.py [flash_attention] [decode_attention] [wkv6]
 
-Builds variants of src/repro_torch/kernels/csrc/flash_attention.cu and
-decode_attention.cu, each with one part of the kernel taken out by a text
-edit, into build/ablate/ (one nvcc per variant, in parallel). A variant's
-output is wrong; only its time counts. Each is timed at chip_smoke.py's
+Builds variants of the named sources under src/repro_torch/kernels/csrc/
+(all three when none is named), each with one part of the kernel taken
+out, or one tile size changed, by a text edit, into build/ablate/ (one
+nvcc per variant, in parallel). A variant that takes a part out gives a
+wrong output; only its time counts. Each is timed at chip_smoke.py's
 serving shapes (flash attention: B=4, S=512, H=32, Hkv=8, hd=128; flash
 decode: B=4 x Hkv=8, grp 4, 544 slots, and batch 1 against 32,768 slots;
-bf16), beside the unedited kernel, in two rounds, with chip_smoke.py's
-time_ms. Flash decode is also timed on the same cache laid out head-major
-(B, Hkv, S, hd), which the kernel reads through its strides. An edit that
-no longer applies to the sources raises.
+bf16; WKV6's chunked body: B=4, S=1024, H=40, hd=64, fp32), beside the
+unedited kernel, in two rounds, with chip_smoke.py's time_ms. Flash decode
+is also timed on the same cache laid out head-major (B, Hkv, S, hd), which
+the kernel reads through its strides. Each WKV6 variant's relative L2
+error against an fp64 recurrence is printed too (B=2, S=1024, H=5, hd=64
+from a nonzero state, decays in the model's range 0.99-0.9999), beside
+the plain fp32 version's. An edit that no longer applies to the sources
+raises.
 """
 
 from __future__ import annotations
@@ -61,16 +66,62 @@ VARIANTS = {
         "no merge kernel": [("  fd_merge_kernel<T><<<",
                              "  if (false) fd_merge_kernel<T><<<")],
     },
+    "wkv6": {
+        "as shipped": [],
+        "the token-by-token body at every S": [
+            ("  return p.S >= CT ? launch_chunk<HD>(p, B, stream)",
+             "  return false ? launch_chunk<HD>(p, B, stream)")],
+        "no chunk loads after the first": [
+            ("    if (c + 1 < nchunk) stage((c + 1) & 1, t0 + T);\n", "")],
+        "no 3xTF32 lo terms": [
+            ("  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);\n"
+             "  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);\n", "")],
+        "no pairwise M": [
+            ("      build_m<HD>(sr, sk, sw, uu, sM, tid);\n", "      (void)0;\n")],
+        "no decay products D, E, A": [
+            ("    for (int x = tid - C::DE0; x >= 0 && x < C::DET; "
+             "x += NT - C::DE0) {",
+             "    for (int x = 0; false;) {")],
+        "no y products": [
+            ("        mma3(y[hs], frag_a(a[0], a[2], a[1], a[3]), "
+             "frag_b(bv.x, bv.y));\n", "        (void)a;\n"),
+            ("        mma3(y[hs], fv, frag_b(mrow[0], mrow[4]));\n",
+             "        (void)mrow;\n")],
+        "the state as the update's mma accumulator": [
+            ("        float ds[4] = {0.f, 0.f, 0.f, 0.f};\n"
+             "        mma3(ds, fv, frag_b(ke[0], ke[4 * LDR]));\n"
+             "        const float2 a2 = *reinterpret_cast<const float2*>(\n"
+             "            sA + hs * HD + 16 * wr + 8 * nn + 2 * tq);\n",
+             "        const float2 a2 = *reinterpret_cast<const float2*>(\n"
+             "            sA + hs * HD + 16 * wr + 8 * nn + 2 * tq);\n"
+             "        float ds[4] = {a2.x * st[nn][0], a2.y * st[nn][1],\n"
+             "                       a2.x * st[nn][2], a2.y * st[nn][3]};\n"
+             "        mma3(ds, fv, frag_b(ke[0], ke[4 * LDR]));\n"),
+            ("        st[nn][0] = fmaf(a2.x, st[nn][0], ds[0]);\n"
+             "        st[nn][1] = fmaf(a2.y, st[nn][1], ds[1]);\n"
+             "        st[nn][2] = fmaf(a2.x, st[nn][2], ds[2]);\n"
+             "        st[nn][3] = fmaf(a2.y, st[nn][3], ds[3]);\n",
+             "        st[nn][0] = ds[0];\n"
+             "        st[nn][1] = ds[1];\n"
+             "        st[nn][2] = ds[2];\n"
+             "        st[nn][3] = ds[3];\n")],
+        "no state-update product": [
+            ("        mma3(ds, fv, frag_b(ke[0], ke[4 * LDR]));\n", "")],
+        "T = 32": [("constexpr int CT = 16;", "constexpr int CT = 32;")],
+        "COLS = 16": [("constexpr int CCOLS = 32;",
+                       "constexpr int CCOLS = 16;")],
+    },
 }
 
 
-def build() -> dict:
+def build(kernels) -> dict:
     """{(kernel, variant): loaded library}, all variants built in parallel."""
     from repro_torch.kernels import _build
     OUT.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
     procs = {}
-    for kernel, variants in VARIANTS.items():
+    for kernel in kernels:
+        variants = VARIANTS[kernel]
         src = (_build.CSRC / f"{kernel}.cu").read_text()
         for i, (name, edits) in enumerate(variants.items()):
             text = src
@@ -97,7 +148,49 @@ def build() -> dict:
     return libs
 
 
+def wkv6_errors(libs: dict, wkm) -> None:
+    """Relative L2 error of y and of the final state against an fp64
+    recurrence, for the plain fp32 version and each WKV6 variant."""
+    import numpy as np
+    gen = torch.Generator("cuda").manual_seed(3)
+    shape = (2, 1024, 5, 64)
+    r, k, v = (0.5 * torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(3))
+    w = 0.99 + 0.0099 * torch.rand(shape, generator=gen, device="cuda")
+    u = 0.5 * torch.randn((5, 64), generator=gen, device="cuda")
+    start = torch.randn((2, 5, 64, 64), generator=gen, device="cuda")
+    cur = start.double()
+    ys = []
+    for t in range(shape[1]):
+        kv = k[:, t, :, :, None].double() * v[:, t, :, None, :].double()
+        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t].double(),
+                               cur + u.double()[None, :, :, None] * kv))
+        cur = w[:, t, :, :, None].double() * cur + kv
+    y64 = torch.stack(ys, dim=1)
+
+    def rel(a, b):
+        return float(np.linalg.norm((a.double() - b).cpu().numpy())
+                     / np.linalg.norm(b.cpu().numpy()))
+
+    runs = {"plain fp32": wkm.wkv6_plain}
+    for (kernel, name), lib in libs.items():
+        if kernel == "wkv6":
+            runs[name] = lambda *a, lib=lib: (
+                setattr(wkm, "_lib", lambda: lib), wkm.wkv6(*a))[1]
+    for name, fn in runs.items():
+        state = start.clone()
+        y, _ = fn(r, k, v, w, u, state)
+        print(f"wkv6 vs fp64, decays 0.99-0.9999, S=1024: {name}: y "
+              f"{rel(y, y64):.3e}, state {rel(state, cur):.3e}")
+
+
 def main() -> int:
+    kernels = sys.argv[1:] or list(VARIANTS)
+    unknown = set(kernels) - set(VARIANTS)
+    if unknown:
+        print(f"ablate_kernels: no variants of {sorted(unknown)}",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("ablate_kernels: no CUDA device", file=sys.stderr)
         return 2
@@ -105,17 +198,19 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch.kernels import decode_attention as dam
     from repro_torch.kernels import flash_attention as fam
+    from repro_torch.kernels import wkv6 as wkm
+    mods = {"flash_attention": fam, "decode_attention": dam, "wkv6": wkm}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}")
-    libs = build()
+    libs = build(kernels)
     # the wrappers set each library's argument types on first load
-    fa_types = fam._lib().flash_attention_launch.argtypes
-    fd_types = dam._lib().decode_attention_launch.argtypes
+    types = {name: getattr(mods[name]._lib(), f"{name}_launch").argtypes
+             for name in kernels}
     for (kernel, _), lib in libs.items():
         fn = getattr(lib, f"{kernel}_launch")
-        fn.argtypes = fa_types if kernel == "flash_attention" else fd_types
+        fn.argtypes = types[kernel]
         fn.restype = ctypes.c_int
 
     gen = torch.Generator("cuda").manual_seed(0)
@@ -130,16 +225,25 @@ def main() -> int:
         vc = cs.randn(gen, (b, s, 8, 128), bf16, 1.0)
         decode[label] = (cs.randn(gen, (b, 8, 4, 128), bf16), kc, vc,
                          torch.tensor(lens, device="cuda", dtype=torch.int32))
+    wkv = [cs.randn(gen, (4, 1024, 40, 64), torch.float32, 0.5)
+           for _ in range(3)]
+    wkv.append(torch.exp(-torch.exp(
+        cs.randn(gen, (4, 1024, 40, 64), torch.float32, 2.0) - 5)))
+    wkv.append(cs.randn(gen, (40, 64), torch.float32, 0.5))
+    wkv_state = torch.zeros((4, 40, 64, 64), device="cuda")
 
     times = {}
     for _ in range(2):
         for (kernel, name), lib in libs.items():
+            mods[kernel]._lib = lambda lib=lib: lib
             if kernel == "flash_attention":
-                fam._lib = lambda lib=lib: lib
                 times.setdefault(f"flash attention: {name}", []).append(
                     cs.time_ms(lambda: fam.flash_attention(q, k, v), 50))
                 continue
-            dam._lib = lambda lib=lib: lib
+            if kernel == "wkv6":
+                times.setdefault(f"wkv6 prefill: {name}", []).append(
+                    cs.time_ms(lambda: wkm.wkv6(*wkv, wkv_state), 20))
+                continue
             for label, (qd, kc, vc, lens) in decode.items():
                 times.setdefault(f"flash decode {label}: {name}", []).append(
                     cs.time_ms(lambda: dam.decode_attention(qd, kc, vc, lens),
@@ -153,6 +257,8 @@ def main() -> int:
                                                                 lens), 100))
     for key, ts in times.items():
         print(f"{key}: {' '.join(f'{t:.5f}' for t in ts)} ms")
+    if "wkv6" in kernels:
+        wkv6_errors(libs, wkm)
     print(smi)
     return 0
 
