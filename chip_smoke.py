@@ -32,7 +32,21 @@ Phases; each raises on failure, so any failure exits non-zero:
      card), in bf16 and with the weights widened to fp32, must agree
      (compare_paths). Each model's weights are freed before the next;
   4. small fp32 models (dense and RWKV) served on the card and on the CPU
-     must agree.
+     must agree;
+  5. training, after the served models are freed: the flash attention
+     backward (FlashAttentionFn: the kernel's forward, flash_attention_bwd
+     in torch operations) against autograd through the plain version at
+     the serving shape and at the training shape (B=2, S=4096), fp32 and
+     bf16, with two mutants of the backward that must fail; qwen3-8b
+     trained at full width and depth 8 (AdamW, bf16, 4 microbatches of 2 x
+     4096 tokens) through train_step, a warm-up step and 3 timed ones,
+     each with its loss, grad norm, time, tokens/s, share of the step's
+     bound (train_mfu) and peak memory, its launch counts (2 flash
+     attention launches per layer and microbatch with remat, no other
+     kernel's) and a profile of one step; the first microbatch's loss and
+     grads at depth 2 through the kernels and the plain versions, bf16 and
+     fp32; run_training at the tiny preset on the card, 6 straight steps
+     against 3, a commit, a resume and 3 more.
 The last lines are a JSON line of per-kernel numbers, the card's name and
 power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 """
@@ -42,10 +56,12 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import torch
 
@@ -73,6 +89,18 @@ MUTANT_TEMP = 1.02
 # full-width logits against an fp32 run of the same weights (compare_paths)
 FP32_REL_TOL = 1e-4
 BF16_ERR_RATIO = 1.1
+# phase 5: qwen3-8b trained at full width, cut to TRAIN_LAYERS of its 36
+# layers (one card's 80 GB: 44.6 GB of bf16 weights and grads, fp32
+# accumulator, m and v, against 131 GB at full depth), TRAIN_4K's 4096
+# tokens a sequence, TRAIN_BATCH of its 256 sequences a step (the run's
+# time limit) in the config's grad_accum microbatches of TRAIN_MICRO
+TRAIN_ARCH, TRAIN_LAYERS = "qwen3-8b", 8
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 4096, 8, 2
+TIMED_STEPS = 3
+# bf16 attention gradients through the kernel path, and bf16 training
+# paths, against fp32: within this factor of the plain path's own error
+# (two bf16 paths round independently; the fp32 checks are the tight ones)
+BWD_BF16_RATIO = 2.0
 
 
 def log(msg: str) -> None:
@@ -684,9 +712,10 @@ def compare_paths(params, cfg, prompts, toks) -> None:
                                  f"disagree with the plain path's")
 
 
-def profile(label: str, fn, step_ms: float) -> None:
+def profile(label: str, fn, step_ms: float, top: int = 8):
     """Device time of one call by kernel, from torch.profiler, beside the
-    call's time measured without the profiler (``step_ms``)."""
+    call's time measured without the profiler (``step_ms``). Returns the
+    profiler's averages by event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     torch.cuda.synchronize()
@@ -694,19 +723,21 @@ def profile(label: str, fn, step_ms: float) -> None:
                                             ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    averages = prof.key_averages()
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
+                   for e in averages
                    if e.device_type == DeviceType.CUDA), reverse=True)
     busy = sum(r[0] for r in rows)
     if not rows:
         log(f"profile {label}: the profiler saw no kernels: device time "
             f"not measured")
-        return
+        return averages
     log(f"profile {label}: device busy {busy:.3f} ms of {step_ms:.3f} ms "
         f"({100 * busy / step_ms:.1f} %), {sum(r[1] for r in rows)} kernels;"
         f" by kernel:")
-    for ms, n, key in rows[:8]:
+    for ms, n, key in rows[:top]:
         log(f"    {ms:9.3f} ms {n:5d}x  {key[:100]}")
+    return averages
 
 
 def _leaves(tree):
@@ -742,6 +773,370 @@ def small_models_cpu_vs_card() -> None:
             raise AssertionError(f"{cfg.name}: card and CPU disagree")
 
 
+# ------------------------------------------------------------ phase 5
+def attention_grads(q, k, v, dout, impl: str) -> list:
+    """(dq, dk, dv) by autograd through ops.flash_attention: the kernel's
+    forward and flash_attention_bwd, or the plain version (reference)."""
+    from repro_torch.kernels import ops
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    ops.flash_attention(*leaves, impl=impl).backward(dout)
+    return [t.grad for t in leaves]
+
+
+def check_attention_backward() -> dict:
+    """flash_attention_bwd behind the kernel's forward, against autograd
+    through the plain version, at the serving and the training shapes:
+    fp32 within REL_TOL (rel L2) for dq, dk, dv; bf16 within
+    BWD_BF16_RATIO x the plain path's own bf16 error against fp32. Two
+    mutants of the backward (the sum(P dP) term dropped; a mask that lets
+    each query see the next key) must fail the fp32 limit. Returns the
+    times at the training shape."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator("cuda").manual_seed(3)
+    log("flash attention backward (FlashAttentionFn: the kernel's forward, "
+        "flash_attention_bwd) vs autograd through the plain version:")
+    shapes = {"serving": (REQUESTS, PROMPT_LEN),
+              "training": (TRAIN_MICRO, TRAIN_SEQ)}
+    for label, (b, s) in shapes.items():
+        q = randn(gen, (b, s, 32, 128), torch.float32)
+        k = randn(gen, (b, s, 8, 128), torch.float32)
+        v = randn(gen, (b, s, 8, 128), torch.float32, 1.0)
+        dout = randn(gen, (b, s, 32, 128), torch.float32, 1.0)
+        truth = attention_grads(q, k, v, dout, "reference")
+        got = attention_grads(q, k, v, dout, "kernel")
+        errs = [rel_err(g, t) for g, t in zip(got, truth)]
+        log(f"  {label} B={b} S={s} fp32: rel L2 dq {errs[0]:.3e}, dk "
+            f"{errs[1]:.3e}, dv {errs[2]:.3e} (limit "
+            f"{REL_TOL[torch.float32]})")
+        if max(errs) > REL_TOL[torch.float32]:
+            raise AssertionError(f"attention backward, {label}: {errs}")
+        if label == "serving":
+            real_mask = fa._mask
+            mutants = {
+                "sum(P dP) dropped": ("_softmax_grad",
+                                      lambda p, dp: dp.mul_(p)),
+                "mask sees the next key": (
+                    "_mask", lambda qpos, kpos, w: real_mask(qpos + 1, kpos,
+                                                             w))}
+            for what, (name, fn) in mutants.items():
+                with mock.patch.object(fa, name, fn):
+                    mut = fa.flash_attention_bwd(q, k, v, dout)
+                rel = max(rel_err(g, t) for g, t in zip(mut, truth))
+                log(f"  mutant ({what}): rel L2 {rel:.3e} (must exceed "
+                    f"{REL_TOL[torch.float32]})")
+                if rel <= REL_TOL[torch.float32]:
+                    raise AssertionError(f"the backward check cannot tell "
+                                         f"the mutant {what}")
+        bf = [t.to(torch.bfloat16) for t in (q, k, v, dout)]
+        truth = attention_grads(*(t.float() for t in bf), "reference")
+        got = attention_grads(*bf, "kernel")
+        plain = attention_grads(*bf, "reference")
+        for name, g, p, t in zip(("dq", "dk", "dv"), got, plain, truth):
+            ek, ep = rel_err(g, t), rel_err(p, t)
+            log(f"  {label} bf16 {name}: rel L2 vs fp32 {ek:.3e}, plain "
+                f"path's {ep:.3e} (limit {BWD_BF16_RATIO} x)")
+            if ek > BWD_BF16_RATIO * ep or g.dtype != torch.bfloat16:
+                raise AssertionError(f"attention backward bf16 {name}, "
+                                     f"{label}: {ek} vs plain {ep}")
+        del truth, got, plain
+    return time_training_shape(*bf)
+
+
+def time_training_shape(q, k, v, dout) -> dict:
+    """The kernel's forward and flash_attention_bwd at the training shape,
+    beside the plain forward, SDPA's forward and SDPA's forward plus
+    backward (PyTorch's own flash attention: a yardstick, used nowhere in
+    the port), and their bounds by operations."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    b, s, h, hd = q.shape
+    fwd_flops = 4 * b * h * hd * (s * (s + 1) // 2)
+    fwd = time_ms(lambda: fa.flash_attention(q, k, v), 10)
+    plain = time_ms(lambda: fa.flash_attention_plain(q, k, v), 2, warmup=1)
+    bwd = time_ms(lambda: fa.flash_attention_bwd(q, k, v, dout), 5,
+                  warmup=1)
+    qt, kt, vt, dt = (t.transpose(1, 2).contiguous() for t in (q, k, v, dout))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                       enable_gqa=True).backward(dt)
+    lib_both = time_ms(sdpa_fwd_bwd, 5)
+    log(f"  training shape B={b} S={s} bf16: kernel forward {fwd:.4f} ms "
+        f"(plain {plain:.4f}, SDPA {lib:.4f}, bound "
+        f"{bound_ms(0, {q.dtype: fwd_flops})[0]:.4f} ms by operations); "
+        f"flash_attention_bwd {bwd:.4f} ms (kernel forward + it "
+        f"{fwd + bwd:.4f} ms, SDPA forward + backward {lib_both:.4f} ms, "
+        f"bound of both {bound_ms(0, {q.dtype: 3 * fwd_flops})[0]:.4f} ms)")
+    return {"fwd_ms": fwd, "bwd_ms": bwd}
+
+
+def train_bound(cfg, seqs: int) -> tuple[float, str, float]:
+    """Least time of one train step over ``seqs`` sequences of TRAIN_SEQ
+    tokens: 6 flops per matmul parameter (layer projections and MLP, LM
+    head; not the embedding gather) per token, plus causal attention's
+    forward and its backward (2x) in bf16; bytes: the bf16 parameters
+    read and written, the fp32 grad accumulator read, AdamW's m and v read
+    and written, once each. Remat's recompute is not counted. Returns (ms,
+    bound by, flops)."""
+    d, hd = cfg.d_model, cfg.hd
+    per_layer = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd \
+        + cfg.n_heads * hd * d + 3 * d * cfg.d_ff
+    matmul = cfg.n_layers * per_layer + d * cfg.vocab_size
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn = 3 * 4 * cfg.n_heads * hd * pairs * cfg.n_layers * seqs
+    flops = 6 * matmul * seqs * TRAIN_SEQ + attn
+    ms, by = bound_ms(cfg.param_count() * (2 * 2 + 4 + 2 * 8),
+                      {torch.bfloat16: flops})
+    return ms, by, flops
+
+
+def train_full_width(bwd_ms: float) -> dict:
+    """qwen3-8b at full width, depth TRAIN_LAYERS: a warm-up step, then
+    TIMED_STEPS steps through train_step, each of TRAIN_BATCH sequences of
+    TRAIN_SEQ tokens in grad_accum microbatches. Asserts finite losses and
+    grad norms, a first loss near ln(vocab), 2 flash attention launches per
+    layer and microbatch (remat runs each layer's forward again) and no
+    other kernel's. Prints a profile of one step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.train.data import synth_batch
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_train_state, to_device, \
+        train_step
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    accum = cfg.grad_accum
+    shape = ShapeConfig("train_4k_cut", "train", TRAIN_SEQ, TRAIN_BATCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    opt_cfg = OptConfig(name=cfg.optimizer, warmup_steps=2, total_steps=100)
+    t0 = time.perf_counter()
+    state = init_train_state(torch.Generator("cuda").manual_seed(0), cfg,
+                             opt_cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    log(f"train {TRAIN_ARCH} at depth {TRAIN_LAYERS} of "
+        f"{get_arch(TRAIN_ARCH).n_layers}: d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype}, "
+        f"{cfg.optimizer}; {n_params / 1e9:.3f} B params; params and "
+        f"optimizer state {torch.cuda.memory_allocated() / 1e9:.2f} GB, "
+        f"initialised in {time.perf_counter() - t0:.1f} s; "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in {accum} microbatches")
+    bound, by, flops = train_bound(cfg, TRAIN_BATCH)
+    log(f"  step bound {bound:.1f} ms ({by}; {flops:.4g} model flops)")
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want["flash_attention"] = 2 * cfg.n_layers * accum
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    launches, steps = 0, []
+    for step in range(1 + TIMED_STEPS):
+        batch = to_device(synth_batch(cfg, shape, step), "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        start.record()
+        state, m = train_step(state, batch, cfg, opt_cfg)
+        end.record()
+        end.synchronize()
+        counts = ops.launch_counts()
+        ms = start.elapsed_time(end)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        what = "warm-up step" if step == 0 else "step"
+        log(f"  {what} {step}: loss {loss:.4f}, grad norm {gnorm:.4f}, "
+            f"{ms:.1f} ms, {tokens * 1e3 / ms:.0f} tokens/s, train_mfu "
+            f"{bound / ms:.4f}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        check_counts(f"train step {step}", counts, want)
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"step {step}: loss {loss}, norm {gnorm}")
+        if step == 0 and abs(loss - math.log(cfg.vocab_size)) > 1.5:
+            raise AssertionError(f"first loss {loss} is not within 1.5 of "
+                                 f"ln(vocab) {math.log(cfg.vocab_size)}")
+        if step:
+            launches += counts["flash_attention"]
+            steps.append(ms)
+    mean = sum(steps) / len(steps)
+    log(f"  {TIMED_STEPS} timed steps: mean {mean:.1f} ms "
+        f"({tokens * 1e3 / mean:.0f} tokens/s, train_mfu "
+        f"{bound / mean:.4f}); flash_attention_bwd alone at this shape "
+        f"{bwd_ms:.3f} ms x {cfg.n_layers * accum} calls = "
+        f"{bwd_ms * cfg.n_layers * accum:.1f} ms a step "
+        f"({100 * bwd_ms * cfg.n_layers * accum / mean:.1f} %)")
+    batch = to_device(synth_batch(cfg, shape, 1 + TIMED_STEPS), "cuda")
+    averages = profile("train step", lambda: train_step(
+        state, batch, cfg, opt_cfg), mean, top=12)
+    by_kind(averages)
+    bwd = [e.device_time_total / 1e3 for e in averages
+           if "FlashAttentionFnBackward" in e.key]
+    if bwd:
+        log(f"  profiler: FlashAttentionFnBackward {max(bwd):.1f} ms of the "
+            f"step's device time")
+    time_step_parts(state, batch, cfg, opt_cfg)
+    del state, batch
+    return {"launches": launches, "step_ms": mean}
+
+
+def compare_train_paths() -> None:
+    """The first microbatch's loss and grad norm at depth 2, full width,
+    through the kernel and through the plain versions (impl="reference"),
+    in bf16 and with the weights widened to fp32; fp32 plain is the truth.
+    fp32 kernel path: within FP32_REL_TOL of it. bf16 kernel path: its
+    loss and grad norm within BWD_BF16_RATIO x the plain path's error (or
+    1e-3, where the plain path lands on the truth by chance), and its
+    gradients' rel L2 within BWD_BF16_RATIO x the plain path's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train.data import synth_batch
+    from repro_torch.train.train_step import loss_and_grads, to_device
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=2)
+    params = init_params_cuda(cfg)
+    batch = synth_batch(cfg, ShapeConfig("t", "train", TRAIN_SEQ,
+                                         TRAIN_MICRO), 0)
+    batch = to_device(batch, "cuda")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    runs = {}
+    for dt, c in (("bf16", cfg), ("fp32", cfg32)):
+        p = params if dt == "bf16" else _map(params, lambda t: t.float())
+        for impl in ("kernel", "reference"):
+            loss, grads = loss_and_grads(p, c, batch, impl)
+            flat = torch.cat([g.float().flatten() for g in _leaves(grads)])
+            runs[dt, impl] = (loss.item(), flat.norm().item(), flat.cpu(),
+                              grads["embed"].float().cpu())
+            del grads, flat
+        del p
+    del params
+    t_loss, t_norm, t_grads, t_embed = runs["fp32", "reference"]
+    for key, (loss, norm, _, _) in runs.items():
+        if not (math.isfinite(loss) and math.isfinite(norm)):
+            raise AssertionError(f"{key}: loss {loss}, grad norm {norm}")
+    err = {key: (abs(loss - t_loss) / t_loss, abs(norm - t_norm) / t_norm,
+                 rel_err(grads, t_grads))
+           for key, (loss, norm, grads, _) in runs.items()}
+    for key, (el, en, eg) in err.items():
+        log(f"  depth 2, {key[0]} {key[1]}: loss {runs[key][0]:.6f}, grad "
+            f"norm {runs[key][1]:.6f}; vs fp32 plain: loss {el:.3e}, grad "
+            f"norm {en:.3e}, grads rel L2 {eg:.3e} (the embedding's "
+            f"{rel_err(runs[key][3], t_embed):.3e}, norm "
+            f"{runs[key][3].norm().item():.4f} against "
+            f"{t_embed.norm().item():.4f})")
+    if max(err["fp32", "kernel"]) > FP32_REL_TOL:
+        raise AssertionError(f"fp32 training paths disagree: "
+                             f"{err['fp32', 'kernel']}")
+    kern, plain = err["bf16", "kernel"], err["bf16", "reference"]
+    for i, what in enumerate(("loss", "grad norm")):
+        if kern[i] > max(BWD_BF16_RATIO * plain[i], 1e-3):
+            raise AssertionError(f"bf16 {what}: kernel path {kern[i]} vs "
+                                 f"plain {plain[i]}")
+    if kern[2] > BWD_BF16_RATIO * plain[2]:
+        raise AssertionError(f"bf16 grads: kernel path {kern[2]} vs plain "
+                             f"{plain[2]}")
+
+
+def time_step_parts(state, batch, cfg, opt_cfg) -> None:
+    """One more step, with CUDA events around the optimizer update
+    (``apply_updates``: clip and AdamW) and around the gradient-tree
+    operations of ``train_step`` (zeroed buffers, the fp32 accumulation of
+    each microbatch): the device time between each pair, summed. The
+    stream is busy (the profile above), so a span holds its own kernels."""
+    from repro_torch.train import train_step as ts
+    spans = []
+
+    def spanned(name, fn):
+        def run(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans.append((name, start, end))
+            return out
+        return run
+    with mock.patch.object(ts, "apply_updates", spanned(
+            "optimizer (clip, AdamW)", ts.apply_updates)), \
+            mock.patch.object(ts, "tree_map", spanned(
+                "gradient buffers and fp32 accumulation", ts.tree_map)):
+        ts.train_step(state, batch, cfg, opt_cfg)
+    torch.cuda.synchronize()
+    sums: dict = {}
+    for name, start, end in spans:
+        sums[name] = sums.get(name, 0.0) + start.elapsed_time(end)
+    for name, ms in sums.items():
+        log(f"  CUDA events: {name} {ms:.1f} ms of a step")
+
+
+KINDS = (("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+         ("flash attention kernel", ("fa_bf16", "fa_f32")),
+         ("softmax", ("softmax",)),
+         ("reductions", ("reduce",)),
+         ("elementwise and copies", ("elementwise", "copy", "fill",
+                                     "index", "scatter", "gather")))
+
+
+def by_kind(averages) -> None:
+    """The profile's device time summed by kind of kernel."""
+    from torch.autograd import DeviceType
+    sums: dict = {}
+    for e in averages:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        kind = next((k for k, keys in KINDS
+                     if any(x in e.key for x in keys)), "other")
+        ms, n = sums.get(kind, (0.0, 0))
+        sums[kind] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    log("  by kind: " + "; ".join(
+        f"{k} {ms:.1f} ms ({n}x)" for k, (ms, n) in
+        sorted(sums.items(), key=lambda kv: -kv[1][0])))
+
+
+def init_params_cuda(cfg):
+    from repro_torch.models import init_params
+    return init_params(torch.Generator("cuda").manual_seed(0), cfg)
+
+
+def run_training_resumes() -> None:
+    """run_training on the card at the tiny preset, with its registry,
+    checkpoint commit and resume: 6 straight steps against 3 steps, a
+    commit, a restore from the committed manifest and 3 more steps."""
+    import tempfile
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.coord.registry import ClusterRegistry
+    from repro_torch.launch.train import PRESETS, run_training
+    cfg, shape = PRESETS["tiny"], ShapeConfig("s", "train", 128, 8)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        full = run_training(cfg, shape, 6, d + "/a", ckpt_every=100,
+                            registry=ClusterRegistry(), log_every=100,
+                            device="cuda")["losses"]
+        reg = ClusterRegistry()
+        first = run_training(cfg, shape, 3, d + "/b", ckpt_every=3,
+                             registry=reg, log_every=100,
+                             device="cuda")["losses"]
+        resumed = run_training(cfg, shape, 6, d + "/b", ckpt_every=100,
+                               registry=reg, log_every=100,
+                               device="cuda")["losses"]
+    log(f"run_training tiny on the card: 6 straight {full}; 3 + resume + 3 "
+        f"{first + resumed}; latest committed step "
+        f"{reg.latest_checkpoint()['step']}")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(first + resumed, full))
+    if len(resumed) != 3 or worst > 1e-4:
+        raise AssertionError(f"resume diverged: rel {worst}")
+
+
+def train_phase() -> dict:
+    bwd = check_attention_backward()
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = train_full_width(bwd["bwd_ms"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    compare_train_paths()
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_training_resumes()
+    return trained
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
@@ -767,9 +1162,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"{arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
             f"still allocated")
+    small_models_cpu_vs_card()
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = train_phase()
+    # flash attention's count sums the served prefill and the timed steps
+    launches["flash_attention"] += trained["launches"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    small_models_cpu_vs_card()
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]

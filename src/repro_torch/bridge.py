@@ -1,4 +1,5 @@
-"""Parameter bridge between the JAX checkpoint layout and the port.
+"""Parameter and state bridge between the JAX checkpoint layout and the
+port.
 
 Keys are the ``/``-joined key paths that ``repro.train.checkpoint._flatten``
 writes (``embed``, ``layers/attn/wq``, ``final_norm``, ...), with the
@@ -44,13 +45,39 @@ def params_from_numpy(flat: dict[str, np.ndarray], cfg: ArchConfig,
     return params
 
 
-def params_to_numpy(params: dict, prefix: str = "") -> dict[str, np.ndarray]:
-    """The reverse: nested tensors -> flat ``{key path: float32 array}``."""
+def tree_to_numpy(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    """The reverse, for parameters or a whole train state: nested tensors ->
+    flat ``{key path: array}`` as ``_flatten`` writes it: bf16 upcast to
+    fp32, other dtypes kept, and the state's int ``step`` as a 0-d int32
+    array (JAX's step is an int32 scalar)."""
     flat: dict[str, np.ndarray] = {}
-    for name, value in params.items():
+    for name, value in tree.items():
         key = f"{prefix}{name}"
         if isinstance(value, dict):
-            flat.update(params_to_numpy(value, key + "/"))
+            flat.update(tree_to_numpy(value, key + "/"))
+        elif isinstance(value, int):
+            flat[key] = np.asarray(value, np.int32)
         else:
-            flat[key] = value.detach().to("cpu", torch.float32).numpy()
+            t = value.detach().cpu()
+            flat[key] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return flat
+
+
+def tree_from_numpy(flat, template: dict, prefix: str = "") -> dict:
+    """Flat arrays (a dict, or an open ``.npz``) -> a new tree shaped like
+    ``template``, each leaf cast to the template leaf's dtype and device,
+    an int leaf read back as an int."""
+    out: dict = {}
+    for name, leaf in template.items():
+        key = f"{prefix}{name}"
+        if isinstance(leaf, dict):
+            out[name] = tree_from_numpy(flat, leaf, key + "/")
+        elif isinstance(leaf, int):
+            out[name] = int(flat[key])
+        else:
+            arr = np.asarray(flat[key])
+            if arr.shape != tuple(leaf.shape):
+                raise ValueError(f"{key}: shape {arr.shape}, expected "
+                                 f"{tuple(leaf.shape)}")
+            out[name] = torch.tensor(arr).to(leaf.device, leaf.dtype)
+    return out

@@ -9,6 +9,13 @@ H % Hkv == 0 (query head h reads KV head h // (H // Hkv)). The kernel reads
 each operand through its strides, so views of the projections go in
 without a copy; only the head dim must be contiguous. Output is a new
 contiguous (B, Sq, H, hd) tensor in q's dtype.
+
+Training: ``FlashAttentionFn`` puts the kernel's forward under autograd.
+The Pallas kernel has no backward (the JAX package trains through XLA's
+gradient of ``models.layers.causal_attention_ref``), so the backward,
+``flash_attention_bwd``, is that gradient in torch operations: the scores
+recomputed over chunks of query rows, matrix products on the card's tensor
+cores.
 """
 
 from __future__ import annotations
@@ -26,26 +33,128 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          window: Optional[int] = None) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: dense fp32 scores, GQA by
-    grouping, unnormalised exp-sum and the max(l, 1e-30) clamp, so a fully
-    masked row gives 0 as in the kernel."""
-    b, sq, h, hd = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    qg = q.float().reshape(b, sq, hkv, h // hkv, hd)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(hd)
-    qpos = torch.arange(sq, device=q.device)[:, None]
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = qpos >= kpos
+def _compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """fp32, or fp64 for fp64 inputs (the tests' exact references)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor,
+          window: Optional[int]) -> torch.Tensor:
+    """(len(qpos), len(kpos)) bool: key visible to query, causal and
+    optionally windowed."""
+    mask = qpos[:, None] >= kpos[None, :]
     if window is not None:
-        mask &= qpos - kpos < window
-    s = s.masked_fill(~mask, float("-inf"))
+        mask &= qpos[:, None] - kpos[None, :] < window
+    return mask
+
+
+def _softmax(s: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis with the kernel's convention: the
+    max(l, 1e-30) clamp over an unnormalised exp-sum, so a row with every
+    key masked gives 0, not NaN."""
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m.masked_fill(m == float("-inf"), 0.0))
-    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p / l, v.float())
+    return p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: dense fp32 scores (fp64 for
+    fp64 inputs), GQA by grouping, unnormalised exp-sum and the max(l,
+    1e-30) clamp, so a fully masked row gives 0 as in the kernel."""
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    ct = _compute_dtype(q)
+    qg = q.to(ct).reshape(b, sq, hkv, h // hkv, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(ct)) / math.sqrt(hd)
+    mask = _mask(torch.arange(sq, device=q.device),
+                 torch.arange(sk, device=q.device), window)
+    p = _softmax(s.masked_fill(~mask, float("-inf")))
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(ct))
     return o.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b over matching leading axes, accumulated and returned in the
+    compute dtype. bf16 operands stay bf16: on the card one product of
+    bf16 operands into fp32 (the tensor cores' bf16 rate); on the CPU the
+    operands are widened first, which is exact, so both devices compute the
+    same sums up to their order."""
+    ct = _compute_dtype(a)
+    if a.dtype == ct:
+        return torch.matmul(a, b)
+    if a.device.type == "cpu":
+        return torch.matmul(a.to(ct), b.to(ct))
+    lead = a.shape[:-2]
+    out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
+                    out_dtype=ct)
+    return out.view(*lead, *out.shape[-2:])
+
+
+def _softmax_grad(p: torch.Tensor, dp: torch.Tensor) -> torch.Tensor:
+    """dS from P and dP through the softmax, P * (dP - sum(P * dP)), as
+    P * dP - P * sum(P * dP): written over dP, in two passes over it."""
+    pdp = dp.mul_(p)
+    return pdp.addcmul_(p, pdp.sum(dim=-1, keepdim=True), value=-1.0)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, window: Optional[int] = None,
+                        chunk: int = 512):
+    """(dq, dk, dv) of ``flash_attention`` for the output gradient ``dout``,
+    in the inputs' layouts and dtypes: the gradient XLA takes of the JAX
+    package's ``causal_attention_ref``, which the JAX model trains through.
+
+    Over chunks of ``chunk`` query rows (512, JAX's chunk), the scores are
+    recomputed and masked and P taken by the softmax; P is cast to q's
+    dtype for dV += P^T dO, as JAX's forward casts it before the PV
+    product; dP = dO V^T, dS = P * (dP - sum(P * dP)), dQ = dS K * scale,
+    dK += dS^T Q * scale. A chunk reads only the keys some row of it can
+    see (the causal and window bounds), and query heads are grouped onto
+    their KV head, so dK and dV sum over each group. Products take bf16
+    operands into fp32 sums; dK and dV accumulate in fp32. At B=2, H=32,
+    S=4096 a chunk holds ~0.5 GB of fp32 scores, where the whole matrix
+    would be 4.3 GB."""
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    ct = _compute_dtype(q)
+    scale = 1.0 / math.sqrt(hd)
+    # head-major: queries (B, Hkv, G, Sq, hd), keys and values (B, Hkv, Sk, hd)
+    qh = q.reshape(b, sq, hkv, g, hd).permute(0, 2, 3, 1, 4)
+    doh = dout.reshape(b, sq, hkv, g, hd).permute(0, 2, 3, 1, 4).to(q.dtype)
+    kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    dq = torch.zeros((b, hkv, g, sq, hd), dtype=ct, device=q.device)
+    dk = torch.zeros((b, hkv, sk, hd), dtype=ct, device=q.device)
+    dv = torch.zeros_like(dk)
+    for c0 in range(0, sq, chunk):
+        c1 = min(c0 + chunk, sq)
+        lo = 0 if window is None else max(0, c0 - window + 1)
+        hi = min(c1, sk)
+        if hi <= lo:          # every key masked for these rows: no gradient
+            continue
+        n = g * (c1 - c0)
+        qc = qh[:, :, :, c0:c1].reshape(b, hkv, n, hd)
+        doc = doh[:, :, :, c0:c1].reshape(b, hkv, n, hd)
+        kc, vc = kh[:, :, lo:hi], vh[:, :, lo:hi]
+        s = _mm(qc, kc.transpose(-1, -2)).mul_(scale)
+        mask = _mask(torch.arange(c0, c1, device=q.device),
+                     torch.arange(lo, hi, device=q.device), window)
+        s = s.view(b, hkv, g, c1 - c0, hi - lo).masked_fill_(
+            ~mask, float("-inf")).view(b, hkv, n, hi - lo)
+        # one fused pass where every row sees a key: row q sees key
+        # min(q, Sk - 1) unless the window has passed Sk (only if Sq > Sk)
+        sees_a_key = window is None or c1 - 1 <= sk + window - 2
+        p = torch.softmax(s, dim=-1) if sees_a_key else _softmax(s)
+        del s
+        dv[:, :, lo:hi] += _mm(p.to(q.dtype).transpose(-1, -2), doc)
+        ds = _softmax_grad(p, _mm(doc, vc.transpose(-1, -2))).to(q.dtype)
+        del p
+        dq[:, :, :, c0:c1] = _mm(ds, kc).view(b, hkv, g, c1 - c0, hd)
+        dk[:, :, lo:hi] += _mm(ds.transpose(-1, -2), qc)
+    dq = dq.mul_(scale).permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+    return (dq.to(q.dtype), dk.mul_(scale).permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
 @functools.cache
@@ -103,3 +212,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` under autograd: the forward is the wrapper (the
+    kernel on the card, the plain version on the CPU), the backward
+    ``flash_attention_bwd``. It saves q, k, v and recomputes the scores, as
+    JAX's checkpointed chunks do."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.window = window
+        return flash_attention(q, k, v, window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, dout, ctx.window), None)

@@ -3,7 +3,9 @@
 ``impl`` selects the path:
   * "kernel"     the CUDA kernel for a CUDA tensor (it launches or raises;
                  nothing falls back), the kernel's plain version for a CPU
-                 tensor. The model always uses this.
+                 tensor. The model always uses this. With grad mode on,
+                 flash attention goes through ``FlashAttentionFn``, whose
+                 backward is ``flash_attention_bwd``.
   * "reference"  the plain version on any device, only when a caller asks
                  for it by name (``chip_smoke.py`` does, to hold the kernels
                  against it on the card).
@@ -60,6 +62,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out[0].transpose(0, 1)
     if impl == "reference":
         return _flash.flash_attention_plain(q, k, v, window)
+    if torch.is_grad_enabled():
+        # training: the kernel's forward under autograd, on either device,
+        # so its backward (flash_attention_bwd) is the one that runs
+        return _flash.FlashAttentionFn.apply(q, k, v, window)
     return _flash.flash_attention(q, k, v, window)
 
 

@@ -1,5 +1,6 @@
-from .transformer import (decode_step, init_decode_cache, init_params,
-                          lm_head_weight, prefill)
+from .transformer import (decode_step, forward_train, hidden_states,
+                          init_decode_cache, init_params, lm_head_weight,
+                          prefill)
 
-__all__ = ["decode_step", "init_decode_cache", "init_params",
-           "lm_head_weight", "prefill"]
+__all__ = ["decode_step", "forward_train", "hidden_states",
+           "init_decode_cache", "init_params", "lm_head_weight", "prefill"]

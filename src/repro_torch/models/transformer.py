@@ -1,5 +1,6 @@
-"""Decoder stack, ported from ``repro.models.transformer`` (serving path):
-the dense family and the attention-free RWKV6 family.
+"""Decoder stack, ported from ``repro.models.transformer``: the dense
+family (serving and training) and the attention-free RWKV6 family
+(serving).
 
 Parameters are a nested dict of tensors with the JAX tree's keys and its
 layer-stacked ``(L, ...)`` leaves; a Python loop over layers takes the
@@ -8,6 +9,10 @@ un-repeated K/V: the kernels index the shared KV head themselves. RWKV
 layers run ``models.ssm``, whose recurrence is ``kernels.ops.wkv6``.
 
 Entry points:
+  forward_train  tokens, labels -> mean next-token cross-entropy, chunked
+                 over the sequence so the full (B, S, V) logits never exist;
+                 each layer (with ``cfg.remat``) and each loss chunk is
+                 recomputed in the backward (``torch.utils.checkpoint``)
   prefill      tokens -> (last-token logits, caches, positions)
   decode_step  one token per row + caches -> (logits, caches); the new
                token's K/V, or the new RWKV states, are written into the
@@ -16,7 +21,10 @@ Entry points:
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
@@ -30,6 +38,12 @@ UNPORTED = {
     "hybrid_ssm": "hybrid family (ROADMAP.md queue 1, item 3)",
     "embedding_stub": "stub-frontend family (ROADMAP.md queue 1, item 3)",
 }
+
+
+LOSS_CHUNK = 1024
+# training of RWKV6 runs through the WKV6 kernel, which has no gradient yet
+RWKV_TRAINING = "RWKV6 training needs a gradient for the WKV6 kernel " \
+    "(ROADMAP.md queue 1, item 1)"
 
 
 def _check_ported(cfg: ArchConfig) -> None:
@@ -190,6 +204,79 @@ def apply_rwkv_block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
     h, cstate = apply_rwkv_cmix(lp["cmix"], normed, cfg, cache["cmix"])
     cache["cmix"].copy_(cstate)
     return x + h
+
+
+# ============================================================= training
+def _block_train(x: torch.Tensor, lp: dict, cfg: ArchConfig, rope: tuple,
+                 impl: str) -> torch.Tensor:
+    return apply_block_seq(lp, x, cfg, rope, impl)[0]
+
+
+def hidden_states(params: dict, cfg: ArchConfig, batch: dict,
+                  remat: Optional[bool] = None, impl: str = "kernel"
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward to the final hidden states (pre-head), and the
+    auxiliary loss (0 for the dense family). With remat (``cfg.remat`` unless
+    given) each layer runs again in the backward, as under JAX's
+    ``jax.checkpoint``, so only its input is kept. ``params["layers"]`` is
+    the stacked tree or a list of per-layer trees (the train step passes
+    those, so that each layer's gradient lands in its slice in place)."""
+    _check_ported(cfg)
+    if cfg.attn_free:
+        raise NotImplementedError(f"{cfg.name}: {RWKV_TRAINING}")
+    x = params["embed"][batch["tokens"]]
+    s = x.shape[1]
+    rope = rope_tables(torch.arange(s, device=x.device), cfg.hd,
+                       cfg.rope_theta)
+    layers = params["layers"]
+    use_remat = cfg.remat if remat is None else remat
+    for i in range(cfg.n_layers):
+        lp = layers[i] if isinstance(layers, list) else _layer(layers, i)
+        if use_remat:
+            x = checkpoint(_block_train, x, lp, cfg, rope, impl,
+                           use_reentrant=False)
+        else:
+            x = _block_train(x, lp, cfg, rope, impl)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _chunk_ce(h: torch.Tensor, w: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    """Summed cross-entropy of one chunk: fp32 logits of the head's product,
+    as JAX casts them."""
+    logits = (h @ w).float()
+    gold = logits.gather(-1, labels[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+
+def forward_train(params: dict, cfg: ArchConfig, batch: dict,
+                  impl: str = "kernel") -> torch.Tensor:
+    """Mean next-token cross-entropy plus 0.01 x the auxiliary loss.
+    batch: {"tokens", "labels"}, (B, S) integer tensors. The sequence is cut
+    into chunks as JAX's ``forward_train`` cuts it, ``max(1, S // min(1024,
+    S))`` chunks of ``S // n`` tokens, and like JAX it accepts no S those
+    chunks do not cover (S = 2049 raises; 1500 and 2500 do not). Each
+    chunk's (B, chunk, V) fp32 logits are recomputed in the backward, so
+    only one chunk's exist at a time."""
+    h, aux = hidden_states(params, cfg, batch, impl=impl)
+    labels = batch["labels"].long()
+    w = lm_head_weight(params, cfg)
+    b, s, _ = h.shape
+    n_chunks = max(1, s // min(LOSS_CHUNK, s))
+    chunk = s // n_chunks
+    if n_chunks * chunk != s:
+        raise ValueError(
+            f"sequence length {s}: the chunked loss takes {n_chunks} chunks "
+            f"of {chunk} tokens (max(1, S // min({LOSS_CHUNK}, S)) chunks of "
+            f"S // n_chunks, as the JAX package's forward_train), which do "
+            f"not cover it")
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, s, chunk):
+        total = total + checkpoint(_chunk_ce, h[:, c:c + chunk], w,
+                                   labels[:, c:c + chunk],
+                                   use_reentrant=False)
+    return total / (b * s) + 0.01 * aux
 
 
 # ============================================================== forward

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..coord.registry import ClusterRegistry
 from ..models import decode_step, init_decode_cache, prefill
 
 
@@ -57,19 +58,18 @@ def preallocate_cache(cfg: ArchConfig, caches: dict, total_len: int) -> dict:
 class Engine:
     """Single-host batched engine.
 
-    ``registry``: any object with ``latest_checkpoint()``, read once to
-    learn which model version is served. ``consistency=`` (a coordinator
-    built from a named read policy) needs the control plane, which the port
-    has not copied yet, and raises.
+    ``registry``: any object with ``latest_checkpoint()``, read once (a
+    leased read on the coordinator) to learn which model version is
+    served. With no registry, ``consistency=`` stands up a coordinator
+    (``coord.registry.ClusterRegistry``) with the named read policy of
+    ``consistency`` (e.g. "leaseguard", "readindex").
     """
 
     def __init__(self, cfg: ArchConfig, params: dict,
                  serve_cfg: ServeConfig = ServeConfig(), registry=None,
                  consistency: Optional[str] = None, device=None) -> None:
-        if consistency is not None:
-            raise NotImplementedError(
-                "consistency= needs the control plane, not yet copied into "
-                "the port (ROADMAP.md queue 1, item 2)")
+        if registry is None and consistency is not None:
+            registry = ClusterRegistry(consistency=consistency)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -83,6 +83,7 @@ class Engine:
             self.model_version = registry.latest_checkpoint()
         self.stats: dict = {}
 
+    @torch.no_grad()
     def generate(self, tokens, max_new_tokens: Optional[int] = None
                  ) -> np.ndarray:
         """tokens: (B, S) prompt batch -> (B, new) generated ids (int32).

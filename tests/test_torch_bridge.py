@@ -15,7 +15,7 @@ import torch
 from repro.configs import ARCHS as JAX_ARCHS
 from repro.models import init_params as jinit_params
 from repro.train.checkpoint import _flatten
-from repro_torch.bridge import leaf_dtype, params_from_numpy, params_to_numpy
+from repro_torch.bridge import leaf_dtype, params_from_numpy, tree_to_numpy
 from repro_torch.configs import ARCHS
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -33,7 +33,7 @@ def test_round_trip(arch, dtype):
     assert params["layers"]["attn"]["wq"].dtype == getattr(torch, dtype)
     assert params["layers"]["ln1"].dtype == torch.float32
     assert params["final_norm"].dtype == torch.float32
-    back = params_to_numpy(params)
+    back = tree_to_numpy(params)
     assert sorted(back) == sorted(flat)
     for key, arr in flat.items():
         np.testing.assert_array_equal(back[key], arr, err_msg=key)
@@ -53,7 +53,7 @@ def test_round_trip_keeps_rwkv_leaves_fp32():
     assert cmix["mu"].dtype == torch.float32
     for leaf in (tmix["w_r"], tmix["w_o"], cmix["w_k"], params["embed"]):
         assert leaf.dtype == torch.bfloat16
-    back = params_to_numpy(params)
+    back = tree_to_numpy(params)
     assert sorted(back) == sorted(flat)
     for key, arr in flat.items():
         np.testing.assert_array_equal(back[key], arr, err_msg=key)

@@ -70,6 +70,30 @@ def test_flash_attention_matches_plain(cuda, bh, bhkv, s, hd, window, bq,
           TOL[dtype])
 
 
+@pytest.mark.parametrize("bh,bhkv,s,hd,window,bq,bk,dtype",
+                         FA_CASES[1:4] + FA_CASES[6:] + FA_CARD_CASES[2:])
+def test_flash_attention_backward_matches_plain(cuda, bh, bhkv, s, hd,
+                                                window, bq, bk, dtype):
+    """FlashAttentionFn (the kernel's forward, flash_attention_bwd) against
+    autograd through the plain version: within the tolerance of each
+    gradient's largest magnitude (bf16: the two paths round P and dS at
+    other points)."""
+    td = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).to(cuda, td)
+               for x in fa_inputs(bh, bhkv, s, hd, bh * s + hd + 1))
+    dout = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(
+        s), device=cuda).to(td)
+    grads = {}
+    for impl in ("kernel", "reference"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ops.flash_attention(*leaves, window=window, impl=impl).backward(dout)
+        grads[impl] = [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    for got, want in zip(grads["kernel"], grads["reference"]):
+        assert got.dtype == td
+        close(got, want, TOL[dtype] * want.float().abs().max().item())
+
+
 @pytest.mark.parametrize("b,hkv,grp,s,hd,bs,dtype",
                          DECODE_CASES + DECODE_CARD_CASES)
 def test_flash_decode_matches_plain(cuda, b, hkv, grp, s, hd, bs, dtype):

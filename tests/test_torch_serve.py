@@ -18,6 +18,7 @@ from repro.serve.engine import ServeConfig as JaxServeConfig
 from repro.train.checkpoint import _flatten
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import ARCHS
+from repro_torch.coord.registry import ClusterRegistry
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch.train import PRESETS
 from repro_torch.serve.engine import Engine, ServeConfig
@@ -73,6 +74,9 @@ def test_sampling_is_seeded(tiny):
 
 
 def test_registry_contract(tiny):
+    """A given registry is read once for the model version; with none,
+    consistency= stands up a coordinator with the named read policy, whose
+    read of the (empty) checkpoint table is the model version."""
     cfg, _, params = tiny
 
     class Registry:
@@ -80,8 +84,12 @@ def test_registry_contract(tiny):
             return {"step": 7}
     engine = Engine(cfg, params, registry=Registry(), device="cpu")
     assert engine.model_version == {"step": 7}
-    with pytest.raises(NotImplementedError, match="control plane"):
-        Engine(cfg, params, consistency="leaseguard", device="cpu")
+    for policy in ("leaseguard", "quorum"):
+        engine = Engine(cfg, params, consistency=policy, device="cpu")
+        assert isinstance(engine.registry, ClusterRegistry)
+        assert engine.registry.coord.stats()["consistency"] == policy
+        assert engine.model_version is None
+        assert engine.registry.coord.stats()["reads"] == 1
 
 
 def test_engine_defaults_to_the_card(tiny):
@@ -109,6 +117,24 @@ def test_serve_cli_on_cpu(capsys):
     # CPU tensors take the plain versions: no kernel launches
     assert out["flash_attention"] == 0 and out["decode_attention"] == 0
     assert "served 2 requests" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("policy,read_messages", [("leaseguard", 0),
+                                                  ("readindex", None)])
+def test_serve_cli_consistency_on_cpu(capsys, policy, read_messages):
+    """--consistency: the model version (the fresh-init manifest) is read
+    with the named policy; leaseguard's leased read sends no message."""
+    out = serve_cli.main(["--preset", "tiny", "--requests", "1",
+                          "--prompt-len", "4", "--max-new", "2",
+                          "--device", "cpu", "--consistency", policy])
+    stats = out["coordinator"]
+    assert stats["consistency"] == policy and stats["reads"] == 1
+    if read_messages is not None:
+        assert stats["read_messages"] == read_messages
+    else:
+        assert stats["read_messages"] > 0
+    printed = capsys.readouterr().out
+    assert "model version: step 0" in printed and policy in printed
 
 
 def test_serve_cli_rwkv_on_cpu(capsys):
