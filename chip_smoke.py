@@ -37,18 +37,24 @@ Phases; each raises on failure, so any failure exits non-zero:
      backward (FlashAttentionFn: the kernel's forward, flash_attention_bwd
      in torch operations) against autograd through the plain version at
      the serving shape and at the training shape (B=2, S=4096), fp32 and
-     bf16, with two mutants of the backward that must fail; qwen3-8b
-     trained at full width and depth 8 (AdamW, bf16, 4 microbatches of 2 x
-     4096 tokens) through train_step, a warm-up step and 3 timed ones,
+     bf16, with two mutants of the backward that must fail, and the
+     kernel's bf16 forward against its plain version at the training
+     shape, with the temperature mutant; qwen3-8b trained at full width
+     and depth 8 (AdamW, bf16, 4 microbatches of 2 x 4096 tokens)
+     through train_step, a warm-up step and 3 timed ones,
      each with its loss, grad norm, time, tokens/s, share of the step's
      bound (train_mfu) and peak memory, its launch counts (2 flash
      attention launches per layer and microbatch with remat, no other
      kernel's) and a profile of one step; the first microbatch's loss and
      grads at depth 2 through the kernels and the plain versions, bf16 and
-     fp32; run_training at the tiny preset on the card, 6 straight steps
+     fp32 (the embedding's gradient and the other leaves' held apart);
+     run_training at the tiny preset on the card, 6 straight steps
      against 3, a commit, a resume and 3 more.
-The last lines are a JSON line of per-kernel numbers, the card's name and
-power limit from nvidia-smi, and {"ok": true, "device": {...}}.
+The last lines are a JSON line of per-kernel numbers (flash attention twice:
+"flash_attention" at the serving shape with the served prefill's launches,
+"flash_attention_train" at the training shape with the timed train steps'
+launches), the card's name and power limit from nvidia-smi, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -828,6 +834,8 @@ def check_attention_backward() -> dict:
                     raise AssertionError(f"the backward check cannot tell "
                                          f"the mutant {what}")
         bf = [t.to(torch.bfloat16) for t in (q, k, v, dout)]
+        if label == "training":
+            fwd_err = check_training_forward(*bf[:3])
         truth = attention_grads(*(t.float() for t in bf), "reference")
         got = attention_grads(*bf, "kernel")
         plain = attention_grads(*bf, "reference")
@@ -839,18 +847,37 @@ def check_attention_backward() -> dict:
                 raise AssertionError(f"attention backward bf16 {name}, "
                                      f"{label}: {ek} vs plain {ep}")
         del truth, got, plain
-    return time_training_shape(*bf)
+    return time_training_shape(*bf, fwd_err)
 
 
-def time_training_shape(q, k, v, dout) -> dict:
+def check_training_forward(q, k, v) -> float:
+    """The kernel's bf16 forward at the training shape (the body each train
+    step launches 2 x layers x microbatches times) against its plain
+    version, with the temperature mutant. The backward recomputes P from q,
+    k and v and never reads the forward's output, so its check cannot stand
+    for this one."""
+    from repro_torch.kernels import flash_attention as fa
+    want = fa.flash_attention_plain(q, k, v)
+    name = f"training forward B={q.shape[0]} S={q.shape[1]} bf16"
+    err = assert_close(name, fa.flash_attention(q, k, v), want)
+    assert_mutant_caught(name, fa.flash_attention_plain(q * MUTANT_TEMP, k,
+                                                        v), want)
+    return err
+
+
+def time_training_shape(q, k, v, dout, fwd_err: float) -> dict:
     """The kernel's forward and flash_attention_bwd at the training shape,
     beside the plain forward, SDPA's forward and SDPA's forward plus
     backward (PyTorch's own flash attention: a yardstick, used nowhere in
-    the port), and their bounds by operations."""
+    the port), and their bounds. Returns the backward's time and the
+    kernel line's entry for the forward at this shape."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     b, s, h, hd = q.shape
     fwd_flops = 4 * b * h * hd * (s * (s + 1) // 2)
+    # Q, K, V read once, O (the size of Q) written once
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound, by = bound_ms(n_bytes, {q.dtype: fwd_flops})
     fwd = time_ms(lambda: fa.flash_attention(q, k, v), 10)
     plain = time_ms(lambda: fa.flash_attention_plain(q, k, v), 2, warmup=1)
     bwd = time_ms(lambda: fa.flash_attention_bwd(q, k, v, dout), 5,
@@ -865,12 +892,16 @@ def time_training_shape(q, k, v, dout) -> dict:
                                        enable_gqa=True).backward(dt)
     lib_both = time_ms(sdpa_fwd_bwd, 5)
     log(f"  training shape B={b} S={s} bf16: kernel forward {fwd:.4f} ms "
-        f"(plain {plain:.4f}, SDPA {lib:.4f}, bound "
-        f"{bound_ms(0, {q.dtype: fwd_flops})[0]:.4f} ms by operations); "
-        f"flash_attention_bwd {bwd:.4f} ms (kernel forward + it "
+        f"(plain {plain:.4f}, SDPA {lib:.4f}, bound {bound:.4f} ms by "
+        f"{by}); flash_attention_bwd {bwd:.4f} ms (kernel forward + it "
         f"{fwd + bwd:.4f} ms, SDPA forward + backward {lib_both:.4f} ms, "
         f"bound of both {bound_ms(0, {q.dtype: 3 * fwd_flops})[0]:.4f} ms)")
-    return {"fwd_ms": fwd, "bwd_ms": bwd}
+    entry = {"name": "flash_attention_train", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:75",
+             "max_abs_err": fwd_err, "ms": fwd, "plain_ms": plain,
+             "bound_ms": bound, "bound_by": by, "library_ms": lib}
+    return {"bwd_ms": bwd, "entry": entry}
 
 
 def train_bound(cfg, seqs: int) -> tuple[float, str, float]:
@@ -978,13 +1009,15 @@ def train_full_width(bwd_ms: float) -> dict:
 
 
 def compare_train_paths() -> None:
-    """The first microbatch's loss and grad norm at depth 2, full width,
+    """The first microbatch's loss and gradients at depth 2, full width,
     through the kernel and through the plain versions (impl="reference"),
     in bf16 and with the weights widened to fp32; fp32 plain is the truth.
     fp32 kernel path: within FP32_REL_TOL of it. bf16 kernel path: its
-    loss and grad norm within BWD_BF16_RATIO x the plain path's error (or
-    1e-3, where the plain path lands on the truth by chance), and its
-    gradients' rel L2 within BWD_BF16_RATIO x the plain path's."""
+    loss, grad norm, the rel L2 of the embedding's gradient and that of
+    all other leaves, each within BWD_BF16_RATIO x the plain path's own
+    error. The embedding's bf16 scatter-add drifts far from fp32 on both
+    paths (as JAX's does: tests/test_torch_bf16_grads.py), so the other
+    leaves are held apart from it, to their own much smaller error."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.train.data import synth_batch
@@ -1000,37 +1033,37 @@ def compare_train_paths() -> None:
         p = params if dt == "bf16" else _map(params, lambda t: t.float())
         for impl in ("kernel", "reference"):
             loss, grads = loss_and_grads(p, c, batch, impl)
-            flat = torch.cat([g.float().flatten() for g in _leaves(grads)])
-            runs[dt, impl] = (loss.item(), flat.norm().item(), flat.cpu(),
-                              grads["embed"].float().cpu())
-            del grads, flat
+            embed = grads.pop("embed").float()
+            rest = torch.cat([g.float().flatten() for g in _leaves(grads)])
+            norm = torch.cat([embed.flatten(), rest]).norm().item()
+            runs[dt, impl] = (loss.item(), norm, embed.cpu(), rest.cpu())
+            del grads, embed, rest
         del p
     del params
-    t_loss, t_norm, t_grads, t_embed = runs["fp32", "reference"]
+    t_loss, t_norm, t_embed, t_rest = runs["fp32", "reference"]
     for key, (loss, norm, _, _) in runs.items():
         if not (math.isfinite(loss) and math.isfinite(norm)):
             raise AssertionError(f"{key}: loss {loss}, grad norm {norm}")
+    what = ("loss", "grad norm", "embedding grad", "other grads")
     err = {key: (abs(loss - t_loss) / t_loss, abs(norm - t_norm) / t_norm,
-                 rel_err(grads, t_grads))
-           for key, (loss, norm, grads, _) in runs.items()}
-    for key, (el, en, eg) in err.items():
+                 rel_err(embed, t_embed), rel_err(rest, t_rest))
+           for key, (loss, norm, embed, rest) in runs.items()}
+    for key, e in err.items():
         log(f"  depth 2, {key[0]} {key[1]}: loss {runs[key][0]:.6f}, grad "
-            f"norm {runs[key][1]:.6f}; vs fp32 plain: loss {el:.3e}, grad "
-            f"norm {en:.3e}, grads rel L2 {eg:.3e} (the embedding's "
-            f"{rel_err(runs[key][3], t_embed):.3e}, norm "
-            f"{runs[key][3].norm().item():.4f} against "
-            f"{t_embed.norm().item():.4f})")
+            f"norm {runs[key][1]:.6f}, embedding grad norm "
+            f"{runs[key][2].norm().item():.4f} (fp32 plain "
+            f"{t_embed.norm().item():.4f}); vs fp32 plain (relative): "
+            + ", ".join(f"{w} {x:.3e}" for w, x in zip(what, e)))
     if max(err["fp32", "kernel"]) > FP32_REL_TOL:
         raise AssertionError(f"fp32 training paths disagree: "
                              f"{err['fp32', 'kernel']}")
     kern, plain = err["bf16", "kernel"], err["bf16", "reference"]
-    for i, what in enumerate(("loss", "grad norm")):
-        if kern[i] > max(BWD_BF16_RATIO * plain[i], 1e-3):
-            raise AssertionError(f"bf16 {what}: kernel path {kern[i]} vs "
-                                 f"plain {plain[i]}")
-    if kern[2] > BWD_BF16_RATIO * plain[2]:
-        raise AssertionError(f"bf16 grads: kernel path {kern[2]} vs plain "
-                             f"{plain[2]}")
+    log(f"  bf16 kernel path within {BWD_BF16_RATIO} x the plain path's "
+        f"error: " + ", ".join(f"{w} {k / p:.3f} x" if p else f"{w} {k} vs 0"
+                               for w, k, p in zip(what, kern, plain)))
+    for w, k, p in zip(what, kern, plain):
+        if k > BWD_BF16_RATIO * p:
+            raise AssertionError(f"bf16 {w}: kernel path {k} vs plain {p}")
 
 
 def time_step_parts(state, batch, cfg, opt_cfg) -> None:
@@ -1134,7 +1167,7 @@ def train_phase() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     run_training_resumes()
-    return trained
+    return {**trained, "entry": bwd["entry"]}
 
 
 def _map(tree, fn):
@@ -1166,10 +1199,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     trained = train_phase()
-    # flash attention's count sums the served prefill and the timed steps
-    launches["flash_attention"] += trained["launches"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    # the forward at the training shape, launched by the timed train steps
+    kernels.append({**trained["entry"], "launches": trained["launches"]})
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]

@@ -31,6 +31,7 @@ from . import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+BWD_CHUNK = 512     # query rows per chunk of the backward: JAX's chunk
 
 
 def _compute_dtype(t: torch.Tensor) -> torch.dtype:
@@ -99,13 +100,14 @@ def _softmax_grad(p: torch.Tensor, dp: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        dout: torch.Tensor, window: Optional[int] = None,
-                        chunk: int = 512):
+                        dout: torch.Tensor, window: Optional[int] = None):
     """(dq, dk, dv) of ``flash_attention`` for the output gradient ``dout``,
     in the inputs' layouts and dtypes: the gradient XLA takes of the JAX
     package's ``causal_attention_ref``, which the JAX model trains through.
 
-    Over chunks of ``chunk`` query rows (512, JAX's chunk), the scores are
+    Queries and keys are the same positions (Sq == Sk, as in training), so
+    every row sees at least its own key. Over chunks of BWD_CHUNK query rows
+    (JAX's chunk), the scores are
     recomputed and masked and P taken by the softmax; P is cast to q's
     dtype for dV += P^T dO, as JAX's forward casts it before the PV
     product; dP = dO V^T, dS = P * (dP - sum(P * dP)), dQ = dS K * scale,
@@ -117,6 +119,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     would be 4.3 GB."""
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    if sq != sk:
+        raise ValueError(f"flash_attention_bwd: {sq} queries against {sk} "
+                         f"keys; the backward needs Sq == Sk")
     g = h // hkv
     ct = _compute_dtype(q)
     scale = 1.0 / math.sqrt(hd)
@@ -127,31 +132,25 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.zeros((b, hkv, g, sq, hd), dtype=ct, device=q.device)
     dk = torch.zeros((b, hkv, sk, hd), dtype=ct, device=q.device)
     dv = torch.zeros_like(dk)
-    for c0 in range(0, sq, chunk):
-        c1 = min(c0 + chunk, sq)
+    for c0 in range(0, sq, BWD_CHUNK):
+        c1 = min(c0 + BWD_CHUNK, sq)
         lo = 0 if window is None else max(0, c0 - window + 1)
-        hi = min(c1, sk)
-        if hi <= lo:          # every key masked for these rows: no gradient
-            continue
         n = g * (c1 - c0)
         qc = qh[:, :, :, c0:c1].reshape(b, hkv, n, hd)
         doc = doh[:, :, :, c0:c1].reshape(b, hkv, n, hd)
-        kc, vc = kh[:, :, lo:hi], vh[:, :, lo:hi]
+        kc, vc = kh[:, :, lo:c1], vh[:, :, lo:c1]
         s = _mm(qc, kc.transpose(-1, -2)).mul_(scale)
         mask = _mask(torch.arange(c0, c1, device=q.device),
-                     torch.arange(lo, hi, device=q.device), window)
-        s = s.view(b, hkv, g, c1 - c0, hi - lo).masked_fill_(
-            ~mask, float("-inf")).view(b, hkv, n, hi - lo)
-        # one fused pass where every row sees a key: row q sees key
-        # min(q, Sk - 1) unless the window has passed Sk (only if Sq > Sk)
-        sees_a_key = window is None or c1 - 1 <= sk + window - 2
-        p = torch.softmax(s, dim=-1) if sees_a_key else _softmax(s)
+                     torch.arange(lo, c1, device=q.device), window)
+        s = s.view(b, hkv, g, c1 - c0, c1 - lo).masked_fill_(
+            ~mask, float("-inf")).view(b, hkv, n, c1 - lo)
+        p = torch.softmax(s, dim=-1)
         del s
-        dv[:, :, lo:hi] += _mm(p.to(q.dtype).transpose(-1, -2), doc)
+        dv[:, :, lo:c1] += _mm(p.to(q.dtype).transpose(-1, -2), doc)
         ds = _softmax_grad(p, _mm(doc, vc.transpose(-1, -2))).to(q.dtype)
         del p
         dq[:, :, :, c0:c1] = _mm(ds, kc).view(b, hkv, g, c1 - c0, hd)
-        dk[:, :, lo:hi] += _mm(ds.transpose(-1, -2), qc)
+        dk[:, :, lo:c1] += _mm(ds.transpose(-1, -2), qc)
     dq = dq.mul_(scale).permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
     return (dq.to(q.dtype), dk.mul_(scale).permute(0, 2, 1, 3).to(k.dtype),
             dv.permute(0, 2, 1, 3).to(v.dtype))

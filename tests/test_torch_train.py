@@ -79,11 +79,12 @@ def close_rel(got, want, tol, name="", scale=None):
 
 # ------------------------------------------------------ attention backward
 ATTN_CASES = [
-    # (B, S, H, Hkv, hd, window, chunk)
-    (2, 70, 4, 2, 16, None, 32),     # GQA, several chunks, ragged last
-    (1, 100, 4, 4, 8, 17, 32),       # window narrower than a chunk
-    (1, 600, 2, 1, 16, None, 512),   # S not a multiple of 512
-    (2, 90, 6, 2, 8, 40, 16),        # window wider than a chunk
+    # (B, S, H, Hkv, hd, window); the backward's chunks are 512 query rows
+    (2, 70, 4, 2, 16, None),         # GQA, one chunk
+    (1, 100, 4, 4, 8, 17),           # a window
+    (1, 600, 2, 1, 16, None),        # S not a multiple of 512: ragged chunk
+    (1, 1100, 2, 1, 8, 40),          # window narrower than a chunk, 3 chunks
+    (1, 1100, 6, 2, 8, 700),         # window wider than a chunk
 ]
 
 
@@ -97,38 +98,32 @@ def attn_inputs(b, s, h, hkv, hd, seed):
 def test_attention_bwd_matches_fp64_autograd(case):
     """The backward's algebra, exactly: fp64 autograd through the plain
     forward."""
-    b, s, h, hkv, hd, window, chunk = case
+    b, s, h, hkv, hd, window = case
     q, k, v, do = (torch.from_numpy(a).double()
                    for a in attn_inputs(b, s, h, hkv, hd, 0))
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     fa.flash_attention_plain(*leaves, window).backward(do)
-    got = fa.flash_attention_bwd(q, k, v, do, window, chunk)
+    got = fa.flash_attention_bwd(q, k, v, do, window)
     for name, g, leaf in zip("qkv", got, leaves):
         assert g.dtype == torch.float64
         close_rel(g, leaf.grad.numpy(), 1e-10, f"d{name}")
 
 
-def test_attention_bwd_rows_that_see_no_key():
-    """Sq > Sk with a window: queries past Sk + window - 1 see no key, get
-    0 from the forward (the kernel's convention) and no gradient."""
+def test_attention_bwd_needs_equal_lengths():
+    """The backward is for training, where queries and keys are the same
+    positions; Sq != Sk raises rather than giving rows with no key."""
     rng = np.random.default_rng(5)
-    q, do = (torch.from_numpy(rand(rng, (1, 30, 2, 8))).double()
-             for _ in range(2))
-    k, v = (torch.from_numpy(rand(rng, (1, 10, 1, 8))).double()
-            for _ in range(2))
-    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    fa.flash_attention_plain(*leaves, 4).backward(do)
-    got = fa.flash_attention_bwd(q, k, v, do, 4, 8)
-    assert got[0][0, 13:].abs().max() == 0
-    for name, g, leaf in zip("qkv", got, leaves):
-        close_rel(g, leaf.grad.numpy(), 1e-10, f"d{name}")
+    q, do = (torch.from_numpy(rand(rng, (1, 30, 2, 8))) for _ in range(2))
+    k, v = (torch.from_numpy(rand(rng, (1, 10, 1, 8))) for _ in range(2))
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        fa.flash_attention_bwd(q, k, v, do, 4)
 
 
 @functools.cache
 def jax_attention_vjp(case, dtype):
     """JAX's gradient of the model's attention (repeat_kv, then
     causal_attention_ref with its 512-row chunks)."""
-    b, s, h, hkv, hd, window, _ = case
+    b, s, h, hkv, hd, window = case
     q, k, v, do = attn_inputs(b, s, h, hkv, hd, 1)
     jd = getattr(jnp, dtype)
 
