@@ -16,23 +16,41 @@ Phases; each raises on failure, so any failure exits non-zero:
      against a 32,768-slot cache; WKV6 also at its chunk edges (S of T-1,
      T, T+1, 2T+3), with decays in the model's range and with exact 0s
      and 1s, a decay-one-step-late mutant, and timed at the decode shape
-     (B=4, S=1, H=40, hd=64);
+     (B=4, S=1, H=40, hd=64); then both attention kernels at hd 96, 80 and
+     160, at the serving shapes of phi3-mini-3.8b (MHA), h2o-danube-1.8b
+     (GQA 4x, 5120 tokens past its 4096-token window, a full ring in
+     decode) and pixtral-12b (GQA 4x), bf16 and fp32, each with a mutant
+     and timed beside its plain version, SDPA and its bound;
   3. serve each model of SERVED at full width and full depth (bf16, random
      weights from a seed) through Engine.generate: 4 requests, 32 new
      tokens, greedy; qwen3-8b (36 layers, d_model 4096) with 512 prompt
-     tokens, then rwkv6-3b (32 layers, d_model 2560) with 1024. The
-     kernels' launch counters are zeroed just before and read just after,
+     tokens, rwkv6-3b (32 layers, d_model 2560) with 1024, phi3-mini-3.8b
+     with 512, h2o-danube-1.8b with 5120 (past its window: the windowed
+     prefill and the ring cache) and moonshot-v1-16b-a3b (MoE, 64
+     experts top-6, 48 layers, 56 GB) with 512; then the stub-frontend
+     models of STUB_SERVED, which Engine refuses, through prefill and 32
+     decode_steps fed embeddings made from the seed as train/data.py makes
+     them: pixtral-12b (hd 160) and musicgen-large. The kernels' launch
+     counters are zeroed just before and read just after,
      and must show one launch per layer of the model's prefill kernel
      and one per layer and decode step of its decode kernel (rwkv6: the
      same WKV6 kernel), and none of the other kernels. A profile of one
      prefill and one decode step shows where the device time goes, and
      their own counts must be one launch per layer. Then the prefill
-     logits and three decode steps fed the same tokens, through the
+     logits and three decode steps fed the same inputs, through the
      kernels and through impl="reference" (the plain versions, on the
      card), in bf16 and with the weights widened to fp32, must agree
-     (compare_paths). Each model's weights are freed before the next;
-  4. small fp32 models (dense and RWKV) served on the card and on the CPU
-     must agree;
+     (compare_paths; where the fp32 copy of every layer does not fit
+     beside the bf16 weights, at the first layers that fit; for MoE it
+     prints the share of (token, layer) expert choices on which the two
+     paths agree). Each model's weights are freed before the next;
+  3b. every config the port admits (all but hymba-1.5b) at full width and
+     depth 1, fp32: a prefill of 4 x SWEEP_LEN positions and 3 decode
+     steps through the kernels (their launches counted) against the plain
+     versions; arctic-480b's one layer (128 experts top-2 beside a dense
+     residual) is 56 GB in fp32;
+  4. small fp32 models (dense, MoE and RWKV) served on the card and on the
+     CPU must agree;
   5. training, after the served models are freed: the flash attention
      backward (FlashAttentionFn: the kernel's forward, flash_attention_bwd
      in torch operations) against autograd through the plain version at
@@ -50,15 +68,18 @@ Phases; each raises on failure, so any failure exits non-zero:
      fp32 (the embedding's gradient and the other leaves' held apart);
      run_training at the tiny preset on the card, 6 straight steps
      against 3, a commit, a resume and 3 more.
-The last lines are a JSON line of per-kernel numbers (flash attention twice:
-"flash_attention" at the serving shape with the served prefill's launches,
-"flash_attention_train" at the training shape with the timed train steps'
-launches), the card's name and power limit from nvidia-smi, and
-{"ok": true, "device": {...}}.
+Each phase prints its wall time. The last lines are a JSON line of
+per-kernel numbers (flash attention at the qwen3-8b serving shape with the
+served prefill's launches, "flash_attention_train" at the training shape
+with the timed train steps' launches, and both attention kernels once
+more for each of hd 96, 80 and 160, "_hd<n>", at the shape and with the
+launches of the model served at that head dim), the card's name and power
+limit from nvidia-smi, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -72,10 +93,21 @@ from unittest import mock
 import torch
 
 ROOT = Path(__file__).resolve().parent
-# the models served in phase 3, each with its prompt length: rwkv6's
-# recurrence is sequential in time, so its users' long prompts set the
-# kernel's critical path
-SERVED = {"qwen3-8b": 512, "rwkv6-3b": 1024}
+# the models served in phase 3 through Engine.generate, each with its prompt
+# length: rwkv6's recurrence is sequential in time, so its users' long
+# prompts set the kernel's critical path; h2o-danube's users bring prompts
+# longer than its 4096-token window
+SERVED = {"qwen3-8b": 512, "rwkv6-3b": 1024, "phi3-mini-3.8b": 512,
+          "h2o-danube-1.8b": 5120, "moonshot-v1-16b-a3b": 512}
+# stub-frontend models, which Engine refuses (they take embeddings): served
+# through prefill and decode_step
+STUB_SERVED = {"pixtral-12b": 512, "musicgen-large": 512}
+# the head dims the kernels gained for phi3, h2o-danube and pixtral: each
+# checked at its model's serving shape (phase 2), its launches counted
+# where that model is served (phase 3)
+NEW_HEAD_DIMS = {96: "phi3-mini-3.8b", 80: "h2o-danube-1.8b",
+                 160: "pixtral-12b"}
+SWEEP_LEN = 256                      # phase 3b's prompt length
 REQUESTS, MAX_NEW = 4, 32
 PROMPT_LEN = SERVED["qwen3-8b"]      # the attention kernels' checks
 RWKV_HEADS, RWKV_HD = 40, 64         # rwkv6-3b: d_model 2560 in heads of 64
@@ -535,6 +567,119 @@ def check_wkv6_chunks(gen, inputs) -> None:
     case("S=1000, exact 0 and 1 decays", 1000, "0 and 1")
 
 
+def prompt_len_of(arch: str) -> int:
+    return {**SERVED, **STUB_SERVED}[arch]
+
+
+def visible_pairs(s: int, window) -> int:
+    """Causal (query, key) pairs of an S-token prefill, inside the window."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def check_head_dim(hd: int) -> list:
+    """Both attention kernels at head dim ``hd``, at the serving shapes of
+    the model NEW_HEAD_DIMS names (its heads, window, prompt length; decode
+    against the cache the engine keeps after that prompt: a full ring of
+    window slots for h2o-danube, else prompt + MAX_NEW slots with ragged
+    cache_len), bf16 and fp32, each against its plain version with the
+    temperature mutant; then timed in bf16 beside the plain version, one
+    SDPA call (with a window mask, or masked by cache_len) and the bound.
+    Returns the two kernels' JSON entries."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    arch = NEW_HEAD_DIMS[hd]
+    cfg = get_arch(arch)
+    b, s, h, hkv, window = REQUESTS, prompt_len_of(arch), cfg.n_heads, \
+        cfg.n_kv_heads, cfg.sliding_window
+    grp = h // hkv
+    cap = min(s + MAX_NEW, window or s + MAX_NEW)
+    lens = torch.tensor([cap, cap - 16, cap - 24, s + 1] if cap > s else
+                        [cap] * b, device="cuda", dtype=torch.int32)
+    if cfg.hd != hd:
+        raise AssertionError(f"{arch} has hd {cfg.hd}, not {hd}")
+    gen = torch.Generator("cuda").manual_seed(hd)
+    log(f"hd {hd} at {arch}'s serving shapes ({h}/{hkv} heads, window "
+        f"{window}): prefill B={b} S={s}; decode grp {grp} against "
+        f"{cap} slots, cache_len {lens.tolist()}:")
+    pre, dec = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = randn(gen, (b, s, h, hd), dtype)
+        k = randn(gen, (b, s, hkv, hd), dtype)
+        v = randn(gen, (b, s, hkv, hd), dtype, 1.0)
+        want = ops.flash_attention(q, k, v, window=window, impl="reference")
+        got = ops.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        name = f"prefill hd {hd} {str(dtype)[6:]}"
+        err = assert_close(name, got, want)
+        assert_mutant_caught(name, ops.flash_attention(
+            q * MUTANT_TEMP, k, v, window=window, impl="reference"), want)
+        if dtype == torch.bfloat16:
+            pre = {"q": q, "k": k, "v": v, "err": err}
+        qd = randn(gen, (b, hkv, grp, hd), dtype)
+        kc = randn(gen, (b, cap, hkv, hd), dtype)
+        vc = randn(gen, (b, cap, hkv, hd), dtype, 1.0)
+        want = ops.decode_attention(qd, kc, vc, lens, impl="reference")
+        name = f"decode hd {hd} {str(dtype)[6:]}"
+        err = assert_close(name, ops.decode_attention(qd, kc, vc, lens), want)
+        assert_mutant_caught(name, ops.decode_attention(
+            qd * MUTANT_TEMP, kc, vc, lens, impl="reference"), want)
+        if dtype == torch.bfloat16:
+            dec = {"q": qd, "k": kc, "v": vc, "err": err}
+    entries = []
+    q, k, v = pre["q"], pre["k"], pre["v"]
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound, by = bound_ms(n_bytes, {q.dtype: 4 * b * h * hd
+                                   * visible_pairs(s, window)})
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, window=window), 20)
+    plain = time_ms(lambda: ops.flash_attention(q, k, v, window=window,
+                                                impl="reference"), 3,
+                    warmup=1)
+    qt = q.transpose(1, 2).contiguous()
+    if window is None:
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+        what = "SDPA"
+    else:     # SDPA has no window: a boolean mask, K and V per query head
+        kt, vt = (t.repeat_interleave(grp, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        pos = torch.arange(s, device="cuda")
+        mask = (pos[:, None] >= pos[None, :]) & \
+            (pos[:, None] - pos[None, :] < window)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), 5, warmup=1)
+        what = "SDPA, window mask"
+    log(f"  prefill hd {hd} time: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"{what} {lib:.4f} ms, bound {bound:.4f} ms ({by})")
+    entries.append({"name": f"flash_attention_hd{hd}", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/"
+                              "flash_attention.cu",
+                    "replaces": "src/repro/kernels/flash_attention.py:75",
+                    "max_abs_err": pre["err"], "ms": ms, "plain_ms": plain,
+                    "bound_ms": bound, "bound_by": by, "library_ms": lib})
+    del pre, q, k, v, qt, kt, vt
+    qd, kc, vc = dec["q"], dec["k"], dec["v"]
+    valid = int(lens.sum()) * hkv * hd                # K (and V) elements
+    n_bytes = (2 * qd.numel() + 2 * valid) * qd.element_size() + 4 * b
+    bound, by = bound_ms(n_bytes, {qd.dtype: 4 * grp * valid})
+    ms = time_ms(lambda: ops.decode_attention(qd, kc, vc, lens), 200)
+    plain = time_ms(lambda: ops.decode_attention(qd, kc, vc, lens,
+                                                 impl="reference"), 20)
+    lib = time_ms(masked_sdpa(qd, kc, vc, lens), 200)
+    log(f"  decode hd {hd} time: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"SDPA {lib:.4f} ms (masked), bound {bound:.4f} ms ({by})")
+    entries.append({"name": f"decode_attention_hd{hd}", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/"
+                              "decode_attention.cu",
+                    "replaces": "src/repro/kernels/decode_attention.py:63",
+                    "max_abs_err": dec["err"], "ms": ms, "plain_ms": plain,
+                    "bound_ms": bound, "bound_by": by, "library_ms": lib})
+    return entries
+
+
 # ------------------------------------------------------------ phase 3
 def expected_counts(cfg, decode_steps: int, prefills: int = 1) -> dict:
     """One launch per layer of the prefill kernel per prefill, and of the
@@ -615,7 +760,92 @@ def serve_full_width(arch: str) -> dict:
     check_counts("one decode step", ops.launch_counts(),
                  expected_counts(cfg, 1, prefills=0))
     del caches
-    compare_paths(params, cfg, prompts, toks)
+    compare_paths(params, cfg, {"tokens": prompts},
+                  [toks[:, i] for i in range(3)])
+    return {"launches": launches, **st}
+
+
+def serve_stub(arch: str) -> dict:
+    """A stub-frontend model at full width and depth, which Engine refuses:
+    prefill over REQUESTS x prompt embeddings, then MAX_NEW decode_steps
+    each fed the next position's embeddings, all made from the seed as
+    train/data.py makes a stub's batch; timed with CUDA events as Engine
+    times its prefill and decode loop. Then the checks of
+    serve_full_width."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serve.engine import preallocate_cache
+    from repro_torch.train.data import synth_batch
+    cfg, prompt_len = get_arch(arch), STUB_SERVED[arch]
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator("cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"{arch} ({cfg.family}, embeddings from a stub frontend): "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.hd}, vocab {cfg.vocab_size}; "
+        f"{n_params / 1e9:.3f} B params ({n_bytes / 1e9:.2f} GB) "
+        f"initialised on the card in {time.perf_counter() - t0:.1f} s")
+    shape = ShapeConfig("stub_serve", "prefill", prompt_len + MAX_NEW,
+                        REQUESTS)
+    embeds = torch.from_numpy(synth_batch(cfg, shape, 0)["embeds"]).to(
+        "cuda")
+    prompts = embeds[:, :prompt_len]
+    steps = [embeds[:, prompt_len + i] for i in range(MAX_NEW)]
+
+    def serve(n_prompt: int, n_steps: int) -> tuple:
+        with torch.no_grad():
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            marks[0].record()
+            logits, pre, pos = prefill(params, cfg,
+                                       {"embeds": prompts[:, :n_prompt]})
+            caches = preallocate_cache(cfg, pre, n_prompt + n_steps)
+            del pre
+            marks[1].record()
+            for i in range(n_steps):
+                logits, caches = decode_step(params, cfg, steps[i], caches,
+                                             pos + i)
+            marks[2].record()
+            marks[2].synchronize()
+        return logits, (marks[0].elapsed_time(marks[1]),
+                        marks[1].elapsed_time(marks[2]) / max(1, n_steps))
+    serve(16, 2)                                            # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    logits, (prefill_ms, decode_ms) = serve(prompt_len, MAX_NEW)
+    launches = ops.launch_counts()
+    st = {"prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms}
+    log(f"prefill and {MAX_NEW} decode steps: {REQUESTS} x {prompt_len} "
+        f"prompt positions; prefill {prefill_ms:.3f} ms, decode "
+        f"{decode_ms:.3f} ms/step ({REQUESTS * 1e3 / decode_ms:.1f} "
+        f"positions/s); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check_counts("prefill and decode", launches,
+                 expected_counts(cfg, MAX_NEW))
+    prefill_bound, decode_bound = serve_bounds(cfg, params, prompt_len)
+    log(f"  bounds: prefill {prefill_bound[0]:.4f} ms ({prefill_bound[1]}), "
+        f"decode {decode_bound[0]:.4f} ms/token ({decode_bound[1]})")
+    if logits.shape != (REQUESTS, cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"{arch}: last logits not finite or of shape "
+                             f"{tuple(logits.shape)}")
+    ops.reset_launches()
+    profile("prefill", lambda: prefill(params, cfg, {"embeds": prompts}),
+            prefill_ms)
+    check_counts("one prefill", ops.launch_counts(), expected_counts(cfg, 0))
+    _, pre, pos = prefill(params, cfg, {"embeds": prompts})
+    caches = preallocate_cache(cfg, pre, prompt_len + MAX_NEW)
+    del pre
+    ops.reset_launches()
+    profile("decode step", lambda: decode_step(params, cfg, steps[0],
+                                               caches, pos), decode_ms)
+    check_counts("one decode step", ops.launch_counts(),
+                 expected_counts(cfg, 1, prefills=0))
+    del caches
+    compare_paths(params, cfg, {"embeds": prompts}, steps[:3])
     return {"launches": launches, **st}
 
 
@@ -630,6 +860,11 @@ def serve_bounds(cfg, params, prompt_len: int) -> tuple:
     layers = list(_leaves(params["layers"]))
     layer_params = sum(t.numel() for t in layers)
     layer_bytes = sum(t.numel() * t.element_size() for t in layers)
+    # MoE: each token's products touch its k experts of E (the capacity's
+    # padding is not counted); the reference's dispatch still runs every
+    # expert's buffer through its weights, so a step reads all of them
+    layer_flop_params = layer_params - cfg.n_layers * (
+        cfg.n_experts - cfg.experts_per_token) * 3 * cfg.d_model * cfg.d_ff
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     head_bytes = head.numel() * head.element_size()
     if cfg.attn_free:
@@ -646,37 +881,89 @@ def serve_bounds(cfg, params, prompt_len: int) -> tuple:
         cache_bytes = 2 * cfg.n_layers * REQUESTS * (
             prompt_len + MAX_NEW / 2) * cfg.n_kv_heads * cfg.hd \
             * head.element_size()
-    dense = 2 * layer_params * REQUESTS * prompt_len \
+    dense = 2 * layer_flop_params * REQUESTS * prompt_len \
         + 2 * head.numel() * REQUESTS
     prefill = bound_ms(layer_bytes + head_bytes, {
         torch.bfloat16: dense + seq_flops.get(torch.bfloat16, 0),
         torch.float32: seq_flops.get(torch.float32, 0)})
     decode = bound_ms(layer_bytes + head_bytes + cache_bytes, {
-        torch.bfloat16: 2 * (layer_params + head.numel()) * REQUESTS,
+        torch.bfloat16: 2 * (layer_flop_params + head.numel()) * REQUESTS,
         torch.float32: step_flops})
     return prefill, decode
 
 
-def model_logits(params, cfg, prompts, toks, impl: str) -> list:
-    """Last-token logits of the prefill, then of 3 decode steps fed
-    ``toks`` (the same tokens for every path)."""
+def model_logits(params, cfg, batch: dict, steps: list, impl: str) -> list:
+    """Last-token logits of the prefill of ``batch`` ({"tokens"} or a stub's
+    {"embeds"}), then of a decode step fed each of ``steps`` (ids (B,) or
+    embeds (B, D); the same inputs for every path)."""
     from repro_torch.models import decode_step, prefill
     from repro_torch.serve.engine import preallocate_cache
-    logits, pre, pos = prefill(params, cfg, {"tokens": prompts}, impl=impl)
-    caches = preallocate_cache(cfg, pre, prompts.shape[1] + MAX_NEW)
+    logits, pre, pos = prefill(params, cfg, batch, impl=impl)
+    caches = preallocate_cache(cfg, pre, next(iter(batch.values())).shape[1]
+                               + MAX_NEW)
     del pre
     out = [logits]
-    for i in range(3):
-        logits, caches = decode_step(params, cfg, toks[:, i], caches,
-                                     pos + i, impl=impl)
+    for i, x in enumerate(steps):
+        logits, caches = decode_step(params, cfg, x, caches, pos + i,
+                                     impl=impl)
         out.append(logits)
     return out
 
 
-def compare_paths(params, cfg, prompts, toks) -> None:
+@contextlib.contextmanager
+def routing(record=None, pinned=None):
+    """Within the ``with`` block, every MoE call's (T, k) expert ids, in
+    top-k order, are appended to ``record``; with ``pinned``, a list of
+    such ids from another run of the same inputs, each call takes the next
+    ids of it in place of its own top-k, its gates this call's router
+    probabilities at those experts, renormalised as ``route`` does."""
+    from repro_torch.models import moe
+    real, pins = moe.route, iter(pinned or ())
+
+    def route(p, x, cfg):
+        gates, idx, probs = real(p, x, cfg)
+        if pinned is not None:
+            idx = next(pins)
+            gates = probs.gather(-1, idx)
+            gates = gates / gates.sum(dim=-1, keepdim=True)
+        if record is not None:
+            record.append(idx)
+        return gates, idx, probs
+    with mock.patch.object(moe, "route", route):
+        yield
+
+
+def routing_agreement(a: list, b: list) -> float:
+    """Share of (token, layer) expert choices, as sets, equal in two
+    runs."""
+    same = sum(int((x.sort(dim=-1).values == y.sort(dim=-1).values)
+                   .all(dim=-1).sum()) for x, y in zip(a, b))
+    return same / sum(x.shape[0] for x in a)
+
+
+def compare_depth(cfg, params, batch: dict) -> int:
+    """The most layers whose fp32 copy (with the embedding and LM head's)
+    fits the free device memory beside what is resident, leaving room for
+    the activations: 4 GB and four fp32 score chunks of the plain
+    attention."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    per_layer = 4 * sum(t.numel() for t in _leaves(params["layers"])) \
+        / cfg.n_layers
+    rest = 4 * sum(t.numel() for k, t in params.items() if k != "layers")
+    b, s = next(iter(batch.values())).shape[:2]
+    from repro_torch.kernels.flash_attention import PLAIN_CHUNK
+    room = 4e9 + 4 * 4 * b * max(1, cfg.n_heads) * min(s, PLAIN_CHUNK) * s
+    return max(1, min(cfg.n_layers, int((free - rest - room) // per_layer)))
+
+
+def compare_paths(params, cfg, batch: dict, steps: list) -> None:
     """The served logits four ways: the bf16 weights, and the same weights
     widened to fp32, each through the kernels and through their plain
     versions (impl="reference") on the card. fp32 plain is the truth.
+    Where the fp32 copy of every layer does not fit beside the bf16
+    weights (moonshot, pixtral), all four run the first layers that fit.
 
     - fp32 kernels vs truth: relative L2 error <= FP32_REL_TOL; only the
       order of the attention (or WKV) sums differs.
@@ -687,32 +974,74 @@ def compare_paths(params, cfg, prompts, toks) -> None:
       close to the truth as the plain path: error <= BF16_ERR_RATIO x the
       plain path's error. This is a loose guard; the fp32 comparison and
       the kernel checks of phase 2 are the tight ones.
+    - MoE: top-k routing is discontinuous. At random init a token's 6th
+      and 7th experts are often close, and a bf16 rounding that flips one
+      changes that token's later layers, so two bf16 paths of moonshot
+      differ in about a third of their (token, layer) choices, and their
+      logits by far more than rounding (0.35 and 0.49 from the truth at
+      depth 9 on an H100). The share of choices on which each dtype's two
+      paths agree is printed, with the bf16 errors under each path's own
+      routing; the bf16 guard then runs both bf16 paths again routed as
+      the truth was (``routing(pinned=...)``: the same experts, each
+      path's own gates), which leaves the kernels' rounding as the one
+      difference. The fp32 check is unchanged: its paths route by
+      themselves.
     """
+    depth = compare_depth(cfg, params, batch)
+    if depth < cfg.n_layers:
+        log(f"  compare_paths at depth {depth} of {cfg.n_layers}: the fp32 "
+            f"copy of every layer does not fit beside the bf16 weights")
+        params = {**params, "layers": _map(params["layers"],
+                                           lambda t: t[:depth])}
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     params32 = _map(params, lambda t: t.float())
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
-    runs = {(dt, impl): model_logits(p, c, prompts, toks, impl)
-            for dt, p, c in (("bf16", params, cfg), ("fp32", params32, cfg32))
-            for impl in ("kernel", "reference")}
+    runs, routes = {}, {}
+    for dt, p, c in (("bf16", params, cfg), ("fp32", params32, cfg32)):
+        for impl in ("kernel", "reference"):
+            routes[dt, impl] = []
+            with routing(record=routes[dt, impl]):
+                runs[dt, impl] = model_logits(p, c, batch, steps, impl)
     del params32
+    guard = runs          # the runs the bf16 guard compares
+    if cfg.is_moe:
+        shares = {dt: routing_agreement(routes[dt, "kernel"],
+                                        routes[dt, "reference"])
+                  for dt in ("bf16", "fp32")}
+        log("  MoE routing, share of (token, layer) expert choices equal on "
+            "the kernel and plain paths: " + ", ".join(
+                f"{dt} {share:.6f}" for dt, share in shares.items())
+            + f" (of {sum(x.shape[0] for x in routes['fp32', 'kernel'])})")
+        truth_routes = routes["fp32", "reference"]
+        guard = dict(runs)
+        for impl in ("kernel", "reference"):
+            with routing(pinned=truth_routes):
+                guard["bf16", impl] = model_logits(params, cfg, batch,
+                                                   steps, impl)
     for i in range(4):
         name = "prefill" if i == 0 else f"decode {i}"
         truth = runs["fp32", "reference"][i]
         got = {key: run[i] for key, run in runs.items()}
-        for key, t in got.items():
+        for key, t in [*got.items(), *((k, r[i]) for k, r in guard.items())]:
             if t.shape != (REQUESTS, cfg.vocab_size) or \
                     not torch.isfinite(t).all():
                 raise AssertionError(f"{name} logits {key}: not finite or "
                                      f"wrong shape {tuple(t.shape)}")
         e32 = rel_err(got["fp32", "kernel"], truth)
-        ek = rel_err(got["bf16", "kernel"], truth)
-        er = rel_err(got["bf16", "reference"], truth)
-        ekr = rel_err(got["bf16", "kernel"], got["bf16", "reference"])
+        bk, br = guard["bf16", "kernel"][i], guard["bf16", "reference"][i]
+        ek, er, ekr = rel_err(bk, truth), rel_err(br, truth), rel_err(bk, br)
+        own = ""
+        if cfg.is_moe:
+            own = (f"; with their own routing: bf16 kernels "
+                   f"{rel_err(got['bf16', 'kernel'], truth):.3e}, bf16 plain "
+                   f"{rel_err(got['bf16', 'reference'], truth):.3e}")
         log(f"  logits {name} (rel L2 vs fp32 plain): fp32 kernels {e32:.3e} "
             f"(tol {FP32_REL_TOL}); bf16 kernels {ek:.3e}, bf16 plain "
-            f"{er:.3e} (tol {BF16_ERR_RATIO} x plain); bf16 kernels vs bf16 "
-            f"plain {ekr:.3e}, max abs "
-            f"{max_err(got['bf16', 'kernel'], got['bf16', 'reference']):.3e}"
-            f" (|logit| max {truth.abs().max().item():.2f})")
+            f"{er:.3e} (tol {BF16_ERR_RATIO} x plain"
+            f"{', routed as the fp32 plain path' if cfg.is_moe else ''}); "
+            f"bf16 kernels vs bf16 plain {ekr:.3e}, max abs "
+            f"{max_err(bk, br):.3e} (|logit| max "
+            f"{truth.abs().max().item():.2f}){own}")
         if e32 > FP32_REL_TOL or ek > BF16_ERR_RATIO * er:
             raise AssertionError(f"{name}: the kernel path's logits "
                                  f"disagree with the plain path's")
@@ -754,6 +1083,60 @@ def _leaves(tree):
             yield v
 
 
+# ----------------------------------------------------------- phase 3b
+def sweep_depth_one() -> None:
+    """Every config ``_check_ported`` admits, at full width and depth 1 in
+    fp32: a prefill of REQUESTS x SWEEP_LEN positions and 3 decode steps
+    through the kernels, their launches counted, against the plain
+    versions within FP32_REL_TOL. Each model is freed before the next."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import UNPORTED
+    from repro_torch.train.data import synth_batch
+    for name, full in ARCHS.items():
+        if any(getattr(full, flag) for flag in UNPORTED):
+            log(f"{name}: not admitted by the port ({UNPORTED})")
+            continue
+        cfg = dataclasses.replace(full, n_layers=1, param_dtype="float32")
+        t0 = time.perf_counter()
+        params = init_params(torch.Generator("cuda").manual_seed(0), cfg)
+        n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        data = synth_batch(cfg, ShapeConfig("sweep", "prefill",
+                                            SWEEP_LEN + 3, REQUESTS), 0)
+        key = "embeds" if cfg.embedding_stub else "tokens"
+        x = torch.from_numpy(data[key]).to("cuda")
+        if key == "tokens":
+            x = x.long()
+        batch, steps = {key: x[:, :SWEEP_LEN]}, [x[:, SWEEP_LEN + i]
+                                                  for i in range(3)]
+        ops.reset_launches()
+        with torch.no_grad():
+            got = model_logits(params, cfg, batch, steps, "kernel")
+            counts = ops.launch_counts()
+            want = model_logits(params, cfg, batch, steps, "reference")
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        heads = "no attention" if cfg.attn_free else \
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, window " \
+            f"{cfg.sliding_window}"
+        log(f"{name} depth 1 fp32 ({heads}; {n_bytes / 1e9:.2f} GB, "
+            f"{time.perf_counter() - t0:.1f} s): rel L2 kernel vs plain, "
+            f"prefill and 3 decode steps: "
+            + ", ".join(f"{e:.3e}" for e in errs)
+            + f" (tol {FP32_REL_TOL}); launches {counts}")
+        check_counts(f"{name} depth 1", counts, expected_counts(cfg, 3))
+        if max(errs) > FP32_REL_TOL or not all(
+                torch.isfinite(g).all() and g.shape == (REQUESTS,
+                                                         cfg.vocab_size)
+                for g in got):
+            raise AssertionError(f"{name} depth 1: kernel and plain paths "
+                                 f"disagree: {errs}")
+        del params, got, want, batch, steps, x
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ phase 4
 def small_models_cpu_vs_card() -> None:
     from repro_torch.configs import get_arch
@@ -762,7 +1145,10 @@ def small_models_cpu_vs_card() -> None:
     from repro_torch.serve.engine import Engine, ServeConfig
     rwkv = dataclasses.replace(get_arch("rwkv6-3b").reduced(),
                                param_dtype="float32")
-    for cfg in (PRESETS["tiny"], rwkv):
+    # the reduced config's hd 16 has no kernel instance: heads of 32
+    moe = dataclasses.replace(get_arch("moonshot-v1-16b-a3b").reduced(),
+                              head_dim=32, param_dtype="float32")
+    for cfg in (PRESETS["tiny"], rwkv, moe):
         params = init_params(torch.Generator("cpu").manual_seed(0), cfg)
         prompts = torch.randint(0, cfg.vocab_size, (2, 40),
                                 generator=torch.Generator("cpu").manual_seed(1))
@@ -1176,31 +1562,57 @@ def _map(tree, fn):
     return fn(tree)
 
 
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.perf_counter()
+    yield
+    log(f"== phase {name}: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.kernels.ops  # noqa: F401  (fails outside the repo)
-    smi = environment()
-    kernels = [check_flash_attention(), check_decode_attention(),
-               check_wkv6()]
+    with phase("1, environment and build"):
+        smi = environment()
+    with phase("2, kernels against their plain versions"):
+        kernels = [check_flash_attention(), check_decode_attention(),
+                   check_wkv6()]
+        for hd in NEW_HEAD_DIMS:
+            kernels += check_head_dim(hd)
+            gc.collect()
+            torch.cuda.empty_cache()
+    # each entry's launches come from the run of the model served at its
+    # shape: {entry: (model, kernel)}
+    launched_by = {"flash_attention": ("qwen3-8b", "flash_attention"),
+                   "decode_attention": ("qwen3-8b", "decode_attention"),
+                   "wkv6": ("rwkv6-3b", "wkv6")}
+    for hd, arch in NEW_HEAD_DIMS.items():
+        for kernel in ("flash_attention", "decode_attention"):
+            launched_by[f"{kernel}_hd{hd}"] = (arch, kernel)
     launches = {}
-    for arch in SERVED:
-        served = serve_full_width(arch)
-        # each kernel's count comes from the run of the model that serves it
-        launches.update({name: n for name, n in served["launches"].items()
-                         if n})
+    for arch in [*SERVED, *STUB_SERVED]:
+        with phase(f"3, {arch} served"):
+            served = serve_stub(arch) if arch in STUB_SERVED \
+                else serve_full_width(arch)
+            launches[arch] = served["launches"]
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"{arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} "
+                f"GB still allocated")
+    with phase("3b, every admitted config at depth 1"):
+        sweep_depth_one()
+    with phase("4, small models on the card and the CPU"):
+        small_models_cpu_vs_card()
         gc.collect()
         torch.cuda.empty_cache()
-        log(f"{arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
-            f"still allocated")
-    small_models_cpu_vs_card()
-    gc.collect()
-    torch.cuda.empty_cache()
-    trained = train_phase()
+    with phase("5, training"):
+        trained = train_phase()
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        arch, kernel = launched_by[k["name"]]
+        k["launches"] = launches[arch][kernel]
     # the forward at the training shape, launched by the timed train steps
     kernels.append({**trained["entry"], "launches": trained["launches"]})
     order = ["name", "route", "source", "replaces", "launches",

@@ -17,6 +17,8 @@ from .configs.base import ArchConfig
 
 # kept in float32 whatever the model's dtype, as the JAX init does
 FP32_LEAVES = frozenset({"ln1", "ln2", "final_norm", "q_norm", "k_norm",
+                         # the MoE router: routing is fp32 (repro.models.moe)
+                         "router",
                          # RWKV time-mix and channel-mix (repro.models.ssm)
                          "mu", "w0", "w_lora_a", "w_lora_b", "bonus_u",
                          "ln_w", "ln_b"})

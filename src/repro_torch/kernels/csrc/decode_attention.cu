@@ -28,8 +28,11 @@
 //    the 8 consecutive slots of a quarter warp fall in distinct banks. One
 //    warp per query runs the online softmax over the two halves' sums;
 //    then each warp accumulates P V over a quarter of the tile's slots,
-//    each lane over hd / 32 columns of every query, and the warps' sums
-//    are added once, at the end. The block writes its partial m and l per
+//    each lane over column units of every query (a unit is two
+//    neighbouring columns from hd 64 up, one below; lane l takes units
+//    l, l + 32, ..., so a warp reads a V row in consecutive words, and at
+//    hd 80, 96 and 160 the lanes past the last unit sit out the last
+//    round), and the warps' sums are added once, at the end. The block writes its partial m and l per
 //    query and unnormalised acc per query x hd in fp32 to the workspace. A
 //    block whose chunk starts at or past cache_len[b] reads no K or V and
 //    writes m = -inf, l = 0.
@@ -39,9 +42,10 @@
 //    weights in shared memory, so each thread's loop over the splits is
 //    independent loads; an empty split (m_i = -inf) weighs 0 and its acc
 //    is never read.
-// fp32 and bf16 both take this path; grp up to 16; every operand is read
-// through its strides, so a layer's (B, S, Hkv, hd) cache slice goes in
-// without a transpose.
+// fp32 and bf16 both take this path; grp up to 16; hd 32, 64, 80, 96, 128
+// and 160 (any multiple of 16 up to 256 that an instance names); every
+// operand is read through its strides, so a layer's (B, S, Hkv, hd) cache
+// slice goes in without a transpose.
 
 #include "common.cuh"
 
@@ -51,6 +55,7 @@ constexpr int BS = 64;    // cache slots per tile
 constexpr int NT = 128;   // threads per block: two per slot of a tile
 constexpr int NW = NT / 32;
 constexpr int GMAX = 16;  // largest query group
+constexpr int MERGE_NT = 256;  // the merge's threads: one per column, hd <= 256
 constexpr int MAX_SPLIT = 8192;  // the merge's weights fit 32 KB of smem
 
 struct FdParams {
@@ -72,6 +77,7 @@ struct FdParams {
 
 template <typename T, int HD>
 struct FdShape {
+  static_assert(HD % 16 == 0 && HD <= MERGE_NT, "hd: a multiple of 16");
   // 16-byte pad: rows are an odd number of 16-byte chunks apart, so the 8
   // consecutive slots a quarter warp reads fall in distinct banks
   static constexpr int LD = HD + Vec<T>::N;
@@ -137,14 +143,20 @@ __global__ void __launch_bounds__(NT) fd_split_kernel(const FdParams p) {
   const float sl2 = p.scale * LOG2E;  // scores in the exp2 domain
   // scores: thread (slot, half) sums half of the head dim of one slot
   const int slot = tid % BS, half = tid / BS;
-  // P V: warp w takes slots [w SPW, (w + 1) SPW) of a tile, lane the
-  // head-dim columns [lane EPL, (lane + 1) EPL) of every query
-  constexpr int SPW = BS / NW, EPL = HD / 32;
-  float acc[GMAX][EPL];
+  // P V: warp w takes slots [w SPW, (w + 1) SPW) of a tile; lane the
+  // units lane + 32 i (i < UPL) of every query, unit u being the U
+  // columns [U u, U u + U); a unit past NU (the last round at hd 80, 96,
+  // 160) reads nothing and is never stored
+  constexpr int SPW = BS / NW;
+  constexpr int U = HD >= 64 ? 2 : 1, NU = HD / U, UPL = (NU + 31) / 32;
+  auto unit_ok = [&](int i) { return NU % 32 == 0 || lane + 32 * i < NU; };
+  float acc[GMAX][UPL][U];
 #pragma unroll
   for (int g = 0; g < GMAX; ++g)
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
+    for (int i = 0; i < UPL; ++i)
+#pragma unroll
+      for (int e = 0; e < U; ++e) acc[g][i][e] = 0.f;
 
   int buf = 0;
   for (int s0 = s_begin; s0 < s_end; s0 += BS, buf ^= 1) {
@@ -216,20 +228,25 @@ __global__ void __launch_bounds__(NT) fd_split_kernel(const FdParams p) {
     for (int g = 0; g < GMAX; ++g) {
       if (g >= grp) break;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[g][e] *= sAlpha[g];
+      for (int i = 0; i < UPL; ++i)
+#pragma unroll
+        for (int e = 0; e < U; ++e) acc[g][i][e] *= sAlpha[g];
     }
 #pragma unroll 4
     for (int j = warp * SPW; j < (warp + 1) * SPW; ++j) {
-      float vv[EPL];
-      const T* vrow = cV + j * LD + lane * EPL;
-      if constexpr (EPL == 1) {
-        vv[0] = to_float(vrow[0]);
-      } else {
+      float vv[UPL][U];
 #pragma unroll
-        for (int e = 0; e < EPL; e += 2) {
-          const float2 f = load2(vrow + e);
-          vv[e] = f.x;
-          vv[e + 1] = f.y;
+      for (int i = 0; i < UPL; ++i) {
+        const T* vu = cV + j * LD + U * (lane + 32 * i);
+        if (!unit_ok(i)) {
+#pragma unroll
+          for (int e = 0; e < U; ++e) vv[i][e] = 0.f;
+        } else if constexpr (U == 1) {
+          vv[i][0] = to_float(vu[0]);
+        } else {
+          const float2 f = load2(vu);
+          vv[i][0] = f.x;
+          vv[i][1] = f.y;
         }
       }
 #pragma unroll
@@ -237,7 +254,10 @@ __global__ void __launch_bounds__(NT) fd_split_kernel(const FdParams p) {
         if (g >= grp) break;
         const float pr = sS[g * BS + j];
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(pr, vv[e], acc[g][e]);
+        for (int i = 0; i < UPL; ++i)
+#pragma unroll
+          for (int e = 0; e < U; ++e)
+            acc[g][i][e] = fmaf(pr, vv[i][e], acc[g][i][e]);
       }
     }
   }
@@ -249,8 +269,12 @@ __global__ void __launch_bounds__(NT) fd_split_kernel(const FdParams p) {
   for (int g = 0; g < GMAX; ++g) {
     if (g >= grp) break;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e)
-      sRed[(warp * grp + g) * HD + lane * EPL + e] = acc[g][e];
+    for (int i = 0; i < UPL; ++i) {
+      if (!unit_ok(i)) continue;
+#pragma unroll
+      for (int e = 0; e < U; ++e)
+        sRed[(warp * grp + g) * HD + U * (lane + 32 * i) + e] = acc[g][i][e];
+    }
   }
   __syncthreads();
   if (tid < grp) {
@@ -266,7 +290,8 @@ __global__ void __launch_bounds__(NT) fd_split_kernel(const FdParams p) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(NT) fd_merge_kernel(const FdParams p) {
+__global__ void __launch_bounds__(MERGE_NT) fd_merge_kernel(
+    const FdParams p) {
   extern __shared__ float sW[];  // (n_split,) weight of each split
   const int row = blockIdx.x, g = blockIdx.y, d = threadIdx.x;
   const int b = row / p.Hkv, hk = row % p.Hkv;
@@ -324,7 +349,10 @@ int dispatch_hd(const FdParams& p, int B, int hd, cudaStream_t stream) {
   switch (hd) {
     case 32: return launch<T, 32>(p, B, stream);
     case 64: return launch<T, 64>(p, B, stream);
+    case 80: return launch<T, 80>(p, B, stream);
+    case 96: return launch<T, 96>(p, B, stream);
     case 128: return launch<T, 128>(p, B, stream);
+    case 160: return launch<T, 160>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }

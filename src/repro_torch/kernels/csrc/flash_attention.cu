@@ -48,7 +48,11 @@
 // computed and masked them), and masks apply only on tiles that straddle
 // an edge (bf16 body); the heaviest (last) query tiles launch first;
 // operands are read through their strides, so the model hands (B, S, H, hd)
-// projections over without a copy; hd 32, 64 and 128.
+// projections over without a copy; hd 32, 64, 80, 96, 128 and 160, any
+// multiple of 16 that an instance names: the bf16 body tiles Q K^T in
+// hd / 16 k-steps and P V in hd / 8 n-blocks, the fp32 body takes hd / 16
+// column pairs a lane. At hd 160 three (K, V) buffers (126 KB) would leave
+// one block an SM, so that instance rings two and keeps two blocks.
 
 #include "common.cuh"
 
@@ -211,14 +215,22 @@ __global__ void __launch_bounds__(NT) fa_f32_kernel(const FaParams p) {
 }
 
 // ------------------------------------------------------------ bf16 body
-constexpr int NSTAGE = 3;  // K/V tiles in the cp.async ring
+constexpr size_t SM_SMEM = 228 * 1024;  // shared memory of one SM
+constexpr size_t BLOCK_RESERVED = 1024;  // the runtime's share per block
 
 template <int HD>
 struct FaBf16Shape {
+  static_assert(HD % 16 == 0, "hd must be a multiple of 16");
   static constexpr int LD = HD + 8;  // 16-byte pad: conflict-free ldmatrix
+  // K/V tiles in the cp.async ring: three, or two where three would not
+  // leave room for two blocks an SM (hd 160)
+  static constexpr int NSTAGE =
+      2 * (3 * 2 * BN * LD * 2 + BLOCK_RESERVED) <= SM_SMEM ? 3 : 2;
   // a ring of NSTAGE (K, V) tile buffers; Q is first loaded into the last
   static constexpr size_t SMEM =
       size_t(NSTAGE) * 2 * BN * LD * sizeof(__nv_bfloat16);
+  static_assert(2 * (SMEM + BLOCK_RESERVED) <= SM_SMEM,
+                "two blocks must fit one SM");
   static_assert(BM <= 2 * BN, "Q must fit one (K, V) buffer");
 };
 
@@ -226,6 +238,7 @@ template <int HD>
 __global__ void __launch_bounds__(NT, 2) fa_bf16_kernel(const FaParams p) {
   using T = __nv_bfloat16;
   constexpr int LD = FaBf16Shape<HD>::LD;
+  constexpr int NSTAGE = FaBf16Shape<HD>::NSTAGE;
   constexpr int KD = HD / 16;  // k-steps of Q K^T
   constexpr int ND = HD / 8;   // n-blocks of the output
   extern __shared__ __align__(16) unsigned char smem[];
@@ -434,7 +447,10 @@ int dispatch_hd(const FaParams& p, int B, int hd, bool bf16,
   switch (hd) {
     case 32: return launch_hd<32>(p, B, bf16, stream);
     case 64: return launch_hd<64>(p, B, bf16, stream);
+    case 80: return launch_hd<80>(p, B, bf16, stream);
+    case 96: return launch_hd<96>(p, B, bf16, stream);
     case 128: return launch_hd<128>(p, B, bf16, stream);
+    case 160: return launch_hd<160>(p, B, bf16, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -30,8 +30,9 @@ import torch
 from . import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 96, 128, 160)   # the kernels' instances
 BWD_CHUNK = 512     # query rows per chunk of the backward: JAX's chunk
+PLAIN_CHUNK = 1024  # query rows per chunk of the plain version
 
 
 def _compute_dtype(t: torch.Tensor) -> torch.dtype:
@@ -62,17 +63,24 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           window: Optional[int] = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: dense fp32 scores (fp64 for
     fp64 inputs), GQA by grouping, unnormalised exp-sum and the max(l,
-    1e-30) clamp, so a fully masked row gives 0 as in the kernel."""
+    1e-30) clamp, so a fully masked row gives 0 as in the kernel. The
+    scores are taken PLAIN_CHUNK query rows at a time, which bounds them
+    (4 x 5120 tokens of h2o-danube would be 13 GB at once)."""
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     ct = _compute_dtype(q)
     qg = q.to(ct).reshape(b, sq, hkv, h // hkv, hd)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(ct)) / math.sqrt(hd)
-    mask = _mask(torch.arange(sq, device=q.device),
-                 torch.arange(sk, device=q.device), window)
-    p = _softmax(s.masked_fill(~mask, float("-inf")))
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(ct))
-    return o.reshape(b, sq, h, hd).to(q.dtype)
+    kc, vc = k.to(ct), v.to(ct)
+    kpos = torch.arange(sk, device=q.device)
+    outs = []
+    for c0 in range(0, sq, PLAIN_CHUNK):
+        c1 = min(c0 + PLAIN_CHUNK, sq)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg[:, c0:c1], kc) \
+            / math.sqrt(hd)
+        mask = _mask(torch.arange(c0, c1, device=q.device), kpos, window)
+        p = _softmax(s.masked_fill(~mask, float("-inf")))
+        outs.append(torch.einsum("bkgqs,bskd->bqkgd", p, vc))
+    return torch.cat(outs, dim=1).reshape(b, sq, h, hd).to(q.dtype)
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

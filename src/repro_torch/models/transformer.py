@@ -1,14 +1,17 @@
-"""Decoder stack, ported from ``repro.models.transformer``: the dense
-family (serving and training) and the attention-free RWKV6 family
-(serving).
+"""Decoder stack, ported from ``repro.models.transformer``: the dense and
+MoE families and the stub-frontend family (vlm, audio: precomputed
+embeddings in place of token ids), serving and training, and the
+attention-free RWKV6 family (serving).
 
 Parameters are a nested dict of tensors with the JAX tree's keys and its
 layer-stacked ``(L, ...)`` leaves; a Python loop over layers takes the
 place of ``lax.scan``. Attention goes through ``kernels.ops`` on
 un-repeated K/V: the kernels index the shared KV head themselves. RWKV
-layers run ``models.ssm``, whose recurrence is ``kernels.ops.wkv6``.
+layers run ``models.ssm``, whose recurrence is ``kernels.ops.wkv6``; MoE
+layers run ``models.moe``.
 
-Entry points:
+Entry points (a stub-frontend config takes ``embeds`` (B, S, D) in place
+of ``tokens``, and (B, D) embeds per decode step):
   forward_train  tokens, labels -> mean next-token cross-entropy, chunked
                  over the sequence so the full (B, S, V) logits never exist;
                  each layer (with ``cfg.remat``) and each loss chunk is
@@ -29,21 +32,22 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..kernels import ops
 from .layers import (apply_rope, dense_init, rms_norm, rope_tables, swiglu)
+from .moe import apply_moe, init_moe
 from .ssm import (apply_rwkv_cmix, apply_rwkv_tmix, init_rwkv_cmix,
                   init_rwkv_tmix)
 
-# config flags this slice does not cover, with the ROADMAP item that will
+# config flags the port does not cover yet, with the ROADMAP item, by its
+# title, that will
 UNPORTED = {
-    "is_moe": "MoE family (ROADMAP.md queue 1, item 3)",
-    "hybrid_ssm": "hybrid family (ROADMAP.md queue 1, item 3)",
-    "embedding_stub": "stub-frontend family (ROADMAP.md queue 1, item 3)",
+    "hybrid_ssm": 'hybrid family (ROADMAP.md queue 1, "Hybrid family '
+                  '(hymba)")',
 }
 
 
 LOSS_CHUNK = 1024
 # training of RWKV6 runs through the WKV6 kernel, which has no gradient yet
 RWKV_TRAINING = "RWKV6 training needs a gradient for the WKV6 kernel " \
-    "(ROADMAP.md queue 1, item 1)"
+    '(ROADMAP.md queue 1, "RWKV6 training")'
 
 
 def _check_ported(cfg: ArchConfig) -> None:
@@ -95,7 +99,9 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
         "layers": layers,
         "final_norm": ones(d),
     }
-    if not cfg.attn_free:
+    if cfg.is_moe:
+        layers["moe"] = init_moe(gen, cfg, dtype)
+    elif not cfg.attn_free:
         layers["mlp"] = {
             "w_gate": dense_init(gen, (L, d, f), dtype),
             "w_up": dense_init(gen, (L, d, f), dtype),
@@ -165,17 +171,29 @@ def apply_attn_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
 
 
 # =============================================================== blocks
+def _ffn(lp: dict, x: torch.Tensor, cfg: ArchConfig
+         ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's feed-forward half on its normed input (B, S, D): SwiGLU,
+    or the MoE layer over the B x S tokens flattened, as JAX flattens them.
+    Returns (out, the MoE's aux loss or None)."""
+    if cfg.is_moe:
+        b, s, d = x.shape
+        out, aux = apply_moe(lp["moe"], x.reshape(b * s, d), cfg)
+        return out.view(b, s, d), aux
+    m = lp["mlp"]
+    return swiglu(x, m["w_gate"], m["w_up"], m["w_down"]), None
+
+
 def apply_block_seq(lp: dict, x: torch.Tensor, cfg: ArchConfig, rope: tuple,
-                    impl: str = "kernel") -> tuple[torch.Tensor, dict]:
-    """One layer over a full sequence. Returns (x, kv cache)."""
+                    impl: str = "kernel"):
+    """One layer over a full sequence. Returns (x, kv cache, aux loss or
+    None)."""
     attn_out, kv = apply_attn_seq(lp["attn"], rms_norm(x, lp["ln1"],
                                                        cfg.norm_eps),
                                   cfg, rope, impl)
     x = x + attn_out
-    m = lp["mlp"]
-    x = x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), m["w_gate"],
-                   m["w_up"], m["w_down"])
-    return x, kv
+    out, aux = _ffn(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+    return x + out, kv, aux
 
 
 def apply_block_decode(lp: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -185,9 +203,7 @@ def apply_block_decode(lp: dict, x: torch.Tensor, cfg: ArchConfig,
     x = x + apply_attn_decode(lp["attn"], rms_norm(x, lp["ln1"],
                                                    cfg.norm_eps),
                               cfg, cache, pos, impl)
-    m = lp["mlp"]
-    return x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), m["w_gate"],
-                      m["w_up"], m["w_down"])
+    return x + _ffn(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)[0]
 
 
 def apply_rwkv_block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -208,37 +224,42 @@ def apply_rwkv_block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
 
 # ============================================================= training
 def _block_train(x: torch.Tensor, lp: dict, cfg: ArchConfig, rope: tuple,
-                 impl: str) -> torch.Tensor:
-    return apply_block_seq(lp, x, cfg, rope, impl)[0]
+                 impl: str):
+    x, _, aux = apply_block_seq(lp, x, cfg, rope, impl)
+    return x, aux
 
 
 def hidden_states(params: dict, cfg: ArchConfig, batch: dict,
                   remat: Optional[bool] = None, impl: str = "kernel"
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward to the final hidden states (pre-head), and the
-    auxiliary loss (0 for the dense family). With remat (``cfg.remat`` unless
-    given) each layer runs again in the backward, as under JAX's
-    ``jax.checkpoint``, so only its input is kept. ``params["layers"]`` is
+    auxiliary loss summed over layers (0 for the dense family). With remat
+    (``cfg.remat`` unless given) each layer runs again in the backward, as
+    under JAX's ``jax.checkpoint``, so only its input is kept; a layer's aux
+    loss leaves the checkpoint beside its output. ``params["layers"]`` is
     the stacked tree or a list of per-layer trees (the train step passes
     those, so that each layer's gradient lands in its slice in place)."""
     _check_ported(cfg)
     if cfg.attn_free:
         raise NotImplementedError(f"{cfg.name}: {RWKV_TRAINING}")
-    x = params["embed"][batch["tokens"]]
+    x = _embed_inputs(params, cfg, batch)
     s = x.shape[1]
     rope = rope_tables(torch.arange(s, device=x.device), cfg.hd,
                        cfg.rope_theta)
     layers = params["layers"]
     use_remat = cfg.remat if remat is None else remat
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lp = layers[i] if isinstance(layers, list) else _layer(layers, i)
         if use_remat:
-            x = checkpoint(_block_train, x, lp, cfg, rope, impl,
-                           use_reentrant=False)
+            x, a = checkpoint(_block_train, x, lp, cfg, rope, impl,
+                              use_reentrant=False)
         else:
-            x = _block_train(x, lp, cfg, rope, impl)
+            x, a = _block_train(x, lp, cfg, rope, impl)
+        if a is not None:
+            aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def _chunk_ce(h: torch.Tensor, w: torch.Tensor,
@@ -253,7 +274,8 @@ def _chunk_ce(h: torch.Tensor, w: torch.Tensor,
 def forward_train(params: dict, cfg: ArchConfig, batch: dict,
                   impl: str = "kernel") -> torch.Tensor:
     """Mean next-token cross-entropy plus 0.01 x the auxiliary loss.
-    batch: {"tokens", "labels"}, (B, S) integer tensors. The sequence is cut
+    batch: {"tokens", "labels"}, (B, S) integer tensors (a stub-frontend
+    config: "embeds" (B, S, D) in place of "tokens"). The sequence is cut
     into chunks as JAX's ``forward_train`` cuts it, ``max(1, S // min(1024,
     S))`` chunks of ``S // n`` tokens, and like JAX it accepts no S those
     chunks do not cover (S = 2049 raises; 1500 and 2500 do not). Each
@@ -280,6 +302,15 @@ def forward_train(params: dict, cfg: ArchConfig, batch: dict,
 
 
 # ============================================================== forward
+def _embed_inputs(params: dict, cfg: ArchConfig, batch: dict
+                  ) -> torch.Tensor:
+    """(B, S, D) inputs: the embedded tokens, or a stub frontend's
+    precomputed patch or frame embeddings, cast to the model's dtype."""
+    if cfg.embedding_stub:
+        return batch["embeds"].to(_dtype(cfg))
+    return params["embed"][batch["tokens"]]
+
+
 def lm_head_weight(params: dict, cfg: ArchConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return params["embed"].T
@@ -293,7 +324,7 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict,
     RWKV {"tmix": {"shift": (L, B, D), "wkv": (L, B, H, hd, hd) fp32},
     "cmix": (L, B, D)}, which already have their decode size."""
     _check_ported(cfg)
-    x = params["embed"][batch["tokens"]]
+    x = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     if cfg.attn_free:
         caches = init_decode_cache(cfg, b, s, device=x.device)
@@ -305,8 +336,8 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict,
                            cfg.rope_theta)
         ks, vs = [], []
         for i in range(cfg.n_layers):
-            x, kv = apply_block_seq(_layer(params["layers"], i), x, cfg,
-                                    rope, impl)
+            x, kv, _ = apply_block_seq(_layer(params["layers"], i), x, cfg,
+                                       rope, impl)
             ks.append(kv["k"])
             vs.append(kv["v"])
         caches = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
@@ -343,12 +374,16 @@ def init_decode_cache(cfg: ArchConfig, batch_size: int, max_len: int,
 
 def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                 caches: dict, pos: torch.Tensor, impl: str = "kernel"):
-    """One decoding step. tokens: (B,) ids; pos: (B,) absolute positions
-    (RWKV does not read them). Unlike JAX, which returns new caches, this
-    writes the token's K/V, or the new RWKV states, into ``caches`` in place
-    (no per-step copy of the cache) and returns them."""
+    """One decoding step. tokens: (B,) ids, or (B, D) embeds for a
+    stub-frontend config; pos: (B,) absolute positions (RWKV does not read
+    them). Unlike JAX, which returns new caches, this writes the token's
+    K/V, or the new RWKV states, into ``caches`` in place (no per-step copy
+    of the cache) and returns them."""
     _check_ported(cfg)
-    x = params["embed"][tokens][:, None, :]
+    if cfg.embedding_stub:
+        x = tokens.to(_dtype(cfg))[:, None, :]
+    else:
+        x = params["embed"][tokens][:, None, :]
     for i in range(cfg.n_layers):
         lp, cache = _layer(params["layers"], i), _layer(caches, i)
         if cfg.attn_free:

@@ -1,6 +1,7 @@
 """Batched serving engine, ported from ``repro.serve.engine``: prefill, then
 decode over a request batch against one preallocated cache (K/V, or RWKV's
-fixed-size states)."""
+fixed-size states). It serves token-in, token-out models: the dense, MoE
+and RWKV6 families."""
 
 from __future__ import annotations
 
@@ -68,6 +69,16 @@ class Engine:
     def __init__(self, cfg: ArchConfig, params: dict,
                  serve_cfg: ServeConfig = ServeConfig(), registry=None,
                  consistency: Optional[str] = None, device=None) -> None:
+        if cfg.embedding_stub:
+            # JAX's Engine fails here too, with KeyError: 'embeds' (it
+            # passes token ids to a model that reads embeddings; ROADMAP.md
+            # queue 3, k); the port does not invent a frontend
+            raise ValueError(
+                f"{cfg.name}: a stub-frontend config takes precomputed "
+                f"{cfg.family} embeddings, not token ids, and its decode "
+                f"steps take embeddings too; Engine generates tokens from "
+                f"tokens, so drive models.prefill and models.decode_step "
+                f"with embeds instead")
         if registry is None and consistency is not None:
             registry = ClusterRegistry(consistency=consistency)
         self.device = resolve_device(device)

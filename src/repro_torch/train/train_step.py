@@ -64,9 +64,14 @@ def loss_and_grads(params: dict, cfg: ArchConfig, batch: dict,
 
 
 def to_device(batch: dict, device) -> dict:
-    """numpy or tensor batch -> int64 tensors on ``device``."""
-    return {k: torch.as_tensor(v).to(device, torch.long)
-            for k, v in batch.items()}
+    """numpy or tensor batch -> tensors on ``device``: ids and labels as
+    int64, a stub frontend's float embeds in their own dtype."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        out[k] = t.to(device, t.dtype if t.is_floating_point()
+                      else torch.long)
+    return out
 
 
 def train_step(state: dict, batch: dict, cfg: ArchConfig,

@@ -5,7 +5,9 @@ it."""
 
 import numpy as np
 
-# the rows of FA_CASES, DECODE_CASES and WKV_CASES in tests/test_kernels.py
+# the rows of FA_CASES, DECODE_CASES and WKV_CASES in tests/test_kernels.py,
+# then the head dims of phi3-mini-3.8b (96, MHA), h2o-danube-1.8b (80, GQA
+# 4x, a window shorter than S) and pixtral-12b (160, GQA 4x)
 FA_CASES = [
     # (BH, BHkv, S, hd, window, block_q, block_k, dtype)
     (4, 4, 128, 64, None, 64, 64, "float32"),      # MHA
@@ -16,6 +18,11 @@ FA_CASES = [
     (4, 4, 128, 64, None, 32, 128, "float32"),     # bq != bk
     (4, 2, 128, 64, None, 64, 64, "bfloat16"),     # bf16 io
     (2, 1, 512, 64, 128, 128, 64, "bfloat16"),     # window + bf16
+    (4, 4, 128, 96, None, 64, 64, "float32"),      # hd 96, MHA
+    (8, 2, 192, 80, 64, 64, 64, "float32"),        # hd 80, GQA, window
+    (8, 2, 160, 160, None, 64, 32, "float32"),     # hd 160, GQA, ragged
+    (8, 2, 256, 80, 96, 64, 64, "bfloat16"),       # hd 80 + window + bf16
+    (8, 2, 128, 160, None, 64, 64, "bfloat16"),    # hd 160 + bf16
 ]
 DECODE_CASES = [
     # (B, Hkv, grp, S, hd, block_s, dtype)
@@ -23,6 +30,11 @@ DECODE_CASES = [
     (1, 4, 1, 512, 128, 128, "float32"),    # one query per kv head
     (2, 2, 8, 384, 64, 128, "float32"),     # ragged S vs block
     (2, 2, 4, 256, 64, 64, "bfloat16"),     # bf16 io
+    (2, 4, 1, 256, 96, 64, "float32"),      # hd 96, one query per kv head
+    (2, 2, 4, 320, 80, 64, "float32"),      # hd 80, GQA 4x
+    (2, 2, 4, 192, 160, 64, "float32"),     # hd 160, GQA 4x
+    (2, 2, 4, 256, 80, 128, "bfloat16"),    # hd 80 + bf16
+    (1, 2, 4, 128, 160, 64, "bfloat16"),    # hd 160 + bf16
 ]
 WKV_CASES = [
     # (BH, S, hd, chunk)

@@ -9,25 +9,34 @@ than the plain version (the WKV6 recurrence: atol 2e-5, rtol 1e-4, the
 limits tests/test_kernels.py holds JAX's scan and Pallas kernel to).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from _torch_cases import (DECODE_CASES, FA_CASES, WKV_CASES, decode_inputs,
                           fa_inputs, wkv_inputs)
+from repro_torch.configs import ARCHS
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.wkv6 import chunk_tokens, wkv6
+from repro_torch.models import moe
 
 pytestmark = pytest.mark.cuda
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # beyond the JAX tests' rows: the bf16 tensor-core body at a ragged S and
-# hd 32, at hd 128 with S not a multiple of its 64-row tile, windowed
+# hd 32, at hd 128 with S not a multiple of its 64-row tile, windowed; then
+# hd 96, 80 and 160 with GQA and a window (hd 160's two-buffer ring)
 FA_CARD_CASES = [
     (6, 2, 193, 32, None, 64, 64, "bfloat16"),
     (4, 2, 300, 128, None, 64, 64, "bfloat16"),
     (8, 2, 300, 128, 100, 64, 64, "bfloat16"),
+    (8, 2, 300, 96, 100, 64, 64, "bfloat16"),
+    (8, 2, 700, 80, 256, 64, 64, "bfloat16"),
+    (8, 2, 700, 160, 256, 64, 64, "bfloat16"),
+    (8, 2, 300, 160, 100, 64, 64, "float32"),
 ]
 # WKV6's chunked body at its edges (S relative to its chunk length T; the
 # token body below T) and with the decays of wkv_inputs, the model's
@@ -39,6 +48,10 @@ DECODE_CARD_CASES = [
     (2, 2, 4, 4096, 128, 64, "bfloat16"),
     (1, 8, 4, 2048, 64, 64, "float32"),
     (2, 2, 16, 1024, 128, 64, "bfloat16"),
+    (2, 4, 1, 1024, 96, 64, "bfloat16"),
+    (2, 2, 4, 4096, 80, 64, "bfloat16"),
+    (2, 2, 4, 2048, 160, 64, "float32"),
+    (1, 2, 16, 1024, 160, 64, "bfloat16"),
 ]
 
 
@@ -200,3 +213,35 @@ def test_wkv6_chunk_edges_and_decays(cuda, s, decays):
     want, _ = ops.wkv6(r, k, v, w, u, st_p, impl="reference")
     close_wkv(y, want)
     close_wkv(st_k, st_p)
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "arctic-480b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_layer_on_the_card_matches_the_cpu(cuda, arch, dtype):
+    """One MoE layer at the arch's own experts and top-k (narrow widths,
+    the configs' capacity factor 1.25, so rows are dropped) on the card
+    against the same layer on the CPU: the same expert choices, then the
+    same output (the products sum in other orders; bf16: 2e-2 of the
+    largest magnitude)."""
+    base = ARCHS[arch]
+    cfg = dataclasses.replace(base.reduced(), n_experts=base.n_experts,
+                              experts_per_token=base.experts_per_token,
+                              capacity_factor=1.25, n_layers=1,
+                              param_dtype=dtype)
+    td = getattr(torch, dtype)
+    p = {k: v[0] if torch.is_tensor(v) else {n: w[0] for n, w in v.items()}
+         for k, v in moe.init_moe(torch.Generator().manual_seed(0), cfg,
+                                  td).items()}
+    x = torch.randn((96, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1)).to(td)
+    on_card = {k: v.to(cuda) if torch.is_tensor(v) else
+               {n: w.to(cuda) for n, w in v.items()} for k, v in p.items()}
+    assert torch.equal(moe.route(on_card, x.to(cuda), cfg)[1].cpu(),
+                       moe.route(p, x, cfg)[1])
+    out, aux = moe.apply_moe(on_card, x.to(cuda), cfg)
+    want, want_aux = moe.apply_moe(p, x, cfg)
+    torch.cuda.synchronize()
+    close(aux, want_aux, 1e-5)
+    tol = TOL[dtype] * (want.float().abs().max().item()
+                        if dtype == "bfloat16" else 1.0)
+    close(out, want, tol)

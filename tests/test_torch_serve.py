@@ -109,8 +109,9 @@ def test_engine_rejects_params_on_another_device(tiny):
         Engine(cfg, meta, device="cpu")
 
 
-def test_serve_cli_on_cpu(capsys):
-    out = serve_cli.main(["--arch", "qwen3-8b", "--smoke", "--requests", "2",
+@pytest.mark.parametrize("arch", ["qwen3-8b", "moonshot-v1-16b-a3b"])
+def test_serve_cli_on_cpu(capsys, arch):
+    out = serve_cli.main(["--arch", arch, "--smoke", "--requests", "2",
                           "--prompt-len", "6", "--max-new", "3",
                           "--device", "cpu"])
     assert out["ids"].shape == (2, 3)

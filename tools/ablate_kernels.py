@@ -48,8 +48,8 @@ VARIANTS = {
              "          s[j][2 * r + 1] = fast_exp2(fmaf(s[j][2 * r + 1], sl2, "
              "-base));\n", "")],
         "no masks": [("        if (edge) {", "        if (false) {")],
-        "2-stage ring": [("constexpr int NSTAGE = 3;",
-                          "constexpr int NSTAGE = 2;")],
+        "2-stage ring": [("BLOCK_RESERVED) <= SM_SMEM ? 3 : 2;",
+                          "BLOCK_RESERVED) <= SM_SMEM ? 2 : 2;")],
     },
     "decode_attention": {
         "as shipped": [],
