@@ -16,27 +16,37 @@ Phases; each raises on failure, so any failure exits non-zero:
      against a 32,768-slot cache; WKV6 also at its chunk edges (S of T-1,
      T, T+1, 2T+3), with decays in the model's range and with exact 0s
      and 1s, a decay-one-step-late mutant, and timed at the decode shape
-     (B=4, S=1, H=40, hd=64); then both attention kernels at hd 96, 80 and
-     160, at the serving shapes of phi3-mini-3.8b (MHA), h2o-danube-1.8b
-     (GQA 4x, 5120 tokens past its 4096-token window, a full ring in
-     decode) and pixtral-12b (GQA 4x), bf16 and fp32, each with a mutant
-     and timed beside its plain version, SDPA and its bound;
+     (B=4, S=1, H=40, hd=64); the Mamba scan at hymba's serving prefill
+     (B=4, S=4096, di=1600, n=16, fp32) from a zero and a carried state,
+     at the decode shape (S=1) in place in a stacked state, and at its time
+     tile's edges (S of T-1, T, T+1, 2T+3), with a decay-one-step-late
+     mutant, timed beside its plain loop and its bound; then both
+     attention kernels at hd 96, 80 and 160, at the serving shapes of
+     phi3-mini-3.8b (MHA), h2o-danube-1.8b (GQA 4x, 5120 tokens past its
+     4096-token window, a full ring in decode) and pixtral-12b (GQA 4x),
+     and at hymba-1.5b's (hd 64, 25/5 heads: a query group of 5, 4096
+     tokens past its 1024-token window, a full ring in decode), bf16 and
+     fp32, each with a mutant and timed beside its plain version, SDPA and
+     its bound;
   3. serve each model of SERVED at full width and full depth (bf16, random
      weights from a seed) through Engine.generate: 4 requests, 32 new
      tokens, greedy; qwen3-8b (36 layers, d_model 4096) with 512 prompt
      tokens, rwkv6-3b (32 layers, d_model 2560) with 1024, phi3-mini-3.8b
      with 512, h2o-danube-1.8b with 5120 (past its window: the windowed
-     prefill and the ring cache) and moonshot-v1-16b-a3b (MoE, 64
-     experts top-6, 48 layers, 56 GB) with 512; then the stub-frontend
-     models of STUB_SERVED, which Engine refuses, through prefill and 32
+     prefill and the ring cache), moonshot-v1-16b-a3b (MoE, 64 experts
+     top-6, 48 layers, 56 GB) with 512 and hymba-1.5b (hybrid: attention
+     and Mamba heads side by side in each of 32 layers, d_model 1600)
+     with 4096, 4x past its window; then the stub-frontend models of
+     STUB_SERVED, which Engine refuses, through prefill and 32
      decode_steps fed embeddings made from the seed as train/data.py makes
      them: pixtral-12b (hd 160) and musicgen-large. The kernels' launch
-     counters are zeroed just before and read just after,
-     and must show one launch per layer of the model's prefill kernel
-     and one per layer and decode step of its decode kernel (rwkv6: the
-     same WKV6 kernel), and none of the other kernels. A profile of one
-     prefill and one decode step shows where the device time goes, and
-     their own counts must be one launch per layer. Then the prefill
+     counters are zeroed just before and read just after, and must show
+     one launch per layer of the model's prefill kernel and one per layer
+     and decode step of its decode kernel (rwkv6: the same WKV6 kernel;
+     hymba: and one of the Mamba scan per layer in both), and none of the
+     other kernels. A profile of one prefill (summed by kind of kernel)
+     and one decode step shows where the device time goes, and their own
+     counts must be one launch per layer. Then the prefill
      logits and three decode steps fed the same inputs, through the
      kernels and through impl="reference" (the plain versions, on the
      card), in bf16 and with the weights widened to fp32, must agree
@@ -44,13 +54,12 @@ Phases; each raises on failure, so any failure exits non-zero:
      beside the bf16 weights, at the first layers that fit; for MoE it
      prints the share of (token, layer) expert choices on which the two
      paths agree). Each model's weights are freed before the next;
-  3b. every config the port admits (all but hymba-1.5b) at full width and
-     depth 1, fp32: a prefill of 4 x SWEEP_LEN positions and 3 decode
-     steps through the kernels (their launches counted) against the plain
-     versions; arctic-480b's one layer (128 experts top-2 beside a dense
-     residual) is 56 GB in fp32;
-  4. small fp32 models (dense, MoE and RWKV) served on the card and on the
-     CPU must agree;
+  3b. every config at full width and depth 1, fp32: a prefill of 4 x
+     SWEEP_LEN positions and 3 decode steps through the kernels (their
+     launches counted) against the plain versions; arctic-480b's one layer
+     (128 experts top-2 beside a dense residual) is 56 GB in fp32;
+  4. small fp32 models (dense, MoE, RWKV and hybrid) served on the card
+     and on the CPU must agree;
   5. training, after the served models are freed: the flash attention
      backward (FlashAttentionFn: the kernel's forward, flash_attention_bwd
      in torch operations) against autograd through the plain version at
@@ -71,10 +80,12 @@ Phases; each raises on failure, so any failure exits non-zero:
 Each phase prints its wall time. The last lines are a JSON line of
 per-kernel numbers (flash attention at the qwen3-8b serving shape with the
 served prefill's launches, "flash_attention_train" at the training shape
-with the timed train steps' launches, and both attention kernels once
-more for each of hd 96, 80 and 160, "_hd<n>", at the shape and with the
-launches of the model served at that head dim), the card's name and power
-limit from nvidia-smi, and {"ok": true, "device": {...}}.
+with the timed train steps' launches, both attention kernels once more for
+each of hd 96, 80 and 160, "_hd<n>", and for hymba's group of 5,
+"_hymba", at the shape and with the launches of the model served there,
+and the Mamba scan at hymba's serving shape with hymba's launches), the
+card's name and power limit from nvidia-smi, and {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -96,21 +107,30 @@ ROOT = Path(__file__).resolve().parent
 # the models served in phase 3 through Engine.generate, each with its prompt
 # length: rwkv6's recurrence is sequential in time, so its users' long
 # prompts set the kernel's critical path; h2o-danube's users bring prompts
-# longer than its 4096-token window
+# longer than its 4096-token window; hymba's users run it for long prompts
+# (its SSM state and 1024-token window keep decode cost flat), 4x past its
+# window
 SERVED = {"qwen3-8b": 512, "rwkv6-3b": 1024, "phi3-mini-3.8b": 512,
-          "h2o-danube-1.8b": 5120, "moonshot-v1-16b-a3b": 512}
+          "h2o-danube-1.8b": 5120, "moonshot-v1-16b-a3b": 512,
+          "hymba-1.5b": 4096}
 # stub-frontend models, which Engine refuses (they take embeddings): served
 # through prefill and decode_step
 STUB_SERVED = {"pixtral-12b": 512, "musicgen-large": 512}
-# the head dims the kernels gained for phi3, h2o-danube and pixtral: each
-# checked at its model's serving shape (phase 2), its launches counted
-# where that model is served (phase 3)
-NEW_HEAD_DIMS = {96: "phi3-mini-3.8b", 80: "h2o-danube-1.8b",
-                 160: "pixtral-12b"}
+# attention shapes beyond qwen3-8b's, {JSON suffix: model}: the head dims
+# the kernels gained for phi3, h2o-danube and pixtral, and hymba's query
+# group of 5 (25 heads over 5 KV heads, window 1024); each checked at its
+# model's serving shape (phase 2), its launches counted where that model is
+# served (phase 3)
+ATTENTION_SHAPES = {"hd96": "phi3-mini-3.8b", "hd80": "h2o-danube-1.8b",
+                    "hd160": "pixtral-12b", "hymba": "hymba-1.5b"}
 SWEEP_LEN = 256                      # phase 3b's prompt length
 REQUESTS, MAX_NEW = 4, 32
 PROMPT_LEN = SERVED["qwen3-8b"]      # the attention kernels' checks
 RWKV_HEADS, RWKV_HD = 40, 64         # rwkv6-3b: d_model 2560 in heads of 64
+MAMBA_DI, MAMBA_N = 1600, 16         # hymba-1.5b: 25 x 64 channels, state 16
+# the Mamba scan against its plain version: the fp32 limits the tests hold
+# JAX's scans to (atol 2e-5, rtol 1e-4), and REL_TOL's relative L2
+SCAN_ATOL, SCAN_RTOL = 2e-5, 1e-4
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # kernel vs its plain version: max abs error (atol = rtol), and relative L2
@@ -567,6 +587,131 @@ def check_wkv6_chunks(gen, inputs) -> None:
     case("S=1000, exact 0 and 1 decays", 1000, "0 and 1")
 
 
+def assert_close_scan(name: str, got, want) -> float:
+    """The Mamba scan against its plain version: within SCAN_ATOL and
+    SCAN_RTOL pointwise and REL_TOL's fp32 relative L2, finite."""
+    err, rel = max_err(got, want), rel_err(got, want)
+    ok = torch.allclose(got, want, atol=SCAN_ATOL, rtol=SCAN_RTOL) \
+        and rel <= REL_TOL[torch.float32] and bool(torch.isfinite(got).all())
+    log(f"  {name}: max_abs_err {err:.3e} (atol {SCAN_ATOL}, rtol "
+        f"{SCAN_RTOL}), rel L2 {rel:.3e} (limit {REL_TOL[torch.float32]}), "
+        f"max |plain| {want.abs().max().item():.3f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version (max abs err {err}, rel L2 {rel})")
+    return err
+
+
+def mamba_decay_late(dt, b, c, x, a, h):
+    """The plain scan with each step's decay applied one step late (the
+    first step's taken as 1): the slip a tiled kernel's staging invites.
+    Returns y."""
+    cur, da, ys = h.clone(), torch.ones_like(h), []
+    for t in range(dt.shape[1]):
+        cur = da * cur + (dt[:, t] * x[:, t])[..., None] * b[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", cur, c[:, t]))
+        da = torch.exp(dt[:, t, :, None] * a[None])
+    return torch.stack(ys, dim=1)
+
+
+def check_mamba_scan() -> dict:
+    """The Mamba scan kernel against its plain version at hymba's serving
+    prefill (B=4, S=4096, di=1600, n=16, fp32), from a zero state and from
+    a carried one; at the decode shape (S=1) into a layer's slice of a
+    stacked state; at the time tile's edges (S of T-1, T, T+1, 2T+3) from a
+    carried state; with the decay applied one step late as the mutant that
+    must fail. b and c are the two halves of one (B, S, 2n) projection, as
+    the model passes them. Then timed beside the plain loop and its
+    bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mamba_scan import time_tile
+    gen = torch.Generator("cuda").manual_seed(4)
+    log("mamba_scan (hymba's selective scan) vs its plain version:")
+
+    def inputs(b, s):
+        """dt = softplus(N(-2, 2)): from ~0.005 (a decay near 1, the state
+        kept for hundreds of steps) to ~6; x, b, c ~ N(0, 1); a = -(1..n)
+        per channel, the model's -exp(a_log) at init, perturbed; a carried
+        state ~ N(0, 1)."""
+        dt = torch.nn.functional.softplus(randn(gen, (b, s, MAMBA_DI),
+                                                torch.float32, 2.0) - 2.0)
+        x = randn(gen, (b, s, MAMBA_DI), torch.float32, 1.0)
+        bc = randn(gen, (b, s, 2 * MAMBA_N), torch.float32, 1.0)
+        a = -torch.arange(1, MAMBA_N + 1, device="cuda").float() * torch.exp(
+            randn(gen, (MAMBA_DI, MAMBA_N), torch.float32, 0.3))
+        h = randn(gen, (b, MAMBA_DI, MAMBA_N), torch.float32, 1.0)
+        return dt, bc[..., :MAMBA_N], bc[..., MAMBA_N:], x, a, h
+
+    b, s = REQUESTS, SERVED["hymba-1.5b"]
+    dt, bb, cc, x, a, h = inputs(b, s)
+    y, final = ops.mamba_scan(dt, bb, cc, x, a)
+    want, want_final = ops.mamba_scan(dt, bb, cc, x, a, impl="reference")
+    torch.cuda.synchronize()
+    err = assert_close_scan("serving prefill from zeros, y", y, want)
+    assert_close_scan("serving prefill from zeros, final state", final,
+                      want_final)
+    state = h.clone()
+    y, final = ops.mamba_scan(dt, bb, cc, x, a, state)
+    want, want_final = ops.mamba_scan(dt, bb, cc, x, a, h.clone(),
+                                      impl="reference")
+    if final is not state:
+        raise AssertionError("mamba_scan did not write the given state")
+    assert_close_scan("serving prefill from a state, y", y, want)
+    assert_close_scan("serving prefill from a state, final state", final,
+                      want_final)
+    # decode: one step, the state a layer's slice of a stacked cache
+    d_in = inputs(b, 1)
+    cache = randn(gen, (3, b, MAMBA_DI, MAMBA_N), torch.float32, 1.0)
+    before = cache.clone()
+    yd, _ = ops.mamba_scan(*d_in[:5], cache[1])
+    plain_state = before[1].clone()
+    ydp, _ = ops.mamba_scan(*d_in[:5], plain_state, impl="reference")
+    assert_close_scan("decode step, y", yd, ydp)
+    assert_close_scan("decode step, state in place", cache[1], plain_state)
+    if not (torch.equal(cache[0], before[0])
+            and torch.equal(cache[2], before[2])):
+        raise AssertionError("mamba_scan wrote outside its state slice")
+    t = time_tile()
+    for steps in (t - 1, t, t + 1, 2 * t + 3):
+        e_dt, e_b, e_c, e_x, e_a, e_h = inputs(2, steps)
+        st_k, st_p = e_h.clone(), e_h.clone()
+        ye, _ = ops.mamba_scan(e_dt, e_b, e_c, e_x, e_a, st_k)
+        yp, _ = ops.mamba_scan(e_dt, e_b, e_c, e_x, e_a, st_p,
+                               impl="reference")
+        assert_close_scan(f"S={steps} from a state (tile T={t}), y", ye, yp)
+        assert_close_scan(f"S={steps} from a state, final state", st_k, st_p)
+    assert_mutant_caught(f"S={steps}", mamba_decay_late(
+        e_dt, e_b, e_c, e_x, e_a, e_h), yp, "each decay one step late")
+
+    # dt, x read and y written (B, S, di); b, c read (B, S, n); the state
+    # read and written; a read. ~7 fp32 flops per (token, channel, state):
+    # dt * a, exp, da * h, (dt x) b, the sum, h c and its sum
+    n_bytes = (3 * dt.numel() + 2 * b * s * MAMBA_N + 2 * h.numel()
+               + a.numel()) * 4
+    bound, by = bound_ms(n_bytes, {torch.float32: 7 * h.numel() * s})
+    ms = time_ms(lambda: ops.mamba_scan(dt, bb, cc, x, a, state), 20)
+    plain = time_ms(lambda: ops.mamba_scan(dt, bb, cc, x, a, state,
+                                           impl="reference"), 2, warmup=1)
+    log(f"  time: kernel {ms:.4f} ms, plain {plain:.4f} ms, no single "
+        f"PyTorch call computes it, bound {bound:.4f} ms ({by}, "
+        f"{n_bytes / 1e6:.1f} MB)")
+    n_bytes = (3 * d_in[0].numel() + 2 * b * MAMBA_N
+               + 2 * cache[1].numel() + a.numel()) * 4
+    dbound, dby = bound_ms(n_bytes, {torch.float32: 7 * cache[1].numel()})
+    dms = time_ms(lambda: ops.mamba_scan(*d_in[:5], cache[1]), 200)
+    dplain = time_ms(lambda: ops.mamba_scan(*d_in[:5], cache[1],
+                                            impl="reference"), 50)
+    log(f"mamba_scan decode step (B={b}, S=1, di={MAMBA_DI}, n={MAMBA_N}, "
+        f"{n_bytes / 1e6:.2f} MB): kernel {dms:.6f} ms, plain {dplain:.6f} "
+        f"ms, bound {dbound:.6f} ms ({dby})")
+    return {"name": "mamba_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+            # no Pallas kernel: the vmemkernel_mamba_scan scope's lax.scan
+            "replaces": "src/repro/models/ssm.py:217",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
 def prompt_len_of(arch: str) -> int:
     return {**SERVED, **STUB_SERVED}[arch]
 
@@ -578,28 +723,29 @@ def visible_pairs(s: int, window) -> int:
     return window * (window + 1) // 2 + (s - window) * window
 
 
-def check_head_dim(hd: int) -> list:
-    """Both attention kernels at head dim ``hd``, at the serving shapes of
-    the model NEW_HEAD_DIMS names (its heads, window, prompt length; decode
-    against the cache the engine keeps after that prompt: a full ring of
-    window slots for h2o-danube, else prompt + MAX_NEW slots with ragged
-    cache_len), bf16 and fp32, each against its plain version with the
-    temperature mutant; then timed in bf16 beside the plain version, one
-    SDPA call (with a window mask, or masked by cache_len) and the bound.
-    Returns the two kernels' JSON entries."""
+def check_attention_shape(tag: str) -> list:
+    """Both attention kernels at the serving shapes of the model
+    ATTENTION_SHAPES names under ``tag`` (its head dim, heads, window,
+    prompt length; decode against the cache the engine keeps after that
+    prompt: a full ring of window slots for h2o-danube and hymba, else
+    prompt + MAX_NEW slots with ragged cache_len), bf16 and fp32, each
+    against its plain version with the temperature mutant; then timed in
+    bf16 beside the plain version, one SDPA call (with a window mask, or
+    masked by cache_len) and the bound. Returns the two kernels' JSON
+    entries, named ``<kernel>_<tag>``."""
     import torch.nn.functional as F
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
-    arch = NEW_HEAD_DIMS[hd]
+    arch = ATTENTION_SHAPES[tag]
     cfg = get_arch(arch)
-    b, s, h, hkv, window = REQUESTS, prompt_len_of(arch), cfg.n_heads, \
-        cfg.n_kv_heads, cfg.sliding_window
+    b, s, h, hkv, hd, window = REQUESTS, prompt_len_of(arch), cfg.n_heads, \
+        cfg.n_kv_heads, cfg.hd, cfg.sliding_window
     grp = h // hkv
     cap = min(s + MAX_NEW, window or s + MAX_NEW)
     lens = torch.tensor([cap, cap - 16, cap - 24, s + 1] if cap > s else
                         [cap] * b, device="cuda", dtype=torch.int32)
-    if cfg.hd != hd:
-        raise AssertionError(f"{arch} has hd {cfg.hd}, not {hd}")
+    if tag.startswith("hd") and cfg.hd != int(tag[2:]):
+        raise AssertionError(f"{arch} has hd {cfg.hd}, not {tag[2:]}")
     gen = torch.Generator("cuda").manual_seed(hd)
     log(f"hd {hd} at {arch}'s serving shapes ({h}/{hkv} heads, window "
         f"{window}): prefill B={b} S={s}; decode grp {grp} against "
@@ -654,7 +800,7 @@ def check_head_dim(hd: int) -> list:
         what = "SDPA, window mask"
     log(f"  prefill hd {hd} time: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
         f"{what} {lib:.4f} ms, bound {bound:.4f} ms ({by})")
-    entries.append({"name": f"flash_attention_hd{hd}", "route": "cuda",
+    entries.append({"name": f"flash_attention_{tag}", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/"
                               "flash_attention.cu",
                     "replaces": "src/repro/kernels/flash_attention.py:75",
@@ -671,7 +817,7 @@ def check_head_dim(hd: int) -> list:
     lib = time_ms(masked_sdpa(qd, kc, vc, lens), 200)
     log(f"  decode hd {hd} time: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
         f"SDPA {lib:.4f} ms (masked), bound {bound:.4f} ms ({by})")
-    entries.append({"name": f"decode_attention_hd{hd}", "route": "cuda",
+    entries.append({"name": f"decode_attention_{tag}", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/"
                               "decode_attention.cu",
                     "replaces": "src/repro/kernels/decode_attention.py:63",
@@ -683,13 +829,16 @@ def check_head_dim(hd: int) -> list:
 # ------------------------------------------------------------ phase 3
 def expected_counts(cfg, decode_steps: int, prefills: int = 1) -> dict:
     """One launch per layer of the prefill kernel per prefill, and of the
-    decode kernel per decode step; none of the others."""
+    decode kernel per decode step (a hybrid: and of the Mamba scan in
+    both); none of the others."""
     prefill_kernel, decode_kernel = ("wkv6", "wkv6") if cfg.attn_free \
         else ("flash_attention", "decode_attention")
     from repro_torch.kernels.ops import KERNELS
     want = dict.fromkeys(KERNELS, 0)
     want[prefill_kernel] += cfg.n_layers * prefills
     want[decode_kernel] += cfg.n_layers * decode_steps
+    if cfg.hybrid_ssm:
+        want["mamba_scan"] += cfg.n_layers * (prefills + decode_steps)
     return want
 
 
@@ -713,7 +862,11 @@ def serve_full_width(arch: str) -> dict:
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     heads = f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads of " \
         f"{cfg.rwkv_head_dim}" if cfg.attn_free else \
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}"
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, window " \
+        f"{cfg.sliding_window}"
+    if cfg.hybrid_ssm:
+        heads += f", beside {cfg.n_heads * cfg.hd} Mamba channels of state " \
+            f"{cfg.ssm_state}"
     log(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, {heads}, "
         f"vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B params "
         f"({n_bytes / 1e9:.2f} GB) initialised on the card in "
@@ -747,8 +900,9 @@ def serve_full_width(arch: str) -> dict:
 
     toks = torch.as_tensor(ids, device="cuda").long()
     ops.reset_launches()
-    profile("prefill", lambda: prefill(params, cfg, {"tokens": prompts}),
-            st["prefill_ms"])
+    by_kind(profile("prefill", lambda: prefill(params, cfg,
+                                               {"tokens": prompts}),
+                    st["prefill_ms"]))
     check_counts("one prefill", ops.launch_counts(), expected_counts(cfg, 0))
     _, pre, pos = prefill(params, cfg, {"tokens": prompts})
     caches = preallocate_cache(cfg, pre, prompt_len + MAX_NEW)
@@ -852,11 +1006,16 @@ def serve_stub(arch: str) -> dict:
 def serve_bounds(cfg, params, prompt_len: int) -> tuple:
     """Least time for the prefill and for one decode step of the main path.
     Prefill: 2 flops per layer weight per prompt token, causal attention
-    (or RWKV's fp32 recurrence, 5 hd^2 flops per token and head), the LM
-    head for the last token; it reads every weight but the embedding table
-    once. Decode: it reads the layer weights, the LM head, and the KV cache
-    at its mean length over the decode loop (or reads and writes RWKV's
-    WKV states) once."""
+    over the (query, key) pairs inside the window (or RWKV's fp32
+    recurrence, 5 hd^2 flops per token and head), a hybrid's Mamba scan (7
+    fp32 flops per token, channel and state), the LM head for the last
+    token; it reads every weight but the embedding table once and writes a
+    hybrid's Mamba states once. Decode: it reads the layer weights, the LM
+    head, and the KV cache at its mean length over the decode loop, or the
+    ring of a sliding window when that is shorter, once (or reads and
+    writes RWKV's WKV states), and reads and writes a hybrid's Mamba
+    states."""
+    from repro_torch.models.ssm import CONV_K
     layers = list(_leaves(params["layers"]))
     layer_params = sum(t.numel() for t in layers)
     layer_bytes = sum(t.numel() * t.element_size() for t in layers)
@@ -876,17 +1035,29 @@ def serve_bounds(cfg, params, prompt_len: int) -> tuple:
         cache_bytes = 2 * cfg.n_layers * REQUESTS * heads * hd * hd * 4
     else:
         seq_flops = {torch.bfloat16: 4 * REQUESTS * cfg.n_heads * cfg.hd
-                     * cfg.n_layers * (prompt_len * (prompt_len + 1) // 2)}
+                     * cfg.n_layers * visible_pairs(prompt_len,
+                                                    cfg.sliding_window)}
         step_flops = 0
-        cache_bytes = 2 * cfg.n_layers * REQUESTS * (
-            prompt_len + MAX_NEW / 2) * cfg.n_kv_heads * cfg.hd \
-            * head.element_size()
+        slots = prompt_len + MAX_NEW / 2
+        if cfg.sliding_window is not None:
+            slots = min(slots, cfg.sliding_window)
+        cache_bytes = 2 * cfg.n_layers * REQUESTS * slots * cfg.n_kv_heads \
+            * cfg.hd * head.element_size()
+    state_bytes = 0
+    if cfg.hybrid_ssm:
+        di = cfg.n_heads * cfg.hd
+        states = cfg.n_layers * REQUESTS * di * cfg.ssm_state
+        seq_flops[torch.float32] = 7 * states * prompt_len
+        step_flops = 7 * states
+        state_bytes = 4 * states + cfg.n_layers * REQUESTS * (CONV_K - 1) \
+            * di * head.element_size()
     dense = 2 * layer_flop_params * REQUESTS * prompt_len \
         + 2 * head.numel() * REQUESTS
-    prefill = bound_ms(layer_bytes + head_bytes, {
+    prefill = bound_ms(layer_bytes + head_bytes + state_bytes, {
         torch.bfloat16: dense + seq_flops.get(torch.bfloat16, 0),
         torch.float32: seq_flops.get(torch.float32, 0)})
-    decode = bound_ms(layer_bytes + head_bytes + cache_bytes, {
+    decode = bound_ms(layer_bytes + head_bytes + cache_bytes
+                      + 2 * state_bytes, {
         torch.bfloat16: 2 * (layer_flop_params + head.numel()) * REQUESTS,
         torch.float32: step_flops})
     return prefill, decode
@@ -1085,20 +1256,16 @@ def _leaves(tree):
 
 # ----------------------------------------------------------- phase 3b
 def sweep_depth_one() -> None:
-    """Every config ``_check_ported`` admits, at full width and depth 1 in
-    fp32: a prefill of REQUESTS x SWEEP_LEN positions and 3 decode steps
-    through the kernels, their launches counted, against the plain
-    versions within FP32_REL_TOL. Each model is freed before the next."""
+    """Every config, at full width and depth 1 in fp32: a prefill of
+    REQUESTS x SWEEP_LEN positions and 3 decode steps through the kernels,
+    their launches counted, against the plain versions within
+    FP32_REL_TOL. Each model is freed before the next."""
     from repro_torch.configs import ARCHS
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops
     from repro_torch.models import init_params
-    from repro_torch.models.transformer import UNPORTED
     from repro_torch.train.data import synth_batch
     for name, full in ARCHS.items():
-        if any(getattr(full, flag) for flag in UNPORTED):
-            log(f"{name}: not admitted by the port ({UNPORTED})")
-            continue
         cfg = dataclasses.replace(full, n_layers=1, param_dtype="float32")
         t0 = time.perf_counter()
         params = init_params(torch.Generator("cuda").manual_seed(0), cfg)
@@ -1145,10 +1312,12 @@ def small_models_cpu_vs_card() -> None:
     from repro_torch.serve.engine import Engine, ServeConfig
     rwkv = dataclasses.replace(get_arch("rwkv6-3b").reduced(),
                                param_dtype="float32")
-    # the reduced config's hd 16 has no kernel instance: heads of 32
+    # the reduced configs' hd 16 has no kernel instance: heads of 32
     moe = dataclasses.replace(get_arch("moonshot-v1-16b-a3b").reduced(),
                               head_dim=32, param_dtype="float32")
-    for cfg in (PRESETS["tiny"], rwkv, moe):
+    hybrid = dataclasses.replace(get_arch("hymba-1.5b").reduced(),
+                                 head_dim=32, param_dtype="float32")
+    for cfg in (PRESETS["tiny"], rwkv, moe, hybrid):
         params = init_params(torch.Generator("cpu").manual_seed(0), cfg)
         prompts = torch.randint(0, cfg.vocab_size, (2, 40),
                                 generator=torch.Generator("cpu").manual_seed(1))
@@ -1486,6 +1655,9 @@ def time_step_parts(state, batch, cfg, opt_cfg) -> None:
 
 KINDS = (("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
          ("flash attention kernel", ("fa_bf16", "fa_f32")),
+         ("flash decode kernel", ("fd_split", "fd_merge")),
+         ("Mamba scan kernel", ("mamba_scan",)),
+         ("WKV6 kernel", ("wkv6_",)),
          ("softmax", ("softmax",)),
          ("reductions", ("reduce",)),
          ("elementwise and copies", ("elementwise", "copy", "fill",
@@ -1580,18 +1752,20 @@ def main() -> int:
     with phase("2, kernels against their plain versions"):
         kernels = [check_flash_attention(), check_decode_attention(),
                    check_wkv6()]
-        for hd in NEW_HEAD_DIMS:
-            kernels += check_head_dim(hd)
+        kernels.append(check_mamba_scan())
+        for tag in ATTENTION_SHAPES:
+            kernels += check_attention_shape(tag)
             gc.collect()
             torch.cuda.empty_cache()
     # each entry's launches come from the run of the model served at its
     # shape: {entry: (model, kernel)}
     launched_by = {"flash_attention": ("qwen3-8b", "flash_attention"),
                    "decode_attention": ("qwen3-8b", "decode_attention"),
-                   "wkv6": ("rwkv6-3b", "wkv6")}
-    for hd, arch in NEW_HEAD_DIMS.items():
+                   "wkv6": ("rwkv6-3b", "wkv6"),
+                   "mamba_scan": ("hymba-1.5b", "mamba_scan")}
+    for tag, arch in ATTENTION_SHAPES.items():
         for kernel in ("flash_attention", "decode_attention"):
-            launched_by[f"{kernel}_hd{hd}"] = (arch, kernel)
+            launched_by[f"{kernel}_{tag}"] = (arch, kernel)
     launches = {}
     for arch in [*SERVED, *STUB_SERVED]:
         with phase(f"3, {arch} served"):
@@ -1602,7 +1776,7 @@ def main() -> int:
             torch.cuda.empty_cache()
             log(f"{arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} "
                 f"GB still allocated")
-    with phase("3b, every admitted config at depth 1"):
+    with phase("3b, every config at depth 1"):
         sweep_depth_one()
     with phase("4, small models on the card and the CPU"):
         small_models_cpu_vs_card()

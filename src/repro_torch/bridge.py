@@ -21,7 +21,10 @@ FP32_LEAVES = frozenset({"ln1", "ln2", "final_norm", "q_norm", "k_norm",
                          "router",
                          # RWKV time-mix and channel-mix (repro.models.ssm)
                          "mu", "w0", "w_lora_a", "w_lora_b", "bonus_u",
-                         "ln_w", "ln_b"})
+                         "ln_w", "ln_b",
+                         # Mamba (repro.models.ssm.init_mamba); conv_b
+                         # keeps the model's dtype, as in JAX
+                         "dt_bias", "a_log", "d_skip"})
 
 
 def leaf_dtype(key: str, cfg: ArchConfig) -> torch.dtype:

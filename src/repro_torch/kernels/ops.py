@@ -10,9 +10,10 @@
                  for it by name (``chip_smoke.py`` does, to hold the kernels
                  against it on the card).
 
-Each function takes the JAX kernel's 3-D layout, or the model's 4-D
-layout, which the kernel reads in place through its strides. A 3-D input
-becomes a 4-D view with no copy.
+Each attention and WKV6 function takes the JAX kernel's 3-D layout, or
+the model's 4-D layout, which the kernel reads in place through its
+strides. A 3-D input becomes a 4-D view with no copy. ``mamba_scan`` has
+no JAX kernel: it takes the model's (B, S, ...) layout only.
 """
 
 from __future__ import annotations
@@ -23,13 +24,15 @@ import torch
 
 from . import decode_attention as _decode
 from . import flash_attention as _flash
+from . import mamba_scan as _mamba
 from . import wkv6 as _wkv6
 
 IMPLS = ("kernel", "reference")
 # every kernel's wrapper by name; each counts its launches in ``.launches``
 KERNELS = {"flash_attention": _flash.flash_attention,
            "decode_attention": _decode.decode_attention,
-           "wkv6": _wkv6.wkv6}
+           "wkv6": _wkv6.wkv6,
+           "mamba_scan": _mamba.mamba_scan}
 
 
 def reset_launches() -> None:
@@ -103,3 +106,18 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if impl == "reference":
         return _wkv6.wkv6_plain(r, k, v, w, u, state)
     return _wkv6.wkv6(r, k, v, w, u, state)
+
+
+def mamba_scan(dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+               x: torch.Tensor, a: torch.Tensor,
+               h: Optional[torch.Tensor] = None, *, impl: str = "kernel"):
+    """Mamba's selective scan in the model's layout: dt, x (B, S, di), b, c
+    (B, S, n), a (di, n), h (B, di, n) or None (zeros). Returns (y (B, S,
+    di), final state); a given h is overwritten with the final state in
+    place. Computes in fp32 whatever the inputs' dtype, as JAX's ``step``
+    does."""
+    _check_impl(impl)
+    dt, b, c, x, a = (t.float() for t in (dt, b, c, x, a))
+    if impl == "reference":
+        return _mamba.mamba_scan_plain(dt, b, c, x, a, h)
+    return _mamba.mamba_scan(dt, b, c, x, a, h)

@@ -1,7 +1,8 @@
 """Serving entry point: random weights from a seed, one batch of random
 prompts, greedy (or sampled) generation through the CUDA kernels
-(attention, or RWKV6's WKV recurrence), for any config the Engine serves
-(dense, MoE, RWKV6; not the stub-frontend configs, which take embeddings).
+(attention, RWKV6's WKV recurrence, or a hybrid's attention and Mamba
+scan), for any config the Engine serves (dense, MoE, RWKV6, hybrid; not
+the stub-frontend configs, which take embeddings).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
@@ -10,6 +11,8 @@ Usage:
       --requests 4 --prompt-len 1024 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch moonshot-v1-16b-a3b --requests 4 --prompt-len 512 --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+      --requests 4 --prompt-len 4096 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --preset tiny --device cpu
 
 The served model version is read from a coordinator with the read policy

@@ -1,10 +1,15 @@
-"""RWKV6 ("Finch") time-mix and channel-mix, ported from the RWKV part of
-``repro.models.ssm`` (Mamba comes with the hybrid family).
+"""Attention-free sequence mixers, ported from ``repro.models.ssm``.
 
-Token shift, a data-dependent per-channel decay and a (hd x hd) WKV state
-per head, so decode carries O(1) state. The recurrence goes through
-``kernels.ops.wkv6`` where JAX runs its ``vmemkernel_wkv6`` scan. JAX
-returns new states; here a given WKV state is updated in place.
+* RWKV6 ("Finch") time-mix and channel-mix: token shift, a data-dependent
+  per-channel decay and a (hd x hd) WKV state per head, so decode carries
+  O(1) state. The recurrence goes through ``kernels.ops.wkv6`` where JAX
+  runs its ``vmemkernel_wkv6`` scan.
+* Mamba-style selective SSM, hymba's SSM heads (beside attention in each
+  hybrid layer): a depthwise causal conv, then a scan over a (di, n) state
+  that goes through ``kernels.ops.mamba_scan`` where JAX runs its
+  ``vmemkernel_mamba_scan`` scan.
+
+JAX returns new states; here a given state is updated in place.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from ..kernels import ops
 from .layers import dense_init, group_norm_heads
 
 DECAY_LORA = 64
+DT_RANK = 64
+CONV_K = 4
 
 
 # ================================================================= init
@@ -118,3 +125,69 @@ def apply_rwkv_cmix(p: dict, x: torch.Tensor, cfg: ArchConfig,
     v = k @ p["w_v"]
     r = torch.sigmoid(mix(1) @ p["w_r"])
     return (r * v).to(x.dtype), x[:, -1, :]
+
+
+# ====================================================== Mamba (hymba)
+def init_mamba(gen: torch.Generator, cfg: ArchConfig,
+               dtype: torch.dtype) -> dict:
+    """Mamba parameters of all layers, stacked (L, ...) as in JAX; the SSM
+    heads mirror the attention heads, di = n_heads x hd."""
+    L, d, n = cfg.n_layers, cfg.d_model, cfg.ssm_state
+    di = cfg.n_heads * cfg.hd
+    f32, dev = torch.float32, gen.device
+    a_log = torch.log(torch.arange(1, n + 1, dtype=f32, device=dev))
+    return {
+        "in_proj": dense_init(gen, (L, d, 2 * di), dtype),
+        "conv_w": dense_init(gen, (L, CONV_K, di), dtype),
+        "conv_b": torch.zeros((L, di), dtype=dtype, device=dev),
+        "dt_a": dense_init(gen, (L, di, DT_RANK), dtype),
+        "dt_b": dense_init(gen, (L, DT_RANK, di), dtype),
+        "dt_bias": torch.zeros((L, di), dtype=f32, device=dev),
+        "w_bc": dense_init(gen, (L, di, 2 * n), dtype),
+        "a_log": a_log.expand(L, di, n).contiguous(),
+        "d_skip": torch.ones((L, di), dtype=f32, device=dev),
+        "out_proj": dense_init(gen, (L, di, d), dtype),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 conv_state: Optional[torch.Tensor] = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv1d. x: (B,S,di); w: (K,di); conv_state: the
+    previous K-1 inputs (B,K-1,di) or None (zeros). Summed tap by tap in
+    the model's dtype, in JAX's order (not ``F.conv1d``, which sums in
+    another). Returns (out, the last K-1 inputs)."""
+    s = x.shape[1]
+    if conv_state is None:
+        conv_state = torch.zeros((x.shape[0], CONV_K - 1, x.shape[2]),
+                                 dtype=x.dtype, device=x.device)
+    xp = torch.cat([conv_state, x], dim=1)             # (B, S+K-1, di)
+    out = xp[:, :s] * w[0]
+    for i in range(1, CONV_K):
+        out = out + xp[:, i:i + s] * w[i]
+    return out + b, xp[:, -(CONV_K - 1):]
+
+
+def apply_mamba(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                state: Optional[dict] = None, impl: str = "kernel"
+                ) -> tuple[torch.Tensor, dict]:
+    """Selective SSM. x: (B,S,D). state: {"conv": (B,K-1,di), "h": (B,di,n)
+    fp32} or None (zeros). Returns (out, {"conv", "h"}); a given state is
+    overwritten with the new one in place."""
+    n = cfg.ssm_state
+    x_in, z = (x @ p["in_proj"]).chunk(2, dim=-1)      # (B,S,di) each
+    x_c, new_conv = _causal_conv(x_in, p["conv_w"], p["conv_b"],
+                                 None if state is None else state["conv"])
+    x_c = F.silu(x_c)
+    dt = F.softplus((x_c @ p["dt_a"] @ p["dt_b"]).float() + p["dt_bias"])
+    bc = (x_c @ p["w_bc"]).float()                     # (B,S,2n): b_t, c_t
+    a = -torch.exp(p["a_log"])                         # (di,n)
+    x_f = x_c.float()
+    # JAX's vmemkernel_mamba_scan scope: the recurrence in fp32
+    y, h = ops.mamba_scan(dt, bc[..., :n], bc[..., n:], x_f, a,
+                          None if state is None else state["h"], impl=impl)
+    y = y + p["d_skip"] * x_f
+    out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    if state is not None:
+        new_conv = state["conv"].copy_(new_conv)
+    return out, {"conv": new_conv, "h": h}

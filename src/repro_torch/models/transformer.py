@@ -1,14 +1,16 @@
 """Decoder stack, ported from ``repro.models.transformer``: the dense and
 MoE families and the stub-frontend family (vlm, audio: precomputed
-embeddings in place of token ids), serving and training, and the
-attention-free RWKV6 family (serving).
+embeddings in place of token ids), serving and training; the
+attention-free RWKV6 family and the hybrid family (hymba: attention and
+Mamba heads side by side in each layer), serving.
 
 Parameters are a nested dict of tensors with the JAX tree's keys and its
 layer-stacked ``(L, ...)`` leaves; a Python loop over layers takes the
 place of ``lax.scan``. Attention goes through ``kernels.ops`` on
 un-repeated K/V: the kernels index the shared KV head themselves. RWKV
-layers run ``models.ssm``, whose recurrence is ``kernels.ops.wkv6``; MoE
-layers run ``models.moe``.
+layers run ``models.ssm``, whose recurrence is ``kernels.ops.wkv6``; a
+hybrid layer's Mamba heads run ``models.ssm.apply_mamba``, whose scan is
+``kernels.ops.mamba_scan``; MoE layers run ``models.moe``.
 
 Entry points (a stub-frontend config takes ``embeds`` (B, S, D) in place
 of ``tokens``, and (B, D) embeds per decode step):
@@ -18,8 +20,8 @@ of ``tokens``, and (B, D) embeds per decode step):
                  recomputed in the backward (``torch.utils.checkpoint``)
   prefill      tokens -> (last-token logits, caches, positions)
   decode_step  one token per row + caches -> (logits, caches); the new
-               token's K/V, or the new RWKV states, are written into the
-               caches in place
+               token's K/V, and the new RWKV or Mamba states, are written
+               into the caches in place
 """
 
 from __future__ import annotations
@@ -33,28 +35,17 @@ from ..configs.base import ArchConfig
 from ..kernels import ops
 from .layers import (apply_rope, dense_init, rms_norm, rope_tables, swiglu)
 from .moe import apply_moe, init_moe
-from .ssm import (apply_rwkv_cmix, apply_rwkv_tmix, init_rwkv_cmix,
-                  init_rwkv_tmix)
-
-# config flags the port does not cover yet, with the ROADMAP item, by its
-# title, that will
-UNPORTED = {
-    "hybrid_ssm": 'hybrid family (ROADMAP.md queue 1, "Hybrid family '
-                  '(hymba)")',
-}
-
+from .ssm import (CONV_K, apply_mamba, apply_rwkv_cmix, apply_rwkv_tmix,
+                  init_mamba, init_rwkv_cmix, init_rwkv_tmix)
 
 LOSS_CHUNK = 1024
-# training of RWKV6 runs through the WKV6 kernel, which has no gradient yet
+# training of RWKV6 runs through the WKV6 kernel, and of the hybrid family
+# through the Mamba scan kernel, neither of which has a gradient yet; each
+# message names its ROADMAP item by title
 RWKV_TRAINING = "RWKV6 training needs a gradient for the WKV6 kernel " \
     '(ROADMAP.md queue 1, "RWKV6 training")'
-
-
-def _check_ported(cfg: ArchConfig) -> None:
-    for flag, item in UNPORTED.items():
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"{cfg.name}: {flag} is not ported yet: {item}")
+HYBRID_TRAINING = "hybrid training needs a gradient for the Mamba scan " \
+    'kernel (ROADMAP.md queue 1, "Hybrid family training")'
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -66,7 +57,6 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
     """Random parameters on ``gen``'s device, in the JAX tree's layout.
     The values differ from JAX's for the same seed; parity tests bring
     weights over with ``bridge.params_from_numpy``."""
-    _check_ported(cfg)
     dtype, dev = _dtype(cfg), gen.device
     L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -94,6 +84,8 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
         if cfg.qk_norm:
             attn.update(q_norm=ones(L, hd), k_norm=ones(L, hd))
         layers = {"ln1": ones(L, d), "ln2": ones(L, d), "attn": attn}
+        if cfg.hybrid_ssm:
+            layers["mamba"] = init_mamba(gen, cfg, dtype)
     params = {
         "embed": dense_init(gen, (cfg.vocab_size, d), dtype),
         "layers": layers,
@@ -184,14 +176,27 @@ def _ffn(lp: dict, x: torch.Tensor, cfg: ArchConfig
     return swiglu(x, m["w_gate"], m["w_up"], m["w_down"]), None
 
 
+def _mixer_out(lp: dict, normed: torch.Tensor, attn_out: torch.Tensor,
+               cfg: ArchConfig, mamba: Optional[dict],
+               impl: str) -> torch.Tensor:
+    """What the block adds to its residual after the first norm: the
+    attention output, or for a hybrid layer 0.5 (attn + ssm), its Mamba
+    heads reading the same normed input from ``mamba`` (the layer's
+    {"conv", "h"} states, written in place)."""
+    if not cfg.hybrid_ssm:
+        return attn_out
+    ssm_out, _ = apply_mamba(lp["mamba"], normed, cfg, mamba, impl)
+    return 0.5 * (attn_out + ssm_out)
+
+
 def apply_block_seq(lp: dict, x: torch.Tensor, cfg: ArchConfig, rope: tuple,
-                    impl: str = "kernel"):
+                    impl: str = "kernel", mamba: Optional[dict] = None):
     """One layer over a full sequence. Returns (x, kv cache, aux loss or
-    None)."""
-    attn_out, kv = apply_attn_seq(lp["attn"], rms_norm(x, lp["ln1"],
-                                                       cfg.norm_eps),
-                                  cfg, rope, impl)
-    x = x + attn_out
+    None). A hybrid layer starts its Mamba heads from ``mamba`` (zeros
+    before a prefill) and writes the final states there."""
+    normed = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    attn_out, kv = apply_attn_seq(lp["attn"], normed, cfg, rope, impl)
+    x = x + _mixer_out(lp, normed, attn_out, cfg, mamba, impl)
     out, aux = _ffn(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
     return x + out, kv, aux
 
@@ -199,10 +204,12 @@ def apply_block_seq(lp: dict, x: torch.Tensor, cfg: ArchConfig, rope: tuple,
 def apply_block_decode(lp: dict, x: torch.Tensor, cfg: ArchConfig,
                        cache: dict, pos: torch.Tensor,
                        impl: str = "kernel") -> torch.Tensor:
-    """One layer for one decode token; writes its K/V into ``cache``."""
-    x = x + apply_attn_decode(lp["attn"], rms_norm(x, lp["ln1"],
-                                                   cfg.norm_eps),
-                              cfg, cache, pos, impl)
+    """One layer for one decode token; writes its K/V into ``cache["kv"]``
+    and, for a hybrid layer, its Mamba states into ``cache["mamba"]``."""
+    normed = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    attn_out = apply_attn_decode(lp["attn"], normed, cfg, cache["kv"], pos,
+                                 impl)
+    x = x + _mixer_out(lp, normed, attn_out, cfg, cache.get("mamba"), impl)
     return x + _ffn(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)[0]
 
 
@@ -239,9 +246,10 @@ def hidden_states(params: dict, cfg: ArchConfig, batch: dict,
     loss leaves the checkpoint beside its output. ``params["layers"]`` is
     the stacked tree or a list of per-layer trees (the train step passes
     those, so that each layer's gradient lands in its slice in place)."""
-    _check_ported(cfg)
     if cfg.attn_free:
         raise NotImplementedError(f"{cfg.name}: {RWKV_TRAINING}")
+    if cfg.hybrid_ssm:
+        raise NotImplementedError(f"{cfg.name}: {HYBRID_TRAINING}")
     x = _embed_inputs(params, cfg, batch)
     s = x.shape[1]
     rope = rope_tables(torch.arange(s, device=x.device), cfg.hd,
@@ -320,10 +328,12 @@ def lm_head_weight(params: dict, cfg: ArchConfig) -> torch.Tensor:
 def prefill(params: dict, cfg: ArchConfig, batch: dict,
             impl: str = "kernel"):
     """Returns (last-token logits (B, V) fp32, caches, positions (B,)).
-    caches, as in JAX: {"kv": {"k": (L, B, S, Hkv, hd), "v": ...}}, or for
-    RWKV {"tmix": {"shift": (L, B, D), "wkv": (L, B, H, hd, hd) fp32},
-    "cmix": (L, B, D)}, which already have their decode size."""
-    _check_ported(cfg)
+    caches, as in JAX: {"kv": {"k": (L, B, S, Hkv, hd), "v": ...}}, with
+    {"mamba": {"conv": (L, B, K-1, di), "h": (L, B, di, n) fp32}} beside
+    it for the hybrid family, or for RWKV {"tmix": {"shift": (L, B, D),
+    "wkv": (L, B, H, hd, hd) fp32}, "cmix": (L, B, D)}. RWKV's and Mamba's
+    states already have their decode size: each layer writes its final
+    states in place into buffers that start at zero."""
     x = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     if cfg.attn_free:
@@ -334,23 +344,36 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict,
     else:
         rope = rope_tables(torch.arange(s, device=x.device), cfg.hd,
                            cfg.rope_theta)
+        mamba = _mamba_states(cfg, b, x.device) if cfg.hybrid_ssm else None
         ks, vs = [], []
         for i in range(cfg.n_layers):
-            x, kv, _ = apply_block_seq(_layer(params["layers"], i), x, cfg,
-                                       rope, impl)
+            x, kv, _ = apply_block_seq(
+                _layer(params["layers"], i), x, cfg, rope, impl,
+                None if mamba is None else _layer(mamba, i))
             ks.append(kv["k"])
             vs.append(kv["v"])
         caches = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+        if mamba is not None:
+            caches["mamba"] = mamba
     return _logits(params, cfg, x[:, -1]), caches, \
         torch.full((b,), s, dtype=torch.int32, device=x.device)
+
+
+def _mamba_states(cfg: ArchConfig, batch_size: int, device=None) -> dict:
+    """Zeroed Mamba states of every layer: {"conv": (L, B, K-1, di) in the
+    model's dtype, "h": (L, B, di, n) fp32}."""
+    L, di = cfg.n_layers, cfg.n_heads * cfg.hd
+    return {"conv": torch.zeros((L, batch_size, CONV_K - 1, di),
+                                dtype=_dtype(cfg), device=device),
+            "h": torch.zeros((L, batch_size, di, cfg.ssm_state),
+                             dtype=torch.float32, device=device)}
 
 
 def init_decode_cache(cfg: ArchConfig, batch_size: int, max_len: int,
                       device=None) -> dict:
     """Blank decode caches; a sliding-window config gets a ring of
-    ``min(max_len, window)`` slots. RWKV's states do not grow with
-    ``max_len``."""
-    _check_ported(cfg)
+    ``min(max_len, window)`` slots. RWKV's and Mamba's states do not grow
+    with ``max_len``."""
     L, dtype = cfg.n_layers, _dtype(cfg)
     if cfg.attn_free:
         hd = cfg.rwkv_head_dim
@@ -366,10 +389,13 @@ def init_decode_cache(cfg: ArchConfig, batch_size: int, max_len: int,
     size = max_len if cfg.sliding_window is None \
         else min(max_len, cfg.sliding_window)
     shape = (L, batch_size, size, cfg.n_kv_heads, cfg.hd)
-    return {"kv": {
+    caches = {"kv": {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }}
+    if cfg.hybrid_ssm:
+        caches["mamba"] = _mamba_states(cfg, batch_size, device)
+    return caches
 
 
 def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
@@ -377,9 +403,8 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     """One decoding step. tokens: (B,) ids, or (B, D) embeds for a
     stub-frontend config; pos: (B,) absolute positions (RWKV does not read
     them). Unlike JAX, which returns new caches, this writes the token's
-    K/V, or the new RWKV states, into ``caches`` in place (no per-step copy
-    of the cache) and returns them."""
-    _check_ported(cfg)
+    K/V, and the new RWKV or Mamba states, into ``caches`` in place (no
+    per-step copy of the cache) and returns them."""
     if cfg.embedding_stub:
         x = tokens.to(_dtype(cfg))[:, None, :]
     else:
@@ -389,7 +414,7 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         if cfg.attn_free:
             x = apply_rwkv_block(lp, x, cfg, cache, impl)
         else:
-            x = apply_block_decode(lp, x, cfg, cache["kv"], pos, impl)
+            x = apply_block_decode(lp, x, cfg, cache, pos, impl)
     return _logits(params, cfg, x[:, 0]), caches
 
 

@@ -1,7 +1,7 @@
 """Batched serving engine, ported from ``repro.serve.engine``: prefill, then
-decode over a request batch against one preallocated cache (K/V, or RWKV's
-fixed-size states). It serves token-in, token-out models: the dense, MoE
-and RWKV6 families."""
+decode over a request batch against one preallocated cache (K/V, RWKV's
+fixed-size states, or a hybrid's K/V and Mamba states). It serves
+token-in, token-out models: the dense, MoE, RWKV6 and hybrid families."""
 
 from __future__ import annotations
 
@@ -35,16 +35,17 @@ def resolve_device(device=None) -> torch.device:
 
 
 def preallocate_cache(cfg: ArchConfig, caches: dict, total_len: int) -> dict:
-    """Prefill caches {"kv": {"k": (L, B, S, Hkv, hd), ...}} -> the decode
-    caches of ``init_decode_cache`` for ``total_len`` positions, holding the
-    prefill's K/V of position p at slot ``p % size``. A sliding-window
-    config gets a ring of ``min(total_len, window)`` slots, which keeps the
-    last ``window`` positions, so decode after a long prompt stays inside
-    the window. JAX pads the full prefill cache instead, so its decode
-    attends past the window (ROADMAP.md queue 3, a), and it rewrites the
-    cache every step; here it is allocated once, and each decode step
-    writes its slot in place. RWKV's prefill states already have their
-    decode size and pass through, as JAX's engine skips their growth."""
+    """Prefill caches {"kv": {"k": (L, B, S, Hkv, hd), ...}, ...} -> the
+    decode caches of ``init_decode_cache`` for ``total_len`` positions,
+    holding the prefill's K/V of position p at slot ``p % size``. A
+    sliding-window config gets a ring of ``min(total_len, window)`` slots,
+    which keeps the last ``window`` positions, so decode after a long
+    prompt stays inside the window. JAX pads the full prefill cache
+    instead, so its decode attends past the window (ROADMAP.md queue 3, a),
+    and it rewrites the cache every step; here it is allocated once, and
+    each decode step writes its slot in place. RWKV's prefill states, and a hybrid's Mamba
+    states beside its K/V, already have their decode size and pass through
+    unchanged, as JAX's engine passes every leaf but the 5-D K/V."""
     if cfg.attn_free:
         return caches
     k = caches["kv"]["k"]
@@ -53,6 +54,7 @@ def preallocate_cache(cfg: ArchConfig, caches: dict, total_len: int) -> dict:
     pos = torch.arange(max(0, s - size), s, device=k.device)
     for name, c in caches["kv"].items():
         out["kv"][name][:, :, pos % size] = c[:, :, pos]
+    out.update((name, c) for name, c in caches.items() if name != "kv")
     return out
 
 

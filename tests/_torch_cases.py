@@ -7,7 +7,8 @@ import numpy as np
 
 # the rows of FA_CASES, DECODE_CASES and WKV_CASES in tests/test_kernels.py,
 # then the head dims of phi3-mini-3.8b (96, MHA), h2o-danube-1.8b (80, GQA
-# 4x, a window shorter than S) and pixtral-12b (160, GQA 4x)
+# 4x, a window shorter than S) and pixtral-12b (160, GQA 4x), then
+# hymba-1.5b's query group of 5 (25 heads over 5 KV heads, windowed)
 FA_CASES = [
     # (BH, BHkv, S, hd, window, block_q, block_k, dtype)
     (4, 4, 128, 64, None, 64, 64, "float32"),      # MHA
@@ -23,6 +24,8 @@ FA_CASES = [
     (8, 2, 160, 160, None, 64, 32, "float32"),     # hd 160, GQA, ragged
     (8, 2, 256, 80, 96, 64, 64, "bfloat16"),       # hd 80 + window + bf16
     (8, 2, 128, 160, None, 64, 64, "bfloat16"),    # hd 160 + bf16
+    (10, 2, 256, 64, 96, 64, 64, "float32"),       # GQA 5x (hymba), window
+    (10, 2, 192, 64, 64, 64, 64, "bfloat16"),      # GQA 5x + window + bf16
 ]
 DECODE_CASES = [
     # (B, Hkv, grp, S, hd, block_s, dtype)
@@ -35,6 +38,8 @@ DECODE_CASES = [
     (2, 2, 4, 192, 160, 64, "float32"),     # hd 160, GQA 4x
     (2, 2, 4, 256, 80, 128, "bfloat16"),    # hd 80 + bf16
     (1, 2, 4, 128, 160, 64, "bfloat16"),    # hd 160 + bf16
+    (2, 1, 5, 256, 64, 64, "float32"),      # grp 5 (hymba)
+    (2, 2, 5, 192, 64, 64, "bfloat16"),     # grp 5 + bf16
 ]
 WKV_CASES = [
     # (BH, S, hd, chunk)
@@ -43,6 +48,22 @@ WKV_CASES = [
     (8, 128, 64, 64),
     (3, 96, 16, 32),
     (2, 256, 64, 128),
+]
+
+
+# Mamba scans: (B, S, di, n, carried state); S = 1 is a decode step, 64 the
+# kernel's time tile, 130 = 2 x 64 + 2 a ragged last tile, 512 steps JAX's
+# chunked_time_scan in rematerialised 256-step chunks
+MAMBA_CASES = [
+    (2, 1, 32, 16, True),
+    (2, 63, 48, 16, False),
+    (2, 64, 32, 16, True),
+    (1, 65, 16, 8, True),
+    (3, 130, 40, 8, False),
+    (2, 130, 32, 16, True),
+    (2, 40, 24, 8, True),
+    (1, 70, 16, 16, True),
+    (2, 512, 16, 16, True),
 ]
 
 
@@ -78,10 +99,26 @@ def wkv_inputs(shape, seed):
     return r, k, v, w.astype(np.float32), u
 
 
+def mamba_inputs(b, s, di, n, seed, carried=True):
+    """dt (B, S, di) in softplus's range, b and c as the two halves of one
+    (B, S, 2n) projection, x (B, S, di), a (di, n) = -exp(a_log) with a_log
+    near JAX's log(1..n), and a start state h (B, di, n) or None; float32.
+    """
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rand(rng, (b, s, di), 1.0) - 1.0))
+    bc = rand(rng, (b, s, 2 * n), 1.0)
+    x = rand(rng, (b, s, di), 1.0)
+    a_log = np.log(np.arange(1, n + 1))[None, :] + rand(rng, (di, n), 0.3)
+    h = rand(rng, (b, di, n), 1.0) if carried else None
+    return (dt.astype(np.float32), bc, x,
+            (-np.exp(a_log)).astype(np.float32), h)
+
+
 def randomise_norms_and_biases(params, seed):
     """JAX params with norm weights (init 1) and biases (init 0) -> random
     values; so are RWKV's shift mixes (init 0.5) and decay bias (init -6),
-    so that each is really exercised."""
+    and Mamba's conv bias and dt bias (init 0) and skip (init 1), so that
+    each is really exercised."""
     import jax
     import jax.numpy as jnp
     rng = np.random.default_rng(seed)
@@ -90,7 +127,9 @@ def randomise_norms_and_biases(params, seed):
         name = str(path[-1].key)
         if name in ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "ln_w"):
             return jnp.asarray(1.0 + rand(rng, leaf.shape, 0.2), leaf.dtype)
-        if name in ("bq", "bk", "bv", "ln_b"):
+        if name == "d_skip":
+            return jnp.asarray(1.0 + rand(rng, leaf.shape, 0.5), leaf.dtype)
+        if name in ("bq", "bk", "bv", "ln_b", "conv_b", "dt_bias"):
             return jnp.asarray(rand(rng, leaf.shape, 0.2), leaf.dtype)
         if name == "mu":
             return jnp.asarray(rng.uniform(0, 1, leaf.shape), leaf.dtype)

@@ -5,8 +5,9 @@ JAX, so it runs where only PyTorch is installed:
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: bf16 2e-2; fp32 1e-4, because the kernel sums in another order
-than the plain version (the WKV6 recurrence: atol 2e-5, rtol 1e-4, the
-limits tests/test_kernels.py holds JAX's scan and Pallas kernel to).
+than the plain version (the WKV6 recurrence and the Mamba scan: atol 2e-5,
+rtol 1e-4, the limits tests/test_kernels.py holds JAX's scan and Pallas
+kernel to).
 """
 
 import dataclasses
@@ -15,12 +16,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (DECODE_CASES, FA_CASES, WKV_CASES, decode_inputs,
-                          fa_inputs, wkv_inputs)
+from _torch_cases import (DECODE_CASES, FA_CASES, MAMBA_CASES, WKV_CASES,
+                          decode_inputs, fa_inputs, mamba_inputs, wkv_inputs)
 from repro_torch.configs import ARCHS
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mamba_scan import mamba_scan, time_tile
 from repro_torch.kernels.wkv6 import chunk_tokens, wkv6
 from repro_torch.models import moe
 
@@ -53,6 +55,12 @@ DECODE_CARD_CASES = [
     (2, 2, 4, 2048, 160, 64, "float32"),
     (1, 2, 16, 1024, 160, 64, "bfloat16"),
 ]
+
+
+# the Mamba scan at hymba's state width over many channels, and at its
+# time tile's edges (the steps given relative to the tile T)
+MAMBA_CARD_CASES = [(4, 1000, 1600, 16, True), (2, 333, 200, 8, False)]
+MAMBA_TILE_EDGES = ["T-1", "T", "T+1", "2T+3"]
 
 
 @pytest.fixture
@@ -213,6 +221,60 @@ def test_wkv6_chunk_edges_and_decays(cuda, s, decays):
     want, _ = ops.wkv6(r, k, v, w, u, st_p, impl="reference")
     close_wkv(y, want)
     close_wkv(st_k, st_p)
+
+
+def mamba_on(cuda, bsz, s, di, n, seed, carried=True):
+    """dt, b, c (the halves of one projection), x, a, h on the card."""
+    dt, bc, x, a, h = mamba_inputs(bsz, s, di, n, seed, carried)
+    dt, bc, x, a = (torch.from_numpy(t).to(cuda) for t in (dt, bc, x, a))
+    h = None if h is None else torch.from_numpy(h).to(cuda)
+    return dt, bc[..., :n], bc[..., n:], x, a, h
+
+
+def check_mamba(cuda, args):
+    """The kernel against its plain version: y and the final state, the
+    given state written in place; one launch."""
+    dt, b, c, x, a, h = args
+    before = mamba_scan.launches
+    state = None if h is None else h.clone()
+    y, final = ops.mamba_scan(dt, b, c, x, a, state)
+    torch.cuda.synchronize()
+    assert mamba_scan.launches == before + 1
+    assert h is None or final is state
+    want, want_final = ops.mamba_scan(dt, b, c, x, a,
+                                      None if h is None else h.clone(),
+                                      impl="reference")
+    close_wkv(y, want)
+    close_wkv(final, want_final)
+
+
+@pytest.mark.parametrize("bsz,s,di,n,carried",
+                         MAMBA_CASES + MAMBA_CARD_CASES)
+def test_mamba_scan_matches_plain(cuda, bsz, s, di, n, carried):
+    check_mamba(cuda, mamba_on(cuda, bsz, s, di, n, s + di, carried))
+
+
+@pytest.mark.parametrize("edge", MAMBA_TILE_EDGES)
+def test_mamba_scan_tile_edges(cuda, edge):
+    t = time_tile()
+    steps = {"T-1": t - 1, "T": t, "T+1": t + 1, "2T+3": 2 * t + 3}[edge]
+    check_mamba(cuda, mamba_on(cuda, 2, steps, 48, 16, steps))
+
+
+def test_mamba_scan_one_step_updates_the_state_in_place(cuda):
+    """Decode: S=1 from a carried state, read and written in one buffer
+    that is a layer's slice of a stacked (L, B, di, n) cache."""
+    dt, b, c, x, a, _ = mamba_on(cuda, 4, 1, 160, 16, 9)
+    cache = torch.randn((3, 4, 160, 16), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(0))
+    start = cache.clone()
+    y, final = ops.mamba_scan(dt, b, c, x, a, cache[1])
+    assert final.data_ptr() == cache[1].data_ptr()
+    want_state = start[1].clone()
+    want, _ = ops.mamba_scan(dt, b, c, x, a, want_state, impl="reference")
+    close_wkv(y, want)
+    close_wkv(cache[1], want_state)
+    assert torch.equal(cache[0], start[0]) and torch.equal(cache[2], start[2])
 
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "arctic-480b"])

@@ -109,7 +109,8 @@ def test_engine_rejects_params_on_another_device(tiny):
         Engine(cfg, meta, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "moonshot-v1-16b-a3b",
+                                  "hymba-1.5b"])
 def test_serve_cli_on_cpu(capsys, arch):
     out = serve_cli.main(["--arch", arch, "--smoke", "--requests", "2",
                           "--prompt-len", "6", "--max-new", "3",
@@ -117,6 +118,7 @@ def test_serve_cli_on_cpu(capsys, arch):
     assert out["ids"].shape == (2, 3)
     # CPU tensors take the plain versions: no kernel launches
     assert out["flash_attention"] == 0 and out["decode_attention"] == 0
+    assert out["mamba_scan"] == 0
     assert "served 2 requests" in capsys.readouterr().out
 
 

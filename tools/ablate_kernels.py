@@ -1,15 +1,17 @@
 """Where the kernels' time goes, by ablation, on one NVIDIA GPU.
 
   python3 tools/ablate_kernels.py [flash_attention] [decode_attention] [wkv6]
+                                  [mamba_scan]
 
 Builds variants of the named sources under src/repro_torch/kernels/csrc/
-(all three when none is named), each with one part of the kernel taken
+(all four when none is named), each with one part of the kernel taken
 out, or one tile size changed, by a text edit, into build/ablate/ (one
 nvcc per variant, in parallel). A variant that takes a part out gives a
 wrong output; only its time counts. Each is timed at chip_smoke.py's
 serving shapes (flash attention: B=4, S=512, H=32, Hkv=8, hd=128; flash
 decode: B=4 x Hkv=8, grp 4, 544 slots, and batch 1 against 32,768 slots;
-bf16; WKV6's chunked body: B=4, S=1024, H=40, hd=64, fp32), beside the
+bf16; WKV6's chunked body: B=4, S=1024, H=40, hd=64, fp32; the Mamba
+scan: hymba's B=4, S=4096, di=1600, n=16, fp32), beside the
 unedited kernel, in two rounds, with chip_smoke.py's time_ms. Flash decode
 is also timed on the same cache laid out head-major (B, Hkv, S, hd), which
 the kernel reads through its strides. Each WKV6 variant's relative L2
@@ -111,6 +113,58 @@ VARIANTS = {
         "COLS = 16": [("constexpr int CCOLS = 32;",
                        "constexpr int CCOLS = 16;")],
     },
+    "mamba_scan": {
+        "as shipped": [],
+        "no block minimum in the launch bounds": [
+            ("__launch_bounds__(ScanShape<N>::NT, ScanShape<N>::MIN_BLOCKS)",
+             "__launch_bounds__(ScanShape<N>::NT)")],
+        "no y shuffle sum": [
+            ("#pragma unroll\n      for (int o = N / 2; o > 0; o >>= 1)\n"
+             "        yv += __shfl_xor_sync(0xffffffffu, yv, o);\n", "")],
+        "loads not overlapped with the steps": [
+            ("    stash();\n    __syncthreads();\n"
+             "    if (t0 + T < p.S) fetch(t0 + T);",
+             "    fetch(t0);\n    stash();\n    __syncthreads();")],
+        "__expf for expf": [("expf(dtv * a)", "__expf(dtv * a)")],
+        "CH = 16": [("constexpr int CH = 32;", "constexpr int CH = 16;")],
+        "y by a reduce-scatter over n steps": [(
+            "#pragma unroll 4\n"
+            "    for (int t = 0; t < nt; ++t) {\n"
+            "      const float dtv = sDt[t][ch];\n"
+            "      const float da = expf(dtv * a);\n"
+            "      const float u = __fmul_rn(__fmul_rn(dtv, sX[t][ch]), "
+            "sB[t][j]);\n"
+            "      h = __fadd_rn(__fmul_rn(da, h), u);\n"
+            "      float yv = __fmul_rn(h, sC[t][j]);\n"
+            "#pragma unroll\n"
+            "      for (int o = N / 2; o > 0; o >>= 1)\n"
+            "        yv += __shfl_xor_sync(0xffffffffu, yv, o);\n"
+            "      if (j == 0) sY[t][ch] = yv;\n"
+            "    }\n",
+            "    for (int g = 0; g < nt; g += N) {\n"
+            "      float py[N];\n"
+            "#pragma unroll\n"
+            "      for (int i = 0; i < N; ++i) {\n"
+            "        const float dtv = sDt[g + i][ch];\n"
+            "        const float da = expf(dtv * a);\n"
+            "        const float u = __fmul_rn(__fmul_rn(dtv, sX[g + i][ch]), "
+            "sB[g + i][j]);\n"
+            "        h = __fadd_rn(__fmul_rn(da, h), u);\n"
+            "        py[i] = __fmul_rn(h, sC[g + i][j]);\n"
+            "      }\n"
+            "#pragma unroll\n"
+            "      for (int o = N / 2; o > 0; o >>= 1) {\n"
+            "        const bool up = j & o;\n"
+            "#pragma unroll\n"
+            "        for (int i = 0; i < o; ++i) {\n"
+            "          const float send = up ? py[i] : py[i + o];\n"
+            "          const float keep = up ? py[i + o] : py[i];\n"
+            "          py[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);\n"
+            "        }\n"
+            "      }\n"
+            "      sY[g + j][ch] = py[0];\n"
+            "    }\n")],
+    },
 }
 
 
@@ -142,6 +196,9 @@ def build(kernels) -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {key}:\n{log[-3000:]}")
+        print(f"{key[0]}, {key[1]}: ptxas " + "; ".join(
+            line.split(":", 1)[-1].strip() for line in log.splitlines()
+            if "registers" in line or "spill stores" in line))
         libs[key] = ctypes.CDLL(str(lib))
         libs[key].repro_cuda_error_string.argtypes = [ctypes.c_int]
         libs[key].repro_cuda_error_string.restype = ctypes.c_char_p
@@ -198,8 +255,10 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch.kernels import decode_attention as dam
     from repro_torch.kernels import flash_attention as fam
+    from repro_torch.kernels import mamba_scan as msm
     from repro_torch.kernels import wkv6 as wkm
-    mods = {"flash_attention": fam, "decode_attention": dam, "wkv6": wkm}
+    mods = {"flash_attention": fam, "decode_attention": dam, "wkv6": wkm,
+            "mamba_scan": msm}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -231,6 +290,13 @@ def main() -> int:
         cs.randn(gen, (4, 1024, 40, 64), torch.float32, 2.0) - 5)))
     wkv.append(cs.randn(gen, (40, 64), torch.float32, 0.5))
     wkv_state = torch.zeros((4, 40, 64, 64), device="cuda")
+    mdt = torch.nn.functional.softplus(
+        cs.randn(gen, (4, 4096, 1600), torch.float32, 2.0) - 2.0)
+    mbc = cs.randn(gen, (4, 4096, 32), torch.float32, 1.0)
+    mamba = (mdt, mbc[..., :16], mbc[..., 16:],
+             cs.randn(gen, (4, 4096, 1600), torch.float32, 1.0),
+             -torch.arange(1, 17, device="cuda").float().expand(1600, 16)
+             .contiguous(), torch.zeros((4, 1600, 16), device="cuda"))
 
     times = {}
     for _ in range(2):
@@ -243,6 +309,10 @@ def main() -> int:
             if kernel == "wkv6":
                 times.setdefault(f"wkv6 prefill: {name}", []).append(
                     cs.time_ms(lambda: wkm.wkv6(*wkv, wkv_state), 20))
+                continue
+            if kernel == "mamba_scan":
+                times.setdefault(f"mamba scan prefill: {name}", []).append(
+                    cs.time_ms(lambda: msm.mamba_scan(*mamba), 20))
                 continue
             for label, (qd, kc, vc, lens) in decode.items():
                 times.setdefault(f"flash decode {label}: {name}", []).append(
