@@ -16,11 +16,15 @@ Phases; each raises on failure, so any failure exits non-zero:
      against a 32,768-slot cache; WKV6 also at its chunk edges (S of T-1,
      T, T+1, 2T+3), with decays in the model's range and with exact 0s
      and 1s, a decay-one-step-late mutant, and timed at the decode shape
-     (B=4, S=1, H=40, hd=64); the Mamba scan at hymba's serving prefill
-     (B=4, S=4096, di=1600, n=16, fp32) from a zero and a carried state,
-     at the decode shape (S=1) in place in a stacked state, and at its time
-     tile's edges (S of T-1, T, T+1, 2T+3), with a decay-one-step-late
-     mutant, timed beside its plain loop and its bound; then both
+     (B=4, S=1, H=40, hd=64); the fused Mamba scan (dt's softplus, the
+     scan, the skip term, the gating) in bf16 and fp32 at hymba's serving
+     prefill (B=4, S=4096, di=1600, n=16) from a zero and a carried state,
+     at the decode shape (S=1) in place in a stacked state (its state
+     bit-equal to the plain loop's), and on both sides of its body switch
+     at the chunked body's tile edges (S of T-1, T, T+1, 2T+3), with two
+     mutants (a decay one step late, the epilogue without d_skip), timed
+     beside its plain version and its bound at the prefill and the decode
+     shape; then both
      attention kernels at hd 96, 80 and 160, at the serving shapes of
      phi3-mini-3.8b (MHA), h2o-danube-1.8b (GQA 4x, 5120 tokens past its
      4096-token window, a full ring in decode) and pixtral-12b (GQA 4x),
@@ -43,8 +47,9 @@ Phases; each raises on failure, so any failure exits non-zero:
      counters are zeroed just before and read just after, and must show
      one launch per layer of the model's prefill kernel and one per layer
      and decode step of its decode kernel (rwkv6: the same WKV6 kernel;
-     hymba: and one of the Mamba scan per layer in both), and none of the
-     other kernels. A profile of one prefill (summed by kind of kernel)
+     hymba: and one of the Mamba scan per layer in both, its chunked body
+     in prefill and its token body in decode), and none of the other
+     kernels. A profile of one prefill (summed by kind of kernel)
      and one decode step shows where the device time goes, and their own
      counts must be one launch per layer. Then the prefill
      logits and three decode steps fed the same inputs, through the
@@ -83,7 +88,9 @@ served prefill's launches, "flash_attention_train" at the training shape
 with the timed train steps' launches, both attention kernels once more for
 each of hd 96, 80 and 160, "_hd<n>", and for hymba's group of 5,
 "_hymba", at the shape and with the launches of the model served there,
-and the Mamba scan at hymba's serving shape with hymba's launches), the
+and the Mamba scan, "mamba_scan" at hymba's serving prefill with its
+chunked body's launches and "mamba_scan_decode" at S=1 with its token
+body's, both from hymba's run), the
 card's name and power limit from nvidia-smi, and {"ok": true, "device":
 {...}}.
 """
@@ -588,8 +595,12 @@ def check_wkv6_chunks(gen, inputs) -> None:
 
 
 def assert_close_scan(name: str, got, want) -> float:
-    """The Mamba scan against its plain version: within SCAN_ATOL and
-    SCAN_RTOL pointwise and REL_TOL's fp32 relative L2, finite."""
+    """The Mamba scan against its plain version: an fp32 tensor within
+    SCAN_ATOL and SCAN_RTOL pointwise and REL_TOL's fp32 relative L2,
+    finite; a bf16 output as assert_close holds a kernel's bf16 output
+    (the two round the same fp32 value, summed in another order, to bf16)."""
+    if want.dtype != torch.float32:
+        return assert_close(name, got, want)
     err, rel = max_err(got, want), rel_err(got, want)
     ok = torch.allclose(got, want, atol=SCAN_ATOL, rtol=SCAN_RTOL) \
         and rel <= REL_TOL[torch.float32] and bool(torch.isfinite(got).all())
@@ -602,114 +613,174 @@ def assert_close_scan(name: str, got, want) -> float:
     return err
 
 
-def mamba_decay_late(dt, b, c, x, a, h):
-    """The plain scan with each step's decay applied one step late (the
-    first step's taken as 1): the slip a tiled kernel's staging invites.
-    Returns y."""
+def assert_state_equal(name: str, got, want) -> None:
+    """The token body keeps JAX's step order: its state is the plain
+    loop's, bit for bit."""
+    same = torch.equal(got, want)
+    log(f"  {name}: state bit-equal to the plain loop's: {same}")
+    if not same:
+        raise AssertionError(f"{name}: the token body's state differs from "
+                             f"the plain loop's (max abs "
+                             f"{max_err(got, want):.3e})")
+
+
+def mamba_decay_late(dt_raw, dt_bias, b, c, x, z, a_log, d_skip, h):
+    """The plain fused function with each step's decay applied one step
+    late (the first step's taken as 1): the slip a tiled kernel's staging
+    invites. Returns out."""
+    import torch.nn.functional as F
+    dt = F.softplus(dt_raw.float() + dt_bias)
+    a, x_f = -torch.exp(a_log), x.float()
     cur, da, ys = h.clone(), torch.ones_like(h), []
     for t in range(dt.shape[1]):
-        cur = da * cur + (dt[:, t] * x[:, t])[..., None] * b[:, t, None, :]
-        ys.append(torch.einsum("bdn,bn->bd", cur, c[:, t]))
+        cur = da * cur + (dt[:, t] * x_f[:, t])[..., None] \
+            * b[:, t, None, :].float()
+        ys.append(torch.einsum("bdn,bn->bd", cur, c[:, t].float()))
         da = torch.exp(dt[:, t, :, None] * a[None])
-    return torch.stack(ys, dim=1)
+    y = torch.stack(ys, dim=1) + d_skip * x_f
+    return y.to(x.dtype) * F.silu(z)
 
 
-def check_mamba_scan() -> dict:
-    """The Mamba scan kernel against its plain version at hymba's serving
-    prefill (B=4, S=4096, di=1600, n=16, fp32), from a zero state and from
-    a carried one; at the decode shape (S=1) into a layer's slice of a
-    stacked state; at the time tile's edges (S of T-1, T, T+1, 2T+3) from a
-    carried state; with the decay applied one step late as the mutant that
-    must fail. b and c are the two halves of one (B, S, 2n) projection, as
-    the model passes them. Then timed beside the plain loop and its
-    bound."""
+def mamba_fused_cost(b: int, s: int, dtype) -> tuple[float, dict]:
+    """Bytes and fp32 operations of the fused scan at hymba's widths from a
+    carried state. Bytes: dt_raw, x and z read and out written (B, S, di),
+    b and c read (B, S, n), in the model's dtype; a_log, dt_bias, d_skip
+    read and the state read and written, fp32. Operations: 7 a (token,
+    channel, state): dt * a, exp, da * h, (dt x) b, the sum, h c and its
+    sum; 10 a (token, channel): the bias, softplus's exp and log1p, dt * x,
+    the skip's product and sum, silu's exp, sum and quotient, the gate."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    n_bytes = (4 * b * s * MAMBA_DI + 2 * b * s * MAMBA_N) * size \
+        + (MAMBA_DI * MAMBA_N + 2 * MAMBA_DI
+           + 2 * b * MAMBA_DI * MAMBA_N) * 4
+    return n_bytes, {torch.float32: (7 * MAMBA_N + 10) * b * s * MAMBA_DI}
+
+
+def check_mamba_scan() -> list:
+    """The fused Mamba scan kernel (dt's softplus, the scan, the skip term,
+    the gating) against its plain version in bf16 (the served dtype) and
+    fp32: at hymba's serving prefill (B=4, S=4096, di=1600, n=16) from a
+    zero state and from a carried one; at the decode shape (S=1) into a
+    layer's slice of a stacked state; on both sides of its body switch at
+    the chunked body's tile edges (S of T-1, T, T+1, 2T+3) from a carried
+    state. The token body's state must equal the plain loop's bit for bit.
+    Two mutants of the plain version must fail: each decay one step late,
+    and the epilogue without the d_skip term. b and c are the two halves of
+    one (B, S, 2n) projection and z the second half of a (B, S, 2 di) one,
+    as the model passes them. Then timed in bf16 beside the plain version
+    and its bound, at the prefill and the decode shape. Returns the JSON
+    entries "mamba_scan" (prefill) and "mamba_scan_decode"."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.mamba_scan import time_tile
     gen = torch.Generator("cuda").manual_seed(4)
-    log("mamba_scan (hymba's selective scan) vs its plain version:")
+    log("mamba_scan (hymba's selective scan, fused with dt's softplus, the "
+        "skip term and the gating) vs its plain version:")
 
-    def inputs(b, s):
-        """dt = softplus(N(-2, 2)): from ~0.005 (a decay near 1, the state
-        kept for hundreds of steps) to ~6; x, b, c ~ N(0, 1); a = -(1..n)
-        per channel, the model's -exp(a_log) at init, perturbed; a carried
-        state ~ N(0, 1)."""
-        dt = torch.nn.functional.softplus(randn(gen, (b, s, MAMBA_DI),
-                                                torch.float32, 2.0) - 2.0)
-        x = randn(gen, (b, s, MAMBA_DI), torch.float32, 1.0)
-        bc = randn(gen, (b, s, 2 * MAMBA_N), torch.float32, 1.0)
-        a = -torch.arange(1, MAMBA_N + 1, device="cuda").float() * torch.exp(
-            randn(gen, (MAMBA_DI, MAMBA_N), torch.float32, 0.3))
-        h = randn(gen, (b, MAMBA_DI, MAMBA_N), torch.float32, 1.0)
-        return dt, bc[..., :MAMBA_N], bc[..., MAMBA_N:], x, a, h
+    def inputs(b, s, dtype):
+        """dt_raw ~ N(-2, 2) and dt_bias ~ N(0, 0.3): dt from ~0.005 (a
+        decay near 1, the state kept for hundreds of steps) to ~6; x, z, b,
+        c ~ N(0, 1), in ``dtype``; a_log = log(1..n) + N(0, 0.3), the
+        model's init perturbed; d_skip ~ 1 + N(0, 0.5); a carried state
+        ~ N(0, 1)."""
+        f32 = torch.float32
+        dt_raw = (randn(gen, (b, s, MAMBA_DI), f32, 2.0) - 2.0).to(dtype)
+        dt_bias = randn(gen, (MAMBA_DI,), f32, 0.3)
+        bc = randn(gen, (b, s, 2 * MAMBA_N), dtype, 1.0)
+        x = randn(gen, (b, s, MAMBA_DI), dtype, 1.0)
+        zz = randn(gen, (b, s, 2 * MAMBA_DI), dtype, 1.0)
+        a_log = torch.log(torch.arange(1, MAMBA_N + 1, device="cuda")
+                          .float()) + randn(gen, (MAMBA_DI, MAMBA_N), f32,
+                                            0.3)
+        d_skip = 1.0 + randn(gen, (MAMBA_DI,), f32, 0.5)
+        h = randn(gen, (b, MAMBA_DI, MAMBA_N), f32, 1.0)
+        return [dt_raw, dt_bias, bc[..., :MAMBA_N], bc[..., MAMBA_N:], x,
+                zz[..., MAMBA_DI:], a_log, d_skip], h
 
-    b, s = REQUESTS, SERVED["hymba-1.5b"]
-    dt, bb, cc, x, a, h = inputs(b, s)
-    y, final = ops.mamba_scan(dt, bb, cc, x, a)
-    want, want_final = ops.mamba_scan(dt, bb, cc, x, a, impl="reference")
-    torch.cuda.synchronize()
-    err = assert_close_scan("serving prefill from zeros, y", y, want)
-    assert_close_scan("serving prefill from zeros, final state", final,
-                      want_final)
-    state = h.clone()
-    y, final = ops.mamba_scan(dt, bb, cc, x, a, state)
-    want, want_final = ops.mamba_scan(dt, bb, cc, x, a, h.clone(),
-                                      impl="reference")
-    if final is not state:
-        raise AssertionError("mamba_scan did not write the given state")
-    assert_close_scan("serving prefill from a state, y", y, want)
-    assert_close_scan("serving prefill from a state, final state", final,
-                      want_final)
-    # decode: one step, the state a layer's slice of a stacked cache
-    d_in = inputs(b, 1)
-    cache = randn(gen, (3, b, MAMBA_DI, MAMBA_N), torch.float32, 1.0)
-    before = cache.clone()
-    yd, _ = ops.mamba_scan(*d_in[:5], cache[1])
-    plain_state = before[1].clone()
-    ydp, _ = ops.mamba_scan(*d_in[:5], plain_state, impl="reference")
-    assert_close_scan("decode step, y", yd, ydp)
-    assert_close_scan("decode step, state in place", cache[1], plain_state)
-    if not (torch.equal(cache[0], before[0])
-            and torch.equal(cache[2], before[2])):
-        raise AssertionError("mamba_scan wrote outside its state slice")
-    t = time_tile()
-    for steps in (t - 1, t, t + 1, 2 * t + 3):
-        e_dt, e_b, e_c, e_x, e_a, e_h = inputs(2, steps)
-        st_k, st_p = e_h.clone(), e_h.clone()
-        ye, _ = ops.mamba_scan(e_dt, e_b, e_c, e_x, e_a, st_k)
-        yp, _ = ops.mamba_scan(e_dt, e_b, e_c, e_x, e_a, st_p,
-                               impl="reference")
-        assert_close_scan(f"S={steps} from a state (tile T={t}), y", ye, yp)
-        assert_close_scan(f"S={steps} from a state, final state", st_k, st_p)
-    assert_mutant_caught(f"S={steps}", mamba_decay_late(
-        e_dt, e_b, e_c, e_x, e_a, e_h), yp, "each decay one step late")
+    b, s, t = REQUESTS, SERVED["hymba-1.5b"], time_tile()
+    errs, timed = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype)[6:]
+        args, h = inputs(b, s, dtype)
+        out, final = ops.mamba_scan(*args)
+        want, want_final = ops.mamba_scan(*args, impl="reference")
+        torch.cuda.synchronize()
+        errs["prefill", dtype] = assert_close_scan(
+            f"{tag} serving prefill from zeros, out", out, want)
+        assert_close_scan(f"{tag} serving prefill from zeros, final state",
+                          final, want_final)
+        state = h.clone()
+        out, final = ops.mamba_scan(*args, state)
+        want, want_final = ops.mamba_scan(*args, h.clone(),
+                                          impl="reference")
+        if final is not state:
+            raise AssertionError("mamba_scan did not write the given state")
+        assert_close_scan(f"{tag} serving prefill from a state, out", out,
+                          want)
+        assert_close_scan(f"{tag} serving prefill from a state, final "
+                          f"state", final, want_final)
+        # decode: one step, the state a layer's slice of a stacked cache
+        d_args, _ = inputs(b, 1, dtype)
+        cache = randn(gen, (3, b, MAMBA_DI, MAMBA_N), torch.float32, 1.0)
+        before = cache.clone()
+        out_d, _ = ops.mamba_scan(*d_args, cache[1])
+        plain_state = before[1].clone()
+        want_d, _ = ops.mamba_scan(*d_args, plain_state, impl="reference")
+        errs["decode", dtype] = assert_close_scan(
+            f"{tag} decode step, out", out_d, want_d)
+        assert_state_equal(f"{tag} decode step, in place", cache[1],
+                           plain_state)
+        if not (torch.equal(cache[0], before[0])
+                and torch.equal(cache[2], before[2])):
+            raise AssertionError("mamba_scan wrote outside its state slice")
+        for steps in (t - 1, t, t + 1, 2 * t + 3):
+            e_args, e_h = inputs(2, steps, dtype)
+            st_k, st_p = e_h.clone(), e_h.clone()
+            out_e, _ = ops.mamba_scan(*e_args, st_k)
+            want_e, _ = ops.mamba_scan(*e_args, st_p, impl="reference")
+            body = "token body" if steps < t else "chunked body"
+            assert_close_scan(f"{tag} S={steps} from a state (tile T={t}, "
+                              f"{body}), out", out_e, want_e)
+            assert_close_scan(f"{tag} S={steps}, final state", st_k, st_p)
+            if steps < t:
+                assert_state_equal(f"{tag} S={steps}", st_k, st_p)
+        if dtype == torch.float32:
+            assert_mutant_caught(f"S={steps}", mamba_decay_late(
+                *e_args, e_h), want_e, "each decay one step late")
+            skipless = e_args[:7] + [torch.zeros_like(e_args[7])]
+            assert_mutant_caught(f"S={steps}", ops.mamba_scan(
+                *skipless, e_h.clone(), impl="reference")[0], want_e,
+                "the epilogue without d_skip")
+        timed[dtype] = (args, h, d_args, cache)
 
-    # dt, x read and y written (B, S, di); b, c read (B, S, n); the state
-    # read and written; a read. ~7 fp32 flops per (token, channel, state):
-    # dt * a, exp, da * h, (dt x) b, the sum, h c and its sum
-    n_bytes = (3 * dt.numel() + 2 * b * s * MAMBA_N + 2 * h.numel()
-               + a.numel()) * 4
-    bound, by = bound_ms(n_bytes, {torch.float32: 7 * h.numel() * s})
-    ms = time_ms(lambda: ops.mamba_scan(dt, bb, cc, x, a, state), 20)
-    plain = time_ms(lambda: ops.mamba_scan(dt, bb, cc, x, a, state,
-                                           impl="reference"), 2, warmup=1)
-    log(f"  time: kernel {ms:.4f} ms, plain {plain:.4f} ms, no single "
-        f"PyTorch call computes it, bound {bound:.4f} ms ({by}, "
-        f"{n_bytes / 1e6:.1f} MB)")
-    n_bytes = (3 * d_in[0].numel() + 2 * b * MAMBA_N
-               + 2 * cache[1].numel() + a.numel()) * 4
-    dbound, dby = bound_ms(n_bytes, {torch.float32: 7 * cache[1].numel()})
-    dms = time_ms(lambda: ops.mamba_scan(*d_in[:5], cache[1]), 200)
-    dplain = time_ms(lambda: ops.mamba_scan(*d_in[:5], cache[1],
-                                            impl="reference"), 50)
-    log(f"mamba_scan decode step (B={b}, S=1, di={MAMBA_DI}, n={MAMBA_N}, "
-        f"{n_bytes / 1e6:.2f} MB): kernel {dms:.6f} ms, plain {dplain:.6f} "
-        f"ms, bound {dbound:.6f} ms ({dby})")
-    return {"name": "mamba_scan", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
-            # no Pallas kernel: the vmemkernel_mamba_scan scope's lax.scan
-            "replaces": "src/repro/models/ssm.py:217",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": by, "library_ms": None}
+    entries = []
+    for label, s_run in (("prefill", s), ("decode", 1)):
+        for dtype in (torch.bfloat16, torch.float32):
+            args, h, d_args, cache = timed[dtype]
+            run_args, state = (args, h.clone()) if s_run > 1 else \
+                (d_args, cache[1])
+            n_bytes, flops = mamba_fused_cost(b, s_run, dtype)
+            bound, by = bound_ms(n_bytes, flops)
+            iters = 20 if s_run > 1 else 200
+            ms = time_ms(lambda: ops.mamba_scan(*run_args, state), iters)
+            plain = time_ms(lambda: ops.mamba_scan(
+                *run_args, state, impl="reference"),
+                2 if s_run > 1 else 50, warmup=1)
+            log(f"  {label} {str(dtype)[6:]} (B={b}, S={s_run}, "
+                f"di={MAMBA_DI}, n={MAMBA_N}) time: kernel {ms:.6f} ms, "
+                f"plain {plain:.6f} ms, no single PyTorch call computes "
+                f"it, bound {bound:.6f} ms ({by}, {n_bytes / 1e6:.2f} MB, "
+                f"{sum(flops.values()) / 1e9:.3f} GFLOP)")
+            if dtype == torch.bfloat16:     # the served dtype
+                entries.append({
+                    "name": "mamba_scan" if s_run > 1 else
+                    "mamba_scan_decode", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+                    # no Pallas kernel: the vmemkernel_mamba_scan lax.scan
+                    "replaces": "src/repro/models/ssm.py:217",
+                    "max_abs_err": errs[label, dtype], "ms": ms,
+                    "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                    "library_ms": None})
+    return entries
 
 
 def prompt_len_of(arch: str) -> int:
@@ -848,6 +919,24 @@ def check_counts(what: str, got: dict, want: dict) -> None:
         raise AssertionError(f"{what}: launch counts {got} != {want}")
 
 
+def check_scan_bodies(what: str, cfg, decode_steps: int) -> dict:
+    """The Mamba scan's launches since the last reset split by body: a
+    prefill's must run the chunked body and each decode step's the token
+    body. Returns {"mamba_scan_chunked": n, "mamba_scan_token": n}."""
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    token = mamba_scan.token_launches
+    bodies = {"mamba_scan_chunked": mamba_scan.launches - token,
+              "mamba_scan_token": token}
+    want = cfg.n_layers * decode_steps if cfg.hybrid_ssm else 0
+    if cfg.hybrid_ssm:
+        log(f"  mamba_scan by body in {what}: {bodies} (token body "
+            f"expected {want})")
+    if token != want:
+        raise AssertionError(f"{what}: {token} token-body launches of the "
+                             f"Mamba scan, expected {want}")
+    return bodies
+
+
 def serve_full_width(arch: str) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
@@ -891,6 +980,7 @@ def serve_full_width(arch: str) -> dict:
         f"prompt tokens/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     check_counts("generate", launches, expected_counts(cfg, MAX_NEW - 1))
+    launches.update(check_scan_bodies("generate", cfg, MAX_NEW - 1))
     prefill_bound, decode_bound = serve_bounds(cfg, params, prompt_len)
     log(f"  bounds: prefill {prefill_bound[0]:.4f} ms ({prefill_bound[1]}), "
         f"decode {decode_bound[0]:.4f} ms/token ({decode_bound[1]})")
@@ -904,6 +994,7 @@ def serve_full_width(arch: str) -> dict:
                                                {"tokens": prompts}),
                     st["prefill_ms"]))
     check_counts("one prefill", ops.launch_counts(), expected_counts(cfg, 0))
+    check_scan_bodies("one prefill", cfg, 0)
     _, pre, pos = prefill(params, cfg, {"tokens": prompts})
     caches = preallocate_cache(cfg, pre, prompt_len + MAX_NEW)
     del pre
@@ -913,6 +1004,7 @@ def serve_full_width(arch: str) -> dict:
             st["decode_ms_per_token"])
     check_counts("one decode step", ops.launch_counts(),
                  expected_counts(cfg, 1, prefills=0))
+    check_scan_bodies("one decode step", cfg, 1)
     del caches
     compare_paths(params, cfg, {"tokens": prompts},
                   [toks[:, i] for i in range(3)])
@@ -1293,6 +1385,7 @@ def sweep_depth_one() -> None:
             + ", ".join(f"{e:.3e}" for e in errs)
             + f" (tol {FP32_REL_TOL}); launches {counts}")
         check_counts(f"{name} depth 1", counts, expected_counts(cfg, 3))
+        check_scan_bodies(f"{name} depth 1", cfg, 3)
         if max(errs) > FP32_REL_TOL or not all(
                 torch.isfinite(g).all() and g.shape == (REQUESTS,
                                                          cfg.vocab_size)
@@ -1752,7 +1845,7 @@ def main() -> int:
     with phase("2, kernels against their plain versions"):
         kernels = [check_flash_attention(), check_decode_attention(),
                    check_wkv6()]
-        kernels.append(check_mamba_scan())
+        kernels += check_mamba_scan()
         for tag in ATTENTION_SHAPES:
             kernels += check_attention_shape(tag)
             gc.collect()
@@ -1762,7 +1855,8 @@ def main() -> int:
     launched_by = {"flash_attention": ("qwen3-8b", "flash_attention"),
                    "decode_attention": ("qwen3-8b", "decode_attention"),
                    "wkv6": ("rwkv6-3b", "wkv6"),
-                   "mamba_scan": ("hymba-1.5b", "mamba_scan")}
+                   "mamba_scan": ("hymba-1.5b", "mamba_scan_chunked"),
+                   "mamba_scan_decode": ("hymba-1.5b", "mamba_scan_token")}
     for tag, arch in ATTENTION_SHAPES.items():
         for kernel in ("flash_attention", "decode_attention"):
             launched_by[f"{kernel}_{tag}"] = (arch, kernel)

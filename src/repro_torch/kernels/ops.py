@@ -14,6 +14,9 @@ Each attention and WKV6 function takes the JAX kernel's 3-D layout, or
 the model's 4-D layout, which the kernel reads in place through its
 strides. A 3-D input becomes a 4-D view with no copy. ``mamba_scan`` has
 no JAX kernel: it takes the model's (B, S, ...) layout only.
+
+Each wrapper counts its launches in ``.launches``; ``mamba_scan`` also
+counts in ``.token_launches`` those that ran its token body (decode).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ KERNELS = {"flash_attention": _flash.flash_attention,
 def reset_launches() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    _mamba.mamba_scan.token_launches = 0
 
 
 def launch_counts() -> dict:
@@ -108,16 +112,18 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     return _wkv6.wkv6(r, k, v, w, u, state)
 
 
-def mamba_scan(dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
-               x: torch.Tensor, a: torch.Tensor,
+def mamba_scan(dt: torch.Tensor, dt_bias: torch.Tensor, b: torch.Tensor,
+               c: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+               a_log: torch.Tensor, d_skip: torch.Tensor,
                h: Optional[torch.Tensor] = None, *, impl: str = "kernel"):
-    """Mamba's selective scan in the model's layout: dt, x (B, S, di), b, c
-    (B, S, n), a (di, n), h (B, di, n) or None (zeros). Returns (y (B, S,
-    di), final state); a given h is overwritten with the final state in
-    place. Computes in fp32 whatever the inputs' dtype, as JAX's ``step``
-    does."""
+    """Mamba's selective scan with dt's softplus, the skip term and the
+    gating, in the model's layout: dt (the raw ``x_c @ dt_a @ dt_b``), x, z
+    (B, S, di) and b, c (B, S, n) in the model's dtype; dt_bias, d_skip
+    (di) and a_log (di, n) fp32; h (B, di, n) fp32 or None (zeros). Returns
+    (out (B, S, di) in the model's dtype, final state); a given h is
+    overwritten with the final state in place. The scan runs in fp32, as
+    JAX's ``step`` does."""
     _check_impl(impl)
-    dt, b, c, x, a = (t.float() for t in (dt, b, c, x, a))
-    if impl == "reference":
-        return _mamba.mamba_scan_plain(dt, b, c, x, a, h)
-    return _mamba.mamba_scan(dt, b, c, x, a, h)
+    fn = _mamba.mamba_scan_plain if impl == "reference" else \
+        _mamba.mamba_scan
+    return fn(dt, dt_bias, b, c, x, z, a_log, d_skip, h)

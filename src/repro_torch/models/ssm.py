@@ -7,7 +7,8 @@
 * Mamba-style selective SSM, hymba's SSM heads (beside attention in each
   hybrid layer): a depthwise causal conv, then a scan over a (di, n) state
   that goes through ``kernels.ops.mamba_scan`` where JAX runs its
-  ``vmemkernel_mamba_scan`` scan.
+  ``vmemkernel_mamba_scan`` scan; the same call takes dt's softplus, the
+  ``d_skip`` term and the gating by ``silu(z)``.
 
 JAX returns new states; here a given state is updated in place.
 """
@@ -179,15 +180,14 @@ def apply_mamba(p: dict, x: torch.Tensor, cfg: ArchConfig,
     x_c, new_conv = _causal_conv(x_in, p["conv_w"], p["conv_b"],
                                  None if state is None else state["conv"])
     x_c = F.silu(x_c)
-    dt = F.softplus((x_c @ p["dt_a"] @ p["dt_b"]).float() + p["dt_bias"])
-    bc = (x_c @ p["w_bc"]).float()                     # (B,S,2n): b_t, c_t
-    a = -torch.exp(p["a_log"])                         # (di,n)
-    x_f = x_c.float()
-    # JAX's vmemkernel_mamba_scan scope: the recurrence in fp32
-    y, h = ops.mamba_scan(dt, bc[..., :n], bc[..., n:], x_f, a,
-                          None if state is None else state["h"], impl=impl)
-    y = y + p["d_skip"] * x_f
-    out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    bc = x_c @ p["w_bc"]                               # (B,S,2n): b_t, c_t
+    # dt's softplus, JAX's vmemkernel_mamba_scan scope (the recurrence in
+    # fp32), the d_skip term and the gating by silu(z), in one kernel
+    y, h = ops.mamba_scan(x_c @ p["dt_a"] @ p["dt_b"], p["dt_bias"],
+                          bc[..., :n], bc[..., n:], x_c, z, p["a_log"],
+                          p["d_skip"], None if state is None else state["h"],
+                          impl=impl)
+    out = y @ p["out_proj"]
     if state is not None:
         new_conv = state["conv"].copy_(new_conv)
     return out, {"conv": new_conv, "h": h}

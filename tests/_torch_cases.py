@@ -52,7 +52,8 @@ WKV_CASES = [
 
 
 # Mamba scans: (B, S, di, n, carried state); S = 1 is a decode step, 64 the
-# kernel's time tile, 130 = 2 x 64 + 2 a ragged last tile, 512 steps JAX's
+# kernel's time tile (its chunked body from there on, its token body
+# below), 130 = 2 x 64 + 2 a ragged last tile, 512 steps JAX's
 # chunked_time_scan in rematerialised 256-step chunks
 MAMBA_CASES = [
     (2, 1, 32, 16, True),
@@ -100,18 +101,25 @@ def wkv_inputs(shape, seed):
 
 
 def mamba_inputs(b, s, di, n, seed, carried=True):
-    """dt (B, S, di) in softplus's range, b and c as the two halves of one
-    (B, S, 2n) projection, x (B, S, di), a (di, n) = -exp(a_log) with a_log
-    near JAX's log(1..n), and a start state h (B, di, n) or None; float32.
-    """
+    """The fused scan's inputs, float32: dt_raw (B, S, di) with dt_bias (di)
+    such that softplus(dt_raw + dt_bias) spans ~0.005 (a decay near 1, the
+    state kept for hundreds of steps) to ~6, and a few entries past
+    softplus's threshold of 20; b and c as the two halves of one (B, S, 2n)
+    projection; x (B, S, di); zz (B, S, 2 di), whose second half is z, as
+    in ``in_proj``'s output; a_log (di, n) near JAX's log(1..n); d_skip
+    (di) near its init of 1; a start state h (B, di, n) or None."""
     rng = np.random.default_rng(seed)
-    dt = np.log1p(np.exp(rand(rng, (b, s, di), 1.0) - 1.0))
+    dt_raw = rand(rng, (b, s, di), 1.5) - 1.5
+    dt_raw.flat[::97] = 25.0
+    dt_bias = rand(rng, (di,), 0.5) - 0.5
     bc = rand(rng, (b, s, 2 * n), 1.0)
     x = rand(rng, (b, s, di), 1.0)
-    a_log = np.log(np.arange(1, n + 1))[None, :] + rand(rng, (di, n), 0.3)
+    zz = rand(rng, (b, s, 2 * di), 1.0)
+    a_log = (np.log(np.arange(1, n + 1))[None, :]
+             + rand(rng, (di, n), 0.3)).astype(np.float32)
+    d_skip = 1.0 + rand(rng, (di,), 0.5)
     h = rand(rng, (b, di, n), 1.0) if carried else None
-    return (dt.astype(np.float32), bc, x,
-            (-np.exp(a_log)).astype(np.float32), h)
+    return dt_raw, dt_bias, bc, x, zz, a_log, d_skip, h
 
 
 def randomise_norms_and_biases(params, seed):

@@ -57,10 +57,11 @@ DECODE_CARD_CASES = [
 ]
 
 
-# the Mamba scan at hymba's state width over many channels, and at its
-# time tile's edges (the steps given relative to the tile T)
+# the fused Mamba scan at hymba's state width over many channels, and on
+# both sides of its body switch: S relative to the chunked body's tile T
+# (the token body below T), and one decode step
 MAMBA_CARD_CASES = [(4, 1000, 1600, 16, True), (2, 333, 200, 8, False)]
-MAMBA_TILE_EDGES = ["T-1", "T", "T+1", "2T+3"]
+MAMBA_TILE_EDGES = ["1", "T-1", "T", "T+1", "2T+3"]
 
 
 @pytest.fixture
@@ -223,58 +224,102 @@ def test_wkv6_chunk_edges_and_decays(cuda, s, decays):
     close_wkv(st_k, st_p)
 
 
-def mamba_on(cuda, bsz, s, di, n, seed, carried=True):
-    """dt, b, c (the halves of one projection), x, a, h on the card."""
-    dt, bc, x, a, h = mamba_inputs(bsz, s, di, n, seed, carried)
-    dt, bc, x, a = (torch.from_numpy(t).to(cuda) for t in (dt, bc, x, a))
+def mamba_on(cuda, bsz, s, di, n, seed, dtype, carried=True):
+    """The fused scan's inputs on the card: dt_raw, b and c (the halves of
+    one projection), x and z (the second half of one (B, S, 2 di) tensor)
+    in ``dtype``, dt_bias, a_log, d_skip and the state h in fp32."""
+    dt_raw, dt_bias, bc, x, zz, a_log, d_skip, h = mamba_inputs(
+        bsz, s, di, n, seed, carried)
+    td = getattr(torch, dtype)
+    dt_raw, bc, x, zz = (torch.from_numpy(t).to(cuda, td)
+                         for t in (dt_raw, bc, x, zz))
+    dt_bias, a_log, d_skip = (torch.from_numpy(t).to(cuda)
+                              for t in (dt_bias, a_log, d_skip))
     h = None if h is None else torch.from_numpy(h).to(cuda)
-    return dt, bc[..., :n], bc[..., n:], x, a, h
+    return (dt_raw, dt_bias, bc[..., :n], bc[..., n:], x, zz[..., di:],
+            a_log, d_skip, h)
 
 
 def check_mamba(cuda, args):
-    """The kernel against its plain version: y and the final state, the
-    given state written in place; one launch."""
-    dt, b, c, x, a, h = args
-    before = mamba_scan.launches
+    """The kernel against its plain version: out (fp32 within the scan's
+    atol 2e-5, rtol 1e-4; bf16 within TOL, a step of its rounding) and the
+    final state (fp32, the scan's limits; bit-equal from the token body,
+    which keeps JAX's step order), the given state written in place; one
+    launch, counted as the token body's below the tile."""
+    *inputs, h = args
+    s = inputs[0].shape[1]
+    before = mamba_scan.launches, mamba_scan.token_launches
     state = None if h is None else h.clone()
-    y, final = ops.mamba_scan(dt, b, c, x, a, state)
+    out, final = ops.mamba_scan(*inputs, state)
     torch.cuda.synchronize()
-    assert mamba_scan.launches == before + 1
+    token = s < time_tile()
+    assert (mamba_scan.launches, mamba_scan.token_launches) == \
+        (before[0] + 1, before[1] + token)
     assert h is None or final is state
-    want, want_final = ops.mamba_scan(dt, b, c, x, a,
+    want, want_final = ops.mamba_scan(*inputs,
                                       None if h is None else h.clone(),
                                       impl="reference")
-    close_wkv(y, want)
+    assert out.dtype == inputs[0].dtype and final.dtype == torch.float32
+    if out.dtype == torch.float32:
+        close_wkv(out, want)
+    else:
+        close(out, want, TOL["bfloat16"])
     close_wkv(final, want_final)
+    if token:
+        assert torch.equal(final, want_final)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bsz,s,di,n,carried",
                          MAMBA_CASES + MAMBA_CARD_CASES)
-def test_mamba_scan_matches_plain(cuda, bsz, s, di, n, carried):
-    check_mamba(cuda, mamba_on(cuda, bsz, s, di, n, s + di, carried))
+def test_mamba_scan_matches_plain(cuda, bsz, s, di, n, carried, dtype):
+    check_mamba(cuda, mamba_on(cuda, bsz, s, di, n, s + di, dtype, carried))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("edge", MAMBA_TILE_EDGES)
-def test_mamba_scan_tile_edges(cuda, edge):
+def test_mamba_scan_tile_edges(cuda, edge, dtype):
     t = time_tile()
-    steps = {"T-1": t - 1, "T": t, "T+1": t + 1, "2T+3": 2 * t + 3}[edge]
-    check_mamba(cuda, mamba_on(cuda, 2, steps, 48, 16, steps))
+    steps = {"1": 1, "T-1": t - 1, "T": t, "T+1": t + 1,
+             "2T+3": 2 * t + 3}[edge]
+    check_mamba(cuda, mamba_on(cuda, 2, steps, 48, 16, steps, dtype))
 
 
-def test_mamba_scan_one_step_updates_the_state_in_place(cuda):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_one_step_updates_the_state_in_place(cuda, dtype):
     """Decode: S=1 from a carried state, read and written in one buffer
-    that is a layer's slice of a stacked (L, B, di, n) cache."""
-    dt, b, c, x, a, _ = mamba_on(cuda, 4, 1, 160, 16, 9)
+    that is a layer's slice of a stacked (L, B, di, n) cache; the state
+    bit-equal to the plain loop's."""
+    *inputs, _ = mamba_on(cuda, 4, 1, 160, 16, 9, dtype)
     cache = torch.randn((3, 4, 160, 16), device=cuda,
                         generator=torch.Generator(cuda).manual_seed(0))
     start = cache.clone()
-    y, final = ops.mamba_scan(dt, b, c, x, a, cache[1])
+    out, final = ops.mamba_scan(*inputs, cache[1])
     assert final.data_ptr() == cache[1].data_ptr()
     want_state = start[1].clone()
-    want, _ = ops.mamba_scan(dt, b, c, x, a, want_state, impl="reference")
-    close_wkv(y, want)
-    close_wkv(cache[1], want_state)
+    want, _ = ops.mamba_scan(*inputs, want_state, impl="reference")
+    close(out, want, TOL[dtype] if dtype == "bfloat16" else 2e-5)
+    assert torch.equal(cache[1], want_state)
     assert torch.equal(cache[0], start[0]) and torch.equal(cache[2], start[2])
+
+
+def test_mamba_scan_raises_rather_than_falling_back(cuda):
+    """A CUDA tensor the kernel does not take raises, launches nothing and
+    never goes to the plain version: di not a multiple of 8, z's rows not
+    16-byte aligned, b in another dtype."""
+    dt, bias, b, c, x, z, a_log, skip, h = mamba_on(cuda, 2, 70, 48, 16, 3,
+                                                    "bfloat16")
+    before = mamba_scan.launches
+    with pytest.raises(ValueError):
+        mamba_scan(dt[..., :12], bias[:12], b, c, x[..., :12], z[..., :12],
+                   a_log[:12], skip[:12], h[:, :12])
+    zz = torch.zeros((2, 70, 97), dtype=z.dtype, device=cuda)
+    zz[..., 1:49] = z
+    with pytest.raises(ValueError):
+        mamba_scan(dt, bias, b, c, x, zz[..., 1:49], a_log, skip, h)
+    with pytest.raises(ValueError):
+        mamba_scan(dt, bias, b.float(), c, x, z, a_log, skip, h)
+    assert mamba_scan.launches == before
 
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "arctic-480b"])

@@ -7,9 +7,11 @@ against it on the card. Inputs are made with numpy from a seed and handed
 to both frameworks; weights cross through ``bridge.params_from_numpy``,
 with the Mamba biases and skip (init 0 and 1) randomised first.
 
-Tolerances: the scan fp32 atol 2e-5, rtol 1e-4; the Mamba layer and the
-model fp32 1e-4, bf16 2e-2 of the tensor's largest magnitude (the
-frameworks round to bf16 at different points).
+Tolerances: the scan's state fp32 atol 2e-5, rtol 1e-4; the fused scan's
+output, the Mamba layer and the model fp32 1e-4, bf16 2e-2 of the
+tensor's largest magnitude (the frameworks round to bf16 at different
+points, and JAX's softplus is another formula than torch's). The fused
+call is also held bit for bit to the torch operations it replaced.
 """
 
 import dataclasses
@@ -66,11 +68,18 @@ def configs(dtype: str, **changes):
 
 
 # ------------------------------------------------------------------ scan
-def jax_scan(dt, b, c, x, a, h0):
-    """The recurrence of ``repro.models.ssm.apply_mamba``: its ``step`` (a
-    closure there, written out here as it stands) scanned over time by
-    ``chunked_time_scan``, model layout."""
-    a = jnp.asarray(a)
+def jax_fused(dt_raw, dt_bias, b, c, x, z, a_log, d_skip, h0, dtype):
+    """JAX's own pieces of ``repro.models.ssm.apply_mamba`` from dt_raw to
+    the gated output, as they stand there: the softplus with the bias
+    (``ssm.py:198``), its ``step`` (a closure there, written out here)
+    scanned by ``chunked_time_scan``, the ``d_skip`` term and the gating;
+    inputs rounded to ``dtype`` first, as the model's activations are.
+    Returns (out, final state) as numpy float32."""
+    jd = getattr(jnp, dtype)
+    dt_raw, b, c, x, z = (jnp.asarray(t, jd) for t in (dt_raw, b, c, x, z))
+    dt = jax.nn.softplus(dt_raw.astype(jnp.float32) + dt_bias)
+    a = -jnp.exp(jnp.asarray(a_log))
+    x_f = x.astype(jnp.float32)
 
     def step(h, t):
         dt_t, b_tt, c_tt, x_t = t
@@ -78,64 +87,104 @@ def jax_scan(dt, b, c, x, a, h0):
         h = da * h + (dt_t * x_t)[..., None] * b_tt[:, None, :]
         return h, jnp.einsum("bdn,bn->bd", h, c_tt)
 
-    seq = tuple(jnp.asarray(t).transpose(1, 0, 2) for t in (dt, b, c, x))
+    seq = tuple(t.transpose(1, 0, 2) for t in (
+        dt, b.astype(jnp.float32), c.astype(jnp.float32), x_f))
     final, ys = jssm.chunked_time_scan(step, jnp.asarray(h0), seq)
-    return np.asarray(ys).transpose(1, 0, 2), np.asarray(final)
+    y = ys.transpose(1, 0, 2) + d_skip * x_f
+    out = y.astype(jd) * jax.nn.silu(z)
+    return np.asarray(out.astype(jnp.float32)), np.asarray(final)
+
+
+def torch_inputs(args, dtype, n):
+    """mamba_inputs as the port's tensors: dt_raw, b, c (the halves of one
+    projection), x and z (the second half of one (B, S, 2 di) tensor) in
+    ``dtype``, the rest float32; the state as a fresh copy."""
+    dt_raw, dt_bias, bc, x, zz, a_log, d_skip, h = args
+    td = getattr(torch, dtype)
+    bc, zz = torch.from_numpy(bc).to(td), torch.from_numpy(zz).to(td)
+    return (torch.from_numpy(dt_raw).to(td), torch.from_numpy(dt_bias),
+            bc[..., :n], bc[..., n:], torch.from_numpy(x).to(td),
+            zz[..., x.shape[-1]:], torch.from_numpy(a_log),
+            torch.from_numpy(d_skip),
+            None if h is None else torch.from_numpy(h.copy()))
+
+
+def check_against_jax(bsz, s, di, n, carried, dtype):
+    """The fused function (softplus, scan, skip, gating) against JAX's
+    pieces of apply_mamba. Tolerances: the state fp32 ATOL, RTOL (the two
+    softplus formulas, JAX's logaddexp and torch's log1p(exp), differ in
+    the last bit); out as the layer's (close_model): fp32 1e-4, bf16 2e-2
+    of its largest magnitude (the frameworks' fp32 y may round to
+    neighbouring bf16 values)."""
+    args = mamba_inputs(bsz, s, di, n, s + di, carried)
+    dt_raw, dt_bias, bc, x, zz, a_log, d_skip, h = args
+    h0 = h if carried else np.zeros((bsz, di, n), np.float32)
+    want_out, want_h = jax_fused(dt_raw, dt_bias, bc[..., :n], bc[..., n:],
+                                 x, zz[..., di:], a_log, d_skip, h0, dtype)
+    t_args = torch_inputs(args, dtype, n)
+    out, final = ops.mamba_scan(*t_args)
+    assert out.dtype == getattr(torch, dtype)
+    assert final.dtype == torch.float32
+    assert out.shape == (bsz, s, di) and final.shape == (bsz, di, n)
+    if carried:
+        assert final is t_args[-1]                # written in place
+    close_model(out, want_out, dtype)
+    close(final, want_h)
+    ref_out, _ = ops.mamba_scan(*torch_inputs(args, dtype, n),
+                                impl="reference")
+    assert torch.equal(ref_out, out)
 
 
 @pytest.mark.parametrize("bsz,s,di,n,carried", MAMBA_CASES)
 def test_mamba_scan_matches_jax_scan(bsz, s, di, n, carried):
-    dt, bc, x, a, h = mamba_inputs(bsz, s, di, n, s + di, carried)
-    h0 = h if carried else np.zeros((bsz, di, n), np.float32)
-    want_y, want_h = jax_scan(dt, bc[..., :n], bc[..., n:], x, a, h0)
-    tbc = torch.from_numpy(bc)
-    state = None if h is None else torch.from_numpy(h.copy())
-    y, final = ops.mamba_scan(torch.from_numpy(dt), tbc[..., :n],
-                              tbc[..., n:], torch.from_numpy(x),
-                              torch.from_numpy(a), state)
-    assert y.dtype == final.dtype == torch.float32
-    assert y.shape == (bsz, s, di) and final.shape == (bsz, di, n)
-    if carried:
-        assert final is state                  # written in place
-    close(y, want_y)
-    close(final, want_h)
-    ref_y, _ = ops.mamba_scan(torch.from_numpy(dt), tbc[..., :n],
-                              tbc[..., n:], torch.from_numpy(x),
-                              torch.from_numpy(a),
-                              None if h is None else torch.from_numpy(h),
-                              impl="reference")
-    assert torch.equal(ref_y, y)
+    check_against_jax(bsz, s, di, n, carried, "float32")
+
+
+@pytest.mark.parametrize("bsz,s,di,n,carried", MAMBA_CASES)
+def test_mamba_scan_bf16_matches_jax_scan(bsz, s, di, n, carried):
+    check_against_jax(bsz, s, di, n, carried, "bfloat16")
 
 
 def test_mamba_scan_state_carries_across_a_split():
     """The whole sequence equals its first part, then the rest from the
     first part's final state."""
-    dt, bc, x, a, _ = (torch.from_numpy(t) if t is not None else None
-                       for t in mamba_inputs(2, 50, 24, 8, 4, False))
-    b, c = bc[..., :8], bc[..., 8:]
-    y, final = ops.mamba_scan(dt, b, c, x, a)
-    y1, mid = ops.mamba_scan(dt[:, :23], b[:, :23], c[:, :23], x[:, :23], a)
-    y2, end = ops.mamba_scan(dt[:, 23:], b[:, 23:], c[:, 23:], x[:, 23:], a,
-                             mid.clone())
-    close(torch.cat([y1, y2], dim=1), y.numpy())
+    args = torch_inputs(mamba_inputs(2, 50, 24, 8, 4, False), "float32", 8)
+    dt, bias, b, c, x, z, a_log, skip, _ = args
+    out, final = ops.mamba_scan(*args)
+    o1, mid = ops.mamba_scan(dt[:, :23], bias, b[:, :23], c[:, :23],
+                             x[:, :23], z[:, :23], a_log, skip)
+    o2, end = ops.mamba_scan(dt[:, 23:], bias, b[:, 23:], c[:, 23:],
+                             x[:, 23:], z[:, 23:], a_log, skip, mid.clone())
+    close(torch.cat([o1, o2], dim=1), out.numpy())
     close(end, final.numpy())
-    assert y[:, 40:].abs().max() > 1e-3
+    assert out[:, 40:].abs().max() > 1e-3
 
 
 def test_mamba_scan_reads_views_as_copies():
-    """b and c as strided halves of one projection, and inputs in another
-    dtype, give what contiguous fp32 copies give."""
-    dt, bc, x, a, h = (torch.from_numpy(t) for t in
-                       mamba_inputs(2, 9, 16, 8, 5))
-    y, _ = ops.mamba_scan(dt, bc[..., :8], bc[..., 8:], x, a, h.clone())
-    y2, _ = ops.mamba_scan(dt, bc[..., :8].contiguous(),
-                           bc[..., 8:].contiguous(), x, a, h.clone())
-    assert torch.equal(y, y2)
-    y3, _ = ops.mamba_scan(dt, bc[..., :8], bc[..., 8:], x.bfloat16(), a,
-                           h.clone())
-    want, _ = mamba_scan_plain(dt, bc[..., :8], bc[..., 8:],
-                               x.bfloat16().float(), a, h.clone())
-    assert y3.dtype == torch.float32 and torch.equal(y3, want)
+    """b and c as strided halves of one projection give what contiguous
+    copies give, in fp32 and bf16, and so does z as the second half of
+    in_proj's output up to the last bit of silu (PyTorch's CPU silu takes
+    another exp for a strided tensor than for a contiguous one); bf16
+    inputs give the state their exact fp32 widening gives, and that run's
+    output within a bf16 step."""
+    def run(dtype, prep=lambda i, t: t):
+        args = torch_inputs(mamba_inputs(2, 9, 16, 8, 5), dtype, 8)
+        assert not args[2].is_contiguous() and not args[5].is_contiguous()
+        return ops.mamba_scan(*(prep(i, t) for i, t in
+                                enumerate(args[:-1])), args[-1])
+
+    for dtype in ("float32", "bfloat16"):
+        out, state = run(dtype)
+        out2, state2 = run(dtype, lambda i, t: t.contiguous() if i in (2, 3)
+                           else t)
+        assert torch.equal(out, out2) and torch.equal(state, state2)
+        out2, state2 = run(dtype, lambda i, t: t.contiguous())
+        assert torch.equal(state, state2)
+        close(out2, out.float().numpy(), atol=1e-6, rtol=1e-6)
+    out3, state3 = run("bfloat16", lambda i, t: t.float())
+    assert out3.dtype == torch.float32 and torch.equal(state3, state)
+    np.testing.assert_allclose(out.float().numpy(), out3.numpy(),
+                               atol=2e-2, rtol=2e-2)
 
 
 def test_mamba_scan_does_not_fall_back_off_the_cpu():
@@ -143,12 +192,14 @@ def test_mamba_scan_does_not_fall_back_off_the_cpu():
     wrapper launches its kernel or raises."""
     t = torch.empty(1, 8, 16, device="meta")
     bc = torch.empty(1, 8, 16, device="meta")
-    a = torch.empty(16, 8, device="meta")
+    v = torch.empty(16, device="meta")
+    a_log = torch.empty(16, 8, device="meta")
     with pytest.raises(ValueError):
-        mamba_scan(t, bc[..., :8], bc[..., 8:], t, a)
+        mamba_scan(t, v, bc[..., :8], bc[..., 8:], t, t, a_log, v)
     with pytest.raises(ValueError):
-        ops.mamba_scan(t, bc[..., :8], bc[..., 8:], t, a, impl="pallas")
-    assert mamba_scan.launches == 0
+        ops.mamba_scan(t, v, bc[..., :8], bc[..., 8:], t, t, a_log, v,
+                       impl="pallas")
+    assert mamba_scan.launches == 0 and mamba_scan.token_launches == 0
     assert ops.KERNELS["mamba_scan"] is mamba_scan
 
 
@@ -205,6 +256,64 @@ def test_apply_mamba_matches_jax(dtype, carried):
     close_model(new["h"], jnew["h"], dtype)
     if carried:
         assert new["conv"] is tstate["conv"] and new["h"] is tstate["h"]
+
+
+def apply_mamba_unfused(p, x, cfg, state):
+    """The oracle: the port's apply_mamba as it stood before the kernel took
+    over dt's softplus, the skip term and the gating, torch operation by
+    torch operation, with the fp32 scan loop of JAX's step. Returns (out,
+    conv state, final SSM state); it reads a given state and writes none."""
+    import torch.nn.functional as F
+    n = cfg.ssm_state
+    x_in, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    x_c, new_conv = ssm._causal_conv(x_in, p["conv_w"], p["conv_b"],
+                                     None if state is None else
+                                     state["conv"])
+    x_c = F.silu(x_c)
+    dt = F.softplus((x_c @ p["dt_a"] @ p["dt_b"]).float() + p["dt_bias"])
+    bc = (x_c @ p["w_bc"]).float()
+    b, c = bc[..., :n], bc[..., n:]
+    a = -torch.exp(p["a_log"])
+    x_f = x_c.float()
+    cur = torch.zeros((x.shape[0], x_c.shape[-1], n)) if state is None \
+        else state["h"].float()
+    ys = []
+    for t in range(x.shape[1]):
+        da = torch.exp(dt[:, t, :, None] * a[None])
+        cur = da * cur + (dt[:, t] * x_f[:, t])[..., None] * b[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", cur, c[:, t]))
+    y = torch.stack(ys, dim=1) + p["d_skip"] * x_f
+    out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    return out, new_conv, cur
+
+
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_mamba_bit_equal_to_the_unfused_sequence(dtype, carried):
+    """On the CPU the fused call computes what the separate torch
+    operations computed, bit for bit: a prefill from zeros, and a decode
+    step from a carried state."""
+    _, cfg = configs(dtype)
+    td = getattr(torch, dtype)
+    di = cfg.n_heads * cfg.hd
+    p = {k: v[0] for k, v in ssm.init_mamba(
+        torch.Generator().manual_seed(2), cfg, td).items()}
+    rng = np.random.default_rng(9)
+    p["dt_bias"] = torch.from_numpy(rand(rng, (di,), 0.5))
+    p["d_skip"] = torch.from_numpy(1.0 + rand(rng, (di,), 0.5))
+    x = torch.from_numpy(rand(rng, (2, 1 if carried else 70, cfg.d_model),
+                              1.0)).to(td)
+    state = None
+    if carried:
+        state = {"conv": torch.from_numpy(rand(rng, (2, 3, di), 1.0)).to(td),
+                 "h": torch.from_numpy(rand(rng, (2, di, cfg.ssm_state),
+                                            1.0))}
+    want, want_conv, want_h = apply_mamba_unfused(p, x, cfg, state)
+    out, new = ssm.apply_mamba(p, x, cfg, state)
+    assert out.dtype == td
+    assert torch.equal(out, want)
+    assert torch.equal(new["conv"], want_conv)
+    assert torch.equal(new["h"], want_h)
 
 
 # ----------------------------------------------------------------- model

@@ -10,8 +10,8 @@ nvcc per variant, in parallel). A variant that takes a part out gives a
 wrong output; only its time counts. Each is timed at chip_smoke.py's
 serving shapes (flash attention: B=4, S=512, H=32, Hkv=8, hd=128; flash
 decode: B=4 x Hkv=8, grp 4, 544 slots, and batch 1 against 32,768 slots;
-bf16; WKV6's chunked body: B=4, S=1024, H=40, hd=64, fp32; the Mamba
-scan: hymba's B=4, S=4096, di=1600, n=16, fp32), beside the
+bf16; WKV6's chunked body: B=4, S=1024, H=40, hd=64, fp32; the fused
+Mamba scan: hymba's B=4, S=4096, di=1600, n=16, bf16), beside the
 unedited kernel, in two rounds, with chip_smoke.py's time_ms. Flash decode
 is also timed on the same cache laid out head-major (B, Hkv, S, hd), which
 the kernel reads through its strides. Each WKV6 variant's relative L2
@@ -115,55 +115,53 @@ VARIANTS = {
     },
     "mamba_scan": {
         "as shipped": [],
+        "no carveout preference": [
+            ("    return e ? e\n             : cudaFuncSetAttribute(\n"
+             "                   mamba_scan_chunked_kernel<TIn, N>,\n"
+             "                   cudaFuncAttributePreferredSharedMemoryCarveout,\n"
+             "                   cudaSharedmemCarveoutMaxShared);\n",
+             "    return e;\n")],
+        "no cross-lane scan": [
+            ("for (int o = 1; o < L; o <<= 1) {",
+             "for (int o = L; o < L; o <<= 1) {"),
+            ("          const float h_prev = __shfl_up_sync(0xffffffffu, h_end, 1, L);\n"
+             "          const float h_last = __shfl_sync(0xffffffffu, h_end, L - 1, L);\n",
+             "          const float h_prev = h_end, h_last = h_end;\n")],
+        "no in-thread state sum (y of the last state only)": [
+            ("              y[i] = fmaf(fmaf(Ac[i], h0, Uc[i]), cq[e], y[i]);\n",
+             "              y[i] = fmaf(Ac[i], h0, Uc[i]) * cq[e];\n")],
+        "loads not one tile ahead": [
+            ("  stage(0, 0);\n  for (int k = 0; k < ntiles; ++k) {\n"
+             "    const int t0 = k * T, buf = k & 1;\n",
+             "  for (int k = 0; k < ntiles; ++k) {\n"
+             "    const int t0 = k * T, buf = k & 1;\n"
+             "    __syncthreads();\n    stage(buf, t0);\n"),
+            ("    if (k + 1 < ntiles) stage(buf ^ 1, t0 + T);  "
+             "// in flight under tile k\n", "")],
+        "no epilogue arithmetic (y stored)": [
+            ("          o[e] = gate(yv, zv[e], TIn());\n",
+             "          o[e] = yv;\n")],
+        "no softplus": [
+            ("? softplus(__fadd_rn(dv[e], sBias[c0 + e]))",
+             "? __fadd_rn(dv[e], sBias[c0 + e])")],
+        "__expf in the scan": [
+            ("const float da = expf(__fmul_rn(dtv[i], aj));",
+             "const float da = __expf(__fmul_rn(dtv[i], aj));")],
+        "6 blocks an SM (85 registers)": [
+            ("constexpr int MIN_BLOCKS = 7;", "constexpr int MIN_BLOCKS = 6;")],
         "no block minimum in the launch bounds": [
-            ("__launch_bounds__(ScanShape<N>::NT, ScanShape<N>::MIN_BLOCKS)",
-             "__launch_bounds__(ScanShape<N>::NT)")],
-        "no y shuffle sum": [
-            ("#pragma unroll\n      for (int o = N / 2; o > 0; o >>= 1)\n"
-             "        yv += __shfl_xor_sync(0xffffffffu, yv, o);\n", "")],
-        "loads not overlapped with the steps": [
-            ("    stash();\n    __syncthreads();\n"
-             "    if (t0 + T < p.S) fetch(t0 + T);",
-             "    fetch(t0);\n    stash();\n    __syncthreads();")],
-        "__expf for expf": [("expf(dtv * a)", "__expf(dtv * a)")],
-        "CH = 16": [("constexpr int CH = 32;", "constexpr int CH = 16;")],
-        "y by a reduce-scatter over n steps": [(
-            "#pragma unroll 4\n"
-            "    for (int t = 0; t < nt; ++t) {\n"
-            "      const float dtv = sDt[t][ch];\n"
-            "      const float da = expf(dtv * a);\n"
-            "      const float u = __fmul_rn(__fmul_rn(dtv, sX[t][ch]), "
-            "sB[t][j]);\n"
-            "      h = __fadd_rn(__fmul_rn(da, h), u);\n"
-            "      float yv = __fmul_rn(h, sC[t][j]);\n"
-            "#pragma unroll\n"
-            "      for (int o = N / 2; o > 0; o >>= 1)\n"
-            "        yv += __shfl_xor_sync(0xffffffffu, yv, o);\n"
-            "      if (j == 0) sY[t][ch] = yv;\n"
-            "    }\n",
-            "    for (int g = 0; g < nt; g += N) {\n"
-            "      float py[N];\n"
-            "#pragma unroll\n"
-            "      for (int i = 0; i < N; ++i) {\n"
-            "        const float dtv = sDt[g + i][ch];\n"
-            "        const float da = expf(dtv * a);\n"
-            "        const float u = __fmul_rn(__fmul_rn(dtv, sX[g + i][ch]), "
-            "sB[g + i][j]);\n"
-            "        h = __fadd_rn(__fmul_rn(da, h), u);\n"
-            "        py[i] = __fmul_rn(h, sC[g + i][j]);\n"
-            "      }\n"
-            "#pragma unroll\n"
-            "      for (int o = N / 2; o > 0; o >>= 1) {\n"
-            "        const bool up = j & o;\n"
-            "#pragma unroll\n"
-            "        for (int i = 0; i < o; ++i) {\n"
-            "          const float send = up ? py[i] : py[i + o];\n"
-            "          const float keep = up ? py[i + o] : py[i];\n"
-            "          py[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);\n"
-            "        }\n"
-            "      }\n"
-            "      sY[g + j][ch] = py[0];\n"
-            "    }\n")],
+            ("__launch_bounds__(NT, MIN_BLOCKS)", "__launch_bounds__(NT)")],
+        "1 state a pass": [("constexpr int JU = 4;", "constexpr int JU = 1;")],
+        "2 states a pass": [("constexpr int JU = 4;", "constexpr int JU = 2;")],
+        "states not split (G = 1)": [("constexpr int G = 2;", "constexpr int G = 1;")],
+        "L = 4, R = 16, 2 warps a block": [
+            ("constexpr int L = 8;", "constexpr int L = 4;"),
+            ("constexpr int R = 8;", "constexpr int R = 16;"),
+            ("constexpr int NW = 4;", "constexpr int NW = 2;")],
+        "8 warps a block (16 channels)": [
+            ("constexpr int NW = 4;", "constexpr int NW = 8;"),
+            ("constexpr int MIN_BLOCKS = 7;", "constexpr int MIN_BLOCKS = 3;")],
+        "the token body at every S": [("  if (p.S < T) {", "  if (true) {")],
     },
 }
 
@@ -290,13 +288,15 @@ def main() -> int:
         cs.randn(gen, (4, 1024, 40, 64), torch.float32, 2.0) - 5)))
     wkv.append(cs.randn(gen, (40, 64), torch.float32, 0.5))
     wkv_state = torch.zeros((4, 40, 64, 64), device="cuda")
-    mdt = torch.nn.functional.softplus(
-        cs.randn(gen, (4, 4096, 1600), torch.float32, 2.0) - 2.0)
-    mbc = cs.randn(gen, (4, 4096, 32), torch.float32, 1.0)
-    mamba = (mdt, mbc[..., :16], mbc[..., 16:],
-             cs.randn(gen, (4, 4096, 1600), torch.float32, 1.0),
-             -torch.arange(1, 17, device="cuda").float().expand(1600, 16)
-             .contiguous(), torch.zeros((4, 1600, 16), device="cuda"))
+    mbc = cs.randn(gen, (4, 4096, 32), bf16, 1.0)
+    mzz = cs.randn(gen, (4, 4096, 3200), bf16, 1.0)
+    mamba = ((cs.randn(gen, (4, 4096, 1600), torch.float32, 2.0) - 2.0)
+             .to(bf16), torch.zeros(1600, device="cuda"), mbc[..., :16],
+             mbc[..., 16:], cs.randn(gen, (4, 4096, 1600), bf16, 1.0),
+             mzz[..., 1600:], torch.log(torch.arange(
+                 1, 17, device="cuda").float()).expand(1600, 16).contiguous(),
+             torch.ones(1600, device="cuda"),
+             torch.zeros((4, 1600, 16), device="cuda"))
 
     times = {}
     for _ in range(2):
