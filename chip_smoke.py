@@ -81,11 +81,24 @@ Phases; each raises on failure, so any failure exits non-zero:
      grads at depth 2 through the kernels and the plain versions, bf16 and
      fp32 (the embedding's gradient and the other leaves' held apart);
      run_training at the tiny preset on the card, 6 straight steps
-     against 3, a commit, a resume and 3 more.
+     against 3, a commit, a resume and 3 more. The recurrences train
+     through Wkv6Fn and MambaScanFn (the kernels' forward one launch per
+     256-step chunk, the torch-ops backwards wkv6_bwd and
+     mamba_scan_bwd): both held to autograd through the plain loops at
+     full width across two chunks (WKV6 fp32, the scan fp32 and bf16),
+     each with a mutant that does not carry the state's gradient across a
+     chunk; each forward and backward timed at its model's training
+     microbatch; rwkv6-3b and hymba-1.5b trained at full width and full
+     depth as qwen3-8b is (their WKV6, Mamba scan and flash attention
+     launches a step asserted, and a nonzero gradient on every leaf that
+     feeds a recurrence), each profiled over one microbatch; and their
+     kernel and plain paths at depth 2, 2 x 2048 tokens.
 Each phase prints its wall time. The last lines are a JSON line of
 per-kernel numbers (flash attention at the qwen3-8b serving shape with the
 served prefill's launches, "flash_attention_train" at the training shape
-with the timed train steps' launches, both attention kernels once more for
+with the timed train steps' launches, "wkv6_train" and "mamba_scan_train"
+at rwkv6-3b's and hymba-1.5b's training microbatch with their timed train
+steps' launches, both attention kernels once more for
 each of hd 96, 80 and 160, "_hd<n>", and for hymba's group of 5,
 "_hymba", at the shape and with the launches of the model served there,
 and the Mamba scan, "mamba_scan" at hymba's serving prefill with its
@@ -154,13 +167,29 @@ MUTANT_TEMP = 1.02
 # full-width logits against an fp32 run of the same weights (compare_paths)
 FP32_REL_TOL = 1e-4
 BF16_ERR_RATIO = 1.1
-# phase 5: qwen3-8b trained at full width, cut to TRAIN_LAYERS of its 36
-# layers (one card's 80 GB: 44.6 GB of bf16 weights and grads, fp32
-# accumulator, m and v, against 131 GB at full depth), TRAIN_4K's 4096
-# tokens a sequence, TRAIN_BATCH of its 256 sequences a step (the run's
-# time limit) in the config's grad_accum microbatches of TRAIN_MICRO
-TRAIN_ARCH, TRAIN_LAYERS = "qwen3-8b", 8
+# phase 5: models trained at full width, each at the depth whose state
+# fits one card's 80 GB (16 bytes a parameter: bf16 weights and grads, the
+# fp32 accumulator, m and v): qwen3-8b cut to 8 of its 36 layers (44.6 GB
+# against 131 GB at full depth), rwkv6-3b (49.2 GB) and hymba-1.5b (22.4
+# GB) at full depth; TRAIN_4K's 4096 tokens a sequence, TRAIN_BATCH of its
+# 256 sequences a step (the run's time limit) in each config's grad_accum
+# microbatches (qwen3-8b and rwkv6-3b: 4 of TRAIN_MICRO, hymba-1.5b: 2 of
+# 4)
+TRAINED = {"qwen3-8b": 8, "rwkv6-3b": 32, "hymba-1.5b": 32}
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 4096, 8, 2
+# the kernel path against the plain one at depth 2, (model, S, B): qwen3-8b
+# at the training shape; rwkv6-3b and hymba-1.5b at 2048 tokens (8 of the
+# 256-step remat chunks, twice hymba's window), where the plain loops'
+# 2048 steps under autograd take seconds, not minutes
+COMPARED = (("qwen3-8b", TRAIN_SEQ, TRAIN_MICRO), ("rwkv6-3b", 2048, 2),
+            ("hymba-1.5b", 2048, 2))
+# the recurrence backwards against the plain loops: two remat chunks
+RECURRENT_CHECK_SEQ = 512
+# the leaves that feed each recurrence, which must all get a gradient
+RECURRENT_LEAVES = {"tmix": ("w_r", "w_k", "w_v", "w_lora_a", "w_lora_b",
+                             "w0", "bonus_u"),
+                    "mamba": ("dt_a", "dt_b", "dt_bias", "a_log", "d_skip",
+                              "w_bc", "conv_w")}
 TIMED_STEPS = 3
 # bf16 attention gradients through the kernel path, and bf16 training
 # paths, against fp32: within this factor of the plain path's own error
@@ -1554,70 +1583,385 @@ def time_training_shape(q, k, v, dout, fwd_err: float) -> dict:
 
 def train_bound(cfg, seqs: int) -> tuple[float, str, float]:
     """Least time of one train step over ``seqs`` sequences of TRAIN_SEQ
-    tokens: 6 flops per matmul parameter (layer projections and MLP, LM
-    head; not the embedding gather) per token, plus causal attention's
-    forward and its backward (2x) in bf16; bytes: the bf16 parameters
-    read and written, the fp32 grad accumulator read, AdamW's m and v read
-    and written, once each. Remat's recompute is not counted. Returns (ms,
-    bound by, flops)."""
-    d, hd = cfg.d_model, cfg.hd
-    per_layer = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd \
-        + cfg.n_heads * hd * d + 3 * d * cfg.d_ff
+    tokens: 6 flops per matmul parameter (layer projections and MLP or
+    RWKV's channel mix, RWKV's time-mix projections and decay LoRA,
+    Mamba's projections, the LM head; not the embedding gather) per token
+    in bf16; causal attention's forward and its backward (2x) over the
+    pairs inside the window, in bf16 (none for RWKV); the recurrence's
+    fp32 flops, forward and backward (``wkv6_flops``, ``mamba_flops``).
+    Bytes: the bf16 parameters read and written, the fp32 grad accumulator
+    read, AdamW's m and v read and written, once each. Remat's recompute is
+    not counted. Returns (ms, bound by, flops)."""
+    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+    tokens = seqs * TRAIN_SEQ
+    fp32 = 0.0
+    if cfg.attn_free:
+        per_layer = 6 * d * d + 2 * d * f + 2 * d * 64
+        heads = d // cfg.rwkv_head_dim
+        fp32 = sum(wkv6_flops(tokens, heads, cfg.rwkv_head_dim))
+        attn = 0
+    else:
+        per_layer = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd \
+            + cfg.n_heads * hd * d + 3 * d * f
+        pairs = visible_pairs(TRAIN_SEQ, cfg.sliding_window)
+        attn = 3 * 4 * cfg.n_heads * hd * pairs * seqs
+    if cfg.hybrid_ssm:
+        di, n = cfg.n_heads * hd, cfg.ssm_state
+        per_layer += 3 * d * di + 2 * di * 64 + 2 * di * n
+        fp32 = sum(mamba_flops(tokens, di, n))
     matmul = cfg.n_layers * per_layer + d * cfg.vocab_size
-    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
-    attn = 3 * 4 * cfg.n_heads * hd * pairs * cfg.n_layers * seqs
-    flops = 6 * matmul * seqs * TRAIN_SEQ + attn
-    ms, by = bound_ms(cfg.param_count() * (2 * 2 + 4 + 2 * 8),
-                      {torch.bfloat16: flops})
-    return ms, by, flops
+    flops = {torch.bfloat16: 6 * matmul * tokens + attn * cfg.n_layers,
+             torch.float32: fp32 * cfg.n_layers}
+    ms, by = bound_ms(cfg.param_count() * (2 * 2 + 4 + 2 * 8), flops)
+    return ms, by, sum(flops.values())
 
 
-def train_full_width(bwd_ms: float) -> dict:
-    """qwen3-8b at full width, depth TRAIN_LAYERS: a warm-up step, then
+def wkv6_flops(tokens: int, heads: int, hd: int) -> tuple[int, int]:
+    """fp32 flops of the WKV6 recurrence over ``tokens`` tokens and
+    ``heads`` heads, (forward, backward). Forward: 5 hd^2 a (token, head),
+    as check_wkv6 counts. Backward, the vjp of the token loop: dS <- w dS +
+    r dy^T (3 hd^2), dr = S dy, dk = dS v, dv = dS^T k, dw = the row sums
+    of dS * S (2 hd^2 each): 11 hd^2."""
+    return 5 * hd * hd * heads * tokens, 11 * hd * hd * heads * tokens
+
+
+def mamba_flops(tokens: int, di: int, n: int) -> tuple[int, int]:
+    """fp32 flops of the fused Mamba scan over ``tokens`` tokens of ``di``
+    channels and ``n`` states, (forward, backward). Forward: 7 a (token,
+    channel, state) and 10 a (token, channel), as mamba_fused_cost counts.
+    Backward, the vjp of the token loop: dh <- da dh + c dy (3), d da =
+    dh h (1) into d dt and d a_log (4), the gradients of dt x and of b
+    (2 each), of c (2), and the vjps of softplus, the skip, silu and the
+    gate: 14 a (token, channel, state) and 15 a (token, channel)."""
+    return (7 * n + 10) * di * tokens, (14 * n + 15) * di * tokens
+
+
+def recurrence_grads(fn, inputs: list, dout, impl: str) -> list:
+    """The inputs' gradients by autograd through ``fn`` (ops.wkv6 or
+    ops.mamba_scan, from zeros): the kernel's forward under its Function,
+    or the plain loop (reference)."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    fn(*leaves, impl=impl)[0].backward(dout)
+    return [t.grad for t in leaves]
+
+
+def chunk_by_chunk(bwd, inputs: list, seq: tuple, starts, dout) -> list:
+    """A mutant of ``bwd`` (wkv6_bwd or mamba_scan_bwd): each TIME_CHUNK
+    chunk's gradient from its own start state with the final gradient of
+    the state taken as zero, so the state's gradient is not carried across
+    the chunk boundary. ``seq`` are the indices of the (B, S, ...) inputs;
+    the others' gradients are summed over the chunks."""
+    from repro_torch.kernels.wkv6 import TIME_CHUNK
+    parts = []
+    for i in range(starts.shape[1]):
+        part = slice(i * TIME_CHUNK, (i + 1) * TIME_CHUNK)
+        sliced = [t[:, part] if j in seq else t for j, t in enumerate(inputs)]
+        parts.append(bwd(*sliced, starts[:, i:i + 1], dout[:, part]))
+    return [torch.cat(g, dim=1) if j in seq else sum(g)
+            for j, g in enumerate(zip(*parts))]
+
+
+def check_grads(what: str, got: list, truth: list) -> float:
+    """Each gradient within REL_TOL (fp32, rel L2) of autograd through the
+    plain loop, finite. Returns the largest rel L2."""
+    errs = [rel_err(g, t) for g, t in zip(got, truth)]
+    finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+    log(f"  {what}: rel L2 per input " + ", ".join(f"{e:.3e}" for e in errs)
+        + f" (limit {REL_TOL[torch.float32]})")
+    if max(errs) > REL_TOL[torch.float32] or not finite:
+        raise AssertionError(f"{what}: gradients disagree: {errs}")
+    return max(errs)
+
+
+def check_mutant_grads(what: str, mutant: list, truth: list) -> None:
+    rel = max(rel_err(g, t) for g, t in zip(mutant, truth))
+    log(f"  mutant ({what}): rel L2 {rel:.3e} (must exceed "
+        f"{REL_TOL[torch.float32]})")
+    if rel <= REL_TOL[torch.float32]:
+        raise AssertionError(f"the backward check cannot tell the mutant "
+                             f"{what}")
+
+
+def wkv6_train_inputs(gen, b: int, s: int) -> list:
+    """rwkv6-3b's recurrence inputs (H=40, hd=64, fp32), as check_wkv6
+    draws them: r, k, v ~ N(0, 0.5), u ~ N(0, 0.5), and in the decay's
+    place x ~ N(-5, 2), whose exp(-exp(x)) (``decay``) spans ~1 (the state
+    kept over the whole sequence) to ~0 and at the far tail underflows to
+    0, as the model's rwkv_decay would. Returns [r, k, v, x, u]."""
+    shape = (b, s, RWKV_HEADS, RWKV_HD)
+    r, k, v = (randn(gen, shape, torch.float32, 0.5) for _ in range(3))
+    x = randn(gen, shape, torch.float32, 2.0) - 5
+    return [r, k, v, x, randn(gen, shape[-2:], torch.float32, 0.5)]
+
+
+def decay(inputs: list) -> list:
+    """[r, k, v, x, u] -> [r, k, v, w = exp(-exp(x)), u]."""
+    r, k, v, x, u = inputs
+    return [r, k, v, torch.exp(-torch.exp(x)), u]
+
+
+def wkv6_model(r, k, v, x, u, impl: str):
+    """ops.wkv6 fed the model's decay of x: the gradient that reaches x is
+    the one the model's rwkv_decay passes on. (Where exp(-exp(x))
+    underflows, wkv6_bwd gives dw = 0, as the log decays it works in are
+    clamped; both paths then pass 0 on to x.)"""
+    from repro_torch.kernels import ops
+    return ops.wkv6(r, k, v, torch.exp(-torch.exp(x)), u, impl=impl)
+
+
+def mamba_train_inputs(gen, b: int, s: int, dtype) -> list:
+    """hymba-1.5b's fused-scan inputs (di=1600, n=16), as check_mamba_scan
+    draws them: dt_raw ~ N(-2, 2), dt_bias ~ N(0, 0.3), b, c, x, z ~ N(0,
+    1) in ``dtype`` (b and c the halves of one projection, z the second
+    half of another), a_log = log(1..n) + N(0, 0.3), d_skip ~ 1 + N(0,
+    0.5)."""
+    f32 = torch.float32
+    bc = randn(gen, (b, s, 2 * MAMBA_N), dtype, 1.0)
+    zz = randn(gen, (b, s, 2 * MAMBA_DI), dtype, 1.0)
+    a_log = torch.log(torch.arange(1, MAMBA_N + 1, device="cuda").float()) \
+        + randn(gen, (MAMBA_DI, MAMBA_N), f32, 0.3)
+    return [(randn(gen, (b, s, MAMBA_DI), f32, 2.0) - 2.0).to(dtype),
+            randn(gen, (MAMBA_DI,), f32, 0.3), bc[..., :MAMBA_N],
+            bc[..., MAMBA_N:], randn(gen, (b, s, MAMBA_DI), dtype, 1.0),
+            zz[..., MAMBA_DI:], a_log,
+            1.0 + randn(gen, (MAMBA_DI,), f32, 0.5)]
+
+
+def check_recurrence_backward() -> dict:
+    """Wkv6Fn and MambaScanFn (the kernels' forward one launch per
+    TIME_CHUNK steps, the torch-ops backwards wkv6_bwd and mamba_scan_bwd)
+    against autograd through the plain loops, at each family's full width
+    across RECURRENT_CHECK_SEQ // 256 remat chunks: WKV6 in fp32, the scan
+    in fp32 (rel L2 within REL_TOL) and bf16 (within BWD_BF16_RATIO x the
+    plain path's own error against fp32). A mutant of each backward (the
+    state's gradient not carried across the chunk boundary) must fail the
+    fp32 limit. Then each forward and backward is timed at its model's
+    training microbatch. Returns {"entries": JSON entries "wkv6_train" and
+    "mamba_scan_train", "bwd_ms": {kernel: backward ms}}."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import wkv6 as wk
+    gen = torch.Generator("cuda").manual_seed(6)
+    b, s = TRAIN_MICRO, RECURRENT_CHECK_SEQ
+    log(f"recurrence backwards (Wkv6Fn, MambaScanFn: the kernels' forward "
+        f"per {wk.TIME_CHUNK}-step chunk, the torch-ops backward) vs "
+        f"autograd through the plain loops, B={b}, S={s}:")
+    inputs = wkv6_train_inputs(gen, b, s)
+    dy = randn(gen, (b, s, RWKV_HEADS, RWKV_HD), torch.float32, 1.0)
+    truth = recurrence_grads(wkv6_model, inputs, dy, "reference")
+    check_grads(f"wkv6 H={RWKV_HEADS} hd={RWKV_HD} fp32, dr dk dv dx du "
+                f"(x the decay's exp(-exp(x)))",
+                recurrence_grads(wkv6_model, inputs, dy, "kernel"), truth)
+    w = decay(inputs)
+    _, _, starts = wk.wkv6_chunk_states(*w)
+    mutant = chunk_by_chunk(wk.wkv6_bwd, w, (0, 1, 2, 3), starts, dy)
+    mutant[3] = mutant[3] * w[3] * -torch.exp(inputs[3])     # dw -> dx
+    check_mutant_grads("wkv6_bwd, dState not carried across a chunk",
+                       mutant, truth)
+    seq = (0, 2, 3, 4, 5)
+    for dtype in (torch.float32, torch.bfloat16):
+        inputs = mamba_train_inputs(gen, b, s, dtype)
+        dout = randn(gen, (b, s, MAMBA_DI), dtype, 1.0)
+        what = f"mamba_scan di={MAMBA_DI} n={MAMBA_N} {str(dtype)[6:]}"
+        if dtype == torch.float32:
+            truth = recurrence_grads(ops.mamba_scan, inputs, dout,
+                                     "reference")
+            check_grads(f"{what}, d dt_raw, dt_bias, b, c, x, z, a_log, "
+                        f"d_skip", recurrence_grads(ops.mamba_scan, inputs,
+                                                    dout, "kernel"), truth)
+            _, _, starts = ms.mamba_chunk_states(*inputs)
+            check_mutant_grads("mamba_scan_bwd, dState not carried across "
+                               "a chunk", chunk_by_chunk(
+                                   ms.mamba_scan_bwd, inputs, seq, starts,
+                                   dout), truth)
+            continue
+        wide = [t.float() for t in inputs]
+        truth = recurrence_grads(ops.mamba_scan, wide, dout.float(),
+                                 "reference")
+        got = recurrence_grads(ops.mamba_scan, inputs, dout, "kernel")
+        plain = recurrence_grads(ops.mamba_scan, inputs, dout, "reference")
+        names = ("dt_raw", "dt_bias", "b", "c", "x", "z", "a_log",
+                 "d_skip")
+        for name, g, p, t in zip(names, got, plain, truth):
+            ek, ep = rel_err(g, t), rel_err(p, t)
+            log(f"  {what}, d {name}: rel L2 vs fp32 {ek:.3e}, plain "
+                f"path's {ep:.3e} (limit {BWD_BF16_RATIO} x)")
+            if ek > BWD_BF16_RATIO * ep or g.dtype != p.dtype:
+                raise AssertionError(f"{what} d {name}: {ek} vs plain "
+                                     f"{ep}")
+    del truth, inputs
+    return time_recurrences_training()
+
+
+def time_recurrences_training() -> dict:
+    """Each recurrence's forward (the Function's: one kernel launch per
+    TIME_CHUNK steps from the previous chunk's state) against its plain
+    loop, and its backward, at its model's training microbatch of
+    TRAIN_SEQ tokens: WKV6 B=2 (rwkv6-3b: 8 sequences in 4 microbatches),
+    the scan B=4 in bf16 (hymba-1.5b: in 2). Bounds: forward as the
+    serving checks count it; backward: the inputs and dy read, their
+    gradients written, the kept states read, and the flops of wkv6_flops
+    or mamba_flops."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import wkv6 as wk
+    gen = torch.Generator("cuda").manual_seed(7)
+    entries, bwd = [], {}
+    b, s = TRAIN_BATCH // get_arch("rwkv6-3b").grad_accum, TRAIN_SEQ
+    inputs = decay(wkv6_train_inputs(gen, b, s))
+    dy = randn(gen, (b, s, RWKV_HEADS, RWKV_HD), torch.float32, 1.0)
+    y, _, starts = wk.wkv6_chunk_states(*inputs)
+    want, _ = wk.wkv6_plain(*inputs)
+    err = assert_close(f"wkv6 training forward B={b} S={s}, y", y, want)
+    del want
+    fwd_f, bwd_f = wkv6_flops(b * s, RWKV_HEADS, RWKV_HD)
+    size = inputs[0].numel() * 4
+    bound, by = bound_ms(5 * size + starts[:, 0].numel() * 4,
+                         {torch.float32: fwd_f})
+    bbound, bby = bound_ms(9 * size + starts.numel() * 4,
+                           {torch.float32: bwd_f})
+    fwd = time_ms(lambda: wk.wkv6_chunk_states(*inputs), 10)
+    plain = time_ms(lambda: wk.wkv6_plain(*inputs), 1, warmup=1)
+    bwd["wkv6"] = time_ms(lambda: wk.wkv6_bwd(*inputs, starts, dy), 3,
+                          warmup=1)
+    log(f"  wkv6 training shape (B={b}, S={s}, H={RWKV_HEADS}, "
+        f"hd={RWKV_HD}): forward {fwd:.4f} ms in {starts.shape[1]} "
+        f"launches (plain loop {plain:.4f} ms, bound {bound:.4f} ms by {by}); "
+        f"wkv6_bwd {bwd['wkv6']:.4f} ms (bound {bbound:.4f} ms by {bby})")
+    entries.append({"name": "wkv6_train", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+                    "replaces": "src/repro/kernels/rwkv6.py:49",
+                    "max_abs_err": err, "ms": fwd, "plain_ms": plain,
+                    "bound_ms": bound, "bound_by": by, "library_ms": None})
+    del inputs, dy, y, starts
+    b = TRAIN_BATCH // get_arch("hymba-1.5b").grad_accum
+    inputs = mamba_train_inputs(gen, b, s, torch.bfloat16)
+    dout = randn(gen, (b, s, MAMBA_DI), torch.bfloat16, 1.0)
+    out, _, starts = ms.mamba_chunk_states(*inputs)
+    want, _ = ms.mamba_scan_plain(*inputs)
+    err = assert_close_scan(f"mamba_scan training forward B={b} S={s} "
+                            f"bf16, out", out, want)
+    del want
+    n_bytes, flops = mamba_fused_cost(b, s, torch.bfloat16)
+    bound, by = bound_ms(n_bytes, flops)
+    fwd_f, bwd_f = mamba_flops(b * s, MAMBA_DI, MAMBA_N)
+    bbound, bby = bound_ms(2 * n_bytes + out.numel() * 2 + starts.numel() * 4,
+                           {torch.float32: bwd_f})
+    fwd = time_ms(lambda: ms.mamba_chunk_states(*inputs), 10)
+    plain = time_ms(lambda: ms.mamba_scan_plain(*inputs), 1, warmup=1)
+    bwd["mamba_scan"] = time_ms(
+        lambda: ms.mamba_scan_bwd(*inputs, starts, dout), 3, warmup=1)
+    log(f"  mamba_scan training shape (B={b}, S={s}, di={MAMBA_DI}, "
+        f"n={MAMBA_N}, bf16): forward {fwd:.4f} ms in {starts.shape[1]} "
+        f"launches (plain loop {plain:.4f} ms, bound {bound:.4f} ms by {by}); "
+        f"mamba_scan_bwd {bwd['mamba_scan']:.4f} ms (bound {bbound:.4f} ms "
+        f"by {bby})")
+    entries.append({"name": "mamba_scan_train", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+                    "replaces": "src/repro/models/ssm.py:217",
+                    "max_abs_err": err, "ms": fwd, "plain_ms": plain,
+                    "bound_ms": bound, "bound_by": by, "library_ms": None})
+    return {"entries": entries, "bwd_ms": bwd}
+
+
+def train_counts(cfg) -> dict:
+    """Launches of one train step: remat runs each layer's forward twice,
+    so 2 per layer and microbatch of flash attention, and of WKV6 and the
+    Mamba scan 2 per layer, microbatch and TIME_CHUNK chunk; none of the
+    other kernels."""
+    from repro_torch.kernels.ops import KERNELS
+    from repro_torch.kernels.wkv6 import TIME_CHUNK
+    want = dict.fromkeys(KERNELS, 0)
+    per = 2 * cfg.n_layers * cfg.grad_accum
+    chunks = -(-TRAIN_SEQ // TIME_CHUNK)
+    if cfg.attn_free:
+        want["wkv6"] = per * chunks
+    else:
+        want["flash_attention"] = per
+    if cfg.hybrid_ssm:
+        want["mamba_scan"] = per * chunks
+    return want
+
+
+def check_recurrent_leaves(cfg, grads: dict) -> None:
+    """Every leaf that feeds the recurrence got a nonzero gradient in every
+    layer: the assertion that catches a gradient cut at a kernel."""
+    mixer = "tmix" if cfg.attn_free else "mamba" if cfg.hybrid_ssm else None
+    if mixer is None:
+        return
+    dead = {}
+    for name in RECURRENT_LEAVES[mixer]:
+        g = grads["layers"][mixer][name]
+        per_layer = g.float().flatten(1).abs().amax(1)
+        if not bool((per_layer > 0).all() & torch.isfinite(per_layer).all()):
+            dead[name] = per_layer.tolist()
+    log(f"  nonzero finite gradient in all {cfg.n_layers} layers of "
+        f"{', '.join(RECURRENT_LEAVES[mixer])}: {not dead}")
+    if dead:
+        raise AssertionError(f"{cfg.name}: zero or non-finite recurrence "
+                             f"gradients {dead}")
+
+
+def train_full_width(arch: str, bwd_ms: dict) -> dict:
+    """``arch`` at full width and depth TRAINED[arch]: a warm-up step, then
     TIMED_STEPS steps through train_step, each of TRAIN_BATCH sequences of
     TRAIN_SEQ tokens in grad_accum microbatches. Asserts finite losses and
-    grad norms, a first loss near ln(vocab), 2 flash attention launches per
-    layer and microbatch (remat runs each layer's forward again) and no
-    other kernel's. Prints a profile of one step."""
+    grad norms, a first loss near ln(vocab), the launches of train_counts
+    (and the Mamba scan's all in its chunked body), and in the warm-up
+    step a nonzero gradient on every leaf that feeds the recurrence.
+    Prints a profile (of a step, or for the recurrent families of one
+    microbatch) and CUDA-event spans of the step's parts, each backward
+    among them."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    from repro_torch.train import train_step as ts
     from repro_torch.train.data import synth_batch
     from repro_torch.train.optimizer import OptConfig
-    from repro_torch.train.train_step import init_train_state, to_device, \
-        train_step
-    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, n_layers=TRAINED[arch])
     accum = cfg.grad_accum
     shape = ShapeConfig("train_4k_cut", "train", TRAIN_SEQ, TRAIN_BATCH)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     opt_cfg = OptConfig(name=cfg.optimizer, warmup_steps=2, total_steps=100)
     t0 = time.perf_counter()
-    state = init_train_state(torch.Generator("cuda").manual_seed(0), cfg,
-                             opt_cfg)
+    state = ts.init_train_state(torch.Generator("cuda").manual_seed(0), cfg,
+                                opt_cfg)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(state["params"]))
-    log(f"train {TRAIN_ARCH} at depth {TRAIN_LAYERS} of "
-        f"{get_arch(TRAIN_ARCH).n_layers}: d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype}, "
-        f"{cfg.optimizer}; {n_params / 1e9:.3f} B params; params and "
-        f"optimizer state {torch.cuda.memory_allocated() / 1e9:.2f} GB, "
-        f"initialised in {time.perf_counter() - t0:.1f} s; "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in {accum} microbatches")
+    heads = f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}" \
+        if not cfg.attn_free else \
+        f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads of {cfg.rwkv_head_dim}"
+    log(f"train {arch} at depth {cfg.n_layers} of {full.n_layers}: d_model "
+        f"{cfg.d_model}, {heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_dtype}, {cfg.optimizer}; {n_params / 1e9:.3f} B params;"
+        f" params and optimizer state "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, initialised in "
+        f"{time.perf_counter() - t0:.1f} s; {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens a step in {accum} microbatches")
     bound, by, flops = train_bound(cfg, TRAIN_BATCH)
     log(f"  step bound {bound:.1f} ms ({by}; {flops:.4g} model flops)")
-    want = dict.fromkeys(ops.KERNELS, 0)
-    want["flash_attention"] = 2 * cfg.n_layers * accum
+    want = train_counts(cfg)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    launches, steps = 0, []
+    launches, steps, seen = dict.fromkeys(want, 0), [], []
+    real_updates = ts.apply_updates
+
+    def first_grads(grads, *args, **kwargs):
+        if not seen:
+            seen.append(1)
+            check_recurrent_leaves(cfg, grads)
+        return real_updates(grads, *args, **kwargs)
+
     for step in range(1 + TIMED_STEPS):
-        batch = to_device(synth_batch(cfg, shape, step), "cuda")
+        batch = ts.to_device(synth_batch(cfg, shape, step), "cuda")
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
-        start.record()
-        state, m = train_step(state, batch, cfg, opt_cfg)
-        end.record()
-        end.synchronize()
+        with mock.patch.object(ts, "apply_updates", first_grads):
+            start.record()
+            state, m = ts.train_step(state, batch, cfg, opt_cfg)
+            end.record()
+            end.synchronize()
         counts = ops.launch_counts()
         ms = start.elapsed_time(end)
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
@@ -1627,53 +1971,72 @@ def train_full_width(bwd_ms: float) -> dict:
             f"{bound / ms:.4f}, peak memory "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         check_counts(f"train step {step}", counts, want)
+        if mamba_scan.token_launches:
+            raise AssertionError(f"step {step}: {mamba_scan.token_launches}"
+                                 f" Mamba scan launches ran the token body")
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
             raise AssertionError(f"step {step}: loss {loss}, norm {gnorm}")
         if step == 0 and abs(loss - math.log(cfg.vocab_size)) > 1.5:
             raise AssertionError(f"first loss {loss} is not within 1.5 of "
                                  f"ln(vocab) {math.log(cfg.vocab_size)}")
         if step:
-            launches += counts["flash_attention"]
+            for k in launches:
+                launches[k] += counts[k]
             steps.append(ms)
     mean = sum(steps) / len(steps)
+    # the backward timed alone at this model's shape (the attention
+    # backward at qwen3-8b's; hymba's is in the spans below)
+    kernel = "wkv6" if cfg.attn_free else "mamba_scan" if cfg.hybrid_ssm \
+        else "flash_attention"
+    calls = cfg.n_layers * accum
     log(f"  {TIMED_STEPS} timed steps: mean {mean:.1f} ms "
         f"({tokens * 1e3 / mean:.0f} tokens/s, train_mfu "
-        f"{bound / mean:.4f}); flash_attention_bwd alone at this shape "
-        f"{bwd_ms:.3f} ms x {cfg.n_layers * accum} calls = "
-        f"{bwd_ms * cfg.n_layers * accum:.1f} ms a step "
-        f"({100 * bwd_ms * cfg.n_layers * accum / mean:.1f} %)")
-    batch = to_device(synth_batch(cfg, shape, 1 + TIMED_STEPS), "cuda")
-    averages = profile("train step", lambda: train_step(
-        state, batch, cfg, opt_cfg), mean, top=12)
+        f"{bound / mean:.4f}); {kernel} backward alone at this shape "
+        f"{bwd_ms[kernel]:.3f} ms x {calls} calls = "
+        f"{bwd_ms[kernel] * calls:.1f} ms a step "
+        f"({100 * bwd_ms[kernel] * calls / mean:.1f} %)")
+    batch = ts.to_device(synth_batch(cfg, shape, 1 + TIMED_STEPS), "cuda")
+    if cfg.attn_free or cfg.hybrid_ssm:
+        # a step of these runs ~10^5 kernels: the profile takes one
+        # microbatch of the step's grad_accum
+        micro = ts._split_microbatches(batch, accum)[0]
+        averages = profile(f"one microbatch of {accum} of a train step",
+                           lambda: ts.loss_and_grads(state["params"], cfg,
+                                                     micro),
+                           mean / accum, top=12)
+    else:
+        averages = profile("train step", lambda: ts.train_step(
+            state, batch, cfg, opt_cfg), mean, top=12)
     by_kind(averages)
-    bwd = [e.device_time_total / 1e3 for e in averages
-           if "FlashAttentionFnBackward" in e.key]
-    if bwd:
-        log(f"  profiler: FlashAttentionFnBackward {max(bwd):.1f} ms of the "
-            f"step's device time")
-    time_step_parts(state, batch, cfg, opt_cfg)
+    for fn in ("FlashAttentionFnBackward", "Wkv6FnBackward",
+               "MambaScanFnBackward"):
+        bwd = [e.device_time_total / 1e3 for e in averages if fn in e.key]
+        if bwd:
+            log(f"  profiler: {fn} {max(bwd):.1f} ms of the profiled "
+                f"device time")
+    time_step_parts(state, batch, cfg, opt_cfg, mean)
     del state, batch
     return {"launches": launches, "step_ms": mean}
 
 
-def compare_train_paths() -> None:
-    """The first microbatch's loss and gradients at depth 2, full width,
-    through the kernel and through the plain versions (impl="reference"),
-    in bf16 and with the weights widened to fp32; fp32 plain is the truth.
-    fp32 kernel path: within FP32_REL_TOL of it. bf16 kernel path: its
-    loss, grad norm, the rel L2 of the embedding's gradient and that of
-    all other leaves, each within BWD_BF16_RATIO x the plain path's own
-    error. The embedding's bf16 scatter-add drifts far from fp32 on both
-    paths (as JAX's does: tests/test_torch_bf16_grads.py), so the other
-    leaves are held apart from it, to their own much smaller error."""
+def compare_train_paths(arch: str, seq: int, micro: int) -> None:
+    """The first microbatch (``micro`` x ``seq`` tokens) of ``arch``'s loss
+    and gradients at depth 2, full width, through the kernels and through
+    the plain versions (impl="reference"), in bf16 and with the weights
+    widened to fp32; fp32 plain is the truth. fp32 kernel path: within
+    FP32_REL_TOL of it. bf16 kernel path: its loss, grad norm, the rel L2
+    of the embedding's gradient and that of all other leaves, each within
+    BWD_BF16_RATIO x the plain path's own error. The embedding's bf16
+    scatter-add drifts far from fp32 on both paths (as JAX's does:
+    tests/test_torch_bf16_grads.py), so the other leaves are held apart
+    from it, to their own much smaller error."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.train.data import synth_batch
     from repro_torch.train.train_step import loss_and_grads, to_device
-    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=2)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=2)
     params = init_params_cuda(cfg)
-    batch = synth_batch(cfg, ShapeConfig("t", "train", TRAIN_SEQ,
-                                         TRAIN_MICRO), 0)
+    batch = synth_batch(cfg, ShapeConfig("t", "train", seq, micro), 0)
     batch = to_device(batch, "cuda")
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
     runs = {}
@@ -1697,13 +2060,13 @@ def compare_train_paths() -> None:
                  rel_err(embed, t_embed), rel_err(rest, t_rest))
            for key, (loss, norm, embed, rest) in runs.items()}
     for key, e in err.items():
-        log(f"  depth 2, {key[0]} {key[1]}: loss {runs[key][0]:.6f}, grad "
-            f"norm {runs[key][1]:.6f}, embedding grad norm "
-            f"{runs[key][2].norm().item():.4f} (fp32 plain "
+        log(f"  {arch} depth 2, {micro} x {seq}, {key[0]} {key[1]}: loss "
+            f"{runs[key][0]:.6f}, grad norm {runs[key][1]:.6f}, embedding "
+            f"grad norm {runs[key][2].norm().item():.4f} (fp32 plain "
             f"{t_embed.norm().item():.4f}); vs fp32 plain (relative): "
             + ", ".join(f"{w} {x:.3e}" for w, x in zip(what, e)))
     if max(err["fp32", "kernel"]) > FP32_REL_TOL:
-        raise AssertionError(f"fp32 training paths disagree: "
+        raise AssertionError(f"{arch}: fp32 training paths disagree: "
                              f"{err['fp32', 'kernel']}")
     kern, plain = err["bf16", "kernel"], err["bf16", "reference"]
     log(f"  bf16 kernel path within {BWD_BF16_RATIO} x the plain path's "
@@ -1711,15 +2074,22 @@ def compare_train_paths() -> None:
                                for w, k, p in zip(what, kern, plain)))
     for w, k, p in zip(what, kern, plain):
         if k > BWD_BF16_RATIO * p:
-            raise AssertionError(f"bf16 {w}: kernel path {k} vs plain {p}")
+            raise AssertionError(f"{arch} bf16 {w}: kernel path {k} vs "
+                                 f"plain {p}")
 
 
-def time_step_parts(state, batch, cfg, opt_cfg) -> None:
+def time_step_parts(state, batch, cfg, opt_cfg, step_ms: float) -> None:
     """One more step, with CUDA events around the optimizer update
-    (``apply_updates``: clip and AdamW) and around the gradient-tree
+    (``apply_updates``: clip and AdamW), around the gradient-tree
     operations of ``train_step`` (zeroed buffers, the fp32 accumulation of
-    each microbatch): the device time between each pair, summed. The
-    stream is busy (the profile above), so a span holds its own kernels."""
+    each microbatch) and around each torch-ops backward that the step runs
+    (flash_attention_bwd, wkv6_bwd, mamba_scan_bwd): the device time
+    between each pair, summed, and its share of the timed steps' mean. The
+    stream is busy, so a span holds its own kernels, and the host time a
+    span's launches take when the device waits on them."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import wkv6 as wk
     from repro_torch.train import train_step as ts
     spans = []
 
@@ -1733,17 +2103,24 @@ def time_step_parts(state, batch, cfg, opt_cfg) -> None:
             spans.append((name, start, end))
             return out
         return run
-    with mock.patch.object(ts, "apply_updates", spanned(
-            "optimizer (clip, AdamW)", ts.apply_updates)), \
-            mock.patch.object(ts, "tree_map", spanned(
-                "gradient buffers and fp32 accumulation", ts.tree_map)):
+    parts = ((ts, "apply_updates", "optimizer (clip, AdamW)"),
+             (ts, "tree_map", "gradient buffers and fp32 accumulation"),
+             (fa, "flash_attention_bwd", "flash_attention_bwd"),
+             (wk, "wkv6_bwd", "wkv6_bwd"),
+             (ms, "mamba_scan_bwd", "mamba_scan_bwd"))
+    with contextlib.ExitStack() as stack:
+        for mod, attr, name in parts:
+            stack.enter_context(mock.patch.object(
+                mod, attr, spanned(name, getattr(mod, attr))))
         ts.train_step(state, batch, cfg, opt_cfg)
     torch.cuda.synchronize()
     sums: dict = {}
     for name, start, end in spans:
-        sums[name] = sums.get(name, 0.0) + start.elapsed_time(end)
-    for name, ms in sums.items():
-        log(f"  CUDA events: {name} {ms:.1f} ms of a step")
+        ms_, n = sums.get(name, (0.0, 0))
+        sums[name] = (ms_ + start.elapsed_time(end), n + 1)
+    for name, (ms_, n) in sums.items():
+        log(f"  CUDA events: {name} {ms_:.1f} ms of a step in {n} calls "
+            f"({100 * ms_ / step_ms:.1f} % of the timed steps' mean)")
 
 
 KINDS = (("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
@@ -1807,18 +2184,41 @@ def run_training_resumes() -> None:
         raise AssertionError(f"resume diverged: rel {worst}")
 
 
-def train_phase() -> dict:
-    bwd = check_attention_backward()
+def free() -> None:
     gc.collect()
     torch.cuda.empty_cache()
-    trained = train_full_width(bwd["bwd_ms"])
-    gc.collect()
-    torch.cuda.empty_cache()
-    compare_train_paths()
-    gc.collect()
-    torch.cuda.empty_cache()
-    run_training_resumes()
-    return {**trained, "entry": bwd["entry"]}
+
+
+def train_phase() -> list:
+    """Phase 5; returns the JSON entries of the kernels at the training
+    shapes, each with the launches of its model's timed train steps."""
+    with phase("5a, the attention backward"):
+        attention = check_attention_backward()
+        free()
+    with phase("5b, the recurrence backwards"):
+        recurrences = check_recurrence_backward()
+        free()
+    bwd_ms = {"flash_attention": attention["bwd_ms"],
+              **recurrences["bwd_ms"]}
+    trained = {}
+    for arch in TRAINED:
+        with phase(f"5c, {arch} trained"):
+            trained[arch] = train_full_width(arch, bwd_ms)
+            free()
+    for arch, seq, micro in COMPARED:
+        with phase(f"5d, {arch} kernel vs plain paths"):
+            compare_train_paths(arch, seq, micro)
+            free()
+    with phase("5e, run_training resumes"):
+        run_training_resumes()
+    launched_by = {"flash_attention_train": ("qwen3-8b", "flash_attention"),
+                   "wkv6_train": ("rwkv6-3b", "wkv6"),
+                   "mamba_scan_train": ("hymba-1.5b", "mamba_scan")}
+    entries = [attention["entry"], *recurrences["entries"]]
+    for e in entries:
+        arch, kernel = launched_by[e["name"]]
+        e["launches"] = trained[arch]["launches"][kernel]
+    return entries
 
 
 def _map(tree, fn):
@@ -1848,8 +2248,7 @@ def main() -> int:
         kernels += check_mamba_scan()
         for tag in ATTENTION_SHAPES:
             kernels += check_attention_shape(tag)
-            gc.collect()
-            torch.cuda.empty_cache()
+            free()
     # each entry's launches come from the run of the model served at its
     # shape: {entry: (model, kernel)}
     launched_by = {"flash_attention": ("qwen3-8b", "flash_attention"),
@@ -1866,23 +2265,21 @@ def main() -> int:
             served = serve_stub(arch) if arch in STUB_SERVED \
                 else serve_full_width(arch)
             launches[arch] = served["launches"]
-            gc.collect()
-            torch.cuda.empty_cache()
+            free()
             log(f"{arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} "
                 f"GB still allocated")
     with phase("3b, every config at depth 1"):
         sweep_depth_one()
     with phase("4, small models on the card and the CPU"):
         small_models_cpu_vs_card()
-        gc.collect()
-        torch.cuda.empty_cache()
+        free()
     with phase("5, training"):
         trained = train_phase()
     for k in kernels:
         arch, kernel = launched_by[k["name"]]
         k["launches"] = launches[arch][kernel]
-    # the forward at the training shape, launched by the timed train steps
-    kernels.append({**trained["entry"], "launches": trained["launches"]})
+    # the kernels at the training shapes, launched by the timed train steps
+    kernels += trained
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]

@@ -5,7 +5,11 @@
                  nothing falls back), the kernel's plain version for a CPU
                  tensor. The model always uses this. With grad mode on,
                  flash attention goes through ``FlashAttentionFn``, whose
-                 backward is ``flash_attention_bwd``.
+                 backward is ``flash_attention_bwd``; WKV6 and the Mamba
+                 scan go through ``Wkv6Fn`` and ``MambaScanFn`` (backward
+                 ``wkv6_bwd``, ``mamba_scan_bwd``) when an input also
+                 requires grad. Those train from a zero state: a state
+                 given under autograd raises.
   * "reference"  the plain version on any device, only when a caller asks
                  for it by name (``chip_smoke.py`` does, to hold the kernels
                  against it on the card).
@@ -52,6 +56,19 @@ def launch_counts() -> dict:
 def _check_impl(impl: str) -> None:
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+
+
+def _training(name: str, state, *inputs: torch.Tensor) -> bool:
+    """Whether autograd records the call: grad mode on and an input that
+    requires grad. Training runs the recurrence from zeros, so a given
+    state (which the kernel would write in place) raises there."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad
+                                            for t in inputs)):
+        return False
+    if state is not None:
+        raise ValueError(f"{name}: under autograd the recurrence runs from "
+                         f"a zero state; pass a state under torch.no_grad()")
+    return True
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -109,6 +126,10 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     r, k, v, w, u = (t.float() for t in (r, k, v, w, u))
     if impl == "reference":
         return _wkv6.wkv6_plain(r, k, v, w, u, state)
+    if _training("wkv6", state, r, k, v, w, u):
+        # the kernel's forward under autograd, on either device, so its
+        # backward (wkv6_bwd) is the one that runs
+        return _wkv6.Wkv6Fn.apply(r, k, v, w, u)
     return _wkv6.wkv6(r, k, v, w, u, state)
 
 
@@ -124,6 +145,9 @@ def mamba_scan(dt: torch.Tensor, dt_bias: torch.Tensor, b: torch.Tensor,
     overwritten with the final state in place. The scan runs in fp32, as
     JAX's ``step`` does."""
     _check_impl(impl)
-    fn = _mamba.mamba_scan_plain if impl == "reference" else \
-        _mamba.mamba_scan
-    return fn(dt, dt_bias, b, c, x, z, a_log, d_skip, h)
+    args = (dt, dt_bias, b, c, x, z, a_log, d_skip)
+    if impl == "reference":
+        return _mamba.mamba_scan_plain(*args, h)
+    if _training("mamba_scan", h, *args):
+        return _mamba.MambaScanFn.apply(*args)
+    return _mamba.mamba_scan(*args, h)

@@ -10,7 +10,10 @@
   ``vmemkernel_mamba_scan`` scan; the same call takes dt's softplus, the
   ``d_skip`` term and the gating by ``silu(z)``.
 
-JAX returns new states; here a given state is updated in place.
+JAX returns new states; here a given state is updated in place. Training
+passes no state: each recurrence then runs from zeros through its
+``torch.autograd.Function`` (``kernels.ops`` routes it so), and nothing is
+written in place while autograd records.
 """
 
 from __future__ import annotations
@@ -84,8 +87,9 @@ def apply_rwkv_tmix(p: dict, x: torch.Tensor, cfg: ArchConfig,
                     state: Optional[dict] = None, impl: str = "kernel"
                     ) -> tuple[torch.Tensor, dict]:
     """x: (B,S,D). state: {"shift": (B,D), "wkv": (B,H,hd,hd) fp32} or None
-    (zeros). Returns (out, {"shift": x's last row, "wkv": final state});
-    a given ``state["wkv"]`` is that final state, written in place."""
+    (zeros; training). Returns (out, {"shift": x's last row, "wkv": final
+    state}); a given ``state["wkv"]`` is that final state, written in
+    place."""
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
     h = d // hd
@@ -173,8 +177,8 @@ def apply_mamba(p: dict, x: torch.Tensor, cfg: ArchConfig,
                 state: Optional[dict] = None, impl: str = "kernel"
                 ) -> tuple[torch.Tensor, dict]:
     """Selective SSM. x: (B,S,D). state: {"conv": (B,K-1,di), "h": (B,di,n)
-    fp32} or None (zeros). Returns (out, {"conv", "h"}); a given state is
-    overwritten with the new one in place."""
+    fp32} or None (zeros; training). Returns (out, {"conv", "h"}); a given
+    state is overwritten with the new one in place."""
     n = cfg.ssm_state
     x_in, z = (x @ p["in_proj"]).chunk(2, dim=-1)      # (B,S,di) each
     x_c, new_conv = _causal_conv(x_in, p["conv_w"], p["conv_b"],

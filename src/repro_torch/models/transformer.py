@@ -1,8 +1,8 @@
 """Decoder stack, ported from ``repro.models.transformer``: the dense and
-MoE families and the stub-frontend family (vlm, audio: precomputed
-embeddings in place of token ids), serving and training; the
-attention-free RWKV6 family and the hybrid family (hymba: attention and
-Mamba heads side by side in each layer), serving.
+MoE families, the stub-frontend family (vlm, audio: precomputed
+embeddings in place of token ids), the attention-free RWKV6 family and
+the hybrid family (hymba: attention and Mamba heads side by side in each
+layer), serving and training.
 
 Parameters are a nested dict of tensors with the JAX tree's keys and its
 layer-stacked ``(L, ...)`` leaves; a Python loop over layers takes the
@@ -39,13 +39,6 @@ from .ssm import (CONV_K, apply_mamba, apply_rwkv_cmix, apply_rwkv_tmix,
                   init_mamba, init_rwkv_cmix, init_rwkv_tmix)
 
 LOSS_CHUNK = 1024
-# training of RWKV6 runs through the WKV6 kernel, and of the hybrid family
-# through the Mamba scan kernel, neither of which has a gradient yet; each
-# message names its ROADMAP item by title
-RWKV_TRAINING = "RWKV6 training needs a gradient for the WKV6 kernel " \
-    '(ROADMAP.md queue 1, "RWKV6 training")'
-HYBRID_TRAINING = "hybrid training needs a gradient for the Mamba scan " \
-    'kernel (ROADMAP.md queue 1, "Hybrid family training")'
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -214,24 +207,34 @@ def apply_block_decode(lp: dict, x: torch.Tensor, cfg: ArchConfig,
 
 
 def apply_rwkv_block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
-                     cache: dict, impl: str = "kernel") -> torch.Tensor:
+                     cache: Optional[dict], impl: str = "kernel"
+                     ) -> torch.Tensor:
     """One RWKV layer over a sequence or one decode token: JAX's attn_free
     branch of ``apply_block_seq`` and ``apply_block_decode``. It starts from
     the layer's states in ``cache`` ({"tmix": {"shift", "wkv"}, "cmix"};
-    zeros before a prefill) and writes the new ones there in place."""
+    zeros before a prefill) and writes the new ones there in place; with no
+    cache (training) it starts from zeros and writes nothing."""
     normed = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    h, tstate = apply_rwkv_tmix(lp["tmix"], normed, cfg, cache["tmix"], impl)
+    h, tstate = apply_rwkv_tmix(lp["tmix"], normed, cfg,
+                                None if cache is None else cache["tmix"],
+                                impl)
     x = x + h
-    cache["tmix"]["shift"].copy_(tstate["shift"])   # wkv: already in place
     normed = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    h, cstate = apply_rwkv_cmix(lp["cmix"], normed, cfg, cache["cmix"])
-    cache["cmix"].copy_(cstate)
+    h, cstate = apply_rwkv_cmix(lp["cmix"], normed, cfg,
+                                None if cache is None else cache["cmix"])
+    if cache is not None:
+        cache["tmix"]["shift"].copy_(tstate["shift"])  # wkv: in place already
+        cache["cmix"].copy_(cstate)
     return x + h
 
 
 # ============================================================= training
 def _block_train(x: torch.Tensor, lp: dict, cfg: ArchConfig, rope: tuple,
                  impl: str):
+    """One layer of training from zero recurrent states: (x, aux loss or
+    None)."""
+    if cfg.attn_free:
+        return apply_rwkv_block(lp, x, cfg, None, impl), None
     x, _, aux = apply_block_seq(lp, x, cfg, rope, impl)
     return x, aux
 
@@ -240,20 +243,17 @@ def hidden_states(params: dict, cfg: ArchConfig, batch: dict,
                   remat: Optional[bool] = None, impl: str = "kernel"
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward to the final hidden states (pre-head), and the
-    auxiliary loss summed over layers (0 for the dense family). With remat
+    auxiliary loss summed over layers (0 but for MoE). With remat
     (``cfg.remat`` unless given) each layer runs again in the backward, as
     under JAX's ``jax.checkpoint``, so only its input is kept; a layer's aux
     loss leaves the checkpoint beside its output. ``params["layers"]`` is
     the stacked tree or a list of per-layer trees (the train step passes
     those, so that each layer's gradient lands in its slice in place)."""
-    if cfg.attn_free:
-        raise NotImplementedError(f"{cfg.name}: {RWKV_TRAINING}")
-    if cfg.hybrid_ssm:
-        raise NotImplementedError(f"{cfg.name}: {HYBRID_TRAINING}")
     x = _embed_inputs(params, cfg, batch)
     s = x.shape[1]
-    rope = rope_tables(torch.arange(s, device=x.device), cfg.hd,
-                       cfg.rope_theta)
+    # RWKV has no positions to rotate (JAX's _rope_for)
+    rope = () if cfg.attn_free else rope_tables(
+        torch.arange(s, device=x.device), cfg.hd, cfg.rope_theta)
     layers = params["layers"]
     use_remat = cfg.remat if remat is None else remat
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -11,6 +11,7 @@ kernel to).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -320,6 +321,58 @@ def test_mamba_scan_raises_rather_than_falling_back(cuda):
     with pytest.raises(ValueError):
         mamba_scan(dt, bias, b.float(), c, x, z, a_log, skip, h)
     assert mamba_scan.launches == before
+
+
+# training: the recurrences under Wkv6Fn and MambaScanFn (the kernels'
+# forward one launch per 256-step chunk), S within one chunk, with a ragged
+# last chunk, and across two
+TRAIN_LENGTHS = [40, 300, 512]
+
+
+def check_grads(kernel, plain, inputs, dout, tol):
+    """Autograd through ``kernel`` (ops, the Function) against autograd
+    through ``plain`` (impl="reference") on the same inputs: every input
+    gets a gradient within ``tol`` of the largest magnitude of the plain
+    one. Returns the kernel path's output."""
+    got = [t.detach().clone().requires_grad_(True) for t in inputs]
+    want = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = kernel(*got)[0]
+    assert out.grad_fn is not None       # the kernel did not cut the graph
+    out.backward(dout)
+    plain(*want)[0].backward(dout)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.grad is not None and g.grad.dtype == w.grad.dtype, i
+        scale = w.grad.float().abs().max().item()
+        np.testing.assert_allclose(g.grad.float().cpu().numpy(),
+                                   w.grad.float().cpu().numpy(), rtol=0,
+                                   atol=tol * scale, err_msg=f"input {i}")
+    return out
+
+
+@pytest.mark.parametrize("s", TRAIN_LENGTHS)
+def test_wkv6_training_carries_the_gradient(cuda, s):
+    inputs = wkv_on(cuda, (2, s, 3, 64), s)
+    dy = torch.randn((2, s, 3, 64), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(s))
+    before = wkv6.launches
+    check_grads(ops.wkv6, functools.partial(ops.wkv6, impl="reference"),
+                inputs, dy, 2e-5)
+    assert wkv6.launches == before + -(-s // 256)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", TRAIN_LENGTHS)
+def test_mamba_scan_training_carries_the_gradient(cuda, s, dtype):
+    *inputs, _ = mamba_on(cuda, 2, s, 48, 16, s, dtype, carried=False)
+    dout = torch.randn((2, s, 48), device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(s))
+    before = mamba_scan.launches
+    check_grads(ops.mamba_scan,
+                functools.partial(ops.mamba_scan, impl="reference"),
+                inputs, dout.to(inputs[0].dtype),
+                2e-5 if dtype == "float32" else TOL["bfloat16"])
+    assert mamba_scan.launches == before + -(-s // 256)
 
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "arctic-480b"])

@@ -34,8 +34,8 @@ from repro.train.checkpoint import _flatten
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import ARCHS
 from repro_torch.launch.train import PRESETS
-from repro_torch.models import (decode_step, forward_train,
-                                init_decode_cache, init_params, prefill)
+from repro_torch.models import (decode_step, init_decode_cache,
+                                init_params, prefill)
 from repro_torch.models import layers as tl
 from repro_torch.serve.engine import preallocate_cache
 
@@ -336,19 +336,6 @@ def test_rwkv_prefill_then_decode_matches_full_forward(rwkv_case):
     logits, _ = decode_step(c["params"], c["cfg"], c["tokens"][:, -1],
                             caches, pos)
     close_model(logits, full.numpy(), c["dtype"])
-
-
-@pytest.mark.parametrize("arch", ["hymba-1.5b"])
-def test_unported_families_raise(arch):
-    """Every config serves now, but the hybrid family does not train yet
-    (the Mamba scan kernel has no gradient; RWKV6's case is
-    tests/test_torch_train.py:test_rwkv_training_raises): forward_train
-    raises, naming the ROADMAP item by its title."""
-    cfg = ARCHS[arch].reduced()
-    params = init_params(torch.Generator().manual_seed(0), cfg)
-    tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="Hybrid family training"):
-        forward_train(params, cfg, {"tokens": tokens, "labels": tokens})
 
 
 def test_init_params_layout_matches_jax():

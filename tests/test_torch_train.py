@@ -42,7 +42,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.train import run_training
-from repro_torch.models import forward_train, init_params
+from repro_torch.models import forward_train
 from repro_torch.serve.engine import Engine, ServeConfig
 from repro_torch.train import checkpoint as tckpt
 from repro_torch.train import data as tdata
@@ -183,11 +183,18 @@ def torch_batch(batch):
 
 
 @pytest.fixture(scope="module", params=[("qwen3-8b", 24),
-                                        ("h2o-danube-1.8b", 40)],
-                ids=["qwen3-8b", "h2o-danube-windowed"])
+                                        ("h2o-danube-1.8b", 40),
+                                        ("rwkv6-3b", 40), ("rwkv6-3b", 512),
+                                        ("hymba-1.5b", 40),
+                                        ("hymba-1.5b", 512)],
+                ids=["qwen3-8b", "h2o-danube-windowed", "rwkv6", "rwkv6-512",
+                     "hymba", "hymba-512"])
 def model_case(request):
     """JAX's loss and gradients for a reduced fp32 config (h2o-danube's
-    window, 16, is shorter than its 40 tokens), and the port's params."""
+    window, 16, is shorter than its 40 tokens; rwkv6's WKV6 recurrence and
+    hymba's Mamba scan at 40 tokens, one plain scan in JAX, and at 512, two
+    of JAX's 256-step remat chunks, crossed by the port's Functions as
+    well), and the port's params."""
     name, s = request.param
     jcfg, tcfg = (dataclasses.replace(a[name].reduced(), param_dtype="float32")
                   for a in (JAX_ARCHS, ARCHS))
@@ -271,13 +278,6 @@ def test_loss_chunks_rejected_as_in_jax():
     with pytest.raises(ValueError, match="2 chunks of 1024"):
         with torch.no_grad():
             forward_train(params, cfg, torch_batch(batch))
-
-
-def test_rwkv_training_raises():
-    cfg = ARCHS["rwkv6-3b"].reduced()
-    params = init_params(torch.Generator(), cfg)
-    with pytest.raises(NotImplementedError, match="gradient for the WKV6"):
-        forward_train(params, cfg, torch_batch(model_batch(cfg, 1, 8, 0)))
 
 
 # -------------------------------------------------------- optimizer, data
