@@ -92,10 +92,26 @@ Phases; each raises on failure, so any failure exits non-zero:
      depth as qwen3-8b is (their WKV6, Mamba scan and flash attention
      launches a step asserted, and a nonzero gradient on every leaf that
      feeds a recurrence), each profiled over one microbatch; and their
-     kernel and plain paths at depth 2, 2 x 2048 tokens.
-Each phase prints its wall time. The last lines are a JSON line of
-per-kernel numbers (flash attention at the qwen3-8b serving shape with the
-served prefill's launches, "flash_attention_train" at the training shape
+     kernel and plain paths at depth 2, 2 x 2048 tokens. moonshot-v1-16b-a3b
+     (MoE, 64 experts top-6) is trained as qwen3-8b is, at depth 4 of 48
+     (47.3 GB of state), with a profile of one microbatch that splits the
+     MoE layer's device time into routing, one-hot and scan, scatter,
+     gather and the expert bmms, and its kernel and plain paths compared
+     at depth 2 with the bf16 paths routed as the fp32 plain path; then
+     (5f) its group-local dispatch (``set_moe_groups``) against the flat
+     one at depth 1 in fp32: equal drop-free, different at cf 1.25;
+  6. the sharded path on a one-card (1, 1) mesh: an NCCL process group of
+     one rank, ``make_local_mesh(1, 1)``, the sharding context set from
+     it; qwen3-8b trained one step at depth 2 on ``shard_tree(state,
+     state_specs)`` and served at full depth on ``param_specs(mode=
+     "serve")`` with ``cache_specs`` caches, each against the unsharded
+     run of the same weights (loss, updated parameters, greedy ids, and
+     equal kernel launch counts); the process group is destroyed after.
+     One card moves no data between cards: this proves NCCL, DTensor
+     dispatch and the kernels on local shards, not communication.
+Each phase prints its wall time, and the run its total. The last lines
+are a JSON line of per-kernel numbers (flash attention at the qwen3-8b
+serving shape with the served prefill's launches, "flash_attention_train" at the training shape
 with the timed train steps' launches, "wkv6_train" and "mamba_scan_train"
 at rwkv6-3b's and hymba-1.5b's training microbatch with their timed train
 steps' launches, both attention kernels once more for
@@ -170,19 +186,31 @@ BF16_ERR_RATIO = 1.1
 # phase 5: models trained at full width, each at the depth whose state
 # fits one card's 80 GB (16 bytes a parameter: bf16 weights and grads, the
 # fp32 accumulator, m and v): qwen3-8b cut to 8 of its 36 layers (44.6 GB
-# against 131 GB at full depth), rwkv6-3b (49.2 GB) and hymba-1.5b (22.4
-# GB) at full depth; TRAIN_4K's 4096 tokens a sequence, TRAIN_BATCH of its
-# 256 sequences a step (the run's time limit) in each config's grad_accum
-# microbatches (qwen3-8b and rwkv6-3b: 4 of TRAIN_MICRO, hymba-1.5b: 2 of
-# 4)
-TRAINED = {"qwen3-8b": 8, "rwkv6-3b": 32, "hymba-1.5b": 32}
+# against 131 GB at full depth), moonshot-v1-16b-a3b to 4 of its 48 (47.3
+# GB: its embedding and LM head hold 0.335 B parameters each, each layer
+# 0.570 B), rwkv6-3b (49.2 GB) and hymba-1.5b (22.4 GB) at full depth;
+# TRAIN_4K's 4096 tokens a sequence, TRAIN_BATCH of its 256 sequences a
+# step (the run's time limit) in each config's grad_accum microbatches
+# (qwen3-8b, moonshot and rwkv6-3b: 4 of TRAIN_MICRO, hymba-1.5b: 2 of 4)
+TRAINED = {"qwen3-8b": 8, "moonshot-v1-16b-a3b": 4, "rwkv6-3b": 32,
+           "hymba-1.5b": 32}
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 4096, 8, 2
 # the kernel path against the plain one at depth 2, (model, S, B): qwen3-8b
-# at the training shape; rwkv6-3b and hymba-1.5b at 2048 tokens (8 of the
-# 256-step remat chunks, twice hymba's window), where the plain loops'
-# 2048 steps under autograd take seconds, not minutes
-COMPARED = (("qwen3-8b", TRAIN_SEQ, TRAIN_MICRO), ("rwkv6-3b", 2048, 2),
-            ("hymba-1.5b", 2048, 2))
+# and moonshot at the training shape; rwkv6-3b and hymba-1.5b at 2048
+# tokens (8 of the 256-step remat chunks, twice hymba's window), where the
+# plain loops' 2048 steps under autograd take seconds, not minutes
+COMPARED = (("qwen3-8b", TRAIN_SEQ, TRAIN_MICRO),
+            ("moonshot-v1-16b-a3b", TRAIN_SEQ, TRAIN_MICRO),
+            ("rwkv6-3b", 2048, 2), ("hymba-1.5b", 2048, 2))
+# phase 5f, the grouped MoE dispatch against the flat one: moonshot at
+# depth 1 in fp32, GROUPED_SHAPE (B, S), MOE_GROUPS groups; drop-free
+# (cf = E) its capacity buffers are E / 1.25 = 51x the served ones, which
+# bounds the microbatch: 2 x 1024 tokens
+GROUPED_SHAPE, MOE_GROUPS = (2, 1024), 4
+# phase 6, the sharded path on a (1, 1) mesh: qwen3-8b trained one step at
+# depth SHARDED_TRAIN_DEPTH ((B, S) a microbatch, grad_accum microbatches
+# of the config), and served at full depth (PROMPT_LEN and 3 decode steps)
+SHARDED_TRAIN_DEPTH, SHARDED_TRAIN_SHAPE = 2, (2, 2048)
 # the recurrence backwards against the plain loops: two remat chunks
 RECURRENT_CHECK_SEQ = 512
 # the leaves that feed each recurrence, which must all get a gradient
@@ -1339,18 +1367,21 @@ def compare_paths(params, cfg, batch: dict, steps: list) -> None:
                                  f"disagree with the plain path's")
 
 
-def profile(label: str, fn, step_ms: float, top: int = 8):
+def profile(label: str, fn, step_ms: float, top: int = 8,
+            shapes: bool = False):
     """Device time of one call by kernel, from torch.profiler, beside the
     call's time measured without the profiler (``step_ms``). Returns the
-    profiler's averages by event."""
+    profiler's averages by event (with ``shapes``, by event and input
+    shapes)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
+                                            ProfilerActivity.CUDA],
+                                record_shapes=shapes) as prof:
         fn()
         torch.cuda.synchronize()
-    averages = prof.key_averages()
+    averages = prof.key_averages(group_by_input_shape=shapes)
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in averages
                    if e.device_type == DeviceType.CUDA), reverse=True)
@@ -1365,6 +1396,56 @@ def profile(label: str, fn, step_ms: float, top: int = 8):
     for ms, n, key in rows[:top]:
         log(f"    {ms:9.3f} ms {n:5d}x  {key[:100]}")
     return averages
+
+
+def dispatch_shares(averages, cfg) -> None:
+    """The MoE layer's device time by part, forward, remat recompute and
+    backward together, from a profile by operator and input shape: each
+    operator's kernels, told from other layers' uses of the same operator
+    by its first input's shape (the expert products' leading dim is E,
+    the routing softmax's last dim E, the embedding's index and its
+    gradient's scatter lead with the vocab)."""
+    from torch.autograd import DeviceType
+    e, v = cfg.n_experts, cfg.vocab_size
+
+    def part(ev):
+        shape = next(iter(ev.input_shapes or []), None) or []
+        lead = shape[0] if shape else None
+        if ev.key == "aten::bmm":
+            # (E, rows, d or f) operands; attention's backward leads with
+            # B x heads and ends with hd
+            return "expert bmm" if lead == e and (
+                cfg.d_model in shape or cfg.d_ff in shape) else None
+        if ev.key == "aten::topk" or (
+                ev.key in ("aten::_softmax", "aten::_softmax_backward_data")
+                and shape and shape[-1] == e):
+            return "routing (softmax, top-k)"
+        if ev.key in ("aten::one_hot", "aten::cumsum"):
+            return "one_hot and cumsum"
+        if ev.key == "aten::_index_put_impl_":
+            return "index_put_ (scatter)" if lead != v else None
+        if ev.key == "aten::index" or (ev.key == "aten::gather"
+                                       and lead == e):
+            return "gather" if lead != v else None
+        return None
+
+    sums: dict = {}
+    for ev in averages:
+        name = part(ev) if ev.device_type == DeviceType.CPU else None
+        if name:
+            ms, n = sums.get(name, (0.0, 0))
+            sums[name] = (ms + ev.device_time_total / 1e3, n + ev.count)
+    busy = sum(ev.self_device_time_total for ev in averages
+               if ev.device_type == DeviceType.CUDA) / 1e3
+    dispatch = sum(ms for k, (ms, _) in sums.items() if k != "expert bmm")
+    log(f"  MoE layer by part, of {busy:.1f} ms busy in the microbatch: "
+        + "; ".join(f"{k} {ms:.1f} ms ({100 * ms / busy:.1f} %, {n} calls)"
+                    for k, (ms, n) in sums.items())
+        + f"; the dispatch (all but the expert bmm) {dispatch:.1f} ms "
+        f"({100 * dispatch / busy:.1f} %)")
+    if "expert bmm" not in sums or dispatch <= 0:
+        raise AssertionError(f"the MoE profile found no expert bmm or no "
+                             f"dispatch: {sums}")
 
 
 def _leaves(tree):
@@ -1568,11 +1649,22 @@ def time_training_shape(q, k, v, dout, fwd_err: float) -> dict:
         F.scaled_dot_product_attention(*leaves, is_causal=True,
                                        enable_gqa=True).backward(dt)
     lib_both = time_ms(sdpa_fwd_bwd, 5)
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                              enable_gqa=True)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dt,
+                                                  retain_graph=True), 5)
+    # the backward alone: dV, dP, dQ and dK, twice the forward's products;
+    # q, k, v and dout read once, dq, dk, dv written once
+    bwd_bound, bwd_by = bound_ms(
+        (2 * (q.numel() + k.numel() + v.numel()) + dout.numel())
+        * q.element_size(), {q.dtype: 2 * fwd_flops})
     log(f"  training shape B={b} S={s} bf16: kernel forward {fwd:.4f} ms "
         f"(plain {plain:.4f}, SDPA {lib:.4f}, bound {bound:.4f} ms by "
-        f"{by}); flash_attention_bwd {bwd:.4f} ms (kernel forward + it "
-        f"{fwd + bwd:.4f} ms, SDPA forward + backward {lib_both:.4f} ms, "
-        f"bound of both {bound_ms(0, {q.dtype: 3 * fwd_flops})[0]:.4f} ms)")
+        f"{by}); flash_attention_bwd {bwd:.4f} ms (bound {bwd_bound:.4f} ms "
+        f"by {bwd_by}, SDPA's backward alone {lib_bwd:.4f} ms; kernel "
+        f"forward + it {fwd + bwd:.4f} ms, SDPA forward + backward "
+        f"{lib_both:.4f} ms, bound of both "
+        f"{bound_ms(0, {q.dtype: 3 * fwd_flops})[0]:.4f} ms)")
     entry = {"name": "flash_attention_train", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention.py:75",
@@ -1583,8 +1675,9 @@ def time_training_shape(q, k, v, dout, fwd_err: float) -> dict:
 
 def train_bound(cfg, seqs: int) -> tuple[float, str, float]:
     """Least time of one train step over ``seqs`` sequences of TRAIN_SEQ
-    tokens: 6 flops per matmul parameter (layer projections and MLP or
-    RWKV's channel mix, RWKV's time-mix projections and decay LoRA,
+    tokens: 6 flops per matmul parameter (layer projections and MLP, the
+    k routed experts of a MoE layer and its fp32 router, or RWKV's
+    channel mix, RWKV's time-mix projections and decay LoRA,
     Mamba's projections, the LM head; not the embedding gather) per token
     in bf16; causal attention's forward and its backward (2x) over the
     pairs inside the window, in bf16 (none for RWKV); the recurrence's
@@ -1601,8 +1694,14 @@ def train_bound(cfg, seqs: int) -> tuple[float, str, float]:
         fp32 = sum(wkv6_flops(tokens, heads, cfg.rwkv_head_dim))
         attn = 0
     else:
+        # MoE: the k experts a token is routed to, and arctic's dense
+        # residual beside them; the fp32 router's flops below
+        ffn = 3 * d * f * (cfg.experts_per_token + cfg.moe_dense_residual) \
+            if cfg.is_moe else 3 * d * f
         per_layer = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd \
-            + cfg.n_heads * hd * d + 3 * d * f
+            + cfg.n_heads * hd * d + ffn
+        if cfg.is_moe:
+            fp32 = 6 * d * cfg.n_experts * tokens
         pairs = visible_pairs(TRAIN_SEQ, cfg.sliding_window)
         attn = 3 * 4 * cfg.n_heads * hd * pairs * seqs
     if cfg.hybrid_ssm:
@@ -1989,21 +2088,27 @@ def train_full_width(arch: str, bwd_ms: dict) -> dict:
     kernel = "wkv6" if cfg.attn_free else "mamba_scan" if cfg.hybrid_ssm \
         else "flash_attention"
     calls = cfg.n_layers * accum
+    # the attention backward was timed at qwen3-8b's heads; moonshot's
+    # share is in the CUDA-event spans below
+    alone = "" if cfg.is_moe else (
+        f"; {kernel} backward alone at this shape {bwd_ms[kernel]:.3f} ms x "
+        f"{calls} calls = {bwd_ms[kernel] * calls:.1f} ms a step "
+        f"({100 * bwd_ms[kernel] * calls / mean:.1f} %)")
     log(f"  {TIMED_STEPS} timed steps: mean {mean:.1f} ms "
         f"({tokens * 1e3 / mean:.0f} tokens/s, train_mfu "
-        f"{bound / mean:.4f}); {kernel} backward alone at this shape "
-        f"{bwd_ms[kernel]:.3f} ms x {calls} calls = "
-        f"{bwd_ms[kernel] * calls:.1f} ms a step "
-        f"({100 * bwd_ms[kernel] * calls / mean:.1f} %)")
+        f"{bound / mean:.4f}){alone}")
     batch = ts.to_device(synth_batch(cfg, shape, 1 + TIMED_STEPS), "cuda")
-    if cfg.attn_free or cfg.hybrid_ssm:
-        # a step of these runs ~10^5 kernels: the profile takes one
-        # microbatch of the step's grad_accum
+    if cfg.attn_free or cfg.hybrid_ssm or cfg.is_moe:
+        # a step of these runs ~10^5 kernels (MoE: the dispatch's shares
+        # are read per microbatch): the profile takes one microbatch of
+        # the step's grad_accum
         micro = ts._split_microbatches(batch, accum)[0]
         averages = profile(f"one microbatch of {accum} of a train step",
                            lambda: ts.loss_and_grads(state["params"], cfg,
                                                      micro),
-                           mean / accum, top=12)
+                           mean / accum, top=12, shapes=cfg.is_moe)
+        if cfg.is_moe:
+            dispatch_shares(averages, cfg)
     else:
         averages = profile("train step", lambda: ts.train_step(
             state, batch, cfg, opt_cfg), mean, top=12)
@@ -2029,7 +2134,11 @@ def compare_train_paths(arch: str, seq: int, micro: int) -> None:
     BWD_BF16_RATIO x the plain path's own error. The embedding's bf16
     scatter-add drifts far from fp32 on both paths (as JAX's does:
     tests/test_torch_bf16_grads.py), so the other leaves are held apart
-    from it, to their own much smaller error."""
+    from it, to their own much smaller error. MoE routing is
+    discontinuous (``compare_paths``): the fp32 plain path runs first and
+    its expert choices pin both bf16 paths (the same experts, each path's
+    own gates), and the fp32 kernel path too where its own choices are not
+    all the same."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.train.data import synth_batch
@@ -2039,17 +2148,31 @@ def compare_train_paths(arch: str, seq: int, micro: int) -> None:
     batch = synth_batch(cfg, ShapeConfig("t", "train", seq, micro), 0)
     batch = to_device(batch, "cuda")
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
-    runs = {}
-    for dt, c in (("bf16", cfg), ("fp32", cfg32)):
-        p = params if dt == "bf16" else _map(params, lambda t: t.float())
-        for impl in ("kernel", "reference"):
+
+    def run(p, c, impl, record=None, pinned=None):
+        with routing(record=record, pinned=pinned):
             loss, grads = loss_and_grads(p, c, batch, impl)
-            embed = grads.pop("embed").float()
-            rest = torch.cat([g.float().flatten() for g in _leaves(grads)])
-            norm = torch.cat([embed.flatten(), rest]).norm().item()
-            runs[dt, impl] = (loss.item(), norm, embed.cpu(), rest.cpu())
-            del grads, embed, rest
-        del p
+        embed = grads.pop("embed").float()
+        rest = torch.cat([g.float().flatten() for g in _leaves(grads)])
+        norm = torch.cat([embed.flatten(), rest]).norm().item()
+        return loss.item(), norm, embed.cpu(), rest.cpu()
+
+    runs, truth, own = {}, [], []
+    p = _map(params, lambda t: t.float())
+    runs["fp32", "reference"] = run(p, cfg32, "reference", record=truth)
+    runs["fp32", "kernel"] = run(p, cfg32, "kernel", record=own)
+    pinned = truth if cfg.is_moe else None
+    if cfg.is_moe:
+        share = routing_agreement(own, truth)
+        log(f"  MoE routing: fp32 kernel path's own expert choices equal "
+            f"the fp32 plain path's on {share:.6f} of (token, call); bf16 "
+            f"paths{' and the fp32 kernel path' if share < 1 else ''} "
+            f"routed as the fp32 plain path")
+        if share < 1:
+            runs["fp32", "kernel"] = run(p, cfg32, "kernel", pinned=truth)
+    del p
+    for impl in ("kernel", "reference"):
+        runs["bf16", impl] = run(params, cfg, impl, pinned=pinned)
     del params
     t_loss, t_norm, t_embed, t_rest = runs["fp32", "reference"]
     for key, (loss, norm, _, _) in runs.items():
@@ -2184,6 +2307,212 @@ def run_training_resumes() -> None:
         raise AssertionError(f"resume diverged: rel {worst}")
 
 
+def check_grouped_dispatch() -> None:
+    """Phase 5f: moonshot's group-local MoE dispatch (``set_moe_groups``)
+    against the flat one, at full width, depth 1, fp32 (routing is then
+    computed once, on equal inputs), one microbatch of GROUPED_SHAPE
+    through ``loss_and_grads``. Drop-free (cf = E) both compute one
+    function: loss and gradients within FP32_REL_TOL. At the config's cf
+    1.25 the group-local capacity drops other rows: the gradients must
+    differ by more than 10 x FP32_REL_TOL. The grouped path's calls are
+    counted (2 a layer with remat)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import moe
+    from repro_torch.sharding import ctx
+    from repro_torch.train.data import synth_batch
+    from repro_torch.train.train_step import loss_and_grads, to_device
+    full = get_arch("moonshot-v1-16b-a3b")
+    b, s = GROUPED_SHAPE
+    for cf in (float(full.n_experts), full.capacity_factor):
+        cfg = dataclasses.replace(full, n_layers=1, param_dtype="float32",
+                                  capacity_factor=cf)
+        params = init_params_cuda(cfg)
+        batch = to_device(synth_batch(cfg, ShapeConfig("t", "train", s, b),
+                                      0), "cuda")
+        runs = {}
+        for groups in (1, MOE_GROUPS):
+            ctx.set_moe_groups(groups)
+            try:
+                with mock.patch.object(moe, "_apply_moe_grouped",
+                                       wraps=moe._apply_moe_grouped) as spy:
+                    loss, grads = loss_and_grads(params, cfg, batch)
+            finally:
+                ctx.set_moe_groups(1)
+            torch.cuda.synchronize()
+            runs[groups] = (loss.item(), torch.cat(
+                [g.flatten() for g in _leaves(grads)]), spy.call_count)
+            del grads
+        (lf, gf, nf), (lg, gg, ng) = runs[1], runs[MOE_GROUPS]
+        dl, dg = abs(lg - lf) / abs(lf), rel_err(gg, gf)
+        log(f"  moonshot depth 1 fp32, {b} x {s} tokens, cf {cf}: flat loss "
+            f"{lf:.6f}, {MOE_GROUPS} groups {lg:.6f} (grouped calls {ng}, "
+            f"flat run {nf}); relative differences: loss {dl:.3e}, "
+            f"gradients (rel L2) {dg:.3e}")
+        if nf != 0 or ng != 2 * cfg.n_layers:
+            raise AssertionError(f"grouped dispatch calls: flat {nf}, "
+                                 f"grouped {ng}")
+        if not all(map(math.isfinite, (lf, lg))):
+            raise AssertionError(f"losses {lf}, {lg}")
+        if cf == full.n_experts and max(dl, dg) > FP32_REL_TOL:
+            raise AssertionError("drop-free grouped dispatch disagrees with "
+                                 "the flat one")
+        if cf != full.n_experts and dg <= 10 * FP32_REL_TOL:
+            raise AssertionError("at cf 1.25 the grouped dispatch gives the "
+                                 "flat one's gradients: no group-local "
+                                 "capacity ran")
+        del params, batch, runs, gf, gg
+        free()
+
+
+def sharded_train(mesh) -> None:
+    """Phase 6a: qwen3-8b at full width and depth SHARDED_TRAIN_DEPTH, one
+    train step (grad_accum microbatches of SHARDED_TRAIN_SHAPE) from the
+    same seed twice: unsharded, then on ``shard_tree(state,
+    state_specs)`` with the batch by ``batch_specs``. The loss, grad norm
+    and updated parameters must agree (relative L2 within FP32_REL_TOL),
+    with the same launch counts of every kernel."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import rules
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.data import synth_batch
+    from repro_torch.train.optimizer import OptConfig
+    cfg = dataclasses.replace(get_arch("qwen3-8b"),
+                              n_layers=SHARDED_TRAIN_DEPTH)
+    opt_cfg = OptConfig(name=cfg.optimizer, warmup_steps=2, total_steps=100)
+    b, s = SHARDED_TRAIN_SHAPE
+    shape = ShapeConfig("t", "train", s, b * cfg.grad_accum)
+    batch = ts.to_device(synth_batch(cfg, shape, 0), "cuda")
+    runs = {}
+    for sharded in (False, True):
+        state = ts.init_train_state(torch.Generator("cuda").manual_seed(0),
+                                    cfg, opt_cfg)
+        feed = batch
+        if sharded:
+            state = rules.shard_tree(state, rules.state_specs(state, mesh),
+                                     mesh)
+            feed = rules.shard_tree(batch, rules.batch_specs(batch, mesh),
+                                    mesh)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        state, m = ts.train_step(state, feed, cfg, opt_cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        wq = state["params"]["layers"]["attn"]["wq"]
+        runs[sharded] = (float(m["loss"]), float(m["grad_norm"]),
+                         [ts.whole(t).clone() for t in
+                          _leaves(state["params"])], ops.launch_counts(), ms,
+                         getattr(wq, "placements", None))
+        del state, m, wq
+        free()
+    (l0, n0, p0, c0, ms0, _), (l1, n1, p1, c1, ms1, pl) = runs[False], \
+        runs[True]
+    num = sum(float((a.float() - b.float()).square().sum())
+              for a, b in zip(p1, p0))
+    den = sum(float(b.float().square().sum()) for b in p0)
+    worst = max(max_err(a, b) for a, b in zip(p1, p0))
+    err = (num / den) ** 0.5
+    log(f"  qwen3-8b depth {cfg.n_layers}, {cfg.grad_accum} x {b} x {s} "
+        f"tokens, one step: unsharded loss {l0:.6f}, grad norm {n0:.6f}, "
+        f"{ms0:.1f} ms (host clock, first step); on the (1, 1) mesh loss "
+        f"{l1:.6f}, grad norm {n1:.6f}, {ms1:.1f} ms; updated parameters "
+        f"rel L2 {err:.3e}, max abs {worst:.3e}; wq placed {pl}; launches "
+        f"{c0} and {c1}")
+    if c0 != c1 or c0["flash_attention"] != 2 * cfg.n_layers \
+            * cfg.grad_accum:
+        raise AssertionError(f"launch counts: unsharded {c0}, sharded {c1}")
+    if abs(l1 - l0) / l0 > FP32_REL_TOL or abs(n1 - n0) / n0 \
+            > FP32_REL_TOL or err > FP32_REL_TOL:
+        raise AssertionError("the sharded train step disagrees with the "
+                             "unsharded one")
+
+
+def sharded_serve(mesh) -> None:
+    """Phase 6b: qwen3-8b at full width and depth served from seeded
+    prompts (REQUESTS x PROMPT_LEN) through prefill and 3 greedy
+    decode_steps twice: unsharded, then on ``param_specs(mode="serve")``
+    with the prompts, ids and positions by ``batch_specs`` and the caches
+    by ``cache_specs`` (``preallocate_cache`` lays them out). The greedy
+    ids must be equal, the logits within FP32_REL_TOL (relative L2), and
+    the flash attention and flash decode launches equal: the kernels ran
+    on the local shards."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serve.engine import preallocate_cache
+    from repro_torch.sharding import rules
+    from repro_torch.train.train_step import whole
+    cfg = get_arch("qwen3-8b")
+    params = init_params_cuda(cfg)
+    gen = torch.Generator("cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (REQUESTS, PROMPT_LEN),
+                            generator=gen, device="cuda")
+
+    def batch(tree, sharded):
+        return rules.shard_tree(tree, rules.batch_specs(tree, mesh), mesh) \
+            if sharded else tree
+
+    def serve(p, sharded):
+        ops.reset_launches()
+        logits, caches, pos = prefill(p, cfg, batch({"tokens": prompts},
+                                                    sharded))
+        caches = preallocate_cache(cfg, caches, PROMPT_LEN + 3)
+        outs, ids = [whole(logits)], []
+        for i in range(3):
+            ids.append(outs[-1].argmax(-1))
+            fed = batch({"t": ids[-1], "p": pos + i}, sharded)
+            logits, caches = decode_step(p, cfg, fed["t"], caches, fed["p"])
+            outs.append(whole(logits))
+        torch.cuda.synchronize()
+        placed = getattr(caches["kv"]["k"], "placements", None)
+        return outs, torch.stack(ids), ops.launch_counts(), placed
+
+    with torch.no_grad():
+        o0, i0, c0, _ = serve(params, False)
+        sparams = rules.shard_tree(params, rules.param_specs(
+            params, mesh, mode="serve"), mesh)
+        o1, i1, c1, placed = serve(sparams, True)
+    errs = [rel_err(a, b) for a, b in zip(o1, o0)]
+    log(f"  qwen3-8b served, {REQUESTS} x {PROMPT_LEN} prompt tokens + 3 "
+        f"decode steps: greedy ids equal {bool((i0 == i1).all())}; logits "
+        f"rel L2 (prefill, decode 1-3) {', '.join(f'{e:.3e}' for e in errs)}"
+        f"; caches placed {placed}; launches unsharded {c0}, sharded {c1}")
+    want = cfg.n_layers
+    if c0 != c1 or c0["flash_attention"] != want or \
+            c0["decode_attention"] != 3 * want:
+        raise AssertionError(f"launch counts: unsharded {c0}, sharded {c1}")
+    if not (i0 == i1).all() or max(errs) > FP32_REL_TOL:
+        raise AssertionError("sharded serving disagrees with unsharded")
+
+
+def sharded_phase() -> None:
+    """Phase 6: the sharded path on a one-card (1, 1) mesh: an NCCL process
+    group of one rank on a local store, ``make_local_mesh(1, 1)``, the
+    sharding context set from it. It proves NCCL, DTensor dispatch and the
+    kernels on local shards; with one card it moves no data between
+    cards, so it does not measure communication."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding import ctx
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_local_mesh(1, 1, device="cuda")
+        ctx.set_axes(*ctx.axes_from_mesh(mesh))
+        with phase("6a, qwen3-8b train step on the (1, 1) mesh"):
+            sharded_train(mesh)
+            free()
+        with phase("6b, qwen3-8b served on the (1, 1) mesh"):
+            sharded_serve(mesh)
+            free()
+    finally:
+        ctx.clear()
+        dist.destroy_process_group()
+
+
 def free() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -2211,6 +2540,9 @@ def train_phase() -> list:
             free()
     with phase("5e, run_training resumes"):
         run_training_resumes()
+    with phase("5f, moonshot's grouped MoE dispatch against the flat one"):
+        check_grouped_dispatch()
+        free()
     launched_by = {"flash_attention_train": ("qwen3-8b", "flash_attention"),
                    "wkv6_train": ("rwkv6-3b", "wkv6"),
                    "mamba_scan_train": ("hymba-1.5b", "mamba_scan")}
@@ -2238,6 +2570,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t0 = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.kernels.ops  # noqa: F401  (fails outside the repo)
     with phase("1, environment and build"):
@@ -2275,11 +2608,15 @@ def main() -> int:
         free()
     with phase("5, training"):
         trained = train_phase()
+    with phase("6, the sharded path on a (1, 1) mesh"):
+        sharded_phase()
     for k in kernels:
         arch, kernel = launched_by[k["name"]]
         k["launches"] = launches[arch][kernel]
     # the kernels at the training shapes, launched by the timed train steps
     kernels += trained
+    log(f"chip_smoke.py: all phases passed in {time.perf_counter() - t0:.1f}"
+        f" s")
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]

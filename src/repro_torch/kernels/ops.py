@@ -21,6 +21,15 @@ no JAX kernel: it takes the model's (B, S, ...) layout only.
 
 Each wrapper counts its launches in ``.launches``; ``mamba_scan`` also
 counts in ``.token_launches`` those that ran its token body (decode).
+
+Under a mesh (``sharding.ctx``) the attention functions take DTensors:
+batch on the data-parallel axes, heads (query and KV alike) on
+``model``. They run the kernel, or on the CPU its plain version, on each
+rank's local heads through ``local_map``, which moves the inputs to those
+placements first; ``FlashAttentionFn``'s backward runs inside the same
+map. A dim the mesh does not divide stays whole on every rank (the
+rules' fallback), and so do a GQA model's heads unless both head counts
+divide.
 """
 
 from __future__ import annotations
@@ -29,6 +38,8 @@ from typing import Optional
 
 import torch
 
+from ..sharding import ctx as _ctx
+from ..sharding.rules import to_placements
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import mamba_scan as _mamba
@@ -51,6 +62,30 @@ def reset_launches() -> None:
 def launch_counts() -> dict:
     """{kernel name: launches since the last ``reset_launches``}."""
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+# roles of the attention operands under a mesh: the model's layout,
+# (B, S, H, hd) and decode's q (B, Hkv, grp, hd), cache_len (B,)
+SEQ_ROLES = ("dp", None, "tp", None)
+DECODE_Q_ROLES = ("dp", "tp", None, None)
+
+
+def _on_local_heads(fn, args: tuple, roles: tuple, heads: tuple):
+    """``fn(*args)`` on each rank's shards of DTensor ``args`` (a None role
+    passes its argument as it is), the output laid out as ``args[0]``.
+    ``heads``: (arg index, dim) of each head count; ``model`` shards them
+    only if it divides them all."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = args[0].device_mesh
+    if not all(_ctx.fitted_spec((args[i].shape[d],), ("tp",), mesh)[0]
+               for i, d in heads):
+        roles = [r and tuple(None if x == "tp" else x for x in r)
+                 for r in roles]
+    placements = [None if r is None else to_placements(
+        _ctx.fitted_spec(a.shape, r, mesh), mesh) for a, r in zip(args, roles)]
+    return local_map(fn, out_placements=list(placements[0]),
+                     in_placements=tuple(placements), device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
 
 
 def _check_impl(impl: str) -> None:
@@ -84,6 +119,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               v.transpose(0, 1)[None], window=window,
                               impl=impl)
         return out[0].transpose(0, 1)
+    if _ctx.sharded(q):
+        return _on_local_heads(
+            lambda q, k, v: flash_attention(q, k, v, window=window,
+                                            impl=impl),
+            (q, k, v), (SEQ_ROLES,) * 3, ((0, 2), (1, 2)))
     if impl == "reference":
         return _flash.flash_attention_plain(q, k, v, window)
     if torch.is_grad_enabled():
@@ -104,6 +144,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         out = decode_attention(q[:, None], k_cache[:, :, None],
                                v_cache[:, :, None], cache_len, impl=impl)
         return out[:, 0]
+    if _ctx.sharded(q):
+        return _on_local_heads(
+            lambda q, k, v, n: decode_attention(q, k, v, n, impl=impl),
+            (q, k_cache, v_cache, cache_len),
+            (DECODE_Q_ROLES, SEQ_ROLES, SEQ_ROLES, ("dp",)),
+            ((0, 1), (1, 2)))
     if impl == "reference":
         return _decode.decode_attention_plain(q, k_cache, v_cache, cache_len)
     return _decode.decode_attention(q, k_cache, v_cache, cache_len)

@@ -3,10 +3,14 @@ routing, the Switch auxiliary loss, capacity-based dispatch into an
 ``(E, C, d)`` buffer, the experts' SwiGLU batched over experts, the gated
 combine, and arctic's parallel dense residual.
 
-Only the flat dispatch (one capacity pool) is ported. JAX's group-local
-dispatch (``_apply_moe_grouped``) runs only when its sharding context gives
-more than one group, which needs the sharding port (ROADMAP.md queue 1,
-"Sharding").
+Two dispatch layouts, which ``sharding.ctx.moe_groups()`` selects as in
+JAX: the flat one (one capacity pool over all T tokens), and with G > 1
+groups dividing T the group-local one (``_apply_moe_grouped``): the tokens
+split into G contiguous slices, each with a private capacity slice of
+``max(1, int(cf * (T / G) * k / E))`` rows of every expert, ranked within
+its group, so the dispatch and the combine touch only the group's own rows.
+At a drop-free capacity both compute the same function; at cf 1.25 they
+drop different rows. The ``constrain`` calls stand where JAX's do.
 
 The reference computes capacity from the call's own token count, so a
 decode step of B tokens gets ``max(1, int(cf * B * k / E))`` slots per
@@ -23,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from .layers import dense_init, swiglu
+from ..sharding.ctx import constrain, moe_groups
+from .layers import dense_init
 
 
 def _expert_init(gen: torch.Generator, shape: tuple,
@@ -77,10 +82,11 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ArchConfig
     last slot, adding 0), the combine by a gather."""
     t, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
+    groups = moe_groups()
+    if groups > 1 and t % groups == 0:
+        return _apply_moe_grouped(p, x, cfg, groups)
     gates, idx, probs = route(p, x, cfg)
-    # Switch auxiliary loss: mean router probability x share of first picks
-    first = F.one_hot(idx[:, 0], e).to(torch.float32)
-    aux = e * (probs.mean(dim=0) * first.mean(dim=0)).sum()
+    aux = _aux_loss(probs, idx, e)
 
     capacity = max(1, int(cfg.capacity_factor * t * k / e))
     flat_e = idx.reshape(-1)                                   # (T*k,)
@@ -95,9 +101,13 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ArchConfig
     x_rep = x.repeat_interleave(k, dim=0) * valid
     buf = torch.zeros((e, capacity, d), dtype=x.dtype, device=x.device)
     buf.index_put_((flat_e, pos), x_rep, accumulate=True)
+    # expert dim on the model axis (EP)
+    buf = constrain(buf, "tp", None, None)
 
-    h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
-    out_buf = torch.bmm(h, p["w_down"])                       # (E, C, d)
+    g = constrain(torch.bmm(buf, p["w_gate"]), "tp", None, None)
+    u = constrain(torch.bmm(buf, p["w_up"]), "tp", None, None)
+    out_buf = constrain(torch.bmm(F.silu(g) * u, p["w_down"]),
+                        "tp", None, None)                     # (E, C, d)
     gathered = out_buf[flat_e, pos] * (
         gates.reshape(-1, 1).to(x.dtype) * valid)
     out = gathered.view(t, k, d).sum(dim=1)
@@ -106,6 +116,62 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ArchConfig
     return out, aux
 
 
+def _aux_loss(probs: torch.Tensor, idx: torch.Tensor, e: int
+              ) -> torch.Tensor:
+    """Switch auxiliary loss: E x sum over experts of the mean router
+    probability x the share of first picks."""
+    first = F.one_hot(idx[:, 0], e).to(torch.float32)
+    return e * (probs.mean(dim=0) * first.mean(dim=0)).sum()
+
+
 def _dense_residual(p: dict, x: torch.Tensor) -> torch.Tensor:
     dp = p["dense"]
-    return swiglu(x, dp["w_gate"], dp["w_up"], dp["w_down"])
+    g = constrain(x @ dp["w_gate"], "dp", "tp")
+    u = constrain(x @ dp["w_up"], "dp", "tp")
+    return constrain((F.silu(g) * u) @ dp["w_down"], "dp", None)
+
+
+def _apply_moe_grouped(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                       groups: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Group-local dispatch: the T tokens split into ``groups`` contiguous
+    slices aligned with the data sharding; each group has a private
+    per-expert capacity slice of ``cap_g`` rows, ranked in token-major
+    order within the group, so the scatter and the combine gather touch
+    only group-local rows. The buffer is (G, E, cap_g, d); the expert
+    products run on its (E, G, cap_g, d) transpose, experts on tp and
+    groups on dp, as JAX's 4-D einsums do."""
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    tg = t // groups
+    gates, idx, probs = route(p, x, cfg)
+    aux = _aux_loss(probs, idx, e)
+
+    cap_g = max(1, int(cfg.capacity_factor * tg * k / e))
+    flat_e = idx.reshape(groups, tg * k)                       # (G, Tg*k)
+    # rank within the group: a scan along the contiguous axis of the
+    # (G, E, Tg*k) one-hot, as the flat dispatch scans (E, T*k)
+    onehot = F.one_hot(flat_e, e).transpose(1, 2).contiguous()
+    pos = onehot.cumsum(dim=2).gather(1, flat_e[:, None])[:, 0] - 1
+    valid = (pos < cap_g).to(x.dtype)[..., None]               # (G, Tg*k, 1)
+    pos = pos.clamp(0, cap_g - 1)
+    x_rep = constrain(x.view(groups, tg, d).repeat_interleave(k, dim=1)
+                      * valid, "dp", None, None)               # (G, Tg*k, d)
+    buf = torch.zeros((groups, e, cap_g, d), dtype=x.dtype, device=x.device)
+    gidx = torch.arange(groups, device=x.device)[:, None].expand(
+        groups, tg * k)
+    buf.index_put_((gidx, flat_e, pos), x_rep, accumulate=True)
+    buf = constrain(buf.transpose(0, 1), "tp", "dp", None, None)
+
+    g = constrain(torch.einsum("egcd,edf->egcf", buf, p["w_gate"]),
+                  "tp", "dp", None, None)
+    u = constrain(torch.einsum("egcd,edf->egcf", buf, p["w_up"]),
+                  "tp", "dp", None, None)
+    out_buf = constrain(torch.einsum("egcf,efd->egcd", F.silu(g) * u,
+                                     p["w_down"]), "tp", "dp", None, None)
+    gathered = out_buf.transpose(0, 1)[gidx, flat_e, pos] * (
+        gates.reshape(groups, tg * k, 1).to(x.dtype) * valid)
+    out = constrain(gathered.view(groups, tg, k, d).sum(dim=2).reshape(t, d),
+                    "dp", None)
+    if cfg.moe_dense_residual:
+        out = out + _dense_residual(p, x)
+    return out, aux

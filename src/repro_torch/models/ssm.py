@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
+from ..sharding.ctx import constrain
 from .layers import dense_init, group_norm_heads
 
 DECAY_LORA = 64
@@ -100,16 +101,20 @@ def apply_rwkv_tmix(p: dict, x: torch.Tensor, cfg: ArchConfig,
     def mix(i):
         return x + (xx - x) * p["mu"][i].to(x.dtype)
 
-    r = (mix(0) @ p["w_r"]).view(b, s, h, hd)
-    k = (mix(1) @ p["w_k"]).view(b, s, h, hd)
-    v = (mix(2) @ p["w_v"]).view(b, s, h, hd)
-    g = mix(4) @ p["w_g"]
+    def proj(i, w):
+        return constrain(mix(i) @ w, "dp", None, "tp")
+
+    r = proj(0, p["w_r"]).view(b, s, h, hd)
+    k = proj(1, p["w_k"]).view(b, s, h, hd)
+    v = proj(2, p["w_v"]).view(b, s, h, hd)
+    g = proj(4, p["w_g"])
     decay = rwkv_decay(p, mix(3)).view(b, s, h, hd)
     # JAX's vmemkernel_wkv6 scope: the recurrence in fp32
     y, wkv = ops.wkv6(r.float(), k.float(), v.float(), decay, p["bonus_u"],
                       None if state is None else state["wkv"], impl=impl)
     y = group_norm_heads(y, p["ln_w"], p["ln_b"]).reshape(b, s, d)
     out = (y * F.silu(g).to(y.dtype)).to(x.dtype) @ p["w_o"]
+    out = constrain(out, "dp", "sp", None)
     return out, {"shift": x[:, -1, :], "wkv": wkv}
 
 
@@ -126,8 +131,8 @@ def apply_rwkv_cmix(p: dict, x: torch.Tensor, cfg: ArchConfig,
     def mix(i):
         return x + (xx - x) * p["mu"][i].to(x.dtype)
 
-    k = torch.square(F.relu(mix(0) @ p["w_k"]))
-    v = k @ p["w_v"]
+    k = torch.square(F.relu(constrain(mix(0) @ p["w_k"], "dp", None, "tp")))
+    v = constrain(k @ p["w_v"], "dp", "sp", None)
     r = torch.sigmoid(mix(1) @ p["w_r"])
     return (r * v).to(x.dtype), x[:, -1, :]
 
@@ -180,7 +185,7 @@ def apply_mamba(p: dict, x: torch.Tensor, cfg: ArchConfig,
     fp32} or None (zeros; training). Returns (out, {"conv", "h"}); a given
     state is overwritten with the new one in place."""
     n = cfg.ssm_state
-    x_in, z = (x @ p["in_proj"]).chunk(2, dim=-1)      # (B,S,di) each
+    x_in, z = constrain(x @ p["in_proj"], "dp", None, None).chunk(2, dim=-1)
     x_c, new_conv = _causal_conv(x_in, p["conv_w"], p["conv_b"],
                                  None if state is None else state["conv"])
     x_c = F.silu(x_c)
@@ -191,7 +196,7 @@ def apply_mamba(p: dict, x: torch.Tensor, cfg: ArchConfig,
                           bc[..., :n], bc[..., n:], x_c, z, p["a_log"],
                           p["d_skip"], None if state is None else state["h"],
                           impl=impl)
-    out = y @ p["out_proj"]
+    out = constrain(y @ p["out_proj"], "dp", "sp", None)
     if state is not None:
         new_conv = state["conv"].copy_(new_conv)
     return out, {"conv": new_conv, "h": h}

@@ -29,11 +29,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
-from .layers import (apply_rope, dense_init, rms_norm, rope_tables, swiglu)
+from ..sharding.ctx import constrain, replicated_like, sharded
+from .layers import apply_rope, dense_init, rms_norm, rope_tables
 from .moe import apply_moe, init_moe
 from .ssm import (CONV_K, apply_mamba, apply_rwkv_cmix, apply_rwkv_tmix,
                   init_mamba, init_rwkv_cmix, init_rwkv_tmix)
@@ -106,12 +108,16 @@ def _layer(tree: dict, i: int) -> dict:
 # ============================================================ attention
 def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig):
     b, s, _ = x.shape
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q, k, v = (constrain(x @ p[w], "dp", None, "tp") for w in
+               ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.view(b, s, cfg.n_heads, cfg.hd)
-    k = k.view(b, s, cfg.n_kv_heads, cfg.hd)
-    v = v.view(b, s, cfg.n_kv_heads, cfg.hd)
+    # per-head sharding after the reshape, as JAX re-constrains it
+    q = constrain(q.view(b, s, cfg.n_heads, cfg.hd), "dp", None, "tp", None)
+    k = constrain(k.view(b, s, cfg.n_kv_heads, cfg.hd),
+                  "dp", None, "tp", None)
+    v = constrain(v.view(b, s, cfg.n_kv_heads, cfg.hd),
+                  "dp", None, "tp", None)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -126,7 +132,8 @@ def apply_attn_seq(p: dict, x: torch.Tensor, cfg: ArchConfig, rope: tuple,
     q = apply_rope(q, rope)
     k = apply_rope(k, rope)
     out = ops.flash_attention(q, k, v, window=cfg.sliding_window, impl=impl)
-    out = out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
+    out = constrain(out.reshape(b, s, cfg.n_heads * cfg.hd), "dp", None, "tp")
+    out = constrain(out @ p["wo"], "dp", "sp", None)
     return out, {"k": k, "v": v}
 
 
@@ -139,20 +146,54 @@ def apply_attn_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
     """
     b = x.shape[0]
     q, k, v = _qkv(p, x, cfg)
-    rope = rope_tables(pos[:, None], cfg.hd, cfg.rope_theta)
+    rope = _rope(pos[:, None], cfg, x)
     q = apply_rope(q, rope)
     k = apply_rope(k, rope)
     cache_size = cache["k"].shape[1]
-    rows = torch.arange(b, device=x.device)
-    slot = (pos % cache_size).long()
-    cache["k"][rows, slot] = k[:, 0]
-    cache["v"][rows, slot] = v[:, 0]
-    cache_len = torch.clamp(pos + 1, max=cache_size).to(torch.int32)
+    _write_kv(cache, k, v, pos % cache_size)
+    cache_len = replicated_like(
+        torch.clamp(pos + 1, max=cache_size).to(torch.int32), x)
     # the ring holds exactly the window: mask by valid slot count only
     grp = cfg.n_heads // cfg.n_kv_heads
     out = ops.decode_attention(q.view(b, cfg.n_kv_heads, grp, cfg.hd),
                                cache["k"], cache["v"], cache_len, impl=impl)
     return out.reshape(b, 1, cfg.n_heads * cfg.hd) @ p["wo"]
+
+
+def _write_kv(cache: dict, k: torch.Tensor, v: torch.Tensor,
+              slot: torch.Tensor) -> None:
+    """Write the new token's K/V (B, 1, Hkv, hd) into slot ``slot[b]`` of
+    row b of the (B, C, Hkv, hd) caches, in place; under a mesh, each rank
+    writes its own rows and heads of its local shard."""
+    if sharded(cache["k"]):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh, placements = cache["k"].device_mesh, cache["k"].placements
+        k, v = (t.redistribute(mesh, placements).to_local() for t in (k, v))
+        rows = [p if p == Shard(0) else Replicate() for p in placements]
+        slot = replicated_like(slot, cache["k"]).redistribute(
+            mesh, rows).to_local()
+        cache = {name: c.to_local() for name, c in cache.items()}
+    rows = torch.arange(k.shape[0], device=k.device)
+    cache["k"][rows, slot.long()] = k[:, 0]
+    cache["v"][rows, slot.long()] = v[:, 0]
+
+
+def _rope(positions: torch.Tensor, cfg: ArchConfig, x: torch.Tensor
+          ) -> tuple:
+    """RoPE tables of ``positions``: (S,) or, in decode, (B, 1). On ``x``'s
+    mesh if it has one: replicated, or for batch-sharded DTensor
+    positions, the tables of each rank's rows laid out as they are. RWKV
+    has no positions to rotate (JAX's ``_rope_for``)."""
+    if cfg.attn_free:
+        return ()
+    if sharded(positions):
+        from torch.distributed.tensor import DTensor
+        return tuple(DTensor.from_local(t, positions.device_mesh,
+                                        positions.placements, run_check=False)
+                     for t in rope_tables(positions.to_local(), cfg.hd,
+                                          cfg.rope_theta))
+    return tuple(replicated_like(t, x) for t in rope_tables(
+        positions, cfg.hd, cfg.rope_theta))
 
 
 # =============================================================== blocks
@@ -164,9 +205,11 @@ def _ffn(lp: dict, x: torch.Tensor, cfg: ArchConfig
     if cfg.is_moe:
         b, s, d = x.shape
         out, aux = apply_moe(lp["moe"], x.reshape(b * s, d), cfg)
-        return out.view(b, s, d), aux
+        return constrain(out.view(b, s, d), "dp", "sp", None), aux
     m = lp["mlp"]
-    return swiglu(x, m["w_gate"], m["w_up"], m["w_down"]), None
+    g = constrain(x @ m["w_gate"], "dp", None, "tp")
+    u = constrain(x @ m["w_up"], "dp", None, "tp")
+    return constrain((F.silu(g) * u) @ m["w_down"], "dp", "sp", None), None
 
 
 def _mixer_out(lp: dict, normed: torch.Tensor, attn_out: torch.Tensor,
@@ -177,7 +220,7 @@ def _mixer_out(lp: dict, normed: torch.Tensor, attn_out: torch.Tensor,
     heads reading the same normed input from ``mamba`` (the layer's
     {"conv", "h"} states, written in place)."""
     if not cfg.hybrid_ssm:
-        return attn_out
+        return constrain(attn_out, "dp", "sp", None)
     ssm_out, _ = apply_mamba(lp["mamba"], normed, cfg, mamba, impl)
     return 0.5 * (attn_out + ssm_out)
 
@@ -187,6 +230,7 @@ def apply_block_seq(lp: dict, x: torch.Tensor, cfg: ArchConfig, rope: tuple,
     """One layer over a full sequence. Returns (x, kv cache, aux loss or
     None). A hybrid layer starts its Mamba heads from ``mamba`` (zeros
     before a prefill) and writes the final states there."""
+    x = constrain(x, "dp", "sp", None)   # seq-parallel residual stream
     normed = rms_norm(x, lp["ln1"], cfg.norm_eps)
     attn_out, kv = apply_attn_seq(lp["attn"], normed, cfg, rope, impl)
     x = x + _mixer_out(lp, normed, attn_out, cfg, mamba, impl)
@@ -250,10 +294,7 @@ def hidden_states(params: dict, cfg: ArchConfig, batch: dict,
     the stacked tree or a list of per-layer trees (the train step passes
     those, so that each layer's gradient lands in its slice in place)."""
     x = _embed_inputs(params, cfg, batch)
-    s = x.shape[1]
-    # RWKV has no positions to rotate (JAX's _rope_for)
-    rope = () if cfg.attn_free else rope_tables(
-        torch.arange(s, device=x.device), cfg.hd, cfg.rope_theta)
+    rope = _rope(torch.arange(x.shape[1], device=x.device), cfg, x)
     layers = params["layers"]
     use_remat = cfg.remat if remat is None else remat
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -273,8 +314,11 @@ def hidden_states(params: dict, cfg: ArchConfig, batch: dict,
 def _chunk_ce(h: torch.Tensor, w: torch.Tensor,
               labels: torch.Tensor) -> torch.Tensor:
     """Summed cross-entropy of one chunk: fp32 logits of the head's product,
-    as JAX casts them."""
-    logits = (h @ w).float()
+    as JAX casts them, vocab-sharded as JAX constrains them. Under a mesh
+    the vocab dim is then gathered for the loss: DTensor's vocab-parallel
+    gather (a masked partial) fails to reduce a (B, chunk) index."""
+    logits = constrain((h @ w).float(), "dp", None, "tp")
+    logits = constrain(logits, "dp", None, None)
     gold = logits.gather(-1, labels[..., None])[..., 0]
     return (torch.logsumexp(logits, dim=-1) - gold).sum()
 
@@ -315,8 +359,8 @@ def _embed_inputs(params: dict, cfg: ArchConfig, batch: dict
     """(B, S, D) inputs: the embedded tokens, or a stub frontend's
     precomputed patch or frame embeddings, cast to the model's dtype."""
     if cfg.embedding_stub:
-        return batch["embeds"].to(_dtype(cfg))
-    return params["embed"][batch["tokens"]]
+        return constrain(batch["embeds"].to(_dtype(cfg)), "dp", None, None)
+    return constrain(params["embed"][batch["tokens"]], "dp", None, None)
 
 
 def lm_head_weight(params: dict, cfg: ArchConfig) -> torch.Tensor:
@@ -342,8 +386,7 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict,
             x = apply_rwkv_block(_layer(params["layers"], i), x, cfg,
                                  _layer(caches, i), impl)
     else:
-        rope = rope_tables(torch.arange(s, device=x.device), cfg.hd,
-                           cfg.rope_theta)
+        rope = _rope(torch.arange(s, device=x.device), cfg, x)
         mamba = _mamba_states(cfg, b, x.device) if cfg.hybrid_ssm else None
         ks, vs = [], []
         for i in range(cfg.n_layers):

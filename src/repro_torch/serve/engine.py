@@ -15,6 +15,8 @@ import torch
 from ..configs.base import ArchConfig
 from ..coord.registry import ClusterRegistry
 from ..models import decode_step, init_decode_cache, prefill
+from ..sharding.ctx import sharded
+from ..sharding.rules import cache_specs, shard_tree
 
 
 @dataclass
@@ -45,15 +47,24 @@ def preallocate_cache(cfg: ArchConfig, caches: dict, total_len: int) -> dict:
     and it rewrites the cache every step; here it is allocated once, and
     each decode step writes its slot in place. RWKV's prefill states, and a hybrid's Mamba
     states beside its K/V, already have their decode size and pass through
-    unchanged, as JAX's engine passes every leaf but the 5-D K/V."""
+    unchanged, as JAX's engine passes every leaf but the 5-D K/V. Prefill
+    caches that are DTensors give decode caches laid out by
+    ``sharding.rules.cache_specs`` on their mesh."""
     if cfg.attn_free:
         return caches
     k = caches["kv"]["k"]
     out = init_decode_cache(cfg, k.shape[1], total_len, device=k.device)
     s, size = k.shape[2], out["kv"]["k"].shape[2]
     pos = torch.arange(max(0, s - size), s, device=k.device)
+    if sharded(k):
+        out = shard_tree(out, cache_specs(out, k.device_mesh), k.device_mesh)
     for name, c in caches["kv"].items():
-        out["kv"][name][:, :, pos % size] = c[:, :, pos]
+        dst = out["kv"][name]
+        if sharded(dst):
+            # no spec shards the sequence dim: each rank copies its shard
+            c = c.redistribute(dst.device_mesh, dst.placements).to_local()
+            dst = dst.to_local()
+        dst[:, :, pos % size] = c[:, :, pos]
     out.update((name, c) for name, c in caches.items() if name != "kv")
     return out
 

@@ -85,7 +85,9 @@ def compress_grads_int8_ef(grads, ef):
 
 # ------------------------------------------------------------------ adamw
 def _zeros(p: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """fp32 zeros shaped and, for a DTensor, placed as ``p``."""
+    return torch.zeros_like(p, dtype=torch.float32,
+                            memory_format=torch.contiguous_format)
 
 
 def adamw_init(params, cfg: OptConfig) -> dict:
@@ -181,7 +183,9 @@ def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled to a global norm of at most ``max_norm``, in fp32; the
     norm before scaling). fp32 leaves are scaled in place, others copied
     to fp32 first: the values are JAX's, without a second fp32 copy of the
-    fp32 accumulator."""
+    fp32 accumulator. For DTensor grads each leaf's sum of squares is a
+    partial sum over its shards, which the square root reduces across
+    ranks."""
     norm = torch.sqrt(sum(g.float().square().sum() for g in leaves(grads)))
     scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
     return tree_map(lambda g: g.float().mul_(scale), grads), norm

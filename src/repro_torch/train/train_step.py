@@ -6,6 +6,12 @@ int). ``train_step`` updates it in place and returns it with the step's
 metrics: one backward per microbatch, each microbatch's gradients in the
 parameters' dtype summed into fp32 buffers, then divided by the number of
 microbatches, JAX's order.
+
+A state laid out on a mesh (``sharding.rules.shard_tree`` by
+``state_specs``) trains as it is: every gradient buffer takes its
+parameter's placements (``zeros_like``, and the per-layer slices of
+``loss_and_grads``), the optimizer updates each rank's local shards in
+place, and the global norm and the loss are reduced across ranks.
 """
 
 from __future__ import annotations
@@ -14,8 +20,15 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..models import forward_train, init_params
+from ..sharding.ctx import sharded
 from .optimizer import OptConfig, apply_updates, init_opt_state, leaves, \
     tree_map
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """A scalar metric every rank holds whole: a DTensor's full value (a
+    partial sum is reduced), else ``t``."""
+    return t.full_tensor() if sharded(t) else t
 
 
 def init_train_state(gen: torch.Generator, cfg: ArchConfig,
@@ -60,7 +73,7 @@ def loss_and_grads(params: dict, cfg: ArchConfig, batch: dict,
         for i in range(cfg.n_layers)]
     loss = forward_train(tree, cfg, batch, impl)
     loss.backward()
-    return loss.detach(), grads
+    return whole(loss.detach()), grads
 
 
 def to_device(batch: dict, device) -> dict:
@@ -84,8 +97,8 @@ def train_step(state: dict, batch: dict, cfg: ArchConfig,
     if accum == 1:
         loss, grads = loss_and_grads(params, cfg, batch, impl)
     else:
-        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params)
+        grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                         params)
         loss = torch.zeros((), dtype=torch.float32, device=grads["embed"].device)
         for mb in _split_microbatches(batch, accum):
             mb_loss, mb_grads = loss_and_grads(params, cfg, mb, impl)
@@ -98,4 +111,4 @@ def train_step(state: dict, batch: dict, cfg: ArchConfig,
     _, _, gnorm = apply_updates(grads, state["opt"], params, opt_cfg,
                                 state["step"])
     state["step"] += 1
-    return state, {"loss": loss, "grad_norm": gnorm}
+    return state, {"loss": loss, "grad_norm": whole(gnorm)}

@@ -15,11 +15,17 @@ embeddings. ``prefill``, ``decode_step`` and ``forward_train``'s loss and
 gradients against JAX's, weights bridged through
 ``bridge.params_from_numpy(_flatten(jax_params))``.
 
+Grouped dispatch: ``apply_moe`` under ``set_moe_groups(2)`` and ``(4)``
+in both packages (JAX's group-local ``_apply_moe_grouped``) at both
+archs, drop-free and at cf 1.25, fp32 and bf16; drop-free it equals the
+flat dispatch, in the layer and in training.
+
 Tolerances are ROADMAP's: fp32 1e-4, bf16 2e-2 of the largest magnitude
 (gradients: 1e-4 of each leaf's largest magnitude, as in
 tests/test_torch_train.py).
 """
 
+import contextlib
 import dataclasses
 import functools
 
@@ -139,6 +145,88 @@ def test_capacity_drops_rows_as_jax_does():
     assert jdrop.max() > 1e-3
     np.testing.assert_array_equal(tdrop.numpy().max(-1) > 1e-3,
                                   jdrop.max(-1) > 1e-3)
+
+
+# --------------------------------------------------------- grouped dispatch
+GROUPED_CASES = [(arch, cf, groups, dtype) for arch in MOE_ARCHS
+                 for cf in ("free", 1.25) for groups in (2, 4)
+                 for dtype in ("float32", "bfloat16")]
+
+
+@contextlib.contextmanager
+def moe_groups(n: int):
+    """``set_moe_groups(n)`` in both packages' sharding contexts."""
+    from repro.sharding import ctx as jctx
+    from repro_torch.sharding import ctx as tctx
+    jctx.set_moe_groups(n)
+    tctx.set_moe_groups(n)
+    try:
+        yield
+    finally:
+        jctx.set_moe_groups(1)
+        tctx.set_moe_groups(1)
+
+
+def layer_case(arch: str, cf, dtype: str, t: int = 48):
+    """(JAX config, port config, JAX params, port params, JAX x, port x)."""
+    jcfg = layer_cfg(arch, cf, dtype)
+    tcfg = ArchConfig(**dataclasses.asdict(jcfg))
+    jp = jinit_moe(jax.random.PRNGKey(t), jcfg, jnp.dtype(dtype))
+    tp = params_from_numpy(_flatten({"moe": jp}), tcfg, "cpu")["moe"]
+    x = np.random.default_rng(t).standard_normal(
+        (t, jcfg.d_model)).astype(np.float32)
+    return (jcfg, tcfg, jp, tp, jnp.asarray(x, jnp.dtype(dtype)),
+            torch.from_numpy(x).to(getattr(torch, dtype)))
+
+
+@pytest.mark.parametrize("arch,cf,groups,dtype", GROUPED_CASES)
+def test_grouped_dispatch_matches_jax(arch, cf, groups, dtype):
+    """``apply_moe`` under ``set_moe_groups(groups)`` on both sides takes
+    the group-local dispatch (JAX's constrain does nothing without a
+    mesh): the same aux loss and, within the layer tolerances, output."""
+    jcfg, tcfg, jp, tp, jx, tx = layer_case(arch, cf, dtype)
+    with moe_groups(groups):
+        jout, jaux = japply_moe(jp, jx, jcfg)
+        out, aux = tmoe.apply_moe(tp, tx, tcfg)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5,
+                               err_msg="aux loss")
+    direct, _ = tmoe._apply_moe_grouped(tp, tx, tcfg, groups)
+    torch.testing.assert_close(out, direct, rtol=0, atol=0)
+    close_model(out, jout, dtype, "output")
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_grouped_dispatch_equals_flat_when_drop_free(arch):
+    """Drop-free, grouped and flat dispatch compute one function; at cf
+    1.25 the group-local capacity drops other rows. A token count the
+    groups do not divide keeps the flat dispatch, as in JAX."""
+    jcfg, tcfg, jp, tp, jx, tx = layer_case(arch, "free", "float32")
+    flat_out, flat_aux = tmoe.apply_moe(tp, tx, tcfg)
+    with moe_groups(4):
+        grouped, aux = tmoe.apply_moe(tp, tx, tcfg)
+        odd = tmoe.apply_moe(tp, tx[:46], tcfg)[0]
+    torch.testing.assert_close(grouped, flat_out, rtol=1e-5, atol=1e-6)
+    assert float(aux) == float(flat_aux)
+    torch.testing.assert_close(odd, tmoe.apply_moe(tp, tx[:46], tcfg)[0],
+                               rtol=0, atol=0)
+    cfg = dataclasses.replace(tcfg, capacity_factor=1.25)
+    flat_out = tmoe.apply_moe(tp, tx, cfg)[0]
+    with moe_groups(4):
+        grouped = tmoe.apply_moe(tp, tx, cfg)[0]
+    assert (grouped - flat_out).abs().max() > 1e-3
+
+
+def test_grouped_dispatch_trains_as_flat_when_drop_free():
+    """The card's grouped check at CPU size: reduced moonshot's loss and
+    gradients with 4 dispatch groups equal the flat dispatch's drop-free."""
+    c = make_train_case("moonshot-v1-16b-a3b", "free")
+    loss, grads = loss_and_grads(c["params"], c["cfg"], c["batch"])
+    with moe_groups(4):
+        gloss, ggrads = loss_and_grads(c["params"], c["cfg"], c["batch"])
+    np.testing.assert_allclose(float(gloss), float(loss), rtol=1e-6)
+    for key, want in flat(grads).items():
+        torch.testing.assert_close(flat(ggrads)[key], want, rtol=1e-5,
+                                   atol=1e-7, msg=key)
 
 
 def test_moe_init_layout_and_scale():
