@@ -102,13 +102,24 @@ Phases; each raises on failure, so any failure exits non-zero:
      one at depth 1 in fp32: equal drop-free, different at cf 1.25;
   6. the sharded path on a one-card (1, 1) mesh: an NCCL process group of
      one rank, ``make_local_mesh(1, 1)``, the sharding context set from
-     it; qwen3-8b trained one step at depth 2 on ``shard_tree(state,
-     state_specs)`` and served at full depth on ``param_specs(mode=
-     "serve")`` with ``cache_specs`` caches, each against the unsharded
-     run of the same weights (loss, updated parameters, greedy ids, and
-     equal kernel launch counts); the process group is destroyed after.
-     One card moves no data between cards: this proves NCCL, DTensor
-     dispatch and the kernels on local shards, not communication.
+     it; qwen3-8b (6a, 6b), then rwkv6-3b, hymba-1.5b,
+     moonshot-v1-16b-a3b and pixtral-12b (6c-6j), each trained one step
+     at depth 2 on ``shard_tree(state, state_specs)`` and served on
+     ``param_specs(mode="serve")`` with ``cache_specs`` caches (at full
+     depth and their served prompt lengths, but moonshot at depth 4,
+     where both copies of the weights fit), each against the unsharded
+     run of the same weights:
+     loss, grad norm and updated parameters, greedy ids and logits, every
+     cache and recurrent state after the last decode step, and equal
+     launch counts of every kernel (WKV6 and the Mamba scan under their
+     Functions in training; the scan's token-body launches in decode),
+     with the host-clock time of each step and run; the process group
+     is destroyed after. One card moves no data between cards: this
+     proves NCCL, DTensor dispatch and the kernels on local shards, not
+     communication, nor the recurrent states' write-back (a redistribute
+     across a mesh dim of size 1 keeps the local tensor, as torch 2.13
+     does on the CPU, so the kernels write the caches in place; the CPU
+     tests' 2 x 2 mesh holds the write-back).
 Each phase prints its wall time, and the run its total. The last lines
 are a JSON line of per-kernel numbers (flash attention at the qwen3-8b
 serving shape with the served prefill's launches, "flash_attention_train" at the training shape
@@ -211,6 +222,16 @@ GROUPED_SHAPE, MOE_GROUPS = (2, 1024), 4
 # depth SHARDED_TRAIN_DEPTH ((B, S) a microbatch, grad_accum microbatches
 # of the config), and served at full depth (PROMPT_LEN and 3 decode steps)
 SHARDED_TRAIN_DEPTH, SHARDED_TRAIN_SHAPE = 2, (2, 2048)
+# train steps of each run: the first step's host time holds DTensor's
+# first sight of each operation, the second is the steady one
+SHARDED_STEPS = 2
+# then each family beside the dense one, trained as qwen3-8b is and served
+# at {model: depth (None: full depth)} with its SERVED or STUB_SERVED
+# prompt length: moonshot at 4 of its 48 layers, where the unsharded and
+# the sharded weights both fit one card (56 GB each at full depth);
+# pixtral's 24.5 GB fit twice at full depth
+SHARDED_FAMILIES = {"rwkv6-3b": None, "hymba-1.5b": None,
+                    "moonshot-v1-16b-a3b": 4, "pixtral-12b": None}
 # the recurrence backwards against the plain loops: two remat chunks
 RECURRENT_CHECK_SEQ = 512
 # the leaves that feed each recurrence, which must all get a gradient
@@ -1448,12 +1469,9 @@ def dispatch_shares(averages, cfg) -> None:
                              f"dispatch: {sums}")
 
 
-def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield v
+def _leaves(tree) -> list:
+    from repro_torch.bridge import flatten_tree
+    return list(flatten_tree(tree).values())
 
 
 # ----------------------------------------------------------- phase 3b
@@ -1963,16 +1981,16 @@ def time_recurrences_training() -> dict:
     return {"entries": entries, "bwd_ms": bwd}
 
 
-def train_counts(cfg) -> dict:
-    """Launches of one train step: remat runs each layer's forward twice,
-    so 2 per layer and microbatch of flash attention, and of WKV6 and the
-    Mamba scan 2 per layer, microbatch and TIME_CHUNK chunk; none of the
-    other kernels."""
+def train_counts(cfg, seq: int = TRAIN_SEQ) -> dict:
+    """Launches of one train step of ``seq``-token sequences: remat runs
+    each layer's forward twice, so 2 per layer and microbatch of flash
+    attention, and of WKV6 and the Mamba scan 2 per layer, microbatch and
+    TIME_CHUNK chunk; none of the other kernels."""
     from repro_torch.kernels.ops import KERNELS
     from repro_torch.kernels.wkv6 import TIME_CHUNK
     want = dict.fromkeys(KERNELS, 0)
     per = 2 * cfg.n_layers * cfg.grad_accum
-    chunks = -(-TRAIN_SEQ // TIME_CHUNK)
+    chunks = -(-seq // TIME_CHUNK)
     if cfg.attn_free:
         want["wkv6"] = per * chunks
     else:
@@ -2314,8 +2332,8 @@ def check_grouped_dispatch() -> None:
     through ``loss_and_grads``. Drop-free (cf = E) both compute one
     function: loss and gradients within FP32_REL_TOL. At the config's cf
     1.25 the group-local capacity drops other rows: the gradients must
-    differ by more than 10 x FP32_REL_TOL. The grouped path's calls are
-    counted (2 a layer with remat)."""
+    differ by more than 10 x FP32_REL_TOL. The dispatch's calls with more
+    than one group are counted (2 a layer with remat)."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.models import moe
@@ -2334,14 +2352,16 @@ def check_grouped_dispatch() -> None:
         for groups in (1, MOE_GROUPS):
             ctx.set_moe_groups(groups)
             try:
-                with mock.patch.object(moe, "_apply_moe_grouped",
-                                       wraps=moe._apply_moe_grouped) as spy:
+                with mock.patch.object(moe, "_dispatch",
+                                       wraps=moe._dispatch) as spy:
                     loss, grads = loss_and_grads(params, cfg, batch)
             finally:
                 ctx.set_moe_groups(1)
             torch.cuda.synchronize()
+            # _dispatch(x, router, cfg, groups, capacity)
             runs[groups] = (loss.item(), torch.cat(
-                [g.flatten() for g in _leaves(grads)]), spy.call_count)
+                [g.flatten() for g in _leaves(grads)]),
+                sum(c.args[3] > 1 for c in spy.call_args_list))
             del grads
         (lf, gf, nf), (lg, gg, ng) = runs[1], runs[MOE_GROUPS]
         dl, dg = abs(lg - lf) / abs(lf), rel_err(gg, gf)
@@ -2365,13 +2385,35 @@ def check_grouped_dispatch() -> None:
         free()
 
 
-def sharded_train(mesh) -> None:
-    """Phase 6a: qwen3-8b at full width and depth SHARDED_TRAIN_DEPTH, one
-    train step (grad_accum microbatches of SHARDED_TRAIN_SHAPE) from the
-    same seed twice: unsharded, then on ``shard_tree(state,
-    state_specs)`` with the batch by ``batch_specs``. The loss, grad norm
-    and updated parameters must agree (relative L2 within FP32_REL_TOL),
-    with the same launch counts of every kernel."""
+def launch_counts() -> dict:
+    """Every kernel's launches since the last reset, and of the Mamba
+    scan's those that ran its token body."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    return {**ops.launch_counts(),
+            "mamba_scan_token": mamba_scan.token_launches}
+
+
+def rel_l2(got: list, want: list) -> float:
+    """Relative L2 error of a list of tensors taken as one vector."""
+    num = sum(float((a.float() - b.float()).square().sum())
+              for a, b in zip(got, want))
+    return (num / max(sum(float(b.float().square().sum()) for b in want),
+                      1e-30)) ** 0.5
+
+
+def sharded_train(mesh, arch: str) -> None:
+    """Phase 6a and the train phases after it: ``arch`` at full width and
+    depth SHARDED_TRAIN_DEPTH, SHARDED_STEPS train steps (grad_accum
+    microbatches of SHARDED_TRAIN_SHAPE; a stub frontend's seeded
+    embeddings in place of tokens) from the same seed twice: unsharded,
+    then on ``shard_tree(state, state_specs)`` with the batch by
+    ``batch_specs``. Each step's loss and grad norm, and the updated
+    parameters, must agree (relative L2 within FP32_REL_TOL), with the
+    same launch counts of every kernel in a step (WKV6 and the Mamba scan
+    under their Functions), as many as ``train_counts`` expects. Each
+    step's host-clock time is printed: the difference is DTensor's host
+    cost."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops
@@ -2379,8 +2421,7 @@ def sharded_train(mesh) -> None:
     from repro_torch.train import train_step as ts
     from repro_torch.train.data import synth_batch
     from repro_torch.train.optimizer import OptConfig
-    cfg = dataclasses.replace(get_arch("qwen3-8b"),
-                              n_layers=SHARDED_TRAIN_DEPTH)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=SHARDED_TRAIN_DEPTH)
     opt_cfg = OptConfig(name=cfg.optimizer, warmup_steps=2, total_steps=100)
     b, s = SHARDED_TRAIN_SHAPE
     shape = ShapeConfig("t", "train", s, b * cfg.grad_accum)
@@ -2395,106 +2436,151 @@ def sharded_train(mesh) -> None:
                                      mesh)
             feed = rules.shard_tree(batch, rules.batch_specs(batch, mesh),
                                     mesh)
-        torch.cuda.synchronize()
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        state, m = ts.train_step(state, feed, cfg, opt_cfg)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        wq = state["params"]["layers"]["attn"]["wq"]
-        runs[sharded] = (float(m["loss"]), float(m["grad_norm"]),
-                         [ts.whole(t).clone() for t in
-                          _leaves(state["params"])], ops.launch_counts(), ms,
-                         getattr(wq, "placements", None))
-        del state, m, wq
+        metrics, times = [], []
+        for _ in range(SHARDED_STEPS):
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            state, m = ts.train_step(state, feed, cfg, opt_cfg)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            metrics += [float(m["loss"]), float(m["grad_norm"])]
+        embed = state["params"]["embed"]
+        runs[sharded] = (metrics, [ts.whole(t).clone() for t in
+                                   _leaves(state["params"])],
+                         launch_counts(), times,
+                         getattr(embed, "placements", None))
+        del state, m, embed
         free()
-    (l0, n0, p0, c0, ms0, _), (l1, n1, p1, c1, ms1, pl) = runs[False], \
-        runs[True]
-    num = sum(float((a.float() - b.float()).square().sum())
-              for a, b in zip(p1, p0))
-    den = sum(float(b.float().square().sum()) for b in p0)
+    (m0, p0, c0, ms0, _), (m1, p1, c1, ms1, pl) = runs[False], runs[True]
+    err = rel_l2(p1, p0)
     worst = max(max_err(a, b) for a, b in zip(p1, p0))
-    err = (num / den) ** 0.5
-    log(f"  qwen3-8b depth {cfg.n_layers}, {cfg.grad_accum} x {b} x {s} "
-        f"tokens, one step: unsharded loss {l0:.6f}, grad norm {n0:.6f}, "
-        f"{ms0:.1f} ms (host clock, first step); on the (1, 1) mesh loss "
-        f"{l1:.6f}, grad norm {n1:.6f}, {ms1:.1f} ms; updated parameters "
-        f"rel L2 {err:.3e}, max abs {worst:.3e}; wq placed {pl}; launches "
-        f"{c0} and {c1}")
-    if c0 != c1 or c0["flash_attention"] != 2 * cfg.n_layers \
-            * cfg.grad_accum:
-        raise AssertionError(f"launch counts: unsharded {c0}, sharded {c1}")
-    if abs(l1 - l0) / l0 > FP32_REL_TOL or abs(n1 - n0) / n0 \
-            > FP32_REL_TOL or err > FP32_REL_TOL:
-        raise AssertionError("the sharded train step disagrees with the "
-                             "unsharded one")
+    log(f"  {arch} depth {cfg.n_layers}, {cfg.grad_accum} x {b} x {s} "
+        f"tokens a step, {SHARDED_STEPS} steps: unsharded loss, grad norm "
+        f"{', '.join(f'{v:.6f}' for v in m0)}; on the (1, 1) mesh "
+        f"{', '.join(f'{v:.6f}' for v in m1)}; host clock a step "
+        f"unsharded {', '.join(f'{t:.1f}' for t in ms0)} ms, sharded "
+        f"{', '.join(f'{t:.1f}' for t in ms1)} ms (DTensor's host cost "
+        f"{', '.join(f'{t1 - t0:.1f}' for t0, t1 in zip(ms0, ms1))} ms); "
+        f"updated parameters rel L2 {err:.3e}, max abs {worst:.3e}; embed "
+        f"placed {pl}; launches of a step {c0} and {c1}")
+    want = {**train_counts(cfg, s), "mamba_scan_token": 0}
+    if c0 != c1 or c0 != want:
+        raise AssertionError(f"launch counts: unsharded {c0}, sharded {c1}, "
+                             f"expected {want}")
+    if max(abs(a - b) / abs(b) for a, b in zip(m1, m0)) > FP32_REL_TOL \
+            or err > FP32_REL_TOL:
+        raise AssertionError(f"{arch}: the sharded train steps disagree "
+                             f"with the unsharded ones")
 
 
-def sharded_serve(mesh) -> None:
-    """Phase 6b: qwen3-8b at full width and depth served from seeded
-    prompts (REQUESTS x PROMPT_LEN) through prefill and 3 greedy
-    decode_steps twice: unsharded, then on ``param_specs(mode="serve")``
-    with the prompts, ids and positions by ``batch_specs`` and the caches
-    by ``cache_specs`` (``preallocate_cache`` lays them out). The greedy
-    ids must be equal, the logits within FP32_REL_TOL (relative L2), and
-    the flash attention and flash decode launches equal: the kernels ran
-    on the local shards."""
+def sharded_serve(mesh, arch: str, depth=None, prompt_len: int = 0) -> None:
+    """Phase 6b and the serve phases after it: ``arch`` at full width, at
+    ``depth`` layers (None: all), served from seeded prompts (REQUESTS x
+    ``prompt_len`` tokens, or a stub frontend's embeddings made as
+    train/data.py makes them) through prefill and 3 greedy decode_steps
+    (a stub's fed the next positions' embeddings) twice: unsharded, then
+    on ``param_specs(mode="serve")`` with the prompts, inputs and
+    positions by ``batch_specs`` and the caches by ``cache_specs``
+    (prefill builds RWKV's and Mamba's states so; ``preallocate_cache``
+    lays out the K/V). The greedy ids must be equal, the logits within
+    FP32_REL_TOL (relative L2), every cache and recurrent state after the
+    last step equal to the unsharded one (relative L2 within
+    FP32_REL_TOL), and every kernel's launches equal, the Mamba scan's
+    token-body ones too: the kernels ran on the local shards. Each side
+    runs twice, and both runs' host-clock times are printed."""
+    from repro_torch.bridge import flatten_tree
     from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops
     from repro_torch.models import decode_step, prefill
     from repro_torch.serve.engine import preallocate_cache
     from repro_torch.sharding import rules
+    from repro_torch.train.data import synth_batch
     from repro_torch.train.train_step import whole
-    cfg = get_arch("qwen3-8b")
+    cfg = get_arch(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     params = init_params_cuda(cfg)
-    gen = torch.Generator("cuda").manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab_size, (REQUESTS, PROMPT_LEN),
-                            generator=gen, device="cuda")
+    steps = 3
+    if cfg.embedding_stub:
+        shape = ShapeConfig("p", "prefill", prompt_len + steps, REQUESTS)
+        embeds = torch.from_numpy(synth_batch(cfg, shape, 0)["embeds"]).to(
+            "cuda")
+        prompt = {"embeds": embeds[:, :prompt_len]}
+    else:
+        gen = torch.Generator("cuda").manual_seed(1)
+        prompt = {"tokens": torch.randint(0, cfg.vocab_size,
+                                          (REQUESTS, prompt_len),
+                                          generator=gen, device="cuda")}
 
     def batch(tree, sharded):
         return rules.shard_tree(tree, rules.batch_specs(tree, mesh), mesh) \
             if sharded else tree
 
     def serve(p, sharded):
+        torch.cuda.synchronize()
         ops.reset_launches()
-        logits, caches, pos = prefill(p, cfg, batch({"tokens": prompts},
-                                                    sharded))
-        caches = preallocate_cache(cfg, caches, PROMPT_LEN + 3)
+        t0 = time.perf_counter()
+        logits, caches, pos = prefill(p, cfg, batch(prompt, sharded))
+        caches = preallocate_cache(cfg, caches, prompt_len + steps)
         outs, ids = [whole(logits)], []
-        for i in range(3):
+        for i in range(steps):
             ids.append(outs[-1].argmax(-1))
-            fed = batch({"t": ids[-1], "p": pos + i}, sharded)
-            logits, caches = decode_step(p, cfg, fed["t"], caches, fed["p"])
+            x = embeds[:, prompt_len + i] if cfg.embedding_stub else ids[-1]
+            fed = batch({"x": x, "p": pos + i}, sharded)
+            logits, caches = decode_step(p, cfg, fed["x"], caches, fed["p"])
             outs.append(whole(logits))
         torch.cuda.synchronize()
-        placed = getattr(caches["kv"]["k"], "placements", None)
-        return outs, torch.stack(ids), ops.launch_counts(), placed
+        ms = (time.perf_counter() - t0) * 1e3
+        states = {k: whole(v) for k, v in flatten_tree(caches).items()}
+        placed = {k: getattr(v, "placements", None)
+                  for k, v in flatten_tree(caches).items()}
+        return outs, torch.stack(ids), launch_counts(), states, placed, ms
 
     with torch.no_grad():
-        o0, i0, c0, _ = serve(params, False)
+        # twice each: the second run's host time is the steady one
+        ms0 = [serve(params, False)[-1]]
+        o0, i0, c0, s0, _, ms = serve(params, False)
+        ms0.append(ms)
         sparams = rules.shard_tree(params, rules.param_specs(
             params, mesh, mode="serve"), mesh)
-        o1, i1, c1, placed = serve(sparams, True)
+        ms1 = [serve(sparams, True)[-1]]
+        o1, i1, c1, s1, placed, ms = serve(sparams, True)
+        ms1.append(ms)
     errs = [rel_err(a, b) for a, b in zip(o1, o0)]
-    log(f"  qwen3-8b served, {REQUESTS} x {PROMPT_LEN} prompt tokens + 3 "
-        f"decode steps: greedy ids equal {bool((i0 == i1).all())}; logits "
-        f"rel L2 (prefill, decode 1-3) {', '.join(f'{e:.3e}' for e in errs)}"
-        f"; caches placed {placed}; launches unsharded {c0}, sharded {c1}")
-    want = cfg.n_layers
-    if c0 != c1 or c0["flash_attention"] != want or \
-            c0["decode_attention"] != 3 * want:
-        raise AssertionError(f"launch counts: unsharded {c0}, sharded {c1}")
-    if not (i0 == i1).all() or max(errs) > FP32_REL_TOL:
-        raise AssertionError("sharded serving disagrees with unsharded")
+    state_errs = {k: rel_err(s1[k], s0[k]) for k in s0}
+    log(f"  {arch} served at depth {cfg.n_layers}, {REQUESTS} x "
+        f"{prompt_len} prompt positions + {steps} decode steps: greedy ids "
+        f"equal {bool((i0 == i1).all())}; logits rel L2 (prefill, decode "
+        f"1-{steps}) {', '.join(f'{e:.3e}' for e in errs)}; caches and "
+        f"states after the last step, rel L2 "
+        f"{', '.join(f'{k} {e:.3e}' for k, e in state_errs.items())}; "
+        f"placed {placed}; host clock of a first and a second run "
+        f"unsharded {ms0[0]:.1f}, {ms0[1]:.1f} ms, sharded {ms1[0]:.1f}, "
+        f"{ms1[1]:.1f} ms ({ms1[1] / ms0[1]:.2f}x); launches unsharded "
+        f"{c0}, sharded {c1}")
+    want = {**expected_counts(cfg, steps),
+            "mamba_scan_token": cfg.n_layers * steps if cfg.hybrid_ssm
+            else 0}
+    if c0 != c1 or c0 != want:
+        raise AssertionError(f"launch counts: unsharded {c0}, sharded {c1}, "
+                             f"expected {want}")
+    if not (i0 == i1).all() or max(errs) > FP32_REL_TOL or \
+            max(state_errs.values()) > FP32_REL_TOL:
+        raise AssertionError(f"{arch}: sharded serving disagrees with "
+                             f"unsharded")
 
 
 def sharded_phase() -> None:
     """Phase 6: the sharded path on a one-card (1, 1) mesh: an NCCL process
     group of one rank on a local store, ``make_local_mesh(1, 1)``, the
-    sharding context set from it. It proves NCCL, DTensor dispatch and the
-    kernels on local shards; with one card it moves no data between
-    cards, so it does not measure communication."""
+    sharding context set from it; qwen3-8b (6a, 6b), then each family of
+    SHARDED_FAMILIES trained and served. It proves NCCL, DTensor dispatch
+    and the kernels on local shards; with one card it moves no data
+    between cards, so it does not measure communication."""
     import torch.distributed as dist
+    from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.sharding import ctx
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
@@ -2503,14 +2589,55 @@ def sharded_phase() -> None:
         mesh = make_local_mesh(1, 1, device="cuda")
         ctx.set_axes(*ctx.axes_from_mesh(mesh))
         with phase("6a, qwen3-8b train step on the (1, 1) mesh"):
-            sharded_train(mesh)
+            sharded_train(mesh, "qwen3-8b")
             free()
         with phase("6b, qwen3-8b served on the (1, 1) mesh"):
-            sharded_serve(mesh)
+            sharded_serve(mesh, "qwen3-8b", None, PROMPT_LEN)
             free()
+        for i, (arch, depth) in enumerate(SHARDED_FAMILIES.items()):
+            with phase(f"6{'cdefghij'[2 * i]}, {arch} train step on the "
+                       f"(1, 1) mesh"):
+                sharded_train(mesh, arch)
+                free()
+                if get_arch(arch).family == "moe":
+                    log_flat_dispatch_bytes(arch)
+            with phase(f"6{'cdefghij'[2 * i + 1]}, {arch} served on the "
+                       f"(1, 1) mesh"):
+                sharded_serve(mesh, arch, depth, prompt_len_of(arch))
+                free()
     finally:
         ctx.clear()
         dist.destroy_process_group()
+
+
+def log_flat_dispatch_bytes(arch: str = "moonshot-v1-16b-a3b") -> None:
+    """The data-sharded flat MoE dispatch's collectives on the production
+    (16, 16) mesh, counted from ``arch``'s shapes (one card has no peer to
+    measure them), a layer's forward at TRAIN_MICRO and at TRAIN_4K's
+    microbatch (its batch over grad_accum) of sequences a dp rank: the
+    counts' all-gather over dp; the (E, C, d) buffer that every rank
+    holds whole, capacity from the global T, summed over dp (a ring
+    all-reduce moves 2 (n-1)/n of it a rank); the combine's (T/dp, d)
+    rows summed over model."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import TRAIN_4K
+    from repro_torch.models.moe import _capacity
+    cfg = get_arch(arch)
+    dp = mp = 16
+    item = getattr(torch, cfg.param_dtype).itemsize
+    for seqs in (TRAIN_MICRO, TRAIN_4K.global_batch // cfg.grad_accum // dp):
+        rank_t = seqs * TRAIN_4K.seq_len
+        c = _capacity(cfg, rank_t * dp, 1)
+        buf = cfg.n_experts * c * cfg.d_model * item
+        rows = rank_t * cfg.d_model * item
+        log(f"  {arch} flat dispatch on (16, 16), {seqs} x "
+            f"{TRAIN_4K.seq_len} tokens a dp rank (T {rank_t * dp}, C {c}), "
+            f"counted: counts all-gather {dp * cfg.n_experts * 8} B; buffer "
+            f"{buf} B a rank, its all-reduce over dp moves "
+            f"{2 * (dp - 1) * buf // dp} B a rank (its model shard "
+            f"{buf // mp} B); the combine's rows {rows} B, their "
+            f"all-reduce over model moves {2 * (mp - 1) * rows // mp} B a "
+            f"rank")
 
 
 def free() -> None:

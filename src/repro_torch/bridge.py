@@ -50,17 +50,27 @@ def params_from_numpy(flat: dict[str, np.ndarray], cfg: ArchConfig,
     return params
 
 
+def flatten_tree(tree: dict, prefix: str = "") -> dict:
+    """Nested dicts -> flat ``{key path: leaf}``, the key paths as
+    ``_flatten`` writes them ("layers/attn/wq")."""
+    flat: dict = {}
+    for name, value in tree.items():
+        key = f"{prefix}{name}"
+        if isinstance(value, dict):
+            flat.update(flatten_tree(value, key + "/"))
+        else:
+            flat[key] = value
+    return flat
+
+
 def tree_to_numpy(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
     """The reverse, for parameters or a whole train state: nested tensors ->
     flat ``{key path: array}`` as ``_flatten`` writes it: bf16 upcast to
     fp32, other dtypes kept, and the state's int ``step`` as a 0-d int32
     array (JAX's step is an int32 scalar)."""
     flat: dict[str, np.ndarray] = {}
-    for name, value in tree.items():
-        key = f"{prefix}{name}"
-        if isinstance(value, dict):
-            flat.update(tree_to_numpy(value, key + "/"))
-        elif isinstance(value, int):
+    for key, value in flatten_tree(tree, prefix).items():
+        if isinstance(value, int):
             flat[key] = np.asarray(value, np.int32)
         else:
             t = value.detach().cpu()

@@ -54,6 +54,9 @@ from ._remat import TIME_CHUNK, acc_dtype, remat_backward
 
 # the kernel's instances of n: hymba-1.5b's state and its reduced config's
 STATE_DIMS = (8, 16)
+# the kernel takes di in multiples of this (its lanes copy 16-byte rows);
+# under a mesh, a rank's slice of the channels must be one too
+CHANNEL_MULTIPLE = 8
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # training: the steps of a sub-chunk in the backward's chunked form
 SUB_CHUNK = 16
@@ -135,7 +138,8 @@ def mamba_scan(dt: torch.Tensor, dt_bias: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"mamba_scan: no kernel for {dt.device}")
     bsz, s, di = dt.shape
     n = a_log.shape[-1]
-    if n not in STATE_DIMS or s < 1 or di % 8 or dt.dtype not in DTYPES:
+    if n not in STATE_DIMS or s < 1 or di % CHANNEL_MULTIPLE \
+            or dt.dtype not in DTYPES:
         raise ValueError(f"mamba_scan: unsupported n={n}, S={s}, di={di}, "
                          f"{dt.dtype}")
     if x.shape != dt.shape or z.shape != dt.shape \

@@ -22,14 +22,24 @@ no JAX kernel: it takes the model's (B, S, ...) layout only.
 Each wrapper counts its launches in ``.launches``; ``mamba_scan`` also
 counts in ``.token_launches`` those that ran its token body (decode).
 
-Under a mesh (``sharding.ctx``) the attention functions take DTensors:
-batch on the data-parallel axes, heads (query and KV alike) on
-``model``. They run the kernel, or on the CPU its plain version, on each
-rank's local heads through ``local_map``, which moves the inputs to those
-placements first; ``FlashAttentionFn``'s backward runs inside the same
-map. A dim the mesh does not divide stays whole on every rank (the
-rules' fallback), and so do a GQA model's heads unless both head counts
-divide.
+Under a mesh (``sharding.ctx``) every function takes DTensors and runs
+the kernel, or on the CPU its plain version, on each rank's local shards
+through ``local_map``, which moves the inputs to the kernel's placements
+first (a DTensor never reaches a wrapper); under autograd the Function
+and its backward run inside the same map. Batch is on the data-parallel
+axes, and on ``model``:
+  * attention: the heads, query and KV alike, unless ``model`` does not
+    divide both head counts (a GQA group must stay whole on a rank);
+  * WKV6: the heads of r, k, v, w, u and the state;
+  * the Mamba scan: the channels of dt, x, z, dt_bias, d_skip, a_log and
+    the state, unless a rank's slice would not be a multiple of the
+    kernel's ``CHANNEL_MULTIPLE``; b and c stay whole.
+What ``model`` does not split stays whole on every rank (the rules'
+fallback). A weight that ranks splitting the work all hold whole gets a
+gradient summed over them. A recurrent state arrives in its cache's
+placements (``cache_specs`` shards WKV's key rows and Mamba's n, not the
+heads or channels): ``local_map`` then hands the kernel a temporary, and
+the final state is written back into the given DTensor (``write_back``).
 """
 
 from __future__ import annotations
@@ -64,28 +74,78 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-# roles of the attention operands under a mesh: the model's layout,
-# (B, S, H, hd) and decode's q (B, Hkv, grp, hd), cache_len (B,)
+# roles of the kernels' operands under a mesh. Attention: the model's
+# layout, (B, S, H, hd) and decode's q (B, Hkv, grp, hd), cache_len (B,).
+# WKV6: r, k, v, w as attention's, u (H, hd), the state (B, H, hd, hd): a
+# head is the kernel's unit. The Mamba scan: dt, x, z (B, S, di) on their
+# channels, dt_bias, d_skip (di), a_log (di, n), b, c (B, S, n) whole on
+# every model rank, the state (B, di, n): a channel is the kernel's unit.
 SEQ_ROLES = ("dp", None, "tp", None)
 DECODE_Q_ROLES = ("dp", "tp", None, None)
+WKV_U_ROLES = ("tp", None)
+WKV_STATE_ROLES = ("dp", "tp", None, None)
+SCAN_ROLES = {"seq": ("dp", None, "tp"), "channel": ("tp",),
+              "a_log": ("tp", None), "bc": ("dp", None, None),
+              "state": ("dp", "tp", None)}
+
+
+def _model_splits(mesh, *counts: int, multiple: int = 1) -> bool:
+    """Whether ``model`` divides every count into local counts that are
+    multiples of ``multiple``."""
+    tp = _ctx._extent(_ctx.spec_of(1, ("tp",))[0], mesh)
+    return all(c % tp == 0 and (c // tp) % multiple == 0 for c in counts)
+
+
+def _on_local_shards(fn, args: tuple, roles: tuple, outs: tuple,
+                     split: bool):
+    """``fn(*args)`` on each rank's shards of DTensor ``args`` (a None role
+    passes its argument as it is), each moved to its roles' placements
+    first (``local_map`` hands ``fn`` a temporary where they differ).
+    ``outs``: (shape, roles) of each output. ``split``: whether ``model``
+    shards the "tp" dims; if not, they stay whole on every rank."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = args[0].device_mesh
+
+    def placements(shape, r):
+        if not split:
+            r = tuple(None if x == "tp" else x for x in r)
+        return to_placements(_ctx.fitted_spec(shape, r, mesh), mesh)
+
+    ins = tuple(None if r is None else placements(a.shape, r)
+                for a, r in zip(args, roles))
+    # an input that the ranks splitting the work (batch rows on dp, heads
+    # or channels on model) all hold whole gets a gradient summed over
+    # them: each computes its share from its rows or heads
+    splits = [role for role, on in (("dp", _ctx.fitted_spec(
+        args[0].shape, roles[0], mesh)[0] is not None), ("tp", split)) if on]
+    grads = tuple(p if p is None else _ctx.summed_over(
+        p, mesh, *(s for s in splits if s not in r))
+        for p, r in zip(ins, roles))
+    # one output's placements are a list: local_map reads a tuple as one
+    # placements per output
+    out = [list(placements(s, r)) for s, r in outs]
+    return local_map(fn, out_placements=tuple(out) if len(out) > 1
+                     else out[0], in_placements=ins, in_grad_placements=grads,
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
 def _on_local_heads(fn, args: tuple, roles: tuple, heads: tuple):
-    """``fn(*args)`` on each rank's shards of DTensor ``args`` (a None role
-    passes its argument as it is), the output laid out as ``args[0]``.
-    ``heads``: (arg index, dim) of each head count; ``model`` shards them
-    only if it divides them all."""
-    from torch.distributed.tensor.experimental import local_map
-    mesh = args[0].device_mesh
-    if not all(_ctx.fitted_spec((args[i].shape[d],), ("tp",), mesh)[0]
-               for i, d in heads):
-        roles = [r and tuple(None if x == "tp" else x for x in r)
-                 for r in roles]
-    placements = [None if r is None else to_placements(
-        _ctx.fitted_spec(a.shape, r, mesh), mesh) for a, r in zip(args, roles)]
-    return local_map(fn, out_placements=list(placements[0]),
-                     in_placements=tuple(placements), device_mesh=mesh,
-                     redistribute_inputs=True)(*args)
+    """Attention on each rank's local heads, the output laid out as
+    ``args[0]``. ``heads``: (arg index, dim) of each head count; ``model``
+    shards them only if it divides them all."""
+    split = _model_splits(args[0].device_mesh,
+                          *(args[i].shape[d] for i, d in heads))
+    return _on_local_shards(fn, args, roles, ((args[0].shape, roles[0]),),
+                            split)
+
+
+def write_back(state: torch.Tensor, final: torch.Tensor) -> torch.Tensor:
+    """The recurrence's final state, laid out as the kernel ran, into the
+    DTensor ``state`` in its own placements: where they differ, the
+    kernel wrote its in-place update into ``local_map``'s temporary."""
+    if final.to_local().data_ptr() != state.to_local().data_ptr():
+        _ctx.assign(state, final)
+    return state
 
 
 def _check_impl(impl: str) -> None:
@@ -170,6 +230,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                     None if state is None else state[None], impl=impl)
         return y[0].transpose(0, 1)
     r, k, v, w, u = (t.float() for t in (r, k, v, w, u))
+    if _ctx.sharded(r):
+        return _wkv6_sharded(r, k, v, w, u, state, impl)
     if impl == "reference":
         return _wkv6.wkv6_plain(r, k, v, w, u, state)
     if _training("wkv6", state, r, k, v, w, u):
@@ -192,8 +254,50 @@ def mamba_scan(dt: torch.Tensor, dt_bias: torch.Tensor, b: torch.Tensor,
     JAX's ``step`` does."""
     _check_impl(impl)
     args = (dt, dt_bias, b, c, x, z, a_log, d_skip)
+    if _ctx.sharded(dt):
+        return _mamba_scan_sharded(args, h, impl)
     if impl == "reference":
         return _mamba.mamba_scan_plain(*args, h)
     if _training("mamba_scan", h, *args):
         return _mamba.MambaScanFn.apply(*args)
     return _mamba.mamba_scan(*args, h)
+
+
+def _wkv6_sharded(r, k, v, w, u, state, impl: str):
+    """``wkv6`` on each rank's local heads: batch on the dp axes, heads on
+    ``model`` where it divides them (else whole on every rank). A given
+    state arrives in the cache's placements (``cache_specs`` shards its
+    key rows, not its heads): it is moved to the heads', and the final
+    state written back into it."""
+    b, _, h, hd = r.shape
+    roles = (SEQ_ROLES,) * 4 + (WKV_U_ROLES,)
+    args = (r, k, v, w, u)
+    if state is not None:
+        roles, args = roles + (WKV_STATE_ROLES,), args + (state,)
+    y, final = _on_local_shards(
+        lambda *a: wkv6(*a, impl=impl), args, roles,
+        ((r.shape, SEQ_ROLES), ((b, h, hd, hd), WKV_STATE_ROLES)),
+        _model_splits(r.device_mesh, h))
+    return y, final if state is None else write_back(state, final)
+
+
+def _mamba_scan_sharded(args: tuple, h, impl: str):
+    """``mamba_scan`` on each rank's local channels: batch on the dp axes,
+    channels on ``model`` where it divides them into slices the kernel
+    takes (a multiple of ``CHANNEL_MULTIPLE``; else whole on every rank),
+    b and c whole. A given state arrives in the cache's placements
+    (``cache_specs`` shards its state dim n): it is moved to the
+    channels', and the final state written back into it."""
+    dt, a_log = args[0], args[6]
+    bsz, _, di = dt.shape
+    r = SCAN_ROLES
+    roles = (r["seq"], r["channel"], r["bc"], r["bc"], r["seq"], r["seq"],
+             r["a_log"], r["channel"])
+    if h is not None:
+        roles, args = roles + (r["state"],), args + (h,)
+    out, final = _on_local_shards(
+        lambda *a: mamba_scan(*a, impl=impl), args, roles,
+        ((dt.shape, r["seq"]), ((bsz, di, a_log.shape[1]), r["state"])),
+        _model_splits(dt.device_mesh, di,
+                      multiple=_mamba.CHANNEL_MULTIPLE))
+    return out, final if h is None else write_back(h, final)

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
-from ..sharding.ctx import constrain
+from ..sharding.ctx import assign, constrain
 from .layers import dense_init, group_norm_heads
 
 DECAY_LORA = 64
@@ -94,8 +94,7 @@ def apply_rwkv_tmix(p: dict, x: torch.Tensor, cfg: ArchConfig,
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
     h = d // hd
-    prev = state["shift"] if state is not None \
-        else torch.zeros((b, d), dtype=x.dtype, device=x.device)
+    prev = state["shift"] if state is not None else torch.zeros_like(x[:, 0])
     xx = _shift(x, prev)
 
     def mix(i):
@@ -123,9 +122,7 @@ def apply_rwkv_cmix(p: dict, x: torch.Tensor, cfg: ArchConfig,
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,D), state: the previous token's (B,D) or None (zeros).
     Returns (out, x's last row)."""
-    b, _, d = x.shape
-    prev = state if state is not None \
-        else torch.zeros((b, d), dtype=x.dtype, device=x.device)
+    prev = state if state is not None else torch.zeros_like(x[:, 0])
     xx = _shift(x, prev)
 
     def mix(i):
@@ -168,10 +165,10 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     the model's dtype, in JAX's order (not ``F.conv1d``, which sums in
     another). Returns (out, the last K-1 inputs)."""
     s = x.shape[1]
-    if conv_state is None:
-        conv_state = torch.zeros((x.shape[0], CONV_K - 1, x.shape[2]),
-                                 dtype=x.dtype, device=x.device)
-    xp = torch.cat([conv_state, x], dim=1)             # (B, S+K-1, di)
+    # zeros made from x, so that under a mesh they are a DTensor like x
+    start = [conv_state] if conv_state is not None \
+        else [torch.zeros_like(x[:, :1])] * (CONV_K - 1)
+    xp = torch.cat(start + [x], dim=1)                 # (B, S+K-1, di)
     out = xp[:, :s] * w[0]
     for i in range(1, CONV_K):
         out = out + xp[:, i:i + s] * w[i]
@@ -198,5 +195,5 @@ def apply_mamba(p: dict, x: torch.Tensor, cfg: ArchConfig,
                           impl=impl)
     out = constrain(y @ p["out_proj"], "dp", "sp", None)
     if state is not None:
-        new_conv = state["conv"].copy_(new_conv)
+        new_conv = assign(state["conv"], new_conv)
     return out, {"conv": new_conv, "h": h}

@@ -34,7 +34,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
-from ..sharding.ctx import constrain, replicated_like, sharded
+from ..sharding.ctx import assign, constrain, replicated_like, sharded
+from ..sharding.rules import cache_specs, to_placements
 from .layers import apply_rope, dense_init, rms_norm, rope_tables
 from .moe import apply_moe, init_moe
 from .ssm import (CONV_K, apply_mamba, apply_rwkv_cmix, apply_rwkv_tmix,
@@ -267,8 +268,8 @@ def apply_rwkv_block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
     h, cstate = apply_rwkv_cmix(lp["cmix"], normed, cfg,
                                 None if cache is None else cache["cmix"])
     if cache is not None:
-        cache["tmix"]["shift"].copy_(tstate["shift"])  # wkv: in place already
-        cache["cmix"].copy_(cstate)
+        assign(cache["tmix"]["shift"], tstate["shift"])  # wkv: in place
+        assign(cache["cmix"], cstate)
     return x + h
 
 
@@ -377,17 +378,20 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict,
     it for the hybrid family, or for RWKV {"tmix": {"shift": (L, B, D),
     "wkv": (L, B, H, hd, hd) fp32}, "cmix": (L, B, D)}. RWKV's and Mamba's
     states already have their decode size: each layer writes its final
-    states in place into buffers that start at zero."""
+    states in place into buffers that start at zero, laid out by
+    ``cache_specs`` on the input's mesh when it is a DTensor."""
     x = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
+    mesh = x.device_mesh if sharded(x) else None
     if cfg.attn_free:
-        caches = init_decode_cache(cfg, b, s, device=x.device)
+        caches = init_decode_cache(cfg, b, s, device=x.device, mesh=mesh)
         for i in range(cfg.n_layers):
             x = apply_rwkv_block(_layer(params["layers"], i), x, cfg,
                                  _layer(caches, i), impl)
     else:
         rope = _rope(torch.arange(s, device=x.device), cfg, x)
-        mamba = _mamba_states(cfg, b, x.device) if cfg.hybrid_ssm else None
+        mamba = _mamba_states(cfg, b, x.device, mesh) if cfg.hybrid_ssm \
+            else None
         ks, vs = [], []
         for i in range(cfg.n_layers):
             x, kv, _ = apply_block_seq(
@@ -402,9 +406,13 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict,
         torch.full((b,), s, dtype=torch.int32, device=x.device)
 
 
-def _mamba_states(cfg: ArchConfig, batch_size: int, device=None) -> dict:
+def _mamba_states(cfg: ArchConfig, batch_size: int, device=None,
+                  mesh=None) -> dict:
     """Zeroed Mamba states of every layer: {"conv": (L, B, K-1, di) in the
-    model's dtype, "h": (L, B, di, n) fp32}."""
+    model's dtype, "h": (L, B, di, n) fp32}; with a ``mesh``, laid out on
+    it as ``init_decode_cache`` lays them out."""
+    if mesh is not None:
+        return _on_mesh(_mamba_states(cfg, batch_size, "meta"), mesh)
     L, di = cfg.n_layers, cfg.n_heads * cfg.hd
     return {"conv": torch.zeros((L, batch_size, CONV_K - 1, di),
                                 dtype=_dtype(cfg), device=device),
@@ -412,11 +420,30 @@ def _mamba_states(cfg: ArchConfig, batch_size: int, device=None) -> dict:
                              dtype=torch.float32, device=device)}
 
 
+def _on_mesh(tree: dict, mesh) -> dict:
+    """Zeros of the shapes and dtypes of ``tree`` (blank caches or states
+    built on the meta device) laid out on ``mesh`` by ``cache_specs``,
+    each rank allocating only its shard."""
+    from torch.distributed.tensor import zeros
+
+    def place(t, spec):
+        if isinstance(t, dict):
+            return {k: place(v, spec[k]) for k, v in t.items()}
+        return zeros(t.shape, dtype=t.dtype, device_mesh=mesh,
+                     placements=to_placements(spec, mesh))
+
+    return place(tree, cache_specs(tree, mesh))
+
+
 def init_decode_cache(cfg: ArchConfig, batch_size: int, max_len: int,
-                      device=None) -> dict:
+                      device=None, mesh=None) -> dict:
     """Blank decode caches; a sliding-window config gets a ring of
     ``min(max_len, window)`` slots. RWKV's and Mamba's states do not grow
-    with ``max_len``."""
+    with ``max_len``. With a ``mesh`` (a ``DeviceMesh``), DTensors laid out
+    by ``sharding.rules.cache_specs`` on it."""
+    if mesh is not None:
+        return _on_mesh(init_decode_cache(cfg, batch_size, max_len,
+                                          device="meta"), mesh)
     L, dtype = cfg.n_layers, _dtype(cfg)
     if cfg.attn_free:
         hd = cfg.rwkv_head_dim

@@ -16,7 +16,6 @@ from ..configs.base import ArchConfig
 from ..coord.registry import ClusterRegistry
 from ..models import decode_step, init_decode_cache, prefill
 from ..sharding.ctx import sharded
-from ..sharding.rules import cache_specs, shard_tree
 
 
 @dataclass
@@ -49,15 +48,15 @@ def preallocate_cache(cfg: ArchConfig, caches: dict, total_len: int) -> dict:
     states beside its K/V, already have their decode size and pass through
     unchanged, as JAX's engine passes every leaf but the 5-D K/V. Prefill
     caches that are DTensors give decode caches laid out by
-    ``sharding.rules.cache_specs`` on their mesh."""
+    ``sharding.rules.cache_specs`` on their mesh (prefill lays the
+    recurrent states out so already)."""
     if cfg.attn_free:
         return caches
     k = caches["kv"]["k"]
-    out = init_decode_cache(cfg, k.shape[1], total_len, device=k.device)
+    out = init_decode_cache(cfg, k.shape[1], total_len, device=k.device,
+                            mesh=k.device_mesh if sharded(k) else None)
     s, size = k.shape[2], out["kv"]["k"].shape[2]
     pos = torch.arange(max(0, s - size), s, device=k.device)
-    if sharded(k):
-        out = shard_tree(out, cache_specs(out, k.device_mesh), k.device_mesh)
     for name, c in caches["kv"].items():
         dst = out["kv"][name]
         if sharded(dst):

@@ -114,6 +114,46 @@ def replicated_like(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                               run_check=False)
 
 
+def _axes(role: str) -> tuple:
+    """The mesh axes of a role ("dp" or "tp")."""
+    names = spec_of(1, (role,))[0]
+    return (names,) if isinstance(names, str) else (names or ())
+
+
+def dp_index(mesh) -> tuple[int, int]:
+    """(this rank's index among the data-parallel ranks, their number):
+    the order in which ``Shard`` over the dp axes lays out row blocks,
+    major to minor."""
+    index, size = 0, 1
+    for name, extent, coord in zip(mesh.mesh_dim_names, mesh.shape,
+                                   mesh.get_coordinate()):
+        if name in _axes("dp"):
+            index, size = index * extent + coord, size * extent
+    return index, size
+
+
+def summed_over(placements: tuple, mesh, *roles: str) -> tuple:
+    """``placements`` with the mesh dims of ``roles`` ("dp", "tp")
+    ``Partial``: a value of which each of those ranks holds its share of a
+    sum (the gradient of a weight from that rank's rows or heads)."""
+    from torch.distributed.tensor import Partial
+    names = {n for r in roles for n in _axes(r)}
+    return tuple(Partial() if n in names else p
+                 for n, p in zip(mesh.mesh_dim_names, placements))
+
+
+def assign(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``dst.copy_(src)``, in place; a DTensor ``dst`` keeps its own
+    placements: ``src`` is moved to them first and each rank copies its
+    shard."""
+    if not sharded(dst):
+        return dst.copy_(src)
+    src = replicated_like(src, dst).redistribute(dst.device_mesh,
+                                                 dst.placements)
+    dst.to_local().copy_(src.to_local())
+    return dst
+
+
 def constrain(x: torch.Tensor, *roles: Optional[str]) -> torch.Tensor:
     """roles: one of 'dp' | 'tp' | 'sp' | None per dim (trailing dims may
     be omitted). A DTensor is redistributed to the roles' placements; a

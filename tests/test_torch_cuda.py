@@ -405,3 +405,99 @@ def test_moe_layer_on_the_card_matches_the_cpu(cuda, arch, dtype):
     tol = TOL[dtype] * (want.float().abs().max().item()
                         if dtype == "bfloat16" else 1.0)
     close(out, want, tol)
+
+
+# ------------------------------------------------------------ under a mesh
+@pytest.fixture
+def mesh11(cuda):
+    """A (1, 1) (data, model) mesh on an NCCL process group of one rank,
+    the sharding context set from it; torn down after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding import ctx
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_local_mesh(1, 1, device="cuda")
+        ctx.set_axes(*ctx.axes_from_mesh(mesh))
+        yield mesh
+    finally:
+        ctx.clear()
+        dist.destroy_process_group()
+
+
+def placed(mesh, t, spec):
+    from repro_torch.sharding.rules import shard_tree
+    return shard_tree({"t": t}, {"t": spec}, mesh)["t"]
+
+
+@pytest.mark.parametrize("s", [1, 40])
+def test_wkv6_launches_on_local_shards(mesh11, s):
+    """``ops.wkv6`` on DTensors (heads on model) launches the kernel on the
+    local shards, the token body (S=1) or the chunked one, from a state
+    laid out as ``cache_specs`` lays out WKV's (on its key rows): the
+    final state lands in it, and y and the state equal the unsharded
+    kernel's. On this (1, 1) mesh the kernel writes the cache's own local
+    tensor, so the write-back from ``local_map``'s temporary is not
+    exercised: the 2 x 2 gloo tests and their mutant hold it. Under
+    autograd the call runs ``Wkv6Fn`` in the same map and launches per
+    chunk."""
+    r, k, v, w, u = wkv_on("cuda", (2, s, 4, 64), 11)
+    state = torch.randn((2, 4, 64, 64), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(2))
+    want_state = state.clone()
+    want, _ = ops.wkv6(r, k, v, w, u, want_state)
+    seq = ("data", None, "model", None)
+    args = [placed(mesh11, t, seq) for t in (r, k, v, w)]
+    cache = placed(mesh11, state.clone(), seq)
+    laid_out = tuple(cache.placements)
+    before = wkv6.launches
+    with torch.no_grad():
+        y, final = ops.wkv6(*args, placed(mesh11, u, ("model", None)), cache)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    assert final is cache and tuple(cache.placements) == laid_out
+    close_wkv(y.to_local(), want)
+    close_wkv(cache.to_local(), want_state)
+    leaves = [a.detach().requires_grad_() for a in args]
+    before = wkv6.launches
+    y, _ = ops.wkv6(*leaves, placed(mesh11, u, ("model", None)))
+    y.to_local().sum().backward()
+    assert wkv6.launches > before
+    assert all(torch.isfinite(t.grad.to_local()).all() for t in leaves)
+
+
+@pytest.mark.parametrize("s", [1, 100])
+def test_mamba_scan_launches_on_local_shards(mesh11, s):
+    """``ops.mamba_scan`` on DTensors (channels on model) launches the
+    kernel on the local shards, its token body (S=1) or chunked one, from
+    a state laid out as ``cache_specs`` lays out Mamba's (on n): the final
+    state lands in it, and out and the state equal the unsharded kernel's.
+    On this (1, 1) mesh the kernel writes the cache's own local tensor, so
+    the write-back from ``local_map``'s temporary is not exercised: the
+    2 x 2 gloo tests and their mutant hold it. Under autograd
+    ``MambaScanFn`` runs in the same map."""
+    *inputs, h = mamba_on("cuda", 2, s, 64, 16, 5, "float32")
+    want_state = h.clone()
+    want, _ = ops.mamba_scan(*inputs, want_state)
+    specs = [("data", None, "model"), ("model",), ("data", None, None),
+             ("data", None, None), ("data", None, "model"),
+             ("data", None, "model"), ("model", None), ("model",)]
+    args = [placed(mesh11, t, sp) for t, sp in zip(inputs, specs)]
+    cache = placed(mesh11, h.clone(), ("data", None, "model"))
+    before = mamba_scan.launches, mamba_scan.token_launches
+    with torch.no_grad():
+        out, final = ops.mamba_scan(*args, cache)
+    torch.cuda.synchronize()
+    assert (mamba_scan.launches, mamba_scan.token_launches) == \
+        (before[0] + 1, before[1] + (s < time_tile()))
+    assert final is cache
+    close(out.to_local(), want, 2e-5)
+    close(cache.to_local(), want_state, 2e-5)
+    leaves = [a.detach().requires_grad_() if a.is_floating_point() else a
+              for a in args]
+    before = mamba_scan.launches
+    out, _ = ops.mamba_scan(*leaves)
+    out.to_local().sum().backward()
+    assert mamba_scan.launches > before
+    assert all(torch.isfinite(t.grad.to_local()).all() for t in leaves)
