@@ -119,7 +119,20 @@ Phases; each raises on failure, so any failure exits non-zero:
      communication, nor the recurrent states' write-back (a redistribute
      across a mesh dim of size 1 keeps the local tensor, as torch 2.13
      does on the CPU, so the kernels write the caches in place; the CPU
-     tests' 2 x 2 mesh holds the write-back).
+     tests' 2 x 2 mesh holds the write-back);
+  7. the roofline against the card: every model served in phase 3 and
+     trained in phase 5, counted again on meta tensors at the shapes it
+     ran (repro_torch.roofline; a train step at depths 1 and 2,
+     extrapolated over its identical layers), its roofline terms printed
+     beside the measured prefill ms, decode ms/token and step ms; the
+     counted flops must hold serve_bounds' and train_bound's parts to
+     FLOPS_TOL once the named cases where the path does more work are
+     added from the shapes (remat, the MoE capacity rows; decode
+     attention and the kernels' backwards are reported), the decode
+     step's counted bytes must reach the bound's, and the predicted peak
+     must be within PEAK_TOL of torch.cuda.max_memory_allocated(); then
+     one decode_32k cell a family on the (16, 16) fake mesh, in a
+     subprocess, its rows written under build/dryrun_rows/.
 Each phase prints its wall time, and the run its total. The last lines
 are a JSON line of per-kernel numbers (flash attention at the qwen3-8b
 serving shape with the served prefill's launches, "flash_attention_train" at the training shape
@@ -240,6 +253,9 @@ RECURRENT_LEAVES = {"tmix": ("w_r", "w_k", "w_v", "w_lora_a", "w_lora_b",
                     "mamba": ("dt_a", "dt_b", "dt_bias", "a_log", "d_skip",
                               "w_bc", "conv_w")}
 TIMED_STEPS = 3
+# the bounds' parts that run in fp32: the recurrences, forward and backward
+FP32_PARTS = ("wkv6", "mamba_scan", "Wkv6FnBackward", "MambaScanFnBackward",
+              "router")
 # bf16 attention gradients through the kernel path, and bf16 training
 # paths, against fp32: within this factor of the plain path's own error
 # (two bf16 paths round independently; the fp32 checks are the tight ones)
@@ -1057,6 +1073,7 @@ def serve_full_width(arch: str) -> dict:
         f"prefill {REQUESTS * prompt_len * 1e3 / st['prefill_ms']:.0f} "
         f"prompt tokens/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    peak = torch.cuda.max_memory_allocated()
     check_counts("generate", launches, expected_counts(cfg, MAX_NEW - 1))
     launches.update(check_scan_bodies("generate", cfg, MAX_NEW - 1))
     prefill_bound, decode_bound = serve_bounds(cfg, params, prompt_len)
@@ -1086,7 +1103,7 @@ def serve_full_width(arch: str) -> dict:
     del caches
     compare_paths(params, cfg, {"tokens": prompts},
                   [toks[:, i] for i in range(3)])
-    return {"launches": launches, **st}
+    return {"launches": launches, "peak_bytes": peak, **st}
 
 
 def serve_stub(arch: str) -> dict:
@@ -1141,7 +1158,8 @@ def serve_stub(arch: str) -> dict:
     ops.reset_launches()
     logits, (prefill_ms, decode_ms) = serve(prompt_len, MAX_NEW)
     launches = ops.launch_counts()
-    st = {"prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms}
+    st = {"prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+          "peak_bytes": torch.cuda.max_memory_allocated()}
     log(f"prefill and {MAX_NEW} decode steps: {REQUESTS} x {prompt_len} "
         f"prompt positions; prefill {prefill_ms:.3f} ms, decode "
         f"{decode_ms:.3f} ms/step ({REQUESTS * 1e3 / decode_ms:.1f} "
@@ -1177,14 +1195,17 @@ def serve_bounds(cfg, params, prompt_len: int) -> tuple:
     """Least time for the prefill and for one decode step of the main path.
     Prefill: 2 flops per layer weight per prompt token, causal attention
     over the (query, key) pairs inside the window (or RWKV's fp32
-    recurrence, 5 hd^2 flops per token and head), a hybrid's Mamba scan (7
-    fp32 flops per token, channel and state), the LM head for the last
-    token; it reads every weight but the embedding table once and writes a
-    hybrid's Mamba states once. Decode: it reads the layer weights, the LM
-    head, and the KV cache at its mean length over the decode loop, or the
-    ring of a sliding window when that is shorter, once (or reads and
-    writes RWKV's WKV states), and reads and writes a hybrid's Mamba
-    states."""
+    recurrence, ``wkv6_flops``), a hybrid's Mamba scan (``mamba_flops``),
+    the LM head for the last token; it reads every weight but the
+    embedding table once and writes a hybrid's Mamba states once. Decode:
+    it reads the layer weights, the LM head, and the KV cache at its mean
+    length over the decode loop, or the ring of a sliding window when that
+    is shorter, once (or reads and writes RWKV's WKV states), and reads
+    and writes a hybrid's Mamba states. Returns (prefill, decode), each
+    (ms, bound by, work); work is {"flops": {part: flops}, "bytes": n},
+    each part named as the roofline counter names its region ("dense":
+    the matrix products; a kernel's name: its own work), so that phase 7
+    holds the counted step to it."""
     from repro_torch.models.ssm import CONV_K
     layers = list(_leaves(params["layers"]))
     layer_params = sum(t.numel() for t in layers)
@@ -1196,41 +1217,48 @@ def serve_bounds(cfg, params, prompt_len: int) -> tuple:
         cfg.n_experts - cfg.experts_per_token) * 3 * cfg.d_model * cfg.d_ff
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     head_bytes = head.numel() * head.element_size()
+    L, tokens = cfg.n_layers, REQUESTS * prompt_len
     if cfg.attn_free:
         hd = cfg.rwkv_head_dim
         heads = cfg.d_model // hd
-        seq_flops = {torch.float32: 5 * hd * hd * heads * cfg.n_layers
-                     * REQUESTS * prompt_len}
-        step_flops = 5 * hd * hd * heads * cfg.n_layers * REQUESTS
-        cache_bytes = 2 * cfg.n_layers * REQUESTS * heads * hd * hd * 4
+        seq = {"wkv6": L * wkv6_flops(tokens, heads, hd)[0]}
+        step = {"wkv6": L * wkv6_flops(REQUESTS, heads, hd)[0]}
+        cache_bytes = 2 * L * REQUESTS * heads * hd * hd * 4
     else:
-        seq_flops = {torch.bfloat16: 4 * REQUESTS * cfg.n_heads * cfg.hd
-                     * cfg.n_layers * visible_pairs(prompt_len,
-                                                    cfg.sliding_window)}
-        step_flops = 0
+        seq = {"flash_attention": 4 * REQUESTS * cfg.n_heads * cfg.hd * L
+               * visible_pairs(prompt_len, cfg.sliding_window)}
+        step = {}
         slots = prompt_len + MAX_NEW / 2
         if cfg.sliding_window is not None:
             slots = min(slots, cfg.sliding_window)
-        cache_bytes = 2 * cfg.n_layers * REQUESTS * slots * cfg.n_kv_heads \
+        cache_bytes = 2 * L * REQUESTS * slots * cfg.n_kv_heads \
             * cfg.hd * head.element_size()
     state_bytes = 0
     if cfg.hybrid_ssm:
         di = cfg.n_heads * cfg.hd
-        states = cfg.n_layers * REQUESTS * di * cfg.ssm_state
-        seq_flops[torch.float32] = 7 * states * prompt_len
-        step_flops = 7 * states
-        state_bytes = 4 * states + cfg.n_layers * REQUESTS * (CONV_K - 1) \
-            * di * head.element_size()
-    dense = 2 * layer_flop_params * REQUESTS * prompt_len \
-        + 2 * head.numel() * REQUESTS
-    prefill = bound_ms(layer_bytes + head_bytes + state_bytes, {
-        torch.bfloat16: dense + seq_flops.get(torch.bfloat16, 0),
-        torch.float32: seq_flops.get(torch.float32, 0)})
-    decode = bound_ms(layer_bytes + head_bytes + cache_bytes
-                      + 2 * state_bytes, {
-        torch.bfloat16: 2 * (layer_flop_params + head.numel()) * REQUESTS,
-        torch.float32: step_flops})
-    return prefill, decode
+        seq["mamba_scan"] = L * mamba_flops(tokens, di, cfg.ssm_state)[0]
+        step["mamba_scan"] = L * mamba_flops(REQUESTS, di, cfg.ssm_state)[0]
+        state_bytes = 4 * L * REQUESTS * di * cfg.ssm_state \
+            + L * REQUESTS * (CONV_K - 1) * di * head.element_size()
+    prefill = {"dense": 2 * layer_flop_params * tokens
+               + 2 * head.numel() * REQUESTS, **seq}
+    decode = {"dense": 2 * (layer_flop_params + head.numel()) * REQUESTS,
+              **step}
+    out = []
+    for parts, n_bytes in ((prefill, layer_bytes + head_bytes + state_bytes),
+                           (decode, layer_bytes + head_bytes + cache_bytes
+                            + 2 * state_bytes)):
+        out.append((*bound_ms(n_bytes, typed_flops(parts)),
+                    {"flops": parts, "bytes": n_bytes}))
+    return tuple(out)
+
+
+def typed_flops(parts: dict) -> dict:
+    """{part: flops} -> {dtype: flops}: the recurrences run in fp32, the
+    matrix products and attention in bf16."""
+    fp32 = sum(v for k, v in parts.items() if k in FP32_PARTS)
+    return {torch.bfloat16: sum(parts.values()) - fp32,
+            torch.float32: fp32}
 
 
 def model_logits(params, cfg, batch: dict, steps: list, impl: str) -> list:
@@ -1703,14 +1731,26 @@ def train_bound(cfg, seqs: int) -> tuple[float, str, float]:
     Bytes: the bf16 parameters read and written, the fp32 grad accumulator
     read, AdamW's m and v read and written, once each. Remat's recompute is
     not counted. Returns (ms, bound by, flops)."""
+    parts = train_work(cfg, seqs)
+    ms, by = bound_ms(cfg.param_count() * (2 * 2 + 4 + 2 * 8),
+                      typed_flops(parts))
+    return ms, by, sum(parts.values())
+
+
+def train_work(cfg, seqs: int) -> dict:
+    """``train_bound``'s flops by part, named as the roofline counter names
+    its regions: "dense" (the bf16 matrix products), "router" (a MoE
+    layer's fp32 router, in the counter's "dense"), a kernel's name for
+    its forward, and the backward of its Function."""
     d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
     tokens = seqs * TRAIN_SEQ
-    fp32 = 0.0
+    parts = {}
+    router = 0
     if cfg.attn_free:
         per_layer = 6 * d * d + 2 * d * f + 2 * d * 64
-        heads = d // cfg.rwkv_head_dim
-        fp32 = sum(wkv6_flops(tokens, heads, cfg.rwkv_head_dim))
-        attn = 0
+        fwd, bwd = wkv6_flops(tokens, d // cfg.rwkv_head_dim,
+                              cfg.rwkv_head_dim)
+        parts.update(wkv6=fwd, Wkv6FnBackward=bwd)
     else:
         # MoE: the k experts a token is routed to, and arctic's dense
         # residual beside them; the fp32 router's flops below
@@ -1719,18 +1759,21 @@ def train_bound(cfg, seqs: int) -> tuple[float, str, float]:
         per_layer = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd \
             + cfg.n_heads * hd * d + ffn
         if cfg.is_moe:
-            fp32 = 6 * d * cfg.n_experts * tokens
-        pairs = visible_pairs(TRAIN_SEQ, cfg.sliding_window)
-        attn = 3 * 4 * cfg.n_heads * hd * pairs * seqs
+            router = 6 * d * cfg.n_experts * tokens
+        attn = 4 * cfg.n_heads * hd * visible_pairs(TRAIN_SEQ,
+                                                    cfg.sliding_window) * seqs
+        parts.update(flash_attention=attn, FlashAttentionFnBackward=2 * attn)
     if cfg.hybrid_ssm:
         di, n = cfg.n_heads * hd, cfg.ssm_state
         per_layer += 3 * d * di + 2 * di * 64 + 2 * di * n
-        fp32 = sum(mamba_flops(tokens, di, n))
+        fwd, bwd = mamba_flops(tokens, di, n)
+        parts.update(mamba_scan=fwd, MambaScanFnBackward=bwd)
+    if router:
+        parts["router"] = router
+    parts = {k: v * cfg.n_layers for k, v in parts.items()}
     matmul = cfg.n_layers * per_layer + d * cfg.vocab_size
-    flops = {torch.bfloat16: 6 * matmul * tokens + attn * cfg.n_layers,
-             torch.float32: fp32 * cfg.n_layers}
-    ms, by = bound_ms(cfg.param_count() * (2 * 2 + 4 + 2 * 8), flops)
-    return ms, by, sum(flops.values())
+    parts["dense"] = 6 * matmul * tokens
+    return parts
 
 
 def wkv6_flops(tokens: int, heads: int, hd: int) -> tuple[int, int]:
@@ -2061,7 +2104,7 @@ def train_full_width(arch: str, bwd_ms: dict) -> dict:
     log(f"  step bound {bound:.1f} ms ({by}; {flops:.4g} model flops)")
     want = train_counts(cfg)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    launches, steps, seen = dict.fromkeys(want, 0), [], []
+    launches, steps, seen, peaks = dict.fromkeys(want, 0), [], [], []
     real_updates = ts.apply_updates
 
     def first_grads(grads, *args, **kwargs):
@@ -2100,6 +2143,7 @@ def train_full_width(arch: str, bwd_ms: dict) -> dict:
             for k in launches:
                 launches[k] += counts[k]
             steps.append(ms)
+            peaks.append(torch.cuda.max_memory_allocated())
     mean = sum(steps) / len(steps)
     # the backward timed alone at this model's shape (the attention
     # backward at qwen3-8b's; hymba's is in the spans below)
@@ -2139,7 +2183,7 @@ def train_full_width(arch: str, bwd_ms: dict) -> dict:
                 f"device time")
     time_step_parts(state, batch, cfg, opt_cfg, mean)
     del state, batch
-    return {"launches": launches, "step_ms": mean}
+    return {"launches": launches, "step_ms": mean, "peak_bytes": max(peaks)}
 
 
 def compare_train_paths(arch: str, seq: int, micro: int) -> None:
@@ -2640,6 +2684,283 @@ def log_flat_dispatch_bytes(arch: str = "moonshot-v1-16b-a3b") -> None:
             f"rank")
 
 
+# ------------------------------------------------------------ phase 7
+# the roofline's flops against the bounds' parts, and its peak against the
+# allocator's: relative limits
+FLOPS_TOL, PEAK_TOL = 0.05, 0.15
+# training runs each layer's forward (remat) and each loss chunk's LM head
+# (its checkpoint) again in the backward: 8 flops a matmul parameter and
+# token where train_bound counts 6, and every kernel's forward twice
+REMAT_DENSE, REMAT_KERNEL = 8 / 6, 2
+# phase 7b: one cell a family on the production (16, 16) mesh, counted in
+# a subprocess (the fake process group must not meet phase 6's NCCL one)
+FAMILY_CELLS = ("qwen3-8b", "moonshot-v1-16b-a3b", "pixtral-12b",
+                "rwkv6-3b", "hymba-1.5b", "musicgen-large")
+FAMILY_SHAPE = "decode_32k"
+DRYRUN_CELLS = r"""
+import json, sys
+sys.path.insert(0, "src")
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_dryrun_mesh
+mesh = make_dryrun_mesh()
+for arch in sys.argv[2:]:
+    print("ROW " + json.dumps(dryrun.run_cell(arch, sys.argv[1], mesh,
+                                              "16x16", verbose=False),
+                              default=str), flush=True)
+"""
+
+
+def moe_padding(cfg, tokens: int) -> int:
+    """Forward flops the flat dispatch runs beyond the routed tokens'
+    products in one call over ``tokens`` tokens, all layers: each of E
+    experts runs its C = max(1, int(cf t k / E)) capacity rows, where the
+    bounds count the t k routed ones."""
+    if not cfg.is_moe:
+        return 0
+    e, k = cfg.n_experts, cfg.experts_per_token
+    cap = max(1, int(cfg.capacity_factor * tokens * k / e))
+    return 6 * cfg.d_model * cfg.d_ff * (e * cap - tokens * k) * cfg.n_layers
+
+
+def count_serving(arch: str):
+    """Phase 3's served path counted on meta tensors on one device, at the
+    shapes it ran: the prefill of REQUESTS x the prompt (ids, or a stub's
+    embeds), its cache preallocated for MAX_NEW more positions and the
+    first token sampled; then one decode step. Returns (cfg, the meta
+    weights, prefill's counter, decode's, the predicted peak: the weights
+    and inputs, which exist before the run, and the most the run holds at
+    once)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.roofline import RooflineCounter
+    from repro_torch.serve.engine import preallocate_cache
+    cfg, prompt_len = get_arch(arch), prompt_len_of(arch)
+    params = init_params(torch.Generator().manual_seed(0), cfg, "meta")
+    if cfg.embedding_stub:
+        inputs = torch.empty((REQUESTS, prompt_len + MAX_NEW, cfg.d_model),
+                             device="meta")
+        batch, step = {"embeds": inputs[:, :prompt_len]}, \
+            inputs[:, prompt_len]
+    else:
+        inputs = torch.empty((REQUESTS, prompt_len), dtype=torch.long,
+                             device="meta")
+        batch, step = {"tokens": inputs}, None
+    counter = RooflineCounter()
+    resident = counter.resident((params, inputs))
+    with torch.no_grad(), counter:
+        logits, pre, pos = prefill(params, cfg, batch)
+        caches = preallocate_cache(cfg, pre, prompt_len + MAX_NEW)
+        del pre
+        tok = logits.argmax(dim=-1) if step is None else step
+        pre_counts = counter.take()
+        decode_step(params, cfg, tok, caches, pos)
+        dec_counts = counter.take()
+    return cfg, params, pre_counts, dec_counts, resident + counter.peak_bytes
+
+
+def count_training(arch: str):
+    """Phase 5's train step counted on meta tensors on one device:
+    TRAIN_BATCH x TRAIN_SEQ ids in grad_accum microbatches, the state at
+    depth 1 and at depth 2, extrapolated to depth TRAINED[arch]
+    (``roofline.over_depth``: the layers are identical, and a step on meta
+    tensors takes ~0.2 s a layer on the host). Returns (cfg at
+    TRAINED[arch], its counts, the predicted peak, extrapolated as
+    well)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.roofline import RooflineCounter, over_depth
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import OptConfig
+    runs = []
+    for depth in (1, 2):
+        cfg = dataclasses.replace(get_arch(arch), n_layers=depth)
+        opt_cfg = OptConfig(name=cfg.optimizer, warmup_steps=2,
+                            total_steps=100)
+        state = ts.init_train_state(torch.Generator().manual_seed(0), cfg,
+                                    opt_cfg, device="meta")
+        batch = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.long,
+                                device="meta") for k in ("tokens", "labels")}
+        counter = RooflineCounter()
+        resident = counter.resident((state, batch))
+        with counter:
+            ts.train_step(state, batch, cfg, opt_cfg)
+        runs.append((counter.take(), resident + counter.peak_bytes))
+    depth = TRAINED[arch]
+    (one, peak1), (two, peak2) = runs
+    return (dataclasses.replace(cfg, n_layers=depth),
+            over_depth(one, two, depth), peak1 + (depth - 1) * (peak2 - peak1))
+
+
+def roofline_terms_of(counts) -> dict:
+    """The roofline's terms of ``counts`` on the H100, as the dry run's rows
+    give them: ``roofline_terms`` (one bf16 peak, as JAX's) and
+    ``typed_terms``' ``compute_typed_s`` (each dtype's flops at its own
+    peak, as the bounds count them) and ``bound_typed_s``."""
+    from repro_torch.launch.mesh import (HBM_BW, NVLINK_BW, PEAK_FLOPS_BF16,
+                                         PEAK_FLOPS_BY_DTYPE)
+    from repro_torch.roofline import roofline_terms, typed_terms
+    return typed_terms(roofline_terms(counts.counts,
+                                      peak_flops=PEAK_FLOPS_BF16,
+                                      hbm_bw=HBM_BW, ici_bw=NVLINK_BW),
+                       counts.flops_by_dtype, PEAK_FLOPS_BY_DTYPE)
+
+
+def hold_parts(what: str, counted: dict, expected: dict,
+               at_least: dict) -> None:
+    """The counter's flops by region against the bound's parts: each part
+    of ``expected`` (the bound's, with the named cases where the path does
+    more added from the shapes) within FLOPS_TOL; each of ``at_least`` at
+    or above it; every other region printed."""
+    log(f"  {what}: flops by region {counted}; expected {expected}; at "
+        f"least {at_least}")
+    for part, want in expected.items():
+        got = counted.get(part, 0)
+        if abs(got - want) > FLOPS_TOL * want:
+            raise AssertionError(f"{what}: {part} counted {got:.6g} flops, "
+                                 f"the bound's part {want:.6g}")
+    for part, want in at_least.items():
+        if counted.get(part, 0) < want:
+            raise AssertionError(f"{what}: {part} counted "
+                                 f"{counted.get(part, 0):.6g} flops, below "
+                                 f"the bound's {want:.6g}")
+
+
+def hold_peak(what: str, predicted: int, measured: int) -> None:
+    log(f"  {what}: predicted peak {predicted / 1e9:.4f} GB, "
+        f"torch.cuda.max_memory_allocated {measured / 1e9:.4f} GB "
+        f"({predicted / measured:.4f}x)")
+    if abs(predicted - measured) > PEAK_TOL * measured:
+        raise AssertionError(f"{what}: predicted peak {predicted} B, "
+                             f"measured {measured} B")
+
+
+def log_terms(what: str, terms: dict, measured_ms: float) -> None:
+    log(f"  {what}: compute_s {terms['compute_s']:.6g} (by dtype "
+        f"{terms['compute_typed_s']:.6g}), memory_s {terms['memory_s']:.6g},"
+        f" memory_ref_s {terms['memory_ref_s']:.6g}, bound_s "
+        f"{terms['bound_s']:.6g}, bound_typed_s {terms['bound_typed_s']:.6g}"
+        f"; measured {measured_ms:.4f} ms, "
+        f"{measured_ms / 1e3 / terms['bound_typed_s']:.3f}x the typed bound")
+
+
+def roofline_served(arch: str, run: dict) -> None:
+    """Phase 7a for one served model: its counted prefill and decode step
+    against serve_bounds' parts and phase 3's times and peak."""
+    cfg, params, pre, dec, peak = count_serving(arch)
+    (_, _, pre_b), (_, _, dec_b) = serve_bounds(cfg, params,
+                                                prompt_len_of(arch))
+    log(f"{arch} served, counted on meta: prefill {pre.counts.flops:.6g} "
+        f"flops, {pre.counts.hbm_bytes:.6g} B (plain bodies +"
+        f"{pre.counts.kernel_region_bytes:.6g} B); decode step "
+        f"{dec.counts.flops:.6g} flops, {dec.counts.hbm_bytes:.6g} B "
+        f"(+{dec.counts.kernel_region_bytes:.6g} B); kernels "
+        f"{ {k: v['calls'] for k, v in pre.kernels.items()} } and "
+        f"{ {k: v['calls'] for k, v in dec.kernels.items()} }")
+    log_terms("prefill", roofline_terms_of(pre), run["prefill_ms"])
+    log_terms("decode step", roofline_terms_of(dec),
+              run["decode_ms_per_token"])
+    for what, counts, bound, tokens in (
+            ("prefill", pre, pre_b, REQUESTS * prompt_len_of(arch)),
+            ("decode step", dec, dec_b, REQUESTS)):
+        want = dict(bound["flops"])
+        # the flat dispatch's capacity rows: the path does more than the
+        # bound counts (moonshot)
+        want["dense"] += moe_padding(cfg, tokens)
+        # decode's attention is not in serve_bounds (it is bound by bytes):
+        # reported, not held
+        hold_parts(f"{arch} {what}", counts.flops_by_region, want, {})
+    log(f"  decode bytes: counted {dec.counts.hbm_bytes:.6g}, the bound's "
+        f"{dec_b['bytes']:.6g}")
+    if dec.counts.hbm_bytes < dec_b["bytes"]:
+        raise AssertionError(f"{arch}: decode counts fewer bytes than its "
+                             f"bound reads")
+    hold_peak(f"{arch} served", peak, run["peak_bytes"])
+
+
+def roofline_trained(arch: str, run: dict) -> None:
+    """Phase 7a for one trained model: its counted step against
+    train_bound's parts and phase 5's step time and peak."""
+    cfg, step, peak = count_training(arch)
+    parts = train_work(cfg, TRAIN_BATCH)
+    micro = TRAIN_BATCH // cfg.grad_accum * TRAIN_SEQ
+    log(f"{arch} trained at depth {cfg.n_layers}, counted on meta: "
+        f"{step.counts.flops:.6g} flops, {step.counts.hbm_bytes:.6g} B "
+        f"(plain bodies +{step.counts.kernel_region_bytes:.6g} B); kernels "
+        f"{ {k: v['calls'] for k, v in step.kernels.items()} }")
+    log_terms("train step", roofline_terms_of(step), run["step_ms"])
+    # remat: every product's forward again in the backward, but a dense
+    # layer's last (the MLP's down projection, whose output no backward
+    # reads: the checkpoint stops recomputing after the last saved
+    # tensor); the capacity rows' products, forward, again and backward
+    # (4x their forward)
+    dense = REMAT_DENSE * (parts["dense"] + parts.get("router", 0)) \
+        + 4 * cfg.grad_accum * moe_padding(cfg, micro)
+    if not (cfg.attn_free or cfg.is_moe):
+        dense -= 2 * cfg.d_model * cfg.d_ff * TRAIN_BATCH * TRAIN_SEQ \
+            * cfg.n_layers
+    want = {"dense": dense}
+    at_least = {}
+    for kernel, bwd in (("flash_attention", "FlashAttentionFnBackward"),
+                        ("wkv6", "Wkv6FnBackward"),
+                        ("mamba_scan", "MambaScanFnBackward")):
+        if kernel in parts:
+            want[kernel] = REMAT_KERNEL * parts[kernel]
+    if "FlashAttentionFnBackward" in parts:
+        # the backward recomputes the scores over each chunk's key range:
+        # five products where the bound counts four over the visible pairs
+        at_least["FlashAttentionFnBackward"] = \
+            parts["FlashAttentionFnBackward"]
+    hold_parts(f"{arch} train step", step.flops_by_region, want, at_least)
+    hold_peak(f"{arch} trained", peak, run["peak_bytes"])
+
+
+def roofline_family_cells() -> None:
+    """Phase 7b: one cell a family, FAMILY_SHAPE on the production (16, 16)
+    mesh, counted by ``launch/dryrun.py`` in a subprocess on the fake
+    process group; each row written under build/dryrun_rows/."""
+    out_dir = ROOT / "build" / "dryrun_rows"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([sys.executable, "-c", DRYRUN_CELLS, FAMILY_SHAPE,
+                           *FAMILY_CELLS], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    rows = [json.loads(line[4:]) for line in proc.stdout.splitlines()
+            if line.startswith("ROW ")]
+    if proc.returncode or len(rows) != len(FAMILY_CELLS):
+        raise AssertionError(f"dry-run cells failed:\n{proc.stderr[-3000:]}")
+    for row in rows:
+        (out_dir / f"{row['arch']}_{row['shape']}_{row['mesh']}.json"
+         ).write_text(json.dumps(row, indent=1))
+        log(f"  {row['arch']} x {row['shape']} x {row['mesh']}: "
+            f"{row['status']}; per device {row.get('hlo_flops_per_dev', 0):.6g}"
+            f" flops, {row.get('hbm_bytes_per_dev', 0):.6g} B HBM, "
+            f"{row.get('link_bytes_per_dev', 0):.6g} B link "
+            f"{row.get('collective_breakdown')}; compute "
+            f"{row.get('compute_s', 0):.6g} s, memory "
+            f"{row.get('memory_s', 0):.6g} s, collective "
+            f"{row.get('collective_s', 0):.6g} s -> {row.get('dominant')}; "
+            f"args {row.get('arg_bytes', 0) / 1e9:.3f} GB, temp "
+            f"{row.get('temp_bytes', 0) / 1e9:.3f} GB; undivided dims "
+            f"{row.get('undivided_dims')}")
+        if row["status"] != "ok":
+            raise AssertionError(f"dry-run cell {row}")
+
+
+def roofline_phase(served: dict, trained: dict) -> None:
+    """Phase 7: the roofline against the card. Every model served in phase
+    3 and trained in phase 5 is counted again on meta tensors at the
+    shapes it ran (``repro_torch.roofline``), beside its measured times
+    and peak memory: the counted flops must hold the bounds' parts, the
+    decode step's bytes must reach the bound's, and the predicted peak
+    must be within PEAK_TOL of the allocator's; then one cell a family on
+    the (16, 16) fake mesh."""
+    with phase("7a, the served and trained models counted on meta"):
+        for arch, run in served.items():
+            roofline_served(arch, run)
+        for arch, run in trained.items():
+            roofline_trained(arch, run)
+    with phase("7b, one cell a family on the (16, 16) fake mesh"):
+        roofline_family_cells()
+
+
 def free() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -2647,7 +2968,8 @@ def free() -> None:
 
 def train_phase() -> list:
     """Phase 5; returns the JSON entries of the kernels at the training
-    shapes, each with the launches of its model's timed train steps."""
+    shapes, each with the launches of its model's timed train steps, and
+    {model: its train_full_width numbers}."""
     with phase("5a, the attention backward"):
         attention = check_attention_backward()
         free()
@@ -2677,7 +2999,7 @@ def train_phase() -> list:
     for e in entries:
         arch, kernel = launched_by[e["name"]]
         e["launches"] = trained[arch]["launches"][kernel]
-    return entries
+    return entries, trained
 
 
 def _map(tree, fn):
@@ -2719,12 +3041,12 @@ def main() -> int:
     for tag, arch in ATTENTION_SHAPES.items():
         for kernel in ("flash_attention", "decode_attention"):
             launched_by[f"{kernel}_{tag}"] = (arch, kernel)
-    launches = {}
+    launches, served = {}, {}
     for arch in [*SERVED, *STUB_SERVED]:
         with phase(f"3, {arch} served"):
-            served = serve_stub(arch) if arch in STUB_SERVED \
+            served[arch] = serve_stub(arch) if arch in STUB_SERVED \
                 else serve_full_width(arch)
-            launches[arch] = served["launches"]
+            launches[arch] = served[arch]["launches"]
             free()
             log(f"{arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} "
                 f"GB still allocated")
@@ -2734,9 +3056,11 @@ def main() -> int:
         small_models_cpu_vs_card()
         free()
     with phase("5, training"):
-        trained = train_phase()
+        trained, train_runs = train_phase()
     with phase("6, the sharded path on a (1, 1) mesh"):
         sharded_phase()
+    with phase("7, the roofline against the card"):
+        roofline_phase(served, train_runs)
     for k in kernels:
         arch, kernel = launched_by[k["name"]]
         k["launches"] = launches[arch][kernel]

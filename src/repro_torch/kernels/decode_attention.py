@@ -22,6 +22,7 @@ import functools
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from .flash_attention import DTYPE_CODES, HEAD_DIMS, _check_operand
@@ -79,25 +80,36 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor,
-                     cache_len: torch.Tensor) -> torch.Tensor:
-    """One query token per head against the cache. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel, or raises."""
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, cache_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: no kernel for {q.device}")
+def _check_shapes(q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, cache_len: torch.Tensor) -> None:
     b, hkv, grp, hd = q.shape
     s = k_cache.shape[1]
-    if q.dtype not in DTYPE_CODES or hd not in HEAD_DIMS or grp > MAX_GROUP:
-        raise ValueError(f"decode_attention: unsupported {q.dtype}, "
-                         f"hd={hd}, grp={grp}")
     if k_cache.shape != (b, s, hkv, hd) or v_cache.shape != k_cache.shape \
             or cache_len.shape != (b,):
         raise ValueError(f"decode_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}, "
                          f"{tuple(cache_len.shape)}")
+
+
+torch.library.define(
+    "repro_torch::decode_attention",
+    "(Tensor q, Tensor k_cache, Tensor v_cache, Tensor cache_len) "
+    "-> Tensor")
+
+
+def _decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor,
+                           cache_len: torch.Tensor) -> torch.Tensor:
+    """The kernels' launch (split-S and merge, one C call), as an operator
+    with a fake implementation for meta tensors, its flops and what the
+    plain body would move (``reference_bytes``); see
+    ``flash_attention._flash_attention_cuda``."""
+    _check_shapes(q, k_cache, v_cache, cache_len)
+    b, hkv, grp, hd = q.shape
+    s = k_cache.shape[1]
+    if q.dtype not in DTYPE_CODES or hd not in HEAD_DIMS or grp > MAX_GROUP:
+        raise ValueError(f"decode_attention: unsupported {q.dtype}, "
+                         f"hd={hd}, grp={grp}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         _check_operand(name, t, q)
     lens = cache_len.to(device=q.device, dtype=torch.int32).contiguous()
@@ -118,6 +130,56 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     _build.check(lib, err, "decode_attention")
     decode_attention.launches += 1
     return out
+
+
+torch.library.impl("repro_torch::decode_attention", "cuda",
+                   _decode_attention_cuda)
+
+
+@torch.library.register_fake("repro_torch::decode_attention")
+def _(q, k_cache, v_cache, cache_len):
+    _check_shapes(q, k_cache, v_cache, cache_len)
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def _(q_shape, k_shape, v_shape, len_shape, *args, out_shape=None,
+      **kwargs):
+    """Every slot of the cache: cache_len lives on the device, and the
+    count reads no data (the kernel skips the slots past it)."""
+    b, hkv, grp, hd = q_shape
+    return 4 * b * hkv * grp * hd * k_shape[1]
+
+
+decode_attention_op = torch.ops.repro_torch.decode_attention.default
+
+
+def reference_bytes(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, cache_len: torch.Tensor) -> int:
+    """HBM bytes of the plain body, JAX's ``decode_attention_ref`` in its
+    ``vmemkernel_decode_attention`` scope (``repro/models/layers.py:140``):
+    both caches read whole, fp32 scores over every slot written and read
+    by the mask and softmax (4 + 4 bytes), probabilities in the cache's
+    dtype written and read by the PV product, q read and the output
+    written."""
+    b, hkv, grp, hd = q.shape
+    slots, size = k_cache.shape[1], k_cache.element_size()
+    return 2 * k_cache.numel() * size \
+        + b * hkv * grp * slots * (8 + 2 * size) \
+        + 2 * q.numel() * q.element_size()
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     cache_len: torch.Tensor) -> torch.Tensor:
+    """One query token per head against the cache. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel, or raises; a meta
+    tensor takes the operator's fake implementation."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, cache_len)
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"decode_attention: no kernel for {q.device}")
+    return decode_attention_op(q, k_cache, v_cache, cache_len)
 
 
 decode_attention.launches = 0

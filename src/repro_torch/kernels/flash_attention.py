@@ -26,6 +26,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
@@ -186,23 +187,48 @@ def _check_operand(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
         raise ValueError(f"{name}: rows must be 16-byte aligned")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """Causal (optionally windowed) GQA attention. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel, or raises."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for {q.device}")
+def visible_pairs(sq: int, sk: int, window: Optional[int]) -> int:
+    """The (query, key) pairs the kernel computes: query i sees keys 0..i,
+    the last ``window`` of them with a window."""
+    width = min(sk, window or sk)
+    if sq <= width:
+        return sq * (sq + 1) // 2
+    return width * (width + 1) // 2 + (sq - width) * width
+
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  window: Optional[int]) -> None:
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    if q.dtype not in DTYPE_CODES or hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: unsupported {q.dtype}, hd={hd}")
     if k.shape != (b, sk, hkv, hd) or v.shape != k.shape or h % hkv:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
+
+
+torch.library.define(
+    "repro_torch::flash_attention",
+    "(Tensor q, Tensor k, Tensor v, SymInt? window) -> Tensor")
+
+
+def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          window: Optional[int]) -> torch.Tensor:
+    """The kernel's launch, as the CUDA implementation of the operator
+    ``repro_torch::flash_attention`` (``flash_attention_op``). The
+    operator also has a fake implementation for meta tensors (the output's
+    shape, dtype and strides), its flops and what the plain body would
+    move (``reference_bytes``), so a model runs and is counted on meta
+    tensors (``roofline.py``). It is defined with ``torch.library.define``
+    and ``impl`` rather than ``torch.library.custom_op``, whose Python
+    autograd and in-place layers add 19-36 us to a call where this
+    registration adds 2-7 us (an H100 machine's host at the decode
+    shapes, ``tools/time_op_dispatch.py``)."""
+    _check_shapes(q, k, v, window)
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if q.dtype not in DTYPE_CODES or hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: unsupported {q.dtype}, hd={hd}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, t, q)
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
@@ -216,6 +242,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
     return out
+
+
+torch.library.impl("repro_torch::flash_attention", "cuda",
+                   _flash_attention_cuda)
+
+
+@torch.library.register_fake("repro_torch::flash_attention")
+def _(q, k, v, window):
+    _check_shapes(q, k, v, window)
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _(q_shape, k_shape, v_shape, window, *args, out_shape=None, **kwargs):
+    b, sq, h, hd = q_shape
+    return 4 * b * h * hd * visible_pairs(sq, k_shape[1], window)
+
+
+flash_attention_op = torch.ops.repro_torch.flash_attention.default
+
+
+def reference_bytes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: Optional[int]) -> int:
+    """HBM bytes of the plain body, JAX's ``causal_attention_ref`` in its
+    ``vmemkernel_flash_attention`` scope (``repro/models/layers.py:98``):
+    per chunk of BWD_CHUNK queries, fp32 scores over every key written and
+    read by the mask and softmax (4 + 4 bytes), bf16 probabilities written
+    and read by the PV product (2 + 2), and K and V, repeated to the query
+    heads, read by each chunk; q read and the output written once."""
+    b, sq, h, hd = q.shape
+    sk, size = k.shape[1], q.element_size()
+    chunks = -(-sq // BWD_CHUNK)
+    return 12 * b * h * sq * sk + chunks * 2 * b * sk * h * hd * size \
+        + 2 * q.numel() * size
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Causal (optionally windowed) GQA attention. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel, or raises; a meta
+    tensor takes the operator's fake implementation."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, window)
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    return flash_attention_op(q, k, v, window)
 
 
 flash_attention.launches = 0

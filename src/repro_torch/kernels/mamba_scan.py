@@ -48,6 +48,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from ._remat import TIME_CHUNK, acc_dtype, remat_backward
@@ -125,67 +126,134 @@ def _aligned(name: str, t: torch.Tensor) -> None:
                          f"and 16-byte aligned rows")
 
 
-def mamba_scan(dt: torch.Tensor, dt_bias: torch.Tensor, b: torch.Tensor,
-               c: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
-               a_log: torch.Tensor, d_skip: torch.Tensor,
-               h: Optional[torch.Tensor] = None
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The fused scan; returns (out, final state). A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel, or raises."""
-    if dt.device.type == "cpu":
-        return mamba_scan_plain(dt, dt_bias, b, c, x, z, a_log, d_skip, h)
-    if dt.device.type != "cuda":
-        raise ValueError(f"mamba_scan: no kernel for {dt.device}")
+def _check_shapes(dt: torch.Tensor, dt_bias: torch.Tensor, b: torch.Tensor,
+                  c: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+                  a_log: torch.Tensor, d_skip: torch.Tensor,
+                  h: torch.Tensor) -> None:
+    bsz, s, di = dt.shape
+    n = a_log.shape[-1]
+    if x.shape != dt.shape or z.shape != dt.shape \
+            or b.shape != (bsz, s, n) or c.shape != b.shape \
+            or a_log.shape != (di, n) or dt_bias.shape != (di,) \
+            or d_skip.shape != (di,) or h.shape != (bsz, di, n):
+        raise ValueError(f"mamba_scan: shapes {tuple(dt.shape)}, "
+                         f"{tuple(b.shape)}, {tuple(c.shape)}, "
+                         f"{tuple(x.shape)}, {tuple(z.shape)}, "
+                         f"{tuple(a_log.shape)}, {tuple(h.shape)}")
+
+
+torch.library.define(
+    "repro_torch::mamba_scan",
+    "(Tensor dt, Tensor dt_bias, Tensor b, Tensor c, Tensor x, "
+    "Tensor z, Tensor a_log, Tensor d_skip, Tensor(a!) h, "
+    "bool has_state) -> Tensor")
+
+
+def _mamba_scan_cuda(dt: torch.Tensor, dt_bias: torch.Tensor,
+                     b: torch.Tensor, c: torch.Tensor, x: torch.Tensor,
+                     z: torch.Tensor, a_log: torch.Tensor,
+                     d_skip: torch.Tensor, h: torch.Tensor,
+                     has_state: bool) -> torch.Tensor:
+    """The kernel's launch, as an operator that writes the final state
+    into ``h`` (from zeros unless ``has_state``, else from it) and returns
+    out; with a fake implementation for meta tensors, its flops and what
+    the plain body would move (``reference_bytes``); see
+    ``flash_attention._flash_attention_cuda``."""
+    _check_shapes(dt, dt_bias, b, c, x, z, a_log, d_skip, h)
     bsz, s, di = dt.shape
     n = a_log.shape[-1]
     if n not in STATE_DIMS or s < 1 or di % CHANNEL_MULTIPLE \
             or dt.dtype not in DTYPES:
         raise ValueError(f"mamba_scan: unsupported n={n}, S={s}, di={di}, "
                          f"{dt.dtype}")
-    if x.shape != dt.shape or z.shape != dt.shape \
-            or b.shape != (bsz, s, n) or c.shape != b.shape \
-            or a_log.shape != (di, n) or dt_bias.shape != (di,) \
-            or d_skip.shape != (di,) \
-            or (h is not None and h.shape != (bsz, di, n)):
-        raise ValueError(f"mamba_scan: shapes {tuple(dt.shape)}, "
-                         f"{tuple(b.shape)}, {tuple(c.shape)}, "
-                         f"{tuple(x.shape)}, {tuple(z.shape)}, "
-                         f"{tuple(a_log.shape)}, "
-                         f"{None if h is None else tuple(h.shape)}")
     out = torch.empty((bsz, s, di), dtype=dt.dtype, device=dt.device)
-    final = torch.empty((bsz, di, n), dtype=torch.float32,
-                        device=dt.device) if h is None else h
     for name, t, dtype in (("dt", dt, dt.dtype), ("b", b, dt.dtype),
                            ("c", c, dt.dtype), ("x", x, dt.dtype),
                            ("z", z, dt.dtype), ("dt_bias", dt_bias,
                                                 torch.float32),
                            ("a_log", a_log, torch.float32),
                            ("d_skip", d_skip, torch.float32),
-                           ("h", final, torch.float32)):
+                           ("h", h, torch.float32)):
         if t.device != dt.device or t.dtype != dtype:
             raise ValueError(f"mamba_scan: {name} is {t.dtype} on "
                              f"{t.device}, expected {dtype} on {dt.device}")
     for name, t in (("dt", dt), ("b", b), ("c", c), ("x", x), ("z", z)):
         _aligned(name, t)
     if not (dt_bias.is_contiguous() and d_skip.is_contiguous()
-            and a_log.is_contiguous()) or final.stride()[1:] != (n, 1):
+            and a_log.is_contiguous()) or h.stride()[1:] != (n, 1):
         raise ValueError("mamba_scan: dt_bias, d_skip, a_log and each "
                          "batch row of h must be contiguous")
     strides = (ctypes.c_int64 * 13)(
         *dt.stride()[:2], *b.stride()[:2], *c.stride()[:2], *x.stride()[:2],
-        *z.stride()[:2], *out.stride()[:2], final.stride(0))
+        *z.stride()[:2], *out.stride()[:2], h.stride(0))
     lib = _lib()
     err = lib.mamba_scan_launch(
         dt.data_ptr(), dt_bias.data_ptr(), b.data_ptr(), c.data_ptr(),
         x.data_ptr(), z.data_ptr(), a_log.data_ptr(), d_skip.data_ptr(),
-        out.data_ptr(), final.data_ptr(), int(h is not None), strides,
+        out.data_ptr(), h.data_ptr(), int(has_state), strides,
         DTYPES[dt.dtype], bsz, s, di, n,
         torch.cuda.current_stream(dt.device).cuda_stream)
     _build.check(lib, err, "mamba_scan")
+    # the state was written in place, as an in-place op marks it
+    torch.autograd.graph.increment_version(h)
     mamba_scan.launches += 1
     if s < lib.mamba_scan_time_tile():
         mamba_scan.token_launches += 1
-    return out, final
+    return out
+
+
+torch.library.impl("repro_torch::mamba_scan", "cuda",
+                   _mamba_scan_cuda)
+
+
+@torch.library.register_fake("repro_torch::mamba_scan")
+def _(dt, dt_bias, b, c, x, z, a_log, d_skip, h, has_state):
+    _check_shapes(dt, dt_bias, b, c, x, z, a_log, d_skip, h)
+    return torch.empty(dt.shape, dtype=dt.dtype, device=dt.device)
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba_scan)
+def _(dt_shape, dt_bias_shape, b_shape, *args, out_shape=None, **kwargs):
+    """fp32 flops: 7 a (token, channel, state) and 10 a (token, channel):
+    the decay's product and exp, the state's update and the output's
+    product; dt's softplus, the skip term and the gating."""
+    bsz, s, di = dt_shape
+    return (7 * b_shape[-1] + 10) * di * bsz * s
+
+
+mamba_scan_op = torch.ops.repro_torch.mamba_scan.default
+
+
+def reference_bytes(dt: torch.Tensor, dt_bias: torch.Tensor, b: torch.Tensor,
+                    c: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+                    a_log: torch.Tensor, d_skip: torch.Tensor, h: torch.Tensor,
+                    has_state: bool) -> int:
+    """HBM bytes of the plain body, JAX's ``step`` loop in its
+    ``vmemkernel_mamba_scan`` scope (``repro/models/ssm.py:217``): each
+    step reads and writes the fp32 state (B, di, n), reads dt and x of one
+    token (B, di), b and c (B, n), and writes y (B, di), all fp32."""
+    bsz, s, di = dt.shape
+    n = a_log.shape[-1]
+    return 4 * s * (2 * bsz * di * n + 3 * bsz * di + 2 * bsz * n)
+
+
+def mamba_scan(dt: torch.Tensor, dt_bias: torch.Tensor, b: torch.Tensor,
+               c: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+               a_log: torch.Tensor, d_skip: torch.Tensor,
+               h: Optional[torch.Tensor] = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused scan; returns (out, final state). A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel, or raises; a meta
+    tensor takes the operator's fake implementation."""
+    if dt.device.type == "cpu":
+        return mamba_scan_plain(dt, dt_bias, b, c, x, z, a_log, d_skip, h)
+    if dt.device.type not in ("cuda", "meta"):
+        raise ValueError(f"mamba_scan: no kernel for {dt.device}")
+    bsz, _, di = dt.shape
+    final = torch.empty((bsz, di, a_log.shape[-1]), dtype=torch.float32,
+                        device=dt.device) if h is None else h
+    return mamba_scan_op(dt, dt_bias, b, c, x, z, a_log, d_skip, final,
+                         h is not None), final
 
 
 # launches, and of them those that ran the token body (S < time_tile())

@@ -36,6 +36,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from ._remat import TIME_CHUNK, acc_dtype, remat_backward
@@ -94,43 +95,101 @@ def chunk_tokens() -> int:
     return _lib().wkv6_chunk_tokens()
 
 
-def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-         u: torch.Tensor, state: Optional[torch.Tensor] = None
-         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The WKV6 recurrence; returns (y, final state). A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel, or raises."""
-    if r.device.type == "cpu":
-        return wkv6_plain(r, k, v, w, u, state)
-    if r.device.type != "cuda":
-        raise ValueError(f"wkv6: no kernel for {r.device}")
+def _check_shapes(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor,
+                  state: torch.Tensor) -> None:
+    b, s, h, hd = r.shape
+    if any(t.shape != r.shape for t in (k, v, w)) or u.shape != (h, hd) \
+            or state.shape != (b, h, hd, hd):
+        raise ValueError(f"wkv6: shapes {tuple(r.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(u.shape)}, {tuple(state.shape)}")
+
+
+torch.library.define(
+    "repro_torch::wkv6",
+    "(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
+    "Tensor(a!) state, bool has_state) -> Tensor")
+
+
+def _wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+               has_state: bool) -> torch.Tensor:
+    """The kernel's launch, as an operator that writes the final state
+    into ``state`` (from zeros unless ``has_state``, else from it) and
+    returns y; with a fake implementation for meta tensors, its flops and
+    what the plain body would move (``reference_bytes``); see
+    ``flash_attention._flash_attention_cuda``."""
+    _check_shapes(r, k, v, w, u, state)
     b, s, h, hd = r.shape
     if r.dtype != torch.float32 or hd not in HEAD_DIMS:
         raise ValueError(f"wkv6: unsupported {r.dtype}, hd={hd}")
-    if any(t.shape != r.shape for t in (k, v, w)) or u.shape != (h, hd) \
-            or (state is not None and state.shape != (b, h, hd, hd)):
-        raise ValueError(f"wkv6: shapes {tuple(r.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}, {tuple(w.shape)}, "
-                         f"{tuple(u.shape)}, "
-                         f"{None if state is None else tuple(state.shape)}")
     out = torch.empty((b, s, h, hd), dtype=torch.float32, device=r.device)
-    final = torch.empty((b, h, hd, hd), dtype=torch.float32,
-                        device=r.device) if state is None else state
-    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("state", final)):
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("state", state)):
         _check_operand(name, t, r)
     if u.device != r.device or u.dtype != r.dtype or u.stride(1) != 1:
         raise ValueError("wkv6: u must be fp32 on r's device, with a "
                          "contiguous head dim")
     strides = (ctypes.c_int64 * 19)(
         *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *w.stride()[:3],
-        *out.stride()[:3], u.stride(0), *final.stride()[:3])
+        *out.stride()[:3], u.stride(0), *state.stride()[:3])
     lib = _lib()
     err = lib.wkv6_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        out.data_ptr(), final.data_ptr(), int(state is not None), strides,
+        out.data_ptr(), state.data_ptr(), int(has_state), strides,
         b, h, s, hd, torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(lib, err, "wkv6")
+    # the state was written in place, as an in-place op marks it
+    torch.autograd.graph.increment_version(state)
     wkv6.launches += 1
-    return out, final
+    return out
+
+
+torch.library.impl("repro_torch::wkv6", "cuda",
+                   _wkv6_cuda)
+
+
+@torch.library.register_fake("repro_torch::wkv6")
+def _(r, k, v, w, u, state, has_state):
+    _check_shapes(r, k, v, w, u, state)
+    return torch.empty(r.shape, dtype=torch.float32, device=r.device)
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6)
+def _(r_shape, *args, out_shape=None, **kwargs):
+    """5 hd^2 fp32 flops a (token, head), as the recurrence's step does."""
+    b, s, h, hd = r_shape
+    return 5 * hd * hd * h * b * s
+
+
+wkv6_op = torch.ops.repro_torch.wkv6.default
+
+
+def reference_bytes(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    w: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+                    has_state: bool) -> int:
+    """HBM bytes of the plain body, JAX's token loop in its
+    ``vmemkernel_wkv6`` scope (``repro/models/ssm.py:130``): each step
+    reads and writes the fp32 state (B, H, hd, hd), reads r, k, v and w
+    of one token and writes its y, all fp32; u read once."""
+    b, s, h, hd = r.shape
+    return 4 * s * (2 * b * h * hd * hd + 5 * b * h * hd) + 4 * u.numel()
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, state: Optional[torch.Tensor] = None
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The WKV6 recurrence; returns (y, final state). A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel, or raises; a meta
+    tensor takes the operator's fake implementation."""
+    if r.device.type == "cpu":
+        return wkv6_plain(r, k, v, w, u, state)
+    if r.device.type not in ("cuda", "meta"):
+        raise ValueError(f"wkv6: no kernel for {r.device}")
+    b, _, h, hd = r.shape
+    final = torch.empty((b, h, hd, hd), dtype=torch.float32,
+                        device=r.device) if state is None else state
+    return wkv6_op(r, k, v, w, u, final, state is not None), final
 
 
 wkv6.launches = 0

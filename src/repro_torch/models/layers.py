@@ -129,14 +129,15 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 # ------------------------------------------------------------- init
 def dense_init(gen: torch.Generator, shape: tuple, dtype: torch.dtype,
-               scale: float = 1.0,
-               fan_in: Optional[int] = None) -> torch.Tensor:
-    """Normal(0, scale / sqrt(fan_in)) on ``gen``'s device. fan_in is
-    ``shape[-2]`` unless given: leading axes are layer stacks, so a stacked
-    ``(L, d_in, d_out)`` weight gets the same scale as one ``(d_in, d_out)``
-    layer."""
+               scale: float = 1.0, fan_in: Optional[int] = None,
+               device=None) -> torch.Tensor:
+    """Normal(0, scale / sqrt(fan_in)) on ``device`` (``gen``'s unless
+    given: a CPU generator draws meta tensors, which allocate nothing, as
+    no meta generator exists). fan_in is ``shape[-2]`` unless given:
+    leading axes are layer stacks, so a stacked ``(L, d_in, d_out)``
+    weight gets the same scale as one ``(d_in, d_out)`` layer."""
     if fan_in is None:
         fan_in = shape[-2] if len(shape) > 1 else 1
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
+                    device=gen.device if device is None else device)
     return w.mul_(scale / math.sqrt(fan_in)).to(dtype)

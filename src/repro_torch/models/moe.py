@@ -38,35 +38,42 @@ from ..sharding.rules import to_placements
 from .layers import dense_init
 
 
-def _expert_init(gen: torch.Generator, shape: tuple,
-                 dtype: torch.dtype) -> torch.Tensor:
+def _expert_init(gen: torch.Generator, shape: tuple, dtype: torch.dtype,
+                 device) -> torch.Tensor:
     """A stacked ``(L, E, d_in, d_out)`` expert weight, drawn one expert at
     a time: a whole fp32 draw would need 35 GB beside moonshot's bf16
     result, and one layer's 18 GB beside arctic's. JAX's ``dense_init``
     takes the fan-in from the first axis of each layer's ``(E, d_in,
-    d_out)`` leaf, which is E."""
-    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    d_out)`` leaf, which is E. On the meta device there is nothing to
+    draw."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     for i in range(shape[0]):
         for j in range(shape[1]):
-            out[i, j] = dense_init(gen, shape[2:], dtype, fan_in=shape[1])
+            out[i, j] = dense_init(gen, shape[2:], dtype, fan_in=shape[1],
+                                   device=device)
     return out
 
 
-def init_moe(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype
-             ) -> dict:
-    """Layer-stacked MoE parameters in the JAX tree's layout; the router is
-    fp32, as JAX keeps routing in fp32."""
+def init_moe(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
+             device=None) -> dict:
+    """Layer-stacked MoE parameters in the JAX tree's layout, on ``device``
+    (``gen``'s unless given); the router is fp32, as JAX keeps routing in
+    fp32."""
     L, d, f, e = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_experts
+    dev = gen.device if device is None else device
     p = {
-        "router": dense_init(gen, (L, d, e), torch.float32),
-        "w_gate": _expert_init(gen, (L, e, d, f), dtype),
-        "w_up": _expert_init(gen, (L, e, d, f), dtype),
-        "w_down": _expert_init(gen, (L, e, f, d), dtype),
+        "router": dense_init(gen, (L, d, e), torch.float32, device=dev),
+        "w_gate": _expert_init(gen, (L, e, d, f), dtype, dev),
+        "w_up": _expert_init(gen, (L, e, d, f), dtype, dev),
+        "w_down": _expert_init(gen, (L, e, f, d), dtype, dev),
     }
     if cfg.moe_dense_residual:
-        p["dense"] = {"w_gate": dense_init(gen, (L, d, f), dtype),
-                      "w_up": dense_init(gen, (L, d, f), dtype),
-                      "w_down": dense_init(gen, (L, f, d), dtype)}
+        p["dense"] = {"w_gate": dense_init(gen, (L, d, f), dtype, device=dev),
+                      "w_up": dense_init(gen, (L, d, f), dtype, device=dev),
+                      "w_down": dense_init(gen, (L, f, d), dtype,
+                                           device=dev)}
     return p
 
 

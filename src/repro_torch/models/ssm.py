@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
-from ..sharding.ctx import assign, constrain
+from ..sharding.ctx import assign, constrain, flatten, unflatten
 from .layers import dense_init, group_norm_heads
 
 DECAY_LORA = 64
@@ -35,40 +35,45 @@ CONV_K = 4
 
 # ================================================================= init
 def init_rwkv_tmix(gen: torch.Generator, cfg: ArchConfig,
-                   dtype: torch.dtype) -> dict:
-    """Time-mix parameters of all layers, stacked (L, ...) as in JAX."""
+                   dtype: torch.dtype, device=None) -> dict:
+    """Time-mix parameters of all layers, stacked (L, ...) as in JAX, on
+    ``device`` (``gen``'s unless given)."""
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.rwkv_head_dim
-    f32, dev = torch.float32, gen.device
+    f32 = torch.float32
+    dev = gen.device if device is None else device
 
     def full(shape, value):
         return torch.full(shape, value, dtype=f32, device=dev)
 
     return {
         "mu": full((L, 5, d), 0.5),          # r, k, v, w, g shift mixes
-        "w_r": dense_init(gen, (L, d, d), dtype),
-        "w_k": dense_init(gen, (L, d, d), dtype),
-        "w_v": dense_init(gen, (L, d, d), dtype),
-        "w_g": dense_init(gen, (L, d, d), dtype),
-        "w_o": dense_init(gen, (L, d, d), dtype),
+        "w_r": dense_init(gen, (L, d, d), dtype, device=dev),
+        "w_k": dense_init(gen, (L, d, d), dtype, device=dev),
+        "w_v": dense_init(gen, (L, d, d), dtype, device=dev),
+        "w_g": dense_init(gen, (L, d, d), dtype, device=dev),
+        "w_o": dense_init(gen, (L, d, d), dtype, device=dev),
         "w0": full((L, d), -6.0),            # decay bias
-        "w_lora_a": dense_init(gen, (L, d, DECAY_LORA), f32),
-        "w_lora_b": dense_init(gen, (L, DECAY_LORA, d), f32, 0.1),
-        "bonus_u": dense_init(gen, (L, d // hd, hd), f32),
+        "w_lora_a": dense_init(gen, (L, d, DECAY_LORA), f32, device=dev),
+        "w_lora_b": dense_init(gen, (L, DECAY_LORA, d), f32, 0.1,
+                               device=dev),
+        "bonus_u": dense_init(gen, (L, d // hd, hd), f32, device=dev),
         "ln_w": full((L, hd), 1.0),
         "ln_b": full((L, hd), 0.0),
     }
 
 
 def init_rwkv_cmix(gen: torch.Generator, cfg: ArchConfig,
-                   dtype: torch.dtype) -> dict:
-    """Channel-mix parameters of all layers, stacked (L, ...)."""
+                   dtype: torch.dtype, device=None) -> dict:
+    """Channel-mix parameters of all layers, stacked (L, ...), on
+    ``device`` (``gen``'s unless given)."""
     L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    dev = gen.device if device is None else device
     return {
         "mu": torch.full((L, 2, d), 0.5, dtype=torch.float32,
-                         device=gen.device),  # k, r shift mixes
-        "w_k": dense_init(gen, (L, d, f), dtype),
-        "w_v": dense_init(gen, (L, f, d), dtype),
-        "w_r": dense_init(gen, (L, d, d), dtype),
+                         device=dev),  # k, r shift mixes
+        "w_k": dense_init(gen, (L, d, f), dtype, device=dev),
+        "w_v": dense_init(gen, (L, f, d), dtype, device=dev),
+        "w_r": dense_init(gen, (L, d, d), dtype, device=dev),
     }
 
 
@@ -103,15 +108,15 @@ def apply_rwkv_tmix(p: dict, x: torch.Tensor, cfg: ArchConfig,
     def proj(i, w):
         return constrain(mix(i) @ w, "dp", None, "tp")
 
-    r = proj(0, p["w_r"]).view(b, s, h, hd)
-    k = proj(1, p["w_k"]).view(b, s, h, hd)
-    v = proj(2, p["w_v"]).view(b, s, h, hd)
+    r = unflatten(proj(0, p["w_r"]), 2, (h, hd))
+    k = unflatten(proj(1, p["w_k"]), 2, (h, hd))
+    v = unflatten(proj(2, p["w_v"]), 2, (h, hd))
     g = proj(4, p["w_g"])
-    decay = rwkv_decay(p, mix(3)).view(b, s, h, hd)
+    decay = unflatten(rwkv_decay(p, mix(3)), 2, (h, hd))
     # JAX's vmemkernel_wkv6 scope: the recurrence in fp32
     y, wkv = ops.wkv6(r.float(), k.float(), v.float(), decay, p["bonus_u"],
                       None if state is None else state["wkv"], impl=impl)
-    y = group_norm_heads(y, p["ln_w"], p["ln_b"]).reshape(b, s, d)
+    y = flatten(group_norm_heads(y, p["ln_w"], p["ln_b"]))
     out = (y * F.silu(g).to(y.dtype)).to(x.dtype) @ p["w_o"]
     out = constrain(out, "dp", "sp", None)
     return out, {"shift": x[:, -1, :], "wkv": wkv}
@@ -136,24 +141,26 @@ def apply_rwkv_cmix(p: dict, x: torch.Tensor, cfg: ArchConfig,
 
 # ====================================================== Mamba (hymba)
 def init_mamba(gen: torch.Generator, cfg: ArchConfig,
-               dtype: torch.dtype) -> dict:
-    """Mamba parameters of all layers, stacked (L, ...) as in JAX; the SSM
-    heads mirror the attention heads, di = n_heads x hd."""
+               dtype: torch.dtype, device=None) -> dict:
+    """Mamba parameters of all layers, stacked (L, ...) as in JAX, on
+    ``device`` (``gen``'s unless given); the SSM heads mirror the attention
+    heads, di = n_heads x hd."""
     L, d, n = cfg.n_layers, cfg.d_model, cfg.ssm_state
     di = cfg.n_heads * cfg.hd
-    f32, dev = torch.float32, gen.device
+    f32 = torch.float32
+    dev = gen.device if device is None else device
     a_log = torch.log(torch.arange(1, n + 1, dtype=f32, device=dev))
     return {
-        "in_proj": dense_init(gen, (L, d, 2 * di), dtype),
-        "conv_w": dense_init(gen, (L, CONV_K, di), dtype),
+        "in_proj": dense_init(gen, (L, d, 2 * di), dtype, device=dev),
+        "conv_w": dense_init(gen, (L, CONV_K, di), dtype, device=dev),
         "conv_b": torch.zeros((L, di), dtype=dtype, device=dev),
-        "dt_a": dense_init(gen, (L, di, DT_RANK), dtype),
-        "dt_b": dense_init(gen, (L, DT_RANK, di), dtype),
+        "dt_a": dense_init(gen, (L, di, DT_RANK), dtype, device=dev),
+        "dt_b": dense_init(gen, (L, DT_RANK, di), dtype, device=dev),
         "dt_bias": torch.zeros((L, di), dtype=f32, device=dev),
-        "w_bc": dense_init(gen, (L, di, 2 * n), dtype),
+        "w_bc": dense_init(gen, (L, di, 2 * n), dtype, device=dev),
         "a_log": a_log.expand(L, di, n).contiguous(),
         "d_skip": torch.ones((L, di), dtype=f32, device=dev),
-        "out_proj": dense_init(gen, (L, di, d), dtype),
+        "out_proj": dense_init(gen, (L, di, d), dtype, device=dev),
     }
 
 

@@ -34,8 +34,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
-from ..sharding.ctx import assign, constrain, replicated_like, sharded
-from ..sharding.rules import cache_specs, to_placements
+from ..sharding.ctx import (assign, constrain, replicated_like, sharded,
+                            unflatten)
+from ..sharding.rules import cache_specs, shard_tree, to_placements
 from .layers import apply_rope, dense_init, rms_norm, rope_tables
 from .moe import apply_moe, init_moe
 from .ssm import (CONV_K, apply_mamba, apply_rwkv_cmix, apply_rwkv_tmix,
@@ -49,11 +50,13 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 # ================================================================= init
-def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
-    """Random parameters on ``gen``'s device, in the JAX tree's layout.
-    The values differ from JAX's for the same seed; parity tests bring
-    weights over with ``bridge.params_from_numpy``."""
-    dtype, dev = _dtype(cfg), gen.device
+def init_params(gen: torch.Generator, cfg: ArchConfig, device=None) -> dict:
+    """Random parameters on ``device`` (``gen``'s unless given: a CPU
+    generator builds a meta tree, which allocates nothing), in the JAX
+    tree's layout. The values differ from JAX's for the same seed; parity
+    tests bring weights over with ``bridge.params_from_numpy``."""
+    dtype = _dtype(cfg)
+    dev = gen.device if device is None else device
     L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
@@ -65,14 +68,14 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
 
     if cfg.attn_free:
         layers = {"ln1": ones(L, d), "ln2": ones(L, d),
-                  "tmix": init_rwkv_tmix(gen, cfg, dtype),
-                  "cmix": init_rwkv_cmix(gen, cfg, dtype)}
+                  "tmix": init_rwkv_tmix(gen, cfg, dtype, dev),
+                  "cmix": init_rwkv_cmix(gen, cfg, dtype, dev)}
     else:
         attn = {
-            "wq": dense_init(gen, (L, d, h * hd), dtype),
-            "wk": dense_init(gen, (L, d, hkv * hd), dtype),
-            "wv": dense_init(gen, (L, d, hkv * hd), dtype),
-            "wo": dense_init(gen, (L, h * hd, d), dtype),
+            "wq": dense_init(gen, (L, d, h * hd), dtype, device=dev),
+            "wk": dense_init(gen, (L, d, hkv * hd), dtype, device=dev),
+            "wv": dense_init(gen, (L, d, hkv * hd), dtype, device=dev),
+            "wo": dense_init(gen, (L, h * hd, d), dtype, device=dev),
         }
         if cfg.qkv_bias:
             attn.update(bq=zeros(L, h * hd), bk=zeros(L, hkv * hd),
@@ -81,22 +84,23 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
             attn.update(q_norm=ones(L, hd), k_norm=ones(L, hd))
         layers = {"ln1": ones(L, d), "ln2": ones(L, d), "attn": attn}
         if cfg.hybrid_ssm:
-            layers["mamba"] = init_mamba(gen, cfg, dtype)
+            layers["mamba"] = init_mamba(gen, cfg, dtype, dev)
     params = {
-        "embed": dense_init(gen, (cfg.vocab_size, d), dtype),
+        "embed": dense_init(gen, (cfg.vocab_size, d), dtype, device=dev),
         "layers": layers,
         "final_norm": ones(d),
     }
     if cfg.is_moe:
-        layers["moe"] = init_moe(gen, cfg, dtype)
+        layers["moe"] = init_moe(gen, cfg, dtype, dev)
     elif not cfg.attn_free:
         layers["mlp"] = {
-            "w_gate": dense_init(gen, (L, d, f), dtype),
-            "w_up": dense_init(gen, (L, d, f), dtype),
-            "w_down": dense_init(gen, (L, f, d), dtype),
+            "w_gate": dense_init(gen, (L, d, f), dtype, device=dev),
+            "w_up": dense_init(gen, (L, d, f), dtype, device=dev),
+            "w_down": dense_init(gen, (L, f, d), dtype, device=dev),
         }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, (d, cfg.vocab_size), dtype)
+        params["lm_head"] = dense_init(gen, (d, cfg.vocab_size), dtype,
+                                       device=dev)
     return params
 
 
@@ -114,10 +118,11 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig):
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     # per-head sharding after the reshape, as JAX re-constrains it
-    q = constrain(q.view(b, s, cfg.n_heads, cfg.hd), "dp", None, "tp", None)
-    k = constrain(k.view(b, s, cfg.n_kv_heads, cfg.hd),
+    q = constrain(unflatten(q, 2, (cfg.n_heads, cfg.hd)),
                   "dp", None, "tp", None)
-    v = constrain(v.view(b, s, cfg.n_kv_heads, cfg.hd),
+    k = constrain(unflatten(k, 2, (cfg.n_kv_heads, cfg.hd)),
+                  "dp", None, "tp", None)
+    v = constrain(unflatten(v, 2, (cfg.n_kv_heads, cfg.hd)),
                   "dp", None, "tp", None)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
@@ -156,7 +161,7 @@ def apply_attn_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
         torch.clamp(pos + 1, max=cache_size).to(torch.int32), x)
     # the ring holds exactly the window: mask by valid slot count only
     grp = cfg.n_heads // cfg.n_kv_heads
-    out = ops.decode_attention(q.view(b, cfg.n_kv_heads, grp, cfg.hd),
+    out = ops.decode_attention(unflatten(q[:, 0], 1, (cfg.n_kv_heads, grp)),
                                cache["k"], cache["v"], cache_len, impl=impl)
     return out.reshape(b, 1, cfg.n_heads * cfg.hd) @ p["wo"]
 
@@ -412,7 +417,7 @@ def _mamba_states(cfg: ArchConfig, batch_size: int, device=None,
     model's dtype, "h": (L, B, di, n) fp32}; with a ``mesh``, laid out on
     it as ``init_decode_cache`` lays them out."""
     if mesh is not None:
-        return _on_mesh(_mamba_states(cfg, batch_size, "meta"), mesh)
+        return _on_mesh(_mamba_states(cfg, batch_size, "meta"), mesh, device)
     L, di = cfg.n_layers, cfg.n_heads * cfg.hd
     return {"conv": torch.zeros((L, batch_size, CONV_K - 1, di),
                                 dtype=_dtype(cfg), device=device),
@@ -420,11 +425,14 @@ def _mamba_states(cfg: ArchConfig, batch_size: int, device=None,
                              dtype=torch.float32, device=device)}
 
 
-def _on_mesh(tree: dict, mesh) -> dict:
+def _on_mesh(tree: dict, mesh, device=None) -> dict:
     """Zeros of the shapes and dtypes of ``tree`` (blank caches or states
     built on the meta device) laid out on ``mesh`` by ``cache_specs``,
-    each rank allocating only its shard."""
+    each rank allocating only its shard; for a meta ``device``, meta
+    shards, which allocate nothing (the dry run)."""
     from torch.distributed.tensor import zeros
+    if device is not None and torch.device(device).type == "meta":
+        return shard_tree(tree, cache_specs(tree, mesh), mesh)
 
     def place(t, spec):
         if isinstance(t, dict):
@@ -443,7 +451,7 @@ def init_decode_cache(cfg: ArchConfig, batch_size: int, max_len: int,
     by ``sharding.rules.cache_specs`` on it."""
     if mesh is not None:
         return _on_mesh(init_decode_cache(cfg, batch_size, max_len,
-                                          device="meta"), mesh)
+                                          device="meta"), mesh, device)
     L, dtype = cfg.n_layers, _dtype(cfg)
     if cfg.attn_free:
         hd = cfg.rwkv_head_dim

@@ -154,11 +154,66 @@ def assign(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return dst
 
 
+def unflatten(x: torch.Tensor, dim: int, sizes: tuple) -> torch.Tensor:
+    """``x.unflatten(dim, sizes)`` (a view). A DTensor sharded on ``dim``
+    over mesh dims whose extent does not divide ``sizes[0]`` is gathered
+    on them first: DTensor cannot cut an uneven shard (8 KV heads in a
+    projection sharded 16 ways), so those heads stay whole on every rank,
+    as ``constrain`` leaves a dim the mesh does not divide (ROADMAP queue
+    3, m)."""
+    if sharded(x):
+        from torch.distributed.tensor import Replicate, Shard
+        dim %= x.ndim
+        mesh = x.device_mesh
+        extent = math.prod(n for p, n in zip(x.placements, mesh.shape)
+                           if p == Shard(dim))
+        if sizes[0] % extent:
+            x = x.redistribute(mesh, [Replicate() if p == Shard(dim) else p
+                                      for p in x.placements])
+    return x.unflatten(dim, sizes)
+
+
+def flatten(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its last two dims merged (a view), the inverse of
+    ``unflatten``. Under autograd a DTensor's gradient comes back in the
+    merged tensor's placements (``_GradTo``), so the view's backward, an
+    unflatten, never meets a shard of the merged dim that the leading one
+    does not divide (a gradient sharded 16 ways over 40 heads' 2560
+    channels)."""
+    out = x.flatten(-2)
+    if sharded(out) and torch.is_grad_enabled() and out.requires_grad:
+        out = _GradTo.apply(out, tuple(out.placements))
+    return out
+
+
+class _GradTo(torch.autograd.Function):
+    """The identity, whose backward moves the gradient to ``placements``:
+    the transpose of JAX's sharding constraint constrains the cotangent to
+    the same sharding, where DTensor's ``redistribute`` hands the gradient
+    back in the input's placements. Without it a gradient that a sharded
+    product leaves ``Partial`` (a column-parallel input's) stays partial
+    down the residual stream, and DTensor meets it at the next row-parallel
+    product's backward by gathering the saved activation and computing the
+    product whole on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if sharded(grad) and tuple(grad.placements) != ctx.placements:
+            grad = grad.redistribute(grad.device_mesh, ctx.placements)
+        return grad, None
+
+
 def constrain(x: torch.Tensor, *roles: Optional[str]) -> torch.Tensor:
     """roles: one of 'dp' | 'tp' | 'sp' | None per dim (trailing dims may
-    be omitted). A DTensor is redistributed to the roles' placements; a
-    plain tensor, a run with no axes set, or a dim the mesh does not
-    divide (JAX's ``except``) leaves ``x`` as it is."""
+    be omitted). A DTensor is redistributed to the roles' placements, and
+    under autograd so is its gradient (``_GradTo``); a plain tensor, a run
+    with no axes set, or a dim the mesh does not divide (JAX's ``except``)
+    leaves ``x`` as it is."""
     if _DP is None and _TP is None:
         return x
     if not sharded(x):
@@ -168,6 +223,8 @@ def constrain(x: torch.Tensor, *roles: Optional[str]) -> torch.Tensor:
     if not _divides(x.shape, spec, mesh):
         return x
     placements = to_placements(spec, mesh)
-    if tuple(x.placements) == placements:
-        return x
-    return x.redistribute(mesh, placements)
+    if tuple(x.placements) != placements:
+        x = x.redistribute(mesh, placements)
+    if torch.is_grad_enabled() and x.requires_grad:
+        x = _GradTo.apply(x, placements)
+    return x

@@ -227,14 +227,18 @@ def to_placements(spec: tuple, mesh) -> tuple:
 def shard_tree(tree: Any, specs: Any, mesh) -> Any:
     """``tree`` laid out on ``mesh`` by ``specs``: each tensor leaf a
     DTensor (``distribute_tensor``, every rank passing the same full
-    tensor); a non-tensor leaf (the state's int step) passes through."""
+    tensor; a meta leaf, which holds no data, is cut into meta shards
+    without a collective); a non-tensor leaf (the state's int step) passes
+    through."""
     import torch
     from torch.distributed.tensor import distribute_tensor
 
     def one(leaf, spec):
         if not isinstance(leaf, torch.Tensor):
             return leaf
-        return distribute_tensor(leaf, mesh, to_placements(spec, mesh))
+        src = {"src_data_rank": None} if leaf.is_meta else {}
+        return distribute_tensor(leaf, mesh, to_placements(spec, mesh),
+                                 **src)
 
     def walk(t, s):
         if isinstance(t, dict):

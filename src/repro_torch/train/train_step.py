@@ -32,8 +32,10 @@ def whole(t: torch.Tensor) -> torch.Tensor:
 
 
 def init_train_state(gen: torch.Generator, cfg: ArchConfig,
-                     opt_cfg: OptConfig) -> dict:
-    params = init_params(gen, cfg)
+                     opt_cfg: OptConfig, device=None) -> dict:
+    """Parameters (``init_params``, on ``device``, ``gen``'s unless given),
+    their optimizer state beside them, and step 0."""
+    params = init_params(gen, cfg, device)
     return {"params": params, "opt": init_opt_state(params, opt_cfg),
             "step": 0}
 

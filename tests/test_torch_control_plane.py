@@ -1,7 +1,8 @@
 """The port's copy of the control plane (``core``, ``consistency``,
-``coord``, ``obs.metrics``/``obs.trace``): every file is byte-identical to
-the JAX package's, and the copy behaves like the original, message for
-message, under each read policy."""
+``coord``, ``faults``, ``fleet`` and ``obs``): every file is
+byte-identical to the JAX package's, ``obs`` exports what the JAX one
+does, and the copy behaves like the original, message for message, under
+each read policy."""
 
 from pathlib import Path
 
@@ -17,18 +18,20 @@ COPIED = sorted(
     [f"core/{p.name}" for p in (SRC / "repro" / "core").glob("*.py")]
     + [f"consistency/{p.name}"
        for p in (SRC / "repro" / "consistency").glob("*.py")]
-    + ["coord/kvstore.py", "coord/registry.py", "obs/metrics.py",
-       "obs/trace.py"])
+    + [f"faults/{p.name}" for p in (SRC / "repro" / "faults").glob("*.py")]
+    + [f"fleet/{p.name}" for p in (SRC / "repro" / "fleet").glob("*.py")]
+    + ["coord/kvstore.py", "coord/registry.py"]
+    + [f"obs/{p.name}" for p in (SRC / "repro" / "obs").glob("*.py")
+       if p.name != "__init__.py"])
 POLICIES = sorted(benchmark_configs(variants=False))
 
 
 def test_every_control_plane_file_is_copied():
-    assert len(COPIED) == 22, COPIED
+    assert len(COPIED) == 36, COPIED
+    dirs = ("core", "consistency", "faults", "fleet")
     port = {str(p.relative_to(SRC / "repro_torch"))
-            for d in ("core", "consistency")
-            for p in (SRC / "repro_torch" / d).glob("*.py")}
-    assert port == {c for c in COPIED if c.split("/")[0] in
-                    ("core", "consistency")}
+            for d in dirs for p in (SRC / "repro_torch" / d).glob("*.py")}
+    assert port == {c for c in COPIED if c.split("/")[0] in dirs}
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -37,9 +40,17 @@ def test_copy_is_byte_identical(rel):
         (SRC / "repro" / rel).read_bytes(), rel
 
 
-def test_obs_exports_only_metrics_and_tracer():
+def test_obs_exports_what_jax_exports():
+    import repro.obs as jobs
     import repro_torch.obs as obs
-    assert obs.__all__ == ["Metrics", "Tracer"]
+    assert obs.__all__ == jobs.__all__
+    for name in obs.__all__:
+        mine, theirs = getattr(obs, name), getattr(jobs, name)
+        if not callable(theirs):
+            assert mine == theirs, name
+        else:
+            assert mine.__module__ == theirs.__module__.replace(
+                "repro.", "repro_torch.", 1), name
     assert Metrics.__module__ == "repro_torch.obs.metrics"
     assert Tracer.__module__ == "repro_torch.obs.trace"
 

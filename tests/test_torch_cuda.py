@@ -501,3 +501,43 @@ def test_mamba_scan_launches_on_local_shards(mesh11, s):
     out.to_local().sum().backward()
     assert mamba_scan.launches > before
     assert all(torch.isfinite(t.grad.to_local()).all() for t in leaves)
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "wkv6", "mamba_scan"])
+def test_kernel_operators_pass_opcheck(cuda, name):
+    """``torch.library.opcheck`` of each kernel's operator on card inputs:
+    its schema (the recurrences' states mutated in place), its fake
+    implementation against the CUDA one, and its dispatch."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import wkv6 as wk
+    gen = torch.Generator(cuda).manual_seed(0)
+
+    def rand(*shape, dtype=torch.float32, low=-1.0, high=1.0):
+        t = torch.rand(shape, generator=gen, device=cuda)
+        return (low + (high - low) * t).to(dtype)
+
+    bf16 = torch.bfloat16
+    if name == "flash_attention":
+        k = rand(2, 200, 2, 64, dtype=bf16)
+        op, args = fa.flash_attention_op, (rand(2, 200, 4, 64, dtype=bf16),
+                                           k, k, 64)
+    elif name == "decode_attention":
+        k = rand(2, 300, 2, 128, dtype=bf16)
+        op, args = da.decode_attention_op, (
+            rand(2, 2, 4, 128, dtype=bf16), k, k,
+            torch.tensor([120, 300], dtype=torch.int32, device=cuda))
+    elif name == "wkv6":
+        r = rand(2, 40, 3, 64)
+        op, args = wk.wkv6_op, (r, r, r, rand(2, 40, 3, 64, low=0.9,
+                                               high=0.999),
+                                rand(3, 64), rand(2, 3, 64, 64), True)
+    else:
+        dt, bc = rand(2, 70, 64, dtype=bf16), rand(2, 70, 32, dtype=bf16)
+        vec = rand(64)
+        op, args = ms.mamba_scan_op, (dt, vec, bc[..., :16], bc[..., 16:],
+                                      dt, dt, rand(64, 16, low=0.0),
+                                      vec, rand(2, 64, 16), True)
+    torch.library.opcheck(op, args)

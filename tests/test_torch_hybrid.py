@@ -15,6 +15,7 @@ call is also held bit for bit to the torch operations it replaced.
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -188,14 +189,19 @@ def test_mamba_scan_reads_views_as_copies():
 
 
 def test_mamba_scan_does_not_fall_back_off_the_cpu():
-    """Only a CPU tensor takes the plain version: on another device the
-    wrapper launches its kernel or raises."""
+    """Only a CPU tensor takes the plain version: a meta tensor takes the
+    kernel's operator (its fake implementation: the output's and the
+    state's shapes, no launch), and any device but the CPU, the card and
+    meta raises."""
     t = torch.empty(1, 8, 16, device="meta")
     bc = torch.empty(1, 8, 16, device="meta")
     v = torch.empty(16, device="meta")
     a_log = torch.empty(16, 8, device="meta")
-    with pytest.raises(ValueError):
-        mamba_scan(t, v, bc[..., :8], bc[..., 8:], t, t, a_log, v)
+    out, h = mamba_scan(t, v, bc[..., :8], bc[..., 8:], t, t, a_log, v)
+    assert out.shape == t.shape and h.shape == (1, 16, 8)
+    with pytest.raises(ValueError, match="no kernel for mps"):
+        mamba_scan(types.SimpleNamespace(device=torch.device("mps")), v,
+                   bc[..., :8], bc[..., 8:], t, t, a_log, v)
     with pytest.raises(ValueError):
         ops.mamba_scan(t, v, bc[..., :8], bc[..., 8:], t, t, a_log, v,
                        impl="pallas")

@@ -7,6 +7,8 @@ Inputs are made with numpy from a seed and handed to both frameworks.
 Tolerances are those of tests/test_kernels.py: fp32 2e-5, bf16 2e-2.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -160,15 +162,20 @@ def test_impl_reference_and_unknown_impl():
 
 
 def test_wrappers_do_not_fall_back_off_the_cpu():
-    """Only a CPU tensor takes the plain version: on another device the
-    wrapper launches its kernel or raises."""
+    """Only a CPU tensor takes the plain version: a meta tensor takes the
+    kernel's operator (its fake implementation: the output's shape, no
+    launch), and any device but the CPU, the card and meta raises."""
     q = torch.empty(1, 64, 4, 32, device="meta")
     k = torch.empty(1, 64, 2, 32, device="meta")
-    with pytest.raises(ValueError):
-        flash_attention(q, k, k)
-    with pytest.raises(ValueError):
-        decode_attention(q[:, 0].view(1, 2, 2, 32), k, k,
-                         torch.empty(1, dtype=torch.int32, device="meta"))
+    assert flash_attention(q, k, k).shape == q.shape
+    qd = q[:, 0].view(1, 2, 2, 32)
+    lens = torch.empty(1, dtype=torch.int32, device="meta")
+    assert decode_attention(qd, k, k, lens).shape == qd.shape
+    other = types.SimpleNamespace(device=torch.device("mps"))
+    with pytest.raises(ValueError, match="no kernel for mps"):
+        flash_attention(other, k, k)
+    with pytest.raises(ValueError, match="no kernel for mps"):
+        decode_attention(other, k, k, lens)
     assert flash_attention.launches == 0 and decode_attention.launches == 0
 
 

@@ -1,7 +1,8 @@
 """Where the JAX reference places a dim that the ``model`` axis does not
-divide, pinned for the port's sharding layer (ROADMAP.md queue 3, m).
+divide, pinned for the port's sharding layer and dry run (ROADMAP.md
+queue 3, m).
 
-Two facts of jax 0.9, in a subprocess with 16 forced CPU devices (jax
+Three facts of jax 0.9, in a subprocess with 16 forced CPU devices (jax
 fixes the device count when it first starts, as in
 ``tests/test_dryrun_small.py``):
 
@@ -13,11 +14,19 @@ fixes the device count when it first starts, as in
   lies whole on one device, even where 16 divides h;
 * on a mesh of ``Auto`` axes, ``with_sharding_constraint`` shards h over
   gcd(h, 16) devices and replicates it over the rest: 56 -> 8, 40 -> 8,
-  12 -> 4, 25 -> 1.
+  12 -> 4, 25 -> 1;
+* the JAX package's own dry run (``repro.launch.dryrun.lower_cell``, at
+  full width and depth 1, a 2 x 64 prefill on that mesh) still shards
+  such a dim over gcd(dim, 16) devices: the constraints do nothing, but
+  GSPMD carries the weights' ``model`` sharding into the activations.
+  Its compiled program holds arctic-480b's attention scores on 7 of the
+  56 heads a device (8 ways) and hymba-1.5b's on all 25 (whole), and
+  hymba's Mamba state on 100 of its 1600 channels a device (16 ways).
 
-The port's ``constrain`` and ``kernels.ops._on_local_heads`` replicate a
-dim that the axis does not divide; which of the two JAX placements the
-port should match is the dryrun's question.
+The port keeps such a dim whole on every ``model`` rank (DTensor has no
+placement over gcd(dim, 16) of 16 ranks, and the scan kernel takes a
+multiple of 8 channels a rank), so it matches JAX's placement only where
+the gcd is 1; ``repro_torch.launch.dryrun.undivided_dims`` reports both.
 """
 
 import json
@@ -25,6 +34,8 @@ import math
 import os
 import subprocess
 import sys
+
+import pytest
 
 SCRIPT = r"""
 import os
@@ -64,18 +75,49 @@ for h in (56, 40, 12, 25):
         y = jax.jit(g)(jnp.ones((2, 4, h, 8)))
     out["auto"][h] = [len({str(s.index) for s in y.addressable_shards}),
                       y.addressable_shards[0].data.shape[2]]
+
+# JAX's own dry run: the per-device sizes of the attention scores'
+# (B, H, S, S) and the Mamba scan's (B, di, n) values in its compiled
+# program, read from the instructions under their named scopes
+import dataclasses
+import re
+from repro.configs import get_arch
+from repro.configs.base import ShapeConfig
+from repro.launch.dryrun import lower_cell
+
+
+def local_sizes(text, scope, pattern):
+    return sorted({int(m.group(1)) for line in text.splitlines()
+                   if scope in line for m in [re.search(pattern, line)] if m})
+
+
+out["dry_run"] = {}
+for arch in ("arctic-480b", "hymba-1.5b"):
+    cfg = dataclasses.replace(get_arch(arch), n_layers=1)
+    text = lower_cell(cfg, ShapeConfig("p", "prefill", 64, 2),
+                      mesh).compile().as_text()
+    out["dry_run"][arch] = {
+        "heads": local_sizes(text, "vmemkernel_flash_attention",
+                             r"= f32\[2,(\d+),64,64\]"),
+        "channels": local_sizes(text, "vmemkernel_mamba_scan",
+                                r"= f32\[2,(\d+),16\]")}
 print("PLACEMENTS " + json.dumps(out))
 """
 
 
-def test_reference_constrain_on_explicit_and_auto_meshes():
+@pytest.fixture(scope="module")
+def placements():
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     run = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True,
                          text=True, env=env, timeout=300)
     assert run.returncode == 0, run.stderr[-3000:]
     line = next(x for x in run.stdout.splitlines()
                 if x.startswith("PLACEMENTS "))
-    got = json.loads(line[len("PLACEMENTS "):])
+    return json.loads(line[len("PLACEMENTS "):])
+
+
+def test_reference_constrain_on_explicit_and_auto_meshes(placements):
+    got = placements
     assert got["axis_types"] == ["Explicit", "Explicit"]
     for h in ("56", "25", "32"):
         # constrain returned its input; jit's output is on one device
@@ -84,3 +126,13 @@ def test_reference_constrain_on_explicit_and_auto_meshes():
         assert ways == math.gcd(int(h), 16)
         # ``ways`` distinct shards, each h / ways heads
         assert got["auto"][h] == [ways, int(h) // ways], h
+
+
+def test_reference_dry_run_shards_over_the_gcd(placements):
+    """JAX's compiled dry run on its own (1, 16) mesh: each dim over
+    gcd(dim, 16) devices, whole only where the gcd is 1."""
+    got = placements["dry_run"]
+    assert got["arctic-480b"] == {"heads": [56 // math.gcd(56, 16)],
+                                  "channels": []}
+    assert got["hymba-1.5b"] == {"heads": [25 // math.gcd(25, 16)],
+                                 "channels": [1600 // math.gcd(1600, 16)]}

@@ -14,6 +14,7 @@ limits: the frameworks round to bf16 at different points).
 """
 
 import dataclasses
+import types
 import functools
 
 import jax
@@ -129,13 +130,18 @@ def test_wkv6_computes_in_fp32():
 
 
 def test_wkv6_does_not_fall_back_off_the_cpu():
-    """Only a CPU tensor takes the plain version: on another device the
-    wrapper launches its kernel or raises."""
+    """Only a CPU tensor takes the plain version: a meta tensor takes the
+    kernel's operator (its fake implementation: y's and the state's
+    shapes, no launch), and any device but the CPU, the card and meta
+    raises."""
     r = torch.empty(1, 8, 2, 16, device="meta")
+    u = torch.empty(2, 16, device="meta")
+    y, state = wkv6(r, r, r, r, u)
+    assert y.shape == r.shape and state.shape == (1, 2, 16, 16)
+    with pytest.raises(ValueError, match="no kernel for mps"):
+        wkv6(types.SimpleNamespace(device=torch.device("mps")), r, r, r, u)
     with pytest.raises(ValueError):
-        wkv6(r, r, r, r, torch.empty(2, 16, device="meta"))
-    with pytest.raises(ValueError):
-        ops.wkv6(r, r, r, r, torch.empty(2, 16, device="meta"), impl="pallas")
+        ops.wkv6(r, r, r, r, u, impl="pallas")
     assert wkv6.launches == 0
 
 
