@@ -6,8 +6,8 @@ Phases; each raises on failure, so any failure exits non-zero:
   1. environment: card, power limit, versions; build the CUDA kernels from
      src/repro_torch/kernels/csrc/ (one nvcc per source, in parallel),
      print ptxas' registers and spills and each library's count of HMMA
-     (tensor-core) instructions, which must not be 0 for flash attention
-     and WKV6;
+     (tensor-core) instructions, which must not be 0 for flash attention,
+     its backward and WKV6;
   2. each kernel against its plain PyTorch version on the card, at the
      serving shapes and in windowed, ragged, 3-D layout, hd 32 and 128,
      fp32, many-split, poisoned-cache and carried-state cases, with its
@@ -66,31 +66,41 @@ Phases; each raises on failure, so any failure exits non-zero:
   4. small fp32 models (dense, MoE, RWKV and hybrid) served on the card
      and on the CPU must agree;
   5. training, after the served models are freed: the flash attention
-     backward (FlashAttentionFn: the kernel's forward, flash_attention_bwd
-     in torch operations) against autograd through the plain version at
-     the serving shape and at the training shape (B=2, S=4096), fp32 and
-     bf16, with two mutants of the backward that must fail, and the
-     kernel's bf16 forward against its plain version at the training
-     shape, with the temperature mutant; qwen3-8b trained at full width
+     backward (FlashAttentionFn: the training forward, which also writes
+     each row's log-sum-exp, and the backward kernels) against autograd
+     through the plain version at the serving shape and at the training
+     shapes of qwen3-8b (B=2, S=4096, 32/8 heads), hymba-1.5b (B=4,
+     25/5 heads of 64, window 1024) and moonshot-v1-16b-a3b (B=2, 16/16
+     heads of 128), fp32 and bf16, with two mutants of the plain backward
+     that must fail; the backward kernels against their plain version
+     (flash_attention_bwd given the forward's out and log-sum-exp) and
+     timed beside it, beside the old torch-ops backward and SDPA's, at
+     each training shape; the kernel's bf16 forward against its plain
+     version at the training shape, with the temperature mutant; qwen3-8b
+     trained at full width
      and depth 8 (AdamW, bf16, 4 microbatches of 2 x 4096 tokens)
      through train_step, a warm-up step and 3 timed ones,
      each with its loss, grad norm, time, tokens/s, share of the step's
      bound (train_mfu) and peak memory, its launch counts (2 flash
-     attention launches per layer and microbatch with remat, no other
-     kernel's) and a profile of one step; the first microbatch's loss and
+     attention launches per layer and microbatch with remat and 1 of the
+     attention backward, no other kernel's; the torch-ops backwards
+     called 0 times) and a profile of one step; the first microbatch's loss and
      grads at depth 2 through the kernels and the plain versions, bf16 and
      fp32 (the embedding's gradient and the other leaves' held apart);
      run_training at the tiny preset on the card, 6 straight steps
      against 3, a commit, a resume and 3 more. The recurrences train
      through Wkv6Fn and MambaScanFn (the kernels' forward one launch per
-     256-step chunk, the torch-ops backwards wkv6_bwd and
-     mamba_scan_bwd): both held to autograd through the plain loops at
-     full width across two chunks (WKV6 fp32, the scan fp32 and bf16),
-     each with a mutant that does not carry the state's gradient across a
-     chunk; each forward and backward timed at its model's training
-     microbatch; rwkv6-3b and hymba-1.5b trained at full width and full
-     depth as qwen3-8b is (their WKV6, Mamba scan and flash attention
-     launches a step asserted, and a nonzero gradient on every leaf that
+     256-step chunk; the backwards the torch-ops wkv6_bwd and the Mamba
+     scan's backward kernel, one launch a call): both held to autograd
+     through the plain loops at full width across two chunks (WKV6 fp32,
+     the scan fp32 and bf16), each with a mutant that does not carry the
+     state's gradient across a chunk (the scan's: its kernel run chunk by
+     chunk); the scan's backward kernel against its plain version
+     (mamba_scan_bwd); each forward and backward timed at its model's
+     training microbatch; rwkv6-3b and hymba-1.5b trained at full width
+     and full depth as qwen3-8b is (their WKV6, Mamba scan, flash
+     attention and backward kernel launches a step asserted, and a
+     nonzero gradient on every leaf that
      feeds a recurrence), each profiled over one microbatch; and their
      kernel and plain paths at depth 2, 2 x 2048 tokens. moonshot-v1-16b-a3b
      (MoE, 64 experts top-6) is trained as qwen3-8b is, at depth 4 of 48
@@ -127,18 +137,27 @@ Phases; each raises on failure, so any failure exits non-zero:
      beside the measured prefill ms, decode ms/token and step ms; the
      counted flops must hold serve_bounds' and train_bound's parts to
      FLOPS_TOL once the named cases where the path does more work are
-     added from the shapes (remat, the MoE capacity rows; decode
-     attention and the kernels' backwards are reported), the decode
+     added from the shapes (remat, the MoE capacity rows, the backward
+     kernels' recompute; decode attention and WKV6's torch-ops backward are
+     reported), the decode
      step's counted bytes must reach the bound's, and the predicted peak
      must be within PEAK_TOL of torch.cuda.max_memory_allocated(); then
      one decode_32k cell a family on the (16, 16) fake mesh, in a
-     subprocess, its rows written under build/dryrun_rows/.
+     subprocess, its rows written under build/dryrun_rows/. The backward
+     kernels' flops are held too: attention's seven products where the
+     bound counts four (its dQ kernel recomputes S and dP), the scan's
+     vjp plus the forward it recomputes.
 Each phase prints its wall time, and the run its total. The last lines
-are a JSON line of per-kernel numbers (flash attention at the qwen3-8b
+are a JSON line of per-kernel numbers (the backward kernels' entries
+also carry "torch_ops_ms", the torch-ops backward the card ran before
+them; flash attention at the qwen3-8b
 serving shape with the served prefill's launches, "flash_attention_train" at the training shape
 with the timed train steps' launches, "wkv6_train" and "mamba_scan_train"
 at rwkv6-3b's and hymba-1.5b's training microbatch with their timed train
-steps' launches, both attention kernels once more for
+steps' launches, "flash_attention_bwd" at qwen3-8b's training shape and
+"_hymba", "_moonshot" at those models', "mamba_scan_bwd" at hymba-1.5b's,
+each with its model's timed train steps' launches, both attention kernels
+once more for
 each of hd 96, 80 and 160, "_hd<n>", and for hymba's group of 5,
 "_hymba", at the shape and with the launches of the model served there,
 and the Mamba scan, "mamba_scan" at hymba's serving prefill with its
@@ -260,6 +279,15 @@ FP32_PARTS = ("wkv6", "mamba_scan", "Wkv6FnBackward", "MambaScanFnBackward",
 # paths, against fp32: within this factor of the plain path's own error
 # (two bf16 paths round independently; the fp32 checks are the tight ones)
 BWD_BF16_RATIO = 2.0
+# phase 5a: the attention backward at each trained attention model's
+# training shape, {JSON suffix: model}: qwen3-8b's GQA 32/8 heads of 128,
+# hymba-1.5b's 25/5 heads of 64 with its 1024-token window, moonshot's
+# 16/16 heads of 128
+ATTENTION_TRAINED = {"": "qwen3-8b", "_hymba": "hymba-1.5b",
+                     "_moonshot": "moonshot-v1-16b-a3b"}
+# the training forward's log-sum-exp against its plain version (natural
+# log units; the scores' products sum in other orders)
+LSE_ATOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -362,6 +390,7 @@ def environment() -> str:
     hmma = hmma_counts(libs)
     log(f"HMMA instructions in the SASS: {hmma}")
     for name, what in (("flash_attention", "bf16 body"),
+                       ("flash_attention_bwd", "bf16 bodies"),
                        ("wkv6", "chunked body's 3xTF32 products")):
         if not hmma[name]:
             raise AssertionError(f"{name}'s library has no HMMA: its {what} "
@@ -1584,139 +1613,224 @@ def small_models_cpu_vs_card() -> None:
 
 
 # ------------------------------------------------------------ phase 5
-def attention_grads(q, k, v, dout, impl: str) -> list:
-    """(dq, dk, dv) by autograd through ops.flash_attention: the kernel's
-    forward and flash_attention_bwd, or the plain version (reference)."""
+def attention_grads(q, k, v, dout, impl: str, window=None) -> list:
+    """(dq, dk, dv) by autograd through ops.flash_attention: the training
+    forward and the backward kernels, or the plain version (reference)."""
     from repro_torch.kernels import ops
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-    ops.flash_attention(*leaves, impl=impl).backward(dout)
+    ops.flash_attention(*leaves, window=window, impl=impl).backward(dout)
     return [t.grad for t in leaves]
 
 
+def attention_train_shape(arch: str) -> dict:
+    """``arch``'s attention in a train step: its microbatch of TRAIN_SEQ
+    tokens, heads, head dim and window."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    return {"b": TRAIN_BATCH // cfg.grad_accum, "s": TRAIN_SEQ,
+            "h": cfg.n_heads, "hkv": cfg.n_kv_heads, "hd": cfg.hd,
+            "window": cfg.sliding_window}
+
+
+def check_backward_against_autograd(label: str, gen, b, s, h, hkv, hd,
+                                    window, mutants: bool = False) -> list:
+    """FlashAttentionFn (the training forward and the backward kernels)
+    against autograd through the plain version at one shape: fp32 within
+    REL_TOL (rel L2) for dq, dk, dv; bf16 within BWD_BF16_RATIO x the
+    plain path's own bf16 error against fp32. With ``mutants``, two
+    mutants of the plain backward (the sum(P dP) term dropped; a mask that
+    lets each query see the next key) must fail the fp32 limit. Returns
+    the bf16 inputs [q, k, v, dout]."""
+    from repro_torch.kernels import flash_attention as fa
+    q = randn(gen, (b, s, h, hd), torch.float32)
+    k = randn(gen, (b, s, hkv, hd), torch.float32)
+    v = randn(gen, (b, s, hkv, hd), torch.float32, 1.0)
+    dout = randn(gen, (b, s, h, hd), torch.float32, 1.0)
+    what = f"{label} B={b} S={s} {h}/{hkv} heads of {hd}, window {window}"
+    truth = attention_grads(q, k, v, dout, "reference", window)
+    got = attention_grads(q, k, v, dout, "kernel", window)
+    errs = [rel_err(g, t) for g, t in zip(got, truth)]
+    log(f"  {what} fp32: rel L2 dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv "
+        f"{errs[2]:.3e} (limit {REL_TOL[torch.float32]})")
+    if max(errs) > REL_TOL[torch.float32]:
+        raise AssertionError(f"attention backward, {what}: {errs}")
+    if mutants:
+        real_mask = fa._mask
+        cases = {
+            "sum(P dP) dropped": ("_softmax_grad", lambda p, dp: dp.mul_(p)),
+            "mask sees the next key": (
+                "_mask", lambda qpos, kpos, w: real_mask(qpos + 1, kpos, w))}
+        for name, (attr, fn) in cases.items():
+            with mock.patch.object(fa, attr, fn):
+                mut = fa.flash_attention_bwd(q, k, v, dout, window)
+            rel = max(rel_err(g, t) for g, t in zip(mut, truth))
+            log(f"  mutant ({name}): rel L2 {rel:.3e} (must exceed "
+                f"{REL_TOL[torch.float32]})")
+            if rel <= REL_TOL[torch.float32]:
+                raise AssertionError(f"the backward check cannot tell the "
+                                     f"mutant {name}")
+    del truth, got
+    bf = [t.to(torch.bfloat16) for t in (q, k, v, dout)]
+    truth = attention_grads(*(t.float() for t in bf), "reference", window)
+    got = attention_grads(*bf, "kernel", window)
+    plain = attention_grads(*bf, "reference", window)
+    for name, g, p, t in zip(("dq", "dk", "dv"), got, plain, truth):
+        ek, ep = rel_err(g, t), rel_err(p, t)
+        log(f"  {what} bf16 {name}: rel L2 vs fp32 {ek:.3e}, plain path's "
+            f"{ep:.3e} (limit {BWD_BF16_RATIO} x)")
+        if ek > BWD_BF16_RATIO * ep or g.dtype != torch.bfloat16:
+            raise AssertionError(f"attention backward bf16 {name}, {what}: "
+                                 f"{ek} vs plain {ep}")
+    return bf
+
+
 def check_attention_backward() -> dict:
-    """flash_attention_bwd behind the kernel's forward, against autograd
-    through the plain version, at the serving and the training shapes:
-    fp32 within REL_TOL (rel L2) for dq, dk, dv; bf16 within
-    BWD_BF16_RATIO x the plain path's own bf16 error against fp32. Two
-    mutants of the backward (the sum(P dP) term dropped; a mask that lets
-    each query see the next key) must fail the fp32 limit. Returns the
-    times at the training shape."""
-    from repro_torch.kernels import flash_attention as fa
+    """Phase 5a. The attention backward through FlashAttentionFn against
+    autograd through the plain version at the serving shape (with the
+    mutants) and at each ATTENTION_TRAINED model's training shape; the
+    kernel's bf16 forward and log-sum-exp against their plain versions at
+    qwen3-8b's; then, at each training shape, the backward kernels against
+    their plain version, timed (``time_attention_backward``). Returns
+    {"bwd_ms": {model: kernel ms}, "entries": JSON entries}."""
     gen = torch.Generator("cuda").manual_seed(3)
-    log("flash attention backward (FlashAttentionFn: the kernel's forward, "
-        "flash_attention_bwd) vs autograd through the plain version:")
-    shapes = {"serving": (REQUESTS, PROMPT_LEN),
-              "training": (TRAIN_MICRO, TRAIN_SEQ)}
-    for label, (b, s) in shapes.items():
-        q = randn(gen, (b, s, 32, 128), torch.float32)
-        k = randn(gen, (b, s, 8, 128), torch.float32)
-        v = randn(gen, (b, s, 8, 128), torch.float32, 1.0)
-        dout = randn(gen, (b, s, 32, 128), torch.float32, 1.0)
-        truth = attention_grads(q, k, v, dout, "reference")
-        got = attention_grads(q, k, v, dout, "kernel")
-        errs = [rel_err(g, t) for g, t in zip(got, truth)]
-        log(f"  {label} B={b} S={s} fp32: rel L2 dq {errs[0]:.3e}, dk "
-            f"{errs[1]:.3e}, dv {errs[2]:.3e} (limit "
-            f"{REL_TOL[torch.float32]})")
-        if max(errs) > REL_TOL[torch.float32]:
-            raise AssertionError(f"attention backward, {label}: {errs}")
-        if label == "serving":
-            real_mask = fa._mask
-            mutants = {
-                "sum(P dP) dropped": ("_softmax_grad",
-                                      lambda p, dp: dp.mul_(p)),
-                "mask sees the next key": (
-                    "_mask", lambda qpos, kpos, w: real_mask(qpos + 1, kpos,
-                                                             w))}
-            for what, (name, fn) in mutants.items():
-                with mock.patch.object(fa, name, fn):
-                    mut = fa.flash_attention_bwd(q, k, v, dout)
-                rel = max(rel_err(g, t) for g, t in zip(mut, truth))
-                log(f"  mutant ({what}): rel L2 {rel:.3e} (must exceed "
-                    f"{REL_TOL[torch.float32]})")
-                if rel <= REL_TOL[torch.float32]:
-                    raise AssertionError(f"the backward check cannot tell "
-                                         f"the mutant {what}")
-        bf = [t.to(torch.bfloat16) for t in (q, k, v, dout)]
-        if label == "training":
-            fwd_err = check_training_forward(*bf[:3])
-        truth = attention_grads(*(t.float() for t in bf), "reference")
-        got = attention_grads(*bf, "kernel")
-        plain = attention_grads(*bf, "reference")
-        for name, g, p, t in zip(("dq", "dk", "dv"), got, plain, truth):
-            ek, ep = rel_err(g, t), rel_err(p, t)
-            log(f"  {label} bf16 {name}: rel L2 vs fp32 {ek:.3e}, plain "
-                f"path's {ep:.3e} (limit {BWD_BF16_RATIO} x)")
-            if ek > BWD_BF16_RATIO * ep or g.dtype != torch.bfloat16:
-                raise AssertionError(f"attention backward bf16 {name}, "
-                                     f"{label}: {ek} vs plain {ep}")
-        del truth, got, plain
-    return time_training_shape(*bf, fwd_err)
+    log("flash attention backward (FlashAttentionFn: the training forward "
+        "and the backward kernels) vs autograd through the plain version:")
+    check_backward_against_autograd("serving", gen, REQUESTS, PROMPT_LEN, 32,
+                                    8, 128, None, mutants=True)
+    bwd_ms, entries = {}, []
+    for suffix, arch in ATTENTION_TRAINED.items():
+        shape = attention_train_shape(arch)
+        q, k, v, dout = check_backward_against_autograd(
+            f"{arch} training", gen, **shape)
+        window = shape["window"]
+        entry = None
+        if not suffix:
+            entry = check_training_forward(q, k, v)
+        bwd = time_attention_backward(suffix, arch, q, k, v, dout, window)
+        bwd_ms[arch] = bwd["ms"]
+        entries += [e for e in (entry, bwd) if e is not None]
+        del q, k, v, dout
+        free()
+    return {"bwd_ms": bwd_ms, "entries": entries}
 
 
-def check_training_forward(q, k, v) -> float:
-    """The kernel's bf16 forward at the training shape (the body each train
-    step launches 2 x layers x microbatches times) against its plain
-    version, with the temperature mutant. The backward recomputes P from q,
-    k and v and never reads the forward's output, so its check cannot stand
-    for this one."""
-    from repro_torch.kernels import flash_attention as fa
-    want = fa.flash_attention_plain(q, k, v)
-    name = f"training forward B={q.shape[0]} S={q.shape[1]} bf16"
-    err = assert_close(name, fa.flash_attention(q, k, v), want)
-    assert_mutant_caught(name, fa.flash_attention_plain(q * MUTANT_TEMP, k,
-                                                        v), want)
-    return err
-
-
-def time_training_shape(q, k, v, dout, fwd_err: float) -> dict:
-    """The kernel's forward and flash_attention_bwd at the training shape,
-    beside the plain forward, SDPA's forward and SDPA's forward plus
-    backward (PyTorch's own flash attention: a yardstick, used nowhere in
-    the port), and their bounds. Returns the backward's time and the
-    kernel line's entry for the forward at this shape."""
+def check_training_forward(q, k, v) -> dict:
+    """The kernel's bf16 training forward at the training shape (the body
+    each train step launches 2 x layers x microbatches times) against its
+    plain version, out with the temperature mutant and each row's
+    log-sum-exp within LSE_ATOL; timed beside the plain forward, SDPA's
+    forward and its bound. Returns the JSON entry
+    "flash_attention_train"."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     b, s, h, hd = q.shape
+    want, want_lse = fa.flash_attention_train_plain(q, k, v)
+    name = f"training forward B={b} S={s} bf16"
+    out, lse = fa.flash_attention_train(q, k, v)
+    err = assert_close(name, out, want)
+    assert_mutant_caught(name, fa.flash_attention_plain(q * MUTANT_TEMP, k,
+                                                        v), want)
+    lse_err = max_err(lse, want_lse)
+    log(f"  {name}, log-sum-exp: max_abs_err {lse_err:.3e} (limit "
+        f"{LSE_ATOL})")
+    if lse_err > LSE_ATOL or lse.dtype != torch.float32:
+        raise AssertionError(f"{name}: log-sum-exp disagrees ({lse_err})")
+    del want, want_lse, out, lse
     fwd_flops = 4 * b * h * hd * (s * (s + 1) // 2)
     # Q, K, V read once, O (the size of Q) written once
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     bound, by = bound_ms(n_bytes, {q.dtype: fwd_flops})
-    fwd = time_ms(lambda: fa.flash_attention(q, k, v), 10)
+    fwd = time_ms(lambda: fa.flash_attention_train(q, k, v), 10)
     plain = time_ms(lambda: fa.flash_attention_plain(q, k, v), 2, warmup=1)
-    bwd = time_ms(lambda: fa.flash_attention_bwd(q, k, v, dout), 5,
-                  warmup=1)
-    qt, kt, vt, dt = (t.transpose(1, 2).contiguous() for t in (q, k, v, dout))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), 10)
-    leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+    log(f"  training shape B={b} S={s} bf16: kernel forward with "
+        f"log-sum-exp {fwd:.4f} ms (plain {plain:.4f}, SDPA {lib:.4f}, "
+        f"bound {bound:.4f} ms by {by})")
+    return {"name": "flash_attention_train", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:75",
+            "max_abs_err": err, "ms": fwd, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib}
 
-    def sdpa_fwd_bwd():
-        F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                       enable_gqa=True).backward(dt)
-    lib_both = time_ms(sdpa_fwd_bwd, 5)
-    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                              enable_gqa=True)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dt,
-                                                  retain_graph=True), 5)
-    # the backward alone: dV, dP, dQ and dK, twice the forward's products;
-    # q, k, v and dout read once, dq, dk, dv written once
-    bwd_bound, bwd_by = bound_ms(
-        (2 * (q.numel() + k.numel() + v.numel()) + dout.numel())
-        * q.element_size(), {q.dtype: 2 * fwd_flops})
-    log(f"  training shape B={b} S={s} bf16: kernel forward {fwd:.4f} ms "
-        f"(plain {plain:.4f}, SDPA {lib:.4f}, bound {bound:.4f} ms by "
-        f"{by}); flash_attention_bwd {bwd:.4f} ms (bound {bwd_bound:.4f} ms "
-        f"by {bwd_by}, SDPA's backward alone {lib_bwd:.4f} ms; kernel "
-        f"forward + it {fwd + bwd:.4f} ms, SDPA forward + backward "
-        f"{lib_both:.4f} ms, bound of both "
-        f"{bound_ms(0, {q.dtype: 3 * fwd_flops})[0]:.4f} ms)")
-    entry = {"name": "flash_attention_train", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "replaces": "src/repro/kernels/flash_attention.py:75",
-             "max_abs_err": fwd_err, "ms": fwd, "plain_ms": plain,
-             "bound_ms": bound, "bound_by": by, "library_ms": lib}
-    return {"bwd_ms": bwd, "entry": entry}
+
+def sdpa_backward(q, k, v, dout, window):
+    """One PyTorch call computing the attention backward, for its time: a
+    closure running SDPA's backward alone (its forward run once, its graph
+    kept), causal, or with a window mask and K and V per query head (SDPA
+    has no window)."""
+    import torch.nn.functional as F
+    grp = q.shape[2] // k.shape[2]
+    qt, dt = (t.transpose(1, 2).contiguous() for t in (q, dout))
+    if window is None:
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+        kw = {"is_causal": True, "enable_gqa": True}
+    else:
+        kt, vt = (t.repeat_interleave(grp, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        pos = torch.arange(q.shape[1], device="cuda")
+        kw = {"attn_mask": (pos[:, None] >= pos[None, :])
+              & (pos[:, None] - pos[None, :] < window)}
+    leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+    out = F.scaled_dot_product_attention(*leaves, **kw)
+    return lambda: torch.autograd.grad(out, leaves, dt, retain_graph=True)
+
+
+def time_attention_backward(suffix: str, arch: str, q, k, v, dout,
+                            window) -> dict:
+    """The backward kernels at ``arch``'s training shape in bf16 against
+    their plain version on the same inputs (``flash_attention_bwd`` given
+    the training forward's out and log-sum-exp): each gradient within
+    REL_TOL (rel L2) and TOL of its largest magnitude; timed beside that
+    plain version, the old torch-ops backward (``flash_attention_bwd``
+    from q, k, v alone, which the Function ran on the card before the
+    kernels), SDPA's backward and the bound: four products over the
+    visible pairs (twice the forward's); q, k, v, out, its log-sum-exp and
+    dout read once, dq, dk, dv written once. Returns the JSON entry
+    "flash_attention_bwd" + suffix."""
+    from repro_torch.kernels import flash_attention as fa
+    b, s, h, hd = q.shape
+    out, lse = fa.flash_attention_train(q, k, v, window)
+    got = fa.flash_attention_backward(q, k, v, out, lse, dout, window)
+    want = fa.flash_attention_bwd(q, k, v, dout, window, out=out, lse=lse)
+    what = f"flash_attention_backward, {arch} B={b} S={s} {h}/{k.shape[2]} " \
+        f"heads of {hd}, window {window}, bf16"
+    err = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        e, rel = max_err(g, w), rel_err(g, w)
+        scale = w.float().abs().max().item()
+        log(f"  {what} vs its plain version, {name}: max_abs_err {e:.3e} "
+            f"(limit {TOL[torch.bfloat16]} x max |plain| {scale:.3e}), rel "
+            f"L2 {rel:.3e} (limit {REL_TOL[torch.bfloat16]})")
+        if e > TOL[torch.bfloat16] * scale or rel > REL_TOL[torch.bfloat16] \
+                or not bool(torch.isfinite(g.float()).all()):
+            raise AssertionError(f"{what} {name}: kernel disagrees with its "
+                                 f"plain version ({e}, {rel})")
+        err = max(err, e)
+    del got, want
+    pairs = visible_pairs(s, window)
+    flops = 8 * b * h * hd * pairs
+    n_bytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) \
+        * q.element_size() + lse.numel() * 4
+    bound, by = bound_ms(n_bytes, {q.dtype: flops})
+    ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout,
+                                                     window), 10)
+    plain = time_ms(lambda: fa.flash_attention_bwd(
+        q, k, v, dout, window, out=out, lse=lse), 3, warmup=1)
+    old = time_ms(lambda: fa.flash_attention_bwd(q, k, v, dout, window), 3,
+                  warmup=1)
+    lib = time_ms(sdpa_backward(q, k, v, dout, window), 5, warmup=1)
+    log(f"  {what}: kernels {ms:.4f} ms, plain version {plain:.4f} ms, "
+        f"the old torch-ops backward {old:.4f} ms, SDPA's backward alone"
+        f"{'' if window is None else ' (window mask)'} {lib:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}), {ms / bound:.2f}x the bound")
+    return {"name": f"flash_attention_bwd{suffix}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/layers.py:91",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib,
+            "torch_ops_ms": old}
 
 
 def train_bound(cfg, seqs: int) -> tuple[float, str, float]:
@@ -1806,7 +1920,7 @@ def recurrence_grads(fn, inputs: list, dout, impl: str) -> list:
 
 
 def chunk_by_chunk(bwd, inputs: list, seq: tuple, starts, dout) -> list:
-    """A mutant of ``bwd`` (wkv6_bwd or mamba_scan_bwd): each TIME_CHUNK
+    """A mutant of ``bwd`` (wkv6_bwd or mamba_scan_backward): each TIME_CHUNK
     chunk's gradient from its own start state with the final gradient of
     the state taken as zero, so the state's gradient is not carried across
     the chunk boundary. ``seq`` are the indices of the (B, S, ...) inputs;
@@ -1889,22 +2003,25 @@ def mamba_train_inputs(gen, b: int, s: int, dtype) -> list:
 
 def check_recurrence_backward() -> dict:
     """Wkv6Fn and MambaScanFn (the kernels' forward one launch per
-    TIME_CHUNK steps, the torch-ops backwards wkv6_bwd and mamba_scan_bwd)
-    against autograd through the plain loops, at each family's full width
-    across RECURRENT_CHECK_SEQ // 256 remat chunks: WKV6 in fp32, the scan
-    in fp32 (rel L2 within REL_TOL) and bf16 (within BWD_BF16_RATIO x the
-    plain path's own error against fp32). A mutant of each backward (the
-    state's gradient not carried across the chunk boundary) must fail the
-    fp32 limit. Then each forward and backward is timed at its model's
-    training microbatch. Returns {"entries": JSON entries "wkv6_train" and
-    "mamba_scan_train", "bwd_ms": {kernel: backward ms}}."""
+    TIME_CHUNK steps; the backwards the torch-ops wkv6_bwd and the scan's
+    backward kernel) against autograd through the plain loops, at each
+    family's full width across RECURRENT_CHECK_SEQ // 256 remat chunks:
+    WKV6 in fp32, the scan in fp32 (rel L2 within REL_TOL) and bf16
+    (within BWD_BF16_RATIO x the plain path's own error against fp32). A
+    mutant of each backward (the state's gradient not carried across the
+    chunk boundary: wkv6_bwd, and the scan's kernel, run chunk by chunk)
+    must fail the fp32 limit. Then each forward and backward is timed at
+    its model's training microbatch. Returns {"entries": JSON entries
+    "wkv6_train", "mamba_scan_train" and "mamba_scan_bwd", "bwd_ms":
+    {(backward, model): backward ms}}."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import wkv6 as wk
     gen = torch.Generator("cuda").manual_seed(6)
     b, s = TRAIN_MICRO, RECURRENT_CHECK_SEQ
     log(f"recurrence backwards (Wkv6Fn, MambaScanFn: the kernels' forward "
-        f"per {wk.TIME_CHUNK}-step chunk, the torch-ops backward) vs "
+        f"per {wk.TIME_CHUNK}-step chunk; wkv6_bwd, the scan's backward "
+        f"kernel) vs "
         f"autograd through the plain loops, B={b}, S={s}:")
     inputs = wkv6_train_inputs(gen, b, s)
     dy = randn(gen, (b, s, RWKV_HEADS, RWKV_HD), torch.float32, 1.0)
@@ -1930,10 +2047,10 @@ def check_recurrence_backward() -> dict:
                         f"d_skip", recurrence_grads(ops.mamba_scan, inputs,
                                                     dout, "kernel"), truth)
             _, _, starts = ms.mamba_chunk_states(*inputs)
-            check_mutant_grads("mamba_scan_bwd, dState not carried across "
-                               "a chunk", chunk_by_chunk(
-                                   ms.mamba_scan_bwd, inputs, seq, starts,
-                                   dout), truth)
+            check_mutant_grads("mamba_scan_backward, dState not carried "
+                               "across a chunk", chunk_by_chunk(
+                                   ms.mamba_scan_backward, inputs, seq,
+                                   starts, dout), truth)
             continue
         wide = [t.float() for t in inputs]
         truth = recurrence_grads(ops.mamba_scan, wide, dout.float(),
@@ -1958,7 +2075,10 @@ def time_recurrences_training() -> dict:
     TIME_CHUNK steps from the previous chunk's state) against its plain
     loop, and its backward, at its model's training microbatch of
     TRAIN_SEQ tokens: WKV6 B=2 (rwkv6-3b: 8 sequences in 4 microbatches),
-    the scan B=4 in bf16 (hymba-1.5b: in 2). Bounds: forward as the
+    the scan B=4 in bf16 (hymba-1.5b: in 2); the scan's backward kernel
+    against its plain version (mamba_scan_bwd, the torch-ops backward) on
+    the same inputs, each gradient within REL_TOL (rel L2) and TOL of its
+    largest magnitude, and timed beside it. Bounds: forward as the
     serving checks count it; backward: the inputs and dy read, their
     gradients written, the kept states read, and the flops of wkv6_flops
     or mamba_flops."""
@@ -1982,12 +2102,12 @@ def time_recurrences_training() -> dict:
                            {torch.float32: bwd_f})
     fwd = time_ms(lambda: wk.wkv6_chunk_states(*inputs), 10)
     plain = time_ms(lambda: wk.wkv6_plain(*inputs), 1, warmup=1)
-    bwd["wkv6"] = time_ms(lambda: wk.wkv6_bwd(*inputs, starts, dy), 3,
-                          warmup=1)
+    t_bwd = time_ms(lambda: wk.wkv6_bwd(*inputs, starts, dy), 3, warmup=1)
+    bwd["wkv6_bwd", "rwkv6-3b"] = t_bwd
     log(f"  wkv6 training shape (B={b}, S={s}, H={RWKV_HEADS}, "
         f"hd={RWKV_HD}): forward {fwd:.4f} ms in {starts.shape[1]} "
         f"launches (plain loop {plain:.4f} ms, bound {bound:.4f} ms by {by}); "
-        f"wkv6_bwd {bwd['wkv6']:.4f} ms (bound {bbound:.4f} ms by {bby})")
+        f"wkv6_bwd {t_bwd:.4f} ms (bound {bbound:.4f} ms by {bby})")
     entries.append({"name": "wkv6_train", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/wkv6.cu",
                     "replaces": "src/repro/kernels/rwkv6.py:49",
@@ -2007,20 +2127,50 @@ def time_recurrences_training() -> dict:
     fwd_f, bwd_f = mamba_flops(b * s, MAMBA_DI, MAMBA_N)
     bbound, bby = bound_ms(2 * n_bytes + out.numel() * 2 + starts.numel() * 4,
                            {torch.float32: bwd_f})
+    got = ms.mamba_scan_backward(*inputs, starts, dout)
+    want = ms.mamba_scan_bwd(*inputs, starts, dout)
+    bwd_err = 0.0
+    names = ("dt_raw", "dt_bias", "b", "c", "x", "z", "a_log", "d_skip")
+    for name, g, w in zip(names, got, want):
+        e, rel = max_err(g, w), rel_err(g, w)
+        scale = w.float().abs().max().item()
+        log(f"  mamba_scan_backward B={b} S={s} bf16 vs its plain version, "
+            f"d {name}: max_abs_err {e:.3e} (limit {TOL[torch.bfloat16]} x "
+            f"max |plain| {scale:.3e}), rel L2 {rel:.3e} (limit "
+            f"{REL_TOL[torch.bfloat16]})")
+        if e > TOL[torch.bfloat16] * scale or rel > REL_TOL[torch.bfloat16] \
+                or g.dtype != w.dtype \
+                or not bool(torch.isfinite(g.float()).all()):
+            raise AssertionError(f"mamba_scan_backward d {name}: kernel "
+                                 f"disagrees with its plain version ({e}, "
+                                 f"{rel})")
+        bwd_err = max(bwd_err, e)
+    del got, want
     fwd = time_ms(lambda: ms.mamba_chunk_states(*inputs), 10)
     plain = time_ms(lambda: ms.mamba_scan_plain(*inputs), 1, warmup=1)
-    bwd["mamba_scan"] = time_ms(
-        lambda: ms.mamba_scan_bwd(*inputs, starts, dout), 3, warmup=1)
+    t_bwd = time_ms(lambda: ms.mamba_scan_backward(*inputs, starts, dout),
+                    10)
+    t_plain = time_ms(lambda: ms.mamba_scan_bwd(*inputs, starts, dout), 3,
+                      warmup=1)
+    bwd["mamba_scan_backward", "hymba-1.5b"] = t_bwd
     log(f"  mamba_scan training shape (B={b}, S={s}, di={MAMBA_DI}, "
         f"n={MAMBA_N}, bf16): forward {fwd:.4f} ms in {starts.shape[1]} "
         f"launches (plain loop {plain:.4f} ms, bound {bound:.4f} ms by {by}); "
-        f"mamba_scan_bwd {bwd['mamba_scan']:.4f} ms (bound {bbound:.4f} ms "
-        f"by {bby})")
+        f"backward kernel {t_bwd:.4f} ms in 1 launch, its plain version "
+        f"(the torch-ops mamba_scan_bwd) {t_plain:.4f} ms, bound "
+        f"{bbound:.4f} ms ({bby}), {t_bwd / bbound:.2f}x the bound")
     entries.append({"name": "mamba_scan_train", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
                     "replaces": "src/repro/models/ssm.py:217",
                     "max_abs_err": err, "ms": fwd, "plain_ms": plain,
                     "bound_ms": bound, "bound_by": by, "library_ms": None})
+    entries.append({"name": "mamba_scan_bwd", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/"
+                              "mamba_scan_bwd.cu",
+                    "replaces": "src/repro/models/ssm.py:30",
+                    "max_abs_err": bwd_err, "ms": t_bwd, "plain_ms": t_plain,
+                    "bound_ms": bbound, "bound_by": bby, "library_ms": None,
+                    "torch_ops_ms": t_plain})
     return {"entries": entries, "bwd_ms": bwd}
 
 
@@ -2028,18 +2178,21 @@ def train_counts(cfg, seq: int = TRAIN_SEQ) -> dict:
     """Launches of one train step of ``seq``-token sequences: remat runs
     each layer's forward twice, so 2 per layer and microbatch of flash
     attention, and of WKV6 and the Mamba scan 2 per layer, microbatch and
-    TIME_CHUNK chunk; none of the other kernels."""
+    TIME_CHUNK chunk; 1 per layer and microbatch of each backward kernel
+    (one per Function backward); none of the other kernels."""
     from repro_torch.kernels.ops import KERNELS
     from repro_torch.kernels.wkv6 import TIME_CHUNK
     want = dict.fromkeys(KERNELS, 0)
-    per = 2 * cfg.n_layers * cfg.grad_accum
+    per = cfg.n_layers * cfg.grad_accum
     chunks = -(-seq // TIME_CHUNK)
     if cfg.attn_free:
-        want["wkv6"] = per * chunks
+        want["wkv6"] = 2 * per * chunks
     else:
-        want["flash_attention"] = per
+        want["flash_attention"] = 2 * per
+        want["flash_attention_backward"] = per
     if cfg.hybrid_ssm:
-        want["mamba_scan"] = per * chunks
+        want["mamba_scan"] = 2 * per * chunks
+        want["mamba_scan_backward"] = per
     return want
 
 
@@ -2069,11 +2222,16 @@ def train_full_width(arch: str, bwd_ms: dict) -> dict:
     grad norms, a first loss near ln(vocab), the launches of train_counts
     (and the Mamba scan's all in its chunked body), and in the warm-up
     step a nonzero gradient on every leaf that feeds the recurrence.
-    Prints a profile (of a step, or for the recurrent families of one
-    microbatch) and CUDA-event spans of the step's parts, each backward
-    among them."""
+    Spies on the torch-ops backwards that the kernels replaced
+    (flash_attention_bwd, mamba_scan_bwd): the timed steps must call them
+    0 times. Prints a profile (of a step, or for the recurrent families of
+    one microbatch) and CUDA-event spans of the step's parts, each
+    backward among them. ``bwd_ms``: {(backward, model): ms alone at the
+    model's shape}."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms_mod
     from repro_torch.kernels import ops
     from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.train import train_step as ts
@@ -2113,11 +2271,24 @@ def train_full_width(arch: str, bwd_ms: dict) -> dict:
             check_recurrent_leaves(cfg, grads)
         return real_updates(grads, *args, **kwargs)
 
+    # the torch-ops backwards the kernels replaced: never called on the card
+    torch_ops = {"flash_attention_bwd": 0, "mamba_scan_bwd": 0}
+
+    def spy(mod, name):
+        real = getattr(mod, name)
+
+        def counted(*args, **kwargs):
+            torch_ops[name] += 1
+            return real(*args, **kwargs)
+        return mock.patch.object(mod, name, counted)
+
     for step in range(1 + TIMED_STEPS):
         batch = ts.to_device(synth_batch(cfg, shape, step), "cuda")
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
-        with mock.patch.object(ts, "apply_updates", first_grads):
+        with mock.patch.object(ts, "apply_updates", first_grads), \
+                spy(fa, "flash_attention_bwd"), \
+                spy(ms_mod, "mamba_scan_bwd"):
             start.record()
             state, m = ts.train_step(state, batch, cfg, opt_cfg)
             end.record()
@@ -2131,6 +2302,10 @@ def train_full_width(arch: str, bwd_ms: dict) -> dict:
             f"{bound / ms:.4f}, peak memory "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         check_counts(f"train step {step}", counts, want)
+        log(f"  torch-ops backwards called in step {step}: {torch_ops}")
+        if any(torch_ops.values()):
+            raise AssertionError(f"step {step} called the torch-ops "
+                                 f"backwards {torch_ops}")
         if mamba_scan.token_launches:
             raise AssertionError(f"step {step}: {mamba_scan.token_launches}"
                                  f" Mamba scan launches ran the token body")
@@ -2145,17 +2320,12 @@ def train_full_width(arch: str, bwd_ms: dict) -> dict:
             steps.append(ms)
             peaks.append(torch.cuda.max_memory_allocated())
     mean = sum(steps) / len(steps)
-    # the backward timed alone at this model's shape (the attention
-    # backward at qwen3-8b's; hymba's is in the spans below)
-    kernel = "wkv6" if cfg.attn_free else "mamba_scan" if cfg.hybrid_ssm \
-        else "flash_attention"
+    # each backward timed alone at this model's shape, times its calls
     calls = cfg.n_layers * accum
-    # the attention backward was timed at qwen3-8b's heads; moonshot's
-    # share is in the CUDA-event spans below
-    alone = "" if cfg.is_moe else (
-        f"; {kernel} backward alone at this shape {bwd_ms[kernel]:.3f} ms x "
-        f"{calls} calls = {bwd_ms[kernel] * calls:.1f} ms a step "
-        f"({100 * bwd_ms[kernel] * calls / mean:.1f} %)")
+    alone = "".join(
+        f"; {name} alone at this shape {t:.3f} ms x {calls} calls = "
+        f"{t * calls:.1f} ms a step ({100 * t * calls / mean:.1f} %)"
+        for (name, a), t in bwd_ms.items() if a == arch)
     log(f"  {TIMED_STEPS} timed steps: mean {mean:.1f} ms "
         f"({tokens * 1e3 / mean:.0f} tokens/s, train_mfu "
         f"{bound / mean:.4f}){alone}")
@@ -2267,8 +2437,9 @@ def time_step_parts(state, batch, cfg, opt_cfg, step_ms: float) -> None:
     """One more step, with CUDA events around the optimizer update
     (``apply_updates``: clip and AdamW), around the gradient-tree
     operations of ``train_step`` (zeroed buffers, the fp32 accumulation of
-    each microbatch) and around each torch-ops backward that the step runs
-    (flash_attention_bwd, wkv6_bwd, mamba_scan_bwd): the device time
+    each microbatch) and around each backward that the step runs (the
+    kernels' flash_attention_backward and mamba_scan_backward, the
+    torch-ops wkv6_bwd): the device time
     between each pair, summed, and its share of the timed steps' mean. The
     stream is busy, so a span holds its own kernels, and the host time a
     span's launches take when the device waits on them."""
@@ -2290,9 +2461,9 @@ def time_step_parts(state, batch, cfg, opt_cfg, step_ms: float) -> None:
         return run
     parts = ((ts, "apply_updates", "optimizer (clip, AdamW)"),
              (ts, "tree_map", "gradient buffers and fp32 accumulation"),
-             (fa, "flash_attention_bwd", "flash_attention_bwd"),
+             (fa, "flash_attention_backward", "flash_attention_backward"),
              (wk, "wkv6_bwd", "wkv6_bwd"),
-             (ms, "mamba_scan_bwd", "mamba_scan_bwd"))
+             (ms, "mamba_scan_backward", "mamba_scan_backward"))
     with contextlib.ExitStack() as stack:
         for mod, attr, name in parts:
             stack.enter_context(mock.patch.object(
@@ -2898,18 +3069,20 @@ def roofline_trained(arch: str, run: dict) -> None:
         dense -= 2 * cfg.d_model * cfg.d_ff * TRAIN_BATCH * TRAIN_SEQ \
             * cfg.n_layers
     want = {"dense": dense}
-    at_least = {}
-    for kernel, bwd in (("flash_attention", "FlashAttentionFnBackward"),
-                        ("wkv6", "Wkv6FnBackward"),
-                        ("mamba_scan", "MambaScanFnBackward")):
+    for kernel in ("flash_attention", "wkv6", "mamba_scan"):
         if kernel in parts:
             want[kernel] = REMAT_KERNEL * parts[kernel]
+    # the backward kernels, by their flop formulas: attention's dQ kernel
+    # recomputes S and dP (seven products where the bound counts four over
+    # the visible pairs); the scan's recomputes its forward from the kept
+    # states
     if "FlashAttentionFnBackward" in parts:
-        # the backward recomputes the scores over each chunk's key range:
-        # five products where the bound counts four over the visible pairs
-        at_least["FlashAttentionFnBackward"] = \
-            parts["FlashAttentionFnBackward"]
-    hold_parts(f"{arch} train step", step.flops_by_region, want, at_least)
+        want["FlashAttentionFnBackward"] = \
+            parts["FlashAttentionFnBackward"] * 7 // 4
+    if "MambaScanFnBackward" in parts:
+        want["MambaScanFnBackward"] = \
+            parts["MambaScanFnBackward"] + parts["mamba_scan"]
+    hold_parts(f"{arch} train step", step.flops_by_region, want, {})
     hold_peak(f"{arch} trained", peak, run["peak_bytes"])
 
 
@@ -2976,7 +3149,8 @@ def train_phase() -> list:
     with phase("5b, the recurrence backwards"):
         recurrences = check_recurrence_backward()
         free()
-    bwd_ms = {"flash_attention": attention["bwd_ms"],
+    bwd_ms = {**{("flash_attention_backward", arch): t
+                 for arch, t in attention["bwd_ms"].items()},
               **recurrences["bwd_ms"]}
     trained = {}
     for arch in TRAINED:
@@ -2994,8 +3168,12 @@ def train_phase() -> list:
         free()
     launched_by = {"flash_attention_train": ("qwen3-8b", "flash_attention"),
                    "wkv6_train": ("rwkv6-3b", "wkv6"),
-                   "mamba_scan_train": ("hymba-1.5b", "mamba_scan")}
-    entries = [attention["entry"], *recurrences["entries"]]
+                   "mamba_scan_train": ("hymba-1.5b", "mamba_scan"),
+                   "mamba_scan_bwd": ("hymba-1.5b", "mamba_scan_backward")}
+    for suffix, arch in ATTENTION_TRAINED.items():
+        launched_by[f"flash_attention_bwd{suffix}"] = \
+            (arch, "flash_attention_backward")
+    entries = [*attention["entries"], *recurrences["entries"]]
     for e in entries:
         arch, kernel = launched_by[e["name"]]
         e["launches"] = trained[arch]["launches"][kernel]
@@ -3068,10 +3246,12 @@ def main() -> int:
     kernels += trained
     log(f"chip_smoke.py: all phases passed in {time.perf_counter() - t0:.1f}"
         f" s")
+    # every entry's keys, then the backward kernels' torch-ops backward
+    # that the card ran before them
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms"]
-    print(json.dumps({"kernels": [{key: k[key] for key in order}
+             "library_ms", "torch_ops_ms"]
+    print(json.dumps({"kernels": [{key: k[key] for key in order if key in k}
                                   for k in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,12 @@
 // hd / 16 k-steps and P V in hd / 8 n-blocks, the fp32 body takes hd / 16
 // column pairs a lane. At hd 160 three (K, V) buffers (126 KB) would leave
 // one block an SM, so that instance rings two and keeps two blocks.
+//
+// Training (flash_attention_bwd.cu): given an lse pointer, both bodies also
+// write each row's log-sum-exp of the scaled scores, lse = m + log l in
+// fp32 ((B, H, Sq), m taken as 0 for a row with every key masked, l
+// clamped as the output's denominator is), from which the backward
+// recomputes P. Serving passes none and writes nothing more.
 
 #include "common.cuh"
 
@@ -69,6 +75,7 @@ struct FaParams {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, Sq) or null: the training forward's row log-sum-exp
   int64_t q_sb, q_ss, q_sh;  // element strides (batch, seq, head)
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
@@ -206,6 +213,9 @@ __global__ void __launch_bounds__(NT) fa_f32_kernel(const FaParams p) {
     const int qpos = q0 + rg + 16 * i;
     if (qpos >= p.Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (p.lse != nullptr && c == 0)
+      p.lse[((int64_t)b * p.H + h) * p.Sq + qpos] =
+          (m[i] == -INFINITY ? 0.f : m[i]) + logf(denom);
     T* out = O + qpos * p.o_ss;
 #pragma unroll
     for (int u = 0; u < NU; ++u)
@@ -406,6 +416,11 @@ __global__ void __launch_bounds__(NT, 2) fa_bf16_kernel(const FaParams p) {
     lr += __shfl_xor_sync(0xffffffffu, lr, 1);
     lr += __shfl_xor_sync(0xffffffffu, lr, 2);
     const float inv = 1.f / fmaxf(lr, 1e-30f);
+    const int qpos = wq0 + g + 8 * r;
+    if (p.lse != nullptr && t == 0 && qpos < p.Sq)
+      p.lse[((int64_t)b * p.H + h) * p.Sq + qpos] =
+          (m[r] == -INFINITY ? 0.f : m[r] * p.scale) +
+          logf(fmaxf(lr, 1e-30f));
     T* row = sO + (g + 8 * r) * LD + 2 * t;
 #pragma unroll
     for (int d = 0; d < ND; ++d)
@@ -459,17 +474,18 @@ int dispatch_hd(const FaParams& p, int B, int hd, bool bf16,
 
 // q: (B, Sq, H, hd), k/v: (B, Sk, Hkv, hd), o: (B, Sq, H, hd), each given
 // by its data pointer and its (batch, seq, head) element strides in
-// `strides` (q, k, v, o in that order); the head dim is contiguous.
+// `strides` (q, k, v, o in that order); the head dim is contiguous. lse:
+// null, or (B, H, Sq) fp32 to receive each row's log-sum-exp (training).
 // Returns cudaGetLastError() after the launch, 0 on success.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o,
+                                      const void* v, void* o, float* lse,
                                       const int64_t* strides, int B, int H,
                                       int Hkv, int Sq, int Sk, int hd,
                                       int window, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || H % Hkv != 0)
     return cudaErrorInvalidValue;
   FaParams p;
-  p.q = q; p.k = k; p.v = v; p.o = o;
+  p.q = q; p.k = k; p.v = v; p.o = o; p.lse = lse;
   p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
   p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
   p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];

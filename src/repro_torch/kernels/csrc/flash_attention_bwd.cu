@@ -1,0 +1,852 @@
+// Flash attention backward (training) for Hopper, sm_90a.
+//
+// No Pallas kernel stands behind it: the JAX package trains through XLA's
+// gradient of the checkpointed vmemkernel_flash_attention chunk of
+// repro/models/layers.py:causal_attention_ref (:91-112), which XLA fuses
+// on the TPU. The port's plain version of that gradient is
+// flash_attention.py:flash_attention_bwd (torch operations); this kernel
+// computes what it computes, FlashAttention-2's backward, from the
+// forward's output O and its row log-sum-exp (the training forward writes
+// lse = m + log l of the scaled scores, flash_attention.cu), for
+// causal GQA attention with an optional window, Sq == Sk:
+//
+//   P  = exp(Q K^T scale - lse)      recomputed, in fp32
+//   dV = sum over the group's heads of T(P)^T dO
+//   dP = dO V^T,   D = rowsum(dO o O),   dS = P o (dP - D)
+//   dQ = T(dS) K scale,   dK = sum over the group's heads of T(dS)^T Q scale
+//
+// T rounds to the inputs' dtype where the plain version rounds: P before
+// the dV product (JAX casts P to v's dtype), dS before both of its
+// products; every product accumulates in fp32, dK and dV over the heads
+// of a KV head's group too. One change of rounding point: D is the row sum
+// of dO o O (O as the forward wrote it, in the dtype), where the plain
+// version sums P o dP in fp32. The two are equal in exact arithmetic; in
+// bf16 D then carries O's rounding (PERF.md holds both paths to fp32).
+//
+// What bounds it: operations. At qwen3-8b's training shape (B=2, S=4096,
+// 32/8 heads, hd 128, bf16) the backward's four products over the causal
+// pairs are 550 GFLOP, 0.556 ms at the bf16 tensor-core peak, against
+// 0.10 GB to move (q, k, v, dO read once, dq, dk, dv written once).
+//
+// Three kernels in one C call, on one stream:
+//   1. delta: D = rowsum(dO o O) in fp32, one warp a (batch, row, head);
+//   2. dK/dV: one block per (batch, KV head, 64-key tile), 4 warps of 16
+//      keys each. dK and dV stay in fp32 registers for the whole block, so
+//      they need no atomics: the block loops over the g query heads of the
+//      group and over the 32-query tiles that can see its keys (from the
+//      tile's first key to the end, or to its last key + window - 1), with
+//      Q, dO, lse and D of the next tile in flight (cp.async, two stages)
+//      under the current one;
+//   3. dQ: one block per (batch, head, 64-query tile), 4 warps of 16 rows,
+//      looping over 32-key tiles (two stages) from the window's edge to the
+//      causal limit, recomputing P and dP: deterministic, where atomics
+//      into dQ from kernel 2 would sum in a different order each run.
+// Kernels 2 and 3 thus run seven products where the bound counts four
+// (S and dP twice). Each warp skips a tile in which every (key, query)
+// pair is masked and masks only tiles that straddle the diagonal, S or
+// the window edge.
+//
+// bf16 bodies: mma.sync.m16n8k16 (bf16 in, fp32 accumulate) with ldmatrix
+// from shared memory rows padded by 16 bytes (conflict-free), as the
+// forward's body: S^T = K Q^T takes K as A and Q by ldmatrix; P^T (from
+// the accumulators, rounded to bf16 in registers) is the A operand of
+// dV += P^T dO, dO by ldmatrix.trans; the same for dP^T = V dO^T and
+// dK += dS^T Q. The dQ kernel is the forward's layout with dO V^T beside
+// Q K^T and dQ += dS K (K by ldmatrix.trans). Register pressure: the dK
+// and dV accumulators are hd / 2 + hd / 2 registers a thread (160 at hd
+// 160), so the streamed tiles are 32 wide (16 registers each for S and dP)
+// and K, V, Q, dO fragments are loaded from shared memory where they are
+// used, not kept in registers. wgmma with TMA is the next step.
+//
+// fp32 bodies (tests, compare_paths; not a training dtype): CUDA cores, 256
+// threads of 8-lane row groups, each thread two rows (keys in dK/dV,
+// queries in dQ) and four columns of a 32-wide tile; P and dS go through
+// shared memory to the products, as the forward's fp32 body does.
+//
+// Every instance of the forward's head dims (32, 64, 80, 96, 128, 160);
+// operands read through their strides, head dim contiguous, rows 16-byte
+// aligned (the wrapper checks); dq, dk, dv written in the inputs' dtype.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int KB = 64;   // dK/dV: keys a block (4 bf16 warps of 16)
+constexpr int QB = 32;   // dK/dV: queries a streamed tile
+constexpr int QR = 64;   // dQ: query rows a block
+constexpr int KT = 32;   // dQ: keys a streamed tile
+constexpr int NT = 128;  // bf16 kernels: 4 warps
+constexpr int NT32 = 256;  // fp32 kernels: 32 row groups of 8 lanes
+constexpr int NSTAGE = 2;  // cp.async stages of the streamed tiles
+constexpr int DELTA_WARPS = 8;
+
+struct BwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;  // (B, H, S): m + log l of the scaled scores
+  float* delta;      // (B, H, S): rowsum(dO o O), written by kernel 1
+  void* dq;
+  void* dk;
+  void* dv;
+  int64_t q_sb, q_ss, q_sh;  // element strides (batch, seq, head)
+  int64_t k_sb, k_ss, k_sh;
+  int64_t v_sb, v_ss, v_sh;
+  int64_t o_sb, o_ss, o_sh;
+  int64_t do_sb, do_ss, do_sh;
+  int64_t dq_sb, dq_ss, dq_sh;
+  int64_t dk_sb, dk_ss, dk_sh;
+  int64_t dv_sb, dv_ss, dv_sh;
+  int H, Hkv, S, hd;
+  int window;  // <= 0: no window
+  float scale;
+};
+
+__device__ __forceinline__ int64_t row_index(const BwdParams& p, int b,
+                                             int h, int s) {
+  return ((int64_t)b * p.H + h) * p.S + s;
+}
+
+// ------------------------------------------------------------ 1. delta
+template <typename T>
+__global__ void __launch_bounds__(32 * DELTA_WARPS)
+    fa_bwd_delta_kernel(const BwdParams p, int64_t rows) {
+  const int64_t row =
+      (int64_t)blockIdx.x * DELTA_WARPS + threadIdx.x / 32;  // (b, s, h)
+  if (row >= rows) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
+  const int h = row % p.H;
+  const int s = (row / p.H) % p.S;
+  const int b = row / ((int64_t)p.H * p.S);
+  const T* o = static_cast<const T*>(p.o) + b * p.o_sb + s * p.o_ss +
+               h * p.o_sh;
+  const T* d = static_cast<const T*>(p.dout) + b * p.do_sb + s * p.do_ss +
+               h * p.do_sh;
+  float acc = 0.f;
+  for (int i = lane; i < p.hd; i += 32)
+    acc = fmaf(to_float(o[i]), to_float(d[i]), acc);
+  acc = warp_sum(acc);
+  if (lane == 0) p.delta[row_index(p, b, h, s)] = acc;
+}
+
+// the query tiles a key tile's block walks: [k0, q_end), QB at a time
+__device__ __forceinline__ int query_end(const BwdParams& p, int k0) {
+  return p.window > 0 ? min(p.S, k0 + KB - 1 + p.window) : p.S;
+}
+
+// the key tiles a query tile's block walks: [k_begin, k_end), KT at a time
+__device__ __forceinline__ int key_begin(const BwdParams& p, int q0) {
+  const int k = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  return k / KT * KT;
+}
+
+// ------------------------------------------------- 2./3. bf16 bodies
+template <int HD>
+struct BwdBf16Shape {
+  static_assert(HD % 16 == 0, "hd must be a multiple of 16");
+  static constexpr int LD = HD + 8;  // 16-byte pad: conflict-free ldmatrix
+  // dK/dV: K and V (KB rows each), NSTAGE x (Q, dO) of QB rows, then
+  // NSTAGE x (lse, D) of QB floats
+  static constexpr size_t DKDV =
+      size_t(2) * KB * LD * 2 + size_t(NSTAGE) * 2 * QB * LD * 2 +
+      size_t(NSTAGE) * 2 * QB * 4;
+  // dQ: Q and dO (QR rows each), NSTAGE x (K, V) of KT rows
+  static constexpr size_t DQ =
+      size_t(2) * QR * LD * 2 + size_t(NSTAGE) * 2 * KT * LD * 2;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(NT) fa_bwd_dkdv_bf16_kernel(
+    const BwdParams p) {
+  using T = __nv_bfloat16;
+  constexpr int LD = BwdBf16Shape<HD>::LD;
+  constexpr int KD = HD / 16;  // k-steps over the head dim
+  constexpr int ND = HD / 8;   // n-blocks of dK and dV
+  constexpr int NQ = QB / 8;   // n-blocks of S^T over a query tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sK = reinterpret_cast<T*>(smem);
+  T* sV = sK + KB * LD;
+  T* sQD = sV + KB * LD;  // stage i: Q at sQD + 2 i QB LD, dO QB rows on
+  float* sLD = reinterpret_cast<float*>(sQD + NSTAGE * 2 * QB * LD);
+
+  const int b = blockIdx.y / p.Hkv, hk = blockIdx.y % p.Hkv;
+  const int grp = p.H / p.Hkv;
+  const int k0 = blockIdx.x * KB;  // the first key tiles see the most
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wk0 = k0 + 16 * warp;  // this warp's first key
+  const T* K = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* V = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  const int per_head = (query_end(p, k0) - k0 + QB - 1) / QB;
+  const int n_tiles = per_head * grp;
+
+  // tile n (head hk * grp + n / per_head, queries from k0 + QB (n %
+  // per_head)) into stage n % NSTAGE; one commit group a tile, empty past
+  // the last. lse (in the exp2 domain) and D are plain stores: the stage's
+  // previous readers are past the barrier before this is called, its next
+  // ones behind the barrier that follows.
+  auto stage = [&](int n) {
+    if (n < n_tiles) {
+      const int h = hk * grp + n / per_head, q0 = k0 + (n % per_head) * QB;
+      T* dst = sQD + (n % NSTAGE) * 2 * QB * LD;
+      load_tile_async<T, HD, LD, QB, NT>(
+          dst, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss,
+          q0, p.S);
+      load_tile_async<T, HD, LD, QB, NT>(
+          dst + QB * LD,
+          static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh,
+          p.do_ss, q0, p.S);
+      if (tid < QB) {
+        // a query past S gets lse = +inf: its P is 0
+        float* ld = sLD + (n % NSTAGE) * 2 * QB;
+        const int q = q0 + tid;
+        const bool ok = q < p.S;
+        ld[tid] = ok ? p.lse[row_index(p, b, h, q)] * LOG2E : INFINITY;
+        ld[QB + tid] = ok ? p.delta[row_index(p, b, h, q)] : 0.f;
+      }
+    }
+    cp_async_commit();
+  };
+  load_tile_async<T, HD, LD, KB, NT>(sK, K, p.k_ss, k0, p.S);
+  load_tile_async<T, HD, LD, KB, NT>(sV, V, p.v_ss, k0, p.S);
+  stage(0);  // one group with K and V
+
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
+  const float sl2 = p.scale * LOG2E;
+
+  for (int n = 0; n < n_tiles; ++n) {
+    cp_async_wait<0>();  // tile n has landed (this thread's part)
+    // every thread's part is visible and every warp is done with tile
+    // n - 1's stage, which the next copy reuses
+    __syncthreads();
+    stage(n + 1);
+    const int q0 = k0 + (n % per_head) * QB;
+    // skip if every (key, query) pair is masked: all queries before the
+    // warp's first key, or all past its last key's window
+    const bool skip = wk0 >= p.S || q0 + QB - 1 < wk0 ||
+                      (p.window > 0 && q0 - (wk0 + 15) >= p.window);
+    if (skip) continue;
+    const T* qb = sQD + (n % NSTAGE) * 2 * QB * LD;
+    const T* ob = qb + QB * LD;
+    const float* lb = sLD + (n % NSTAGE) * 2 * QB;
+    const float* db = lb + QB;
+
+    // S^T = K_w Q^T: rows g, g + 8 of the warp's keys, columns the queries
+    float s[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t af[4];
+      ldmatrix_x4(af, sK + (16 * warp + (lane & 15)) * LD + 16 * kk +
+                          (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < NQ / 2; ++j) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, qb + (16 * j + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                            16 * kk + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * j], af, bf[0], bf[1]);
+        mma_bf16(s[2 * j + 1], af, bf[2], bf[3]);
+      }
+    }
+    // P^T = 2^(S^T scale log2 e - lse log2 e); column c = 8 j + 2 t + e is
+    // query q0 + c, row r key wk0 + g + 8 r
+    const bool edge = q0 < wk0 + 15 ||
+                      (p.window > 0 && q0 + QB - 1 - wk0 >= p.window);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * t + e;
+        const float l2 = lb[c];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float pv = fast_exp2(fmaf(s[j][2 * r + e], sl2, -l2));
+          if (edge) {
+            const int dq = q0 + c - (wk0 + g + 8 * r);  // query - key
+            if (dq < 0 || (p.window > 0 && dq >= p.window)) pv = 0.f;
+          }
+          s[j][2 * r + e] = pv;
+        }
+      }
+    // dV += T(P^T) dO: P^T's accumulators are the A fragments of 16-query
+    // steps
+#pragma unroll
+    for (int kk = 0; kk < QB / 16; ++kk) {
+      const uint32_t a[4] = {
+          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dd = 0; dd < ND / 2; ++dd) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(
+            bf, ob + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                    16 * dd + (lane >> 4) * 8);
+        mma_bf16(dv[2 * dd], a, bf[0], bf[1]);
+        mma_bf16(dv[2 * dd + 1], a, bf[2], bf[3]);
+      }
+    }
+    // dP^T = V_w dO^T
+    float dp[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t af[4];
+      ldmatrix_x4(af, sV + (16 * warp + (lane & 15)) * LD + 16 * kk +
+                          (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < NQ / 2; ++j) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, ob + (16 * j + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                            16 * kk + ((lane >> 3) & 1) * 8);
+        mma_bf16(dp[2 * j], af, bf[0], bf[1]);
+        mma_bf16(dp[2 * j + 1], af, bf[2], bf[3]);
+      }
+    }
+    // dS^T = P^T o (dP^T - D), over S^T's registers
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float dl = db[8 * j + 2 * t + e];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          s[j][2 * r + e] *= dp[j][2 * r + e] - dl;
+      }
+    // dK += T(dS^T) Q
+#pragma unroll
+    for (int kk = 0; kk < QB / 16; ++kk) {
+      const uint32_t a[4] = {
+          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dd = 0; dd < ND / 2; ++dd) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(
+            bf, qb + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                    16 * dd + (lane >> 4) * 8);
+        mma_bf16(dk[2 * dd], a, bf[0], bf[1]);
+        mma_bf16(dk[2 * dd + 1], a, bf[2], bf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();  // only empty groups are left; wait all the same
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = wk0 + g + 8 * r;
+    if (key >= p.S) continue;
+    T* dkr = static_cast<T*>(p.dk) + b * p.dk_sb + (int64_t)key * p.dk_ss +
+             hk * p.dk_sh + 2 * t;
+    T* dvr = static_cast<T*>(p.dv) + b * p.dv_sb + (int64_t)key * p.dv_ss +
+             hk * p.dv_sh + 2 * t;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      store2(dkr + 8 * d, dk[d][2 * r] * p.scale, dk[d][2 * r + 1] * p.scale);
+      store2(dvr + 8 * d, dv[d][2 * r], dv[d][2 * r + 1]);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT) fa_bwd_dq_bf16_kernel(
+    const BwdParams p) {
+  using T = __nv_bfloat16;
+  constexpr int LD = BwdBf16Shape<HD>::LD;
+  constexpr int KD = HD / 16;
+  constexpr int ND = HD / 8;
+  constexpr int NK = KT / 8;  // n-blocks of S over a key tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sO = sQ + QR * LD;  // dO
+  T* sKV = sO + QR * LD;  // stage i: K at sKV + 2 i KT LD, V KT rows on
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const int q0 = qt * QR;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wq0 = q0 + 16 * warp;
+  const T* K = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* V = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  const int k_begin = key_begin(p, q0);
+  const int k_end = min(p.S, q0 + QR);  // causal limit (Sq == Sk)
+  const int n_tiles = (k_end - k_begin + KT - 1) / KT;
+
+  auto stage = [&](int n) {
+    if (n < n_tiles) {
+      T* dst = sKV + (n % NSTAGE) * 2 * KT * LD;
+      const int k0 = k_begin + n * KT;
+      load_tile_async<T, HD, LD, KT, NT>(dst, K, p.k_ss, k0, p.S);
+      load_tile_async<T, HD, LD, KT, NT>(dst + KT * LD, V, p.v_ss, k0, p.S);
+    }
+    cp_async_commit();
+  };
+  load_tile_async<T, HD, LD, QR, NT>(
+      sQ, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, q0,
+      p.S);
+  load_tile_async<T, HD, LD, QR, NT>(
+      sO, static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh, p.do_ss,
+      q0, p.S);
+  stage(0);  // one group with Q and dO
+
+  // rows g and g + 8 of the warp: lse (exp2 domain) and D
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = wq0 + g + 8 * r;
+    const bool ok = q < p.S;
+    l2[r] = ok ? p.lse[row_index(p, b, h, q)] * LOG2E : INFINITY;
+    dl[r] = ok ? p.delta[row_index(p, b, h, q)] : 0.f;
+  }
+  float dq[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
+  const float sl2 = p.scale * LOG2E;
+
+  for (int n = 0; n < n_tiles; ++n) {
+    cp_async_wait<0>();
+    __syncthreads();
+    stage(n + 1);
+    const int k0 = k_begin + n * KT;
+    const bool skip = wq0 >= p.S || k0 > wq0 + 15 ||
+                      (p.window > 0 && wq0 - (k0 + KT - 1) >= p.window);
+    if (skip) continue;
+    const T* kb = sKV + (n % NSTAGE) * 2 * KT * LD;
+    const T* vb = kb + KT * LD;
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    // S = Q_w K^T and dP = dO_w V^T
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4], oa[4];
+      ldmatrix_x4(qa, sQ + (16 * warp + (lane & 15)) * LD + 16 * kk +
+                          (lane >> 4) * 8);
+      ldmatrix_x4(oa, sO + (16 * warp + (lane & 15)) * LD + 16 * kk +
+                          (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < NK / 2; ++j) {
+        const int row = (16 * j + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                        16 * kk + ((lane >> 3) & 1) * 8;
+        uint32_t kf[4], vf[4];
+        ldmatrix_x4(kf, kb + row);
+        ldmatrix_x4(vf, vb + row);
+        mma_bf16(s[2 * j], qa, kf[0], kf[1]);
+        mma_bf16(s[2 * j + 1], qa, kf[2], kf[3]);
+        mma_bf16(dp[2 * j], oa, vf[0], vf[1]);
+        mma_bf16(dp[2 * j + 1], oa, vf[2], vf[3]);
+      }
+    }
+    // dS = P o (dP - D), P recomputed; column c = 8 j + 2 t + e is key
+    // k0 + c, row r query wq0 + g + 8 r
+    const bool edge = k0 + KT - 1 > wq0 || k0 + KT > p.S ||
+                      (p.window > 0 && wq0 + 15 - k0 >= p.window);
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float pv = fast_exp2(fmaf(s[j][2 * r + e], sl2, -l2[r]));
+          if (edge) {
+            const int key = k0 + 8 * j + 2 * t + e;
+            const int d = wq0 + g + 8 * r - key;  // query - key
+            if (d < 0 || key >= p.S || (p.window > 0 && d >= p.window))
+              pv = 0.f;
+          }
+          s[j][2 * r + e] = pv * (dp[j][2 * r + e] - dl[r]);
+        }
+    // dQ += T(dS) K
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      const uint32_t a[4] = {
+          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dd = 0; dd < ND / 2; ++dd) {
+        uint32_t kf[4];
+        ldmatrix_x4_trans(
+            kf, kb + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                    16 * dd + (lane >> 4) * 8);
+        mma_bf16(dq[2 * dd], a, kf[0], kf[1]);
+        mma_bf16(dq[2 * dd + 1], a, kf[2], kf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = wq0 + g + 8 * r;
+    if (q >= p.S) continue;
+    T* row = static_cast<T*>(p.dq) + b * p.dq_sb + (int64_t)q * p.dq_ss +
+             h * p.dq_sh + 2 * t;
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      store2(row + 8 * d, dq[d][2 * r] * p.scale, dq[d][2 * r + 1] * p.scale);
+  }
+}
+
+// ------------------------------------------------- 2./3. fp32 bodies
+template <int HD>
+struct BwdF32Shape {
+  static constexpr int LD = HD + 4;  // padded smem row (floats)
+  static constexpr int LDP = QB + 4;
+  static constexpr int LDS = KT + 4;
+  // dK/dV: K, V (KB rows), Q, dO (QB rows), lse and D (QB), P and dS (KB x
+  // LDP)
+  static constexpr size_t DKDV =
+      (size_t(2) * KB * LD + size_t(2) * QB * LD + 2 * QB +
+       size_t(2) * KB * LDP) * sizeof(float);
+  // dQ: Q, dO (QR rows), K, V (KT rows), dS (QR x LDS)
+  static constexpr size_t DQ =
+      (size_t(2) * QR * LD + size_t(2) * KT * LD + size_t(QR) * LDS) *
+      sizeof(float);
+};
+
+template <int HD>
+__global__ void __launch_bounds__(NT32) fa_bwd_dkdv_f32_kernel(
+    const BwdParams p) {
+  constexpr int LD = BwdF32Shape<HD>::LD;
+  constexpr int LDP = BwdF32Shape<HD>::LDP;
+  constexpr int NU = HD / 16;  // column pairs a lane in the products
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sK = reinterpret_cast<float*>(smem);
+  float* sV = sK + KB * LD;
+  float* sQ = sV + KB * LD;
+  float* sO = sQ + QB * LD;
+  float* sL = sO + QB * LD;
+  float* sD = sL + QB;
+  float* sP = sD + QB;
+  float* sS = sP + KB * LDP;
+
+  const int b = blockIdx.y / p.Hkv, hk = blockIdx.y % p.Hkv;
+  const int grp = p.H / p.Hkv;
+  const int k0 = blockIdx.x * KB;
+  const int tid = threadIdx.x;
+  const int rg = tid >> 3;  // row group: keys rg, rg + 32
+  const int c = tid & 7;    // lane in the row group: queries c + 8 j
+  const float* K = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* V = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  load_tile<float, HD, LD, KB, NT32>(sK, K, p.k_ss, k0, p.S);
+  load_tile<float, HD, LD, KB, NT32>(sV, V, p.v_ss, k0, p.S);
+
+  const int per_head = (query_end(p, k0) - k0 + QB - 1) / QB;
+  float dk[2][2 * NU], dv[2][2 * NU];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int u = 0; u < 2 * NU; ++u) dk[i][u] = dv[i][u] = 0.f;
+
+  for (int n = 0; n < per_head * grp; ++n) {
+    const int h = hk * grp + n / per_head, q0 = k0 + (n % per_head) * QB;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<float, HD, LD, QB, NT32>(
+        sQ, static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss,
+        q0, p.S);
+    load_tile<float, HD, LD, QB, NT32>(
+        sO, static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh,
+        p.do_ss, q0, p.S);
+    if (tid < QB) {
+      const int q = q0 + tid;
+      const bool ok = q < p.S;
+      sL[tid] = ok ? p.lse[row_index(p, b, h, q)] : INFINITY;
+      sD[tid] = ok ? p.delta[row_index(p, b, h, q)] : 0.f;
+    }
+    __syncthreads();
+
+    float s[2][4], dp[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < HD; d += 2) {
+      float2 kv[2], vv[2], qv[4], ov[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        kv[i] = load2(sK + (rg + 32 * i) * LD + d);
+        vv[i] = load2(sV + (rg + 32 * i) * LD + d);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        qv[j] = load2(sQ + (c + 8 * j) * LD + d);
+        ov[j] = load2(sO + (c + 8 * j) * LD + d);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(kv[i].x, qv[j].x, fmaf(kv[i].y, qv[j].y, s[i][j]));
+          dp[i][j] = fmaf(vv[i].x, ov[j].x, fmaf(vv[i].y, ov[j].y, dp[i][j]));
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = rg + 32 * i, col = c + 8 * j;
+        const int dq = q0 + col - (k0 + row);  // query - key
+        const bool ok = dq >= 0 && (p.window <= 0 || dq < p.window);
+        const float pv = ok ? expf(s[i][j] * p.scale - sL[col]) : 0.f;
+        sP[row * LDP + col] = pv;
+        sS[row * LDP + col] = pv * (dp[i][j] - sD[col]);
+      }
+    __syncwarp();  // a row group's P and dS are its own 8 lanes'
+
+#pragma unroll 2
+    for (int j = 0; j < QB; ++j) {
+      float pr[2], dr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        pr[i] = sP[(rg + 32 * i) * LDP + j];
+        dr[i] = sS[(rg + 32 * i) * LDP + j];
+      }
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        const float2 ov = load2(sO + j * LD + 2 * c + 16 * u);
+        const float2 qv = load2(sQ + j * LD + 2 * c + 16 * u);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          dv[i][2 * u] = fmaf(pr[i], ov.x, dv[i][2 * u]);
+          dv[i][2 * u + 1] = fmaf(pr[i], ov.y, dv[i][2 * u + 1]);
+          dk[i][2 * u] = fmaf(dr[i], qv.x, dk[i][2 * u]);
+          dk[i][2 * u + 1] = fmaf(dr[i], qv.y, dk[i][2 * u + 1]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + rg + 32 * i;
+    if (key >= p.S) continue;
+    float* dkr = static_cast<float*>(p.dk) + b * p.dk_sb +
+                 (int64_t)key * p.dk_ss + hk * p.dk_sh + 2 * c;
+    float* dvr = static_cast<float*>(p.dv) + b * p.dv_sb +
+                 (int64_t)key * p.dv_ss + hk * p.dv_sh + 2 * c;
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      store2(dkr + 16 * u, dk[i][2 * u] * p.scale,
+             dk[i][2 * u + 1] * p.scale);
+      store2(dvr + 16 * u, dv[i][2 * u], dv[i][2 * u + 1]);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT32) fa_bwd_dq_f32_kernel(
+    const BwdParams p) {
+  constexpr int LD = BwdF32Shape<HD>::LD;
+  constexpr int LDS = BwdF32Shape<HD>::LDS;
+  constexpr int NU = HD / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sO = sQ + QR * LD;
+  float* sK = sO + QR * LD;
+  float* sV = sK + KT * LD;
+  float* sS = sV + KT * LD;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const int q0 = qt * QR;
+  const int tid = threadIdx.x, rg = tid >> 3, c = tid & 7;
+  const float* K = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* V = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  load_tile<float, HD, LD, QR, NT32>(
+      sQ, static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss,
+      q0, p.S);
+  load_tile<float, HD, LD, QR, NT32>(
+      sO, static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh,
+      p.do_ss, q0, p.S);
+  float lse[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int q = q0 + rg + 32 * i;
+    const bool ok = q < p.S;
+    lse[i] = ok ? p.lse[row_index(p, b, h, q)] : INFINITY;
+    dl[i] = ok ? p.delta[row_index(p, b, h, q)] : 0.f;
+  }
+  float dq[2][2 * NU];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int u = 0; u < 2 * NU; ++u) dq[i][u] = 0.f;
+
+  const int k_end = min(p.S, q0 + QR);
+  for (int k0 = key_begin(p, q0); k0 < k_end; k0 += KT) {
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<float, HD, LD, KT, NT32>(sK, K, p.k_ss, k0, p.S);
+    load_tile<float, HD, LD, KT, NT32>(sV, V, p.v_ss, k0, p.S);
+    __syncthreads();
+    float s[2][4], dp[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < HD; d += 2) {
+      float2 qv[2], ov[2], kv[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        qv[i] = load2(sQ + (rg + 32 * i) * LD + d);
+        ov[i] = load2(sO + (rg + 32 * i) * LD + d);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kv[j] = load2(sK + (c + 8 * j) * LD + d);
+        vv[j] = load2(sV + (c + 8 * j) * LD + d);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, fmaf(qv[i].y, kv[j].y, s[i][j]));
+          dp[i][j] = fmaf(ov[i].x, vv[j].x, fmaf(ov[i].y, vv[j].y, dp[i][j]));
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = rg + 32 * i, key = k0 + c + 8 * j;
+        const int d = q0 + row - key;  // query - key
+        const bool ok =
+            d >= 0 && key < p.S && (p.window <= 0 || d < p.window);
+        const float pv = ok ? expf(s[i][j] * p.scale - lse[i]) : 0.f;
+        sS[row * LDS + c + 8 * j] = pv * (dp[i][j] - dl[i]);
+      }
+    __syncwarp();
+#pragma unroll 2
+    for (int j = 0; j < KT; ++j) {
+      float dr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) dr[i] = sS[(rg + 32 * i) * LDS + j];
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        const float2 kv = load2(sK + j * LD + 2 * c + 16 * u);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          dq[i][2 * u] = fmaf(dr[i], kv.x, dq[i][2 * u]);
+          dq[i][2 * u + 1] = fmaf(dr[i], kv.y, dq[i][2 * u + 1]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int q = q0 + rg + 32 * i;
+    if (q >= p.S) continue;
+    float* row = static_cast<float*>(p.dq) + b * p.dq_sb +
+                 (int64_t)q * p.dq_ss + h * p.dq_sh + 2 * c;
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+      store2(row + 16 * u, dq[i][2 * u] * p.scale,
+             dq[i][2 * u + 1] * p.scale);
+  }
+}
+
+// ------------------------------------------------------------ launch
+template <typename Kernel>
+int launch(Kernel kernel, size_t smem, dim3 grid, int threads,
+           const BwdParams& p, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int HD>
+int launch_hd(const BwdParams& p, int B, bool bf16, cudaStream_t stream) {
+  const int64_t rows = (int64_t)B * p.S * p.H;
+  const dim3 delta_grid(static_cast<unsigned>(
+      (rows + DELTA_WARPS - 1) / DELTA_WARPS));
+  if (bf16)
+    fa_bwd_delta_kernel<__nv_bfloat16>
+        <<<delta_grid, 32 * DELTA_WARPS, 0, stream>>>(p, rows);
+  else
+    fa_bwd_delta_kernel<float>
+        <<<delta_grid, 32 * DELTA_WARPS, 0, stream>>>(p, rows);
+  int err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 dkdv_grid((p.S + KB - 1) / KB, B * p.Hkv);
+  const dim3 dq_grid((p.S + QR - 1) / QR, B * p.H);
+  if (bf16) {
+    err = launch(fa_bwd_dkdv_bf16_kernel<HD>, BwdBf16Shape<HD>::DKDV,
+                 dkdv_grid, NT, p, stream);
+    if (err != cudaSuccess) return err;
+    return launch(fa_bwd_dq_bf16_kernel<HD>, BwdBf16Shape<HD>::DQ, dq_grid,
+                  NT, p, stream);
+  }
+  err = launch(fa_bwd_dkdv_f32_kernel<HD>, BwdF32Shape<HD>::DKDV, dkdv_grid,
+               NT32, p, stream);
+  if (err != cudaSuccess) return err;
+  return launch(fa_bwd_dq_f32_kernel<HD>, BwdF32Shape<HD>::DQ, dq_grid, NT32,
+                p, stream);
+}
+
+}  // namespace
+
+// q, o, dout, dq: (B, S, H, hd); k, v, dk, dv: (B, S, Hkv, hd), one dtype
+// (`dtype`: DTYPE_F32 or DTYPE_BF16), each given by its data pointer and
+// its (batch, seq, head) element strides in `strides` (q, k, v, o, dout,
+// dq, dk, dv in that order); the head dim is contiguous. lse: (B, H, S)
+// fp32 from the training forward; delta: (B, H, S) fp32 scratch. Sq == Sk
+// == S. One call launches the delta, dK/dV and dQ kernels in order on
+// `stream`. Returns the first CUDA error, 0 on success.
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+    void* dv, const int64_t* strides, int B, int H, int Hkv, int S, int hd,
+    int window, int dtype, void* stream) {
+  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0)
+    return cudaErrorInvalidValue;
+  BwdParams p;
+  p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
+  p.lse = lse; p.delta = delta; p.dq = dq; p.dk = dk; p.dv = dv;
+  int64_t* fields[24] = {
+      &p.q_sb, &p.q_ss, &p.q_sh, &p.k_sb, &p.k_ss, &p.k_sh,
+      &p.v_sb, &p.v_ss, &p.v_sh, &p.o_sb, &p.o_ss, &p.o_sh,
+      &p.do_sb, &p.do_ss, &p.do_sh, &p.dq_sb, &p.dq_ss, &p.dq_sh,
+      &p.dk_sb, &p.dk_ss, &p.dk_sh, &p.dv_sb, &p.dv_ss, &p.dv_sh};
+  for (int i = 0; i < 24; ++i) *fields[i] = strides[i];
+  p.H = H; p.Hkv = Hkv; p.S = S; p.hd = hd;
+  p.window = window;
+  p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
+  if (dtype != DTYPE_F32 && dtype != DTYPE_BF16) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool bf16 = dtype == DTYPE_BF16;
+  switch (hd) {
+    case 32: return launch_hd<32>(p, B, bf16, s);
+    case 64: return launch_hd<64>(p, B, bf16, s);
+    case 80: return launch_hd<80>(p, B, bf16, s);
+    case 96: return launch_hd<96>(p, B, bf16, s);
+    case 128: return launch_hd<128>(p, B, bf16, s);
+    case 160: return launch_hd<160>(p, B, bf16, s);
+    default: return cudaErrorInvalidValue;
+  }
+}

@@ -32,12 +32,14 @@ of ``in_proj``'s output, without a copy.
 Training goes through ``MambaScanFn``: its forward launches the kernel once
 per ``TIME_CHUNK`` steps from the previous chunk's state and keeps the
 state at each chunk boundary, as JAX's ``chunked_time_scan`` keeps them
-(``repro/models/ssm.py:30-47``); its backward, ``mamba_scan_bwd``,
-recomputes each chunk from its saved start state in the chunked form of
-``mamba_scan_chunked`` (torch operations), takes autograd's gradient of
-it and carries the state's gradient from chunk to chunk backwards
-(``_remat.py``). JAX's gradient of its scan is XLA's; no backward kernel
-exists.
+(``repro/models/ssm.py:30-47``). JAX's gradient of its scan is XLA's,
+fused on the TPU. On the card the backward is one launch of
+``csrc/mamba_scan_bwd.cu`` (``mamba_scan_backward``), which walks the
+chunks backwards from their kept start states. Its plain version,
+``mamba_scan_bwd``, which the CPU runs, recomputes each chunk from its
+saved start state in the chunked form of ``mamba_scan_chunked`` (torch
+operations), takes autograd's gradient of it and carries the state's
+gradient from chunk to chunk backwards (``_remat.py``).
 """
 
 from __future__ import annotations
@@ -116,12 +118,16 @@ def time_tile() -> int:
     return _lib().mamba_scan_time_tile()
 
 
-def _aligned(name: str, t: torch.Tensor) -> None:
-    """The kernel copies rows of 16 bytes: a contiguous last dim and rows
-    that start 16-byte aligned."""
+def _misaligned(t: torch.Tensor) -> bool:
+    """Whether the kernels cannot copy ``t``'s rows of 16 bytes: they need
+    a contiguous last dim and rows that start 16-byte aligned."""
     size = t.element_size()
-    if t.stride(-1) != 1 or t.data_ptr() % 16 \
-            or any(st * size % 16 for st in t.stride()[:-1]):
+    return t.stride(-1) != 1 or t.data_ptr() % 16 \
+        or any(st * size % 16 for st in t.stride()[:-1])
+
+
+def _aligned(name: str, t: torch.Tensor) -> None:
+    if _misaligned(t):
         raise ValueError(f"mamba_scan: {name} needs a contiguous last dim "
                          f"and 16-byte aligned rows")
 
@@ -337,6 +343,18 @@ def mamba_chunk_states(dt: torch.Tensor, dt_bias: torch.Tensor,
     return torch.cat(outs, dim=1), h, starts
 
 
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("mamba_scan_bwd")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.mamba_scan_bwd_launch.argtypes = [vp] * 21 + [
+        ctypes.POINTER(ctypes.c_int64), i32, i32, i32, i32, i32, i32, vp]
+    lib.mamba_scan_bwd_launch.restype = i32
+    lib.mamba_scan_bwd_time_tile.restype = i32
+    lib.mamba_scan_bwd_channels.restype = i32
+    return lib
+
+
 def mamba_scan_bwd(dt: torch.Tensor, dt_bias: torch.Tensor,
                    b: torch.Tensor, c: torch.Tensor, x: torch.Tensor,
                    z: torch.Tensor, a_log: torch.Tensor,
@@ -366,11 +384,175 @@ def mamba_scan_bwd(dt: torch.Tensor, dt_bias: torch.Tensor,
     return d_dt, d_bias, d_b, d_c, d_x, d_z, d_alog, d_skip_
 
 
+def _check_backward(dt, dt_bias, b, c, x, z, a_log, d_skip, starts, dout,
+                    dh, chunk) -> None:
+    bsz, s, di = dt.shape
+    n = a_log.shape[-1]
+    _check_shapes(dt, dt_bias, b, c, x, z, a_log, d_skip,
+                  torch.empty((bsz, di, n), device="meta"))
+    if chunk < 1 or starts.shape != (bsz, -(-s // chunk), di, n) \
+            or dout.shape != dt.shape \
+            or (dh is not None and dh.shape != (bsz, di, n)):
+        raise ValueError(f"mamba_scan_backward: starts {tuple(starts.shape)},"
+                         f" dout {tuple(dout.shape)} for dt "
+                         f"{tuple(dt.shape)}, n={n}, chunk {chunk}")
+
+
+torch.library.define(
+    "repro_torch::mamba_scan_backward",
+    "(Tensor dt, Tensor dt_bias, Tensor b, Tensor c, Tensor x, Tensor z, "
+    "Tensor a_log, Tensor d_skip, Tensor starts, Tensor dout, Tensor? dh, "
+    "SymInt chunk) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, "
+    "Tensor, Tensor)")
+
+
+def _mamba_scan_backward_cuda(dt, dt_bias, b, c, x, z, a_log, d_skip,
+                              starts, dout, dh, chunk):
+    """The backward kernel's launch (``csrc/mamba_scan_bwd.cu``), as the
+    CUDA implementation of ``repro_torch::mamba_scan_backward``. The C
+    call also sums db and dc over the kernel's blocks from their fp32
+    partials (scratch here), in a fixed order; the kernel writes the
+    per-parameter gradients per batch row, which are summed over the
+    rows here."""
+    _check_backward(dt, dt_bias, b, c, x, z, a_log, d_skip, starts, dout,
+                    dh, chunk)
+    bsz, s, di = dt.shape
+    n = a_log.shape[-1]
+    lib = _bwd_lib()
+    if n not in STATE_DIMS or di % CHANNEL_MULTIPLE \
+            or dt.dtype not in DTYPES \
+            or chunk % lib.mamba_scan_bwd_time_tile():
+        raise ValueError(f"mamba_scan_backward: unsupported n={n}, di={di}, "
+                         f"{dt.dtype}, chunk {chunk}")
+    f32 = torch.float32
+    if dout.dtype != dt.dtype or dout.device != dt.device:
+        raise ValueError(f"mamba_scan_backward: dout is {dout.dtype} on "
+                         f"{dout.device}, expected {dt.dtype}")
+    for name, t, dtype in (("b", b, dt.dtype), ("c", c, dt.dtype),
+                           ("x", x, dt.dtype), ("z", z, dt.dtype),
+                           ("dt_bias", dt_bias, f32), ("a_log", a_log, f32),
+                           ("d_skip", d_skip, f32), ("starts", starts, f32)):
+        if t.device != dt.device or t.dtype != dtype:
+            raise ValueError(f"mamba_scan_backward: {name} is {t.dtype} on "
+                             f"{t.device}, expected {dtype} on {dt.device}")
+    if _misaligned(dout):
+        dout = dout.contiguous()
+    for name, t in (("dt", dt), ("b", b), ("c", c), ("x", x), ("z", z)):
+        _aligned(name, t)
+    starts = starts.contiguous()
+    if dh is not None:
+        dh = dh.to(f32).contiguous()
+    if not (dt_bias.is_contiguous() and d_skip.is_contiguous()
+            and a_log.is_contiguous()):
+        raise ValueError("mamba_scan_backward: dt_bias, d_skip and a_log "
+                         "must be contiguous")
+    d_dt, d_x, d_z = (torch.empty((bsz, s, di), dtype=dt.dtype,
+                                  device=dt.device) for _ in range(3))
+    d_b, d_c = (torch.empty((bsz, s, n), dtype=dt.dtype, device=dt.device)
+                for _ in range(2))
+    parts = -(-di // lib.mamba_scan_bwd_channels())
+    partials = torch.empty((2, parts, bsz, s, n), dtype=f32,
+                           device=dt.device)
+    p_alog = torch.empty((bsz, di, n), dtype=f32, device=dt.device)
+    p_bias, p_skip = (torch.empty((bsz, di), dtype=f32, device=dt.device)
+                      for _ in range(2))
+    strides = (ctypes.c_int64 * 12)(
+        *dt.stride()[:2], *b.stride()[:2], *c.stride()[:2], *x.stride()[:2],
+        *z.stride()[:2], *dout.stride()[:2])
+    err = lib.mamba_scan_bwd_launch(
+        dt.data_ptr(), dt_bias.data_ptr(), b.data_ptr(), c.data_ptr(),
+        x.data_ptr(), z.data_ptr(), a_log.data_ptr(), d_skip.data_ptr(),
+        starts.data_ptr(), dout.data_ptr(),
+        None if dh is None else dh.data_ptr(), d_dt.data_ptr(),
+        d_x.data_ptr(), d_z.data_ptr(), partials[0].data_ptr(),
+        partials[1].data_ptr(), d_b.data_ptr(), d_c.data_ptr(),
+        p_bias.data_ptr(), p_skip.data_ptr(),
+        p_alog.data_ptr(), strides, DTYPES[dt.dtype], bsz, s, di, n, chunk,
+        torch.cuda.current_stream(dt.device).cuda_stream)
+    _build.check(lib, err, "mamba_scan_backward")
+    _MAMBA_SCAN_BACKWARD.launches += 1
+    return (d_dt, p_bias.sum(0), d_b, d_c, d_x, d_z, p_alog.sum(0),
+            p_skip.sum(0))
+
+
+torch.library.impl("repro_torch::mamba_scan_backward", "cuda",
+                   _mamba_scan_backward_cuda)
+
+
+@torch.library.register_fake("repro_torch::mamba_scan_backward")
+def _(dt, dt_bias, b, c, x, z, a_log, d_skip, starts, dout, dh, chunk):
+    _check_backward(dt, dt_bias, b, c, x, z, a_log, d_skip, starts, dout,
+                    dh, chunk)
+    return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                 for t in (dt, dt_bias, b, c, x, z, a_log, d_skip))
+
+
+def _backward_flops(tokens: int, di: int, n: int) -> int:
+    """fp32 flops of the backward kernel over ``tokens`` tokens of ``di``
+    channels and ``n`` states: the vjp of the token loop, 14 a (token,
+    channel, state) and 15 a (token, channel) (the adjoint's step, the
+    decay's and the push's gradients, the output's, and the vjps of the
+    softplus, the skip and the gating), and the forward it recomputes
+    from the kept states, 7 and 10 (``mamba_scan``'s formula)."""
+    return (21 * n + 25) * di * tokens
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba_scan_backward)
+def _(dt_shape, dt_bias_shape, b_shape, *args, out_shape=None, **kwargs):
+    bsz, s, di = dt_shape
+    return _backward_flops(bsz * s, di, b_shape[-1])
+
+
+mamba_scan_backward_op = torch.ops.repro_torch.mamba_scan_backward.default
+
+
+def backward_reference_bytes(dt, dt_bias, b, c, x, z, a_log, d_skip, starts,
+                             dout, dh, chunk) -> int:
+    """HBM bytes of the plain body of JAX's gradient of its scan
+    (``chunked_time_scan`` around ``step``, ``repro/models/ssm.py:30-47``,
+    ``:208-218``): each chunk's forward recomputed from its kept state,
+    each step reading and writing the fp32 state (B, di, n) and keeping it
+    for the backward (one more write); the backward reading each kept
+    state and reading and writing the state's gradient (3), and writing
+    the decay's gradient (B, di, n) (1); per step the (B, di) and (B, n)
+    vectors of the forward (``reference_bytes``) and their gradients."""
+    bsz, s, di = dt.shape
+    n = a_log.shape[-1]
+    return 4 * s * (7 * bsz * di * n + 6 * bsz * di + 4 * bsz * n)
+
+
+def mamba_scan_backward(dt: torch.Tensor, dt_bias: torch.Tensor,
+                        b: torch.Tensor, c: torch.Tensor, x: torch.Tensor,
+                        z: torch.Tensor, a_log: torch.Tensor,
+                        d_skip: torch.Tensor, starts: torch.Tensor,
+                        dout: torch.Tensor, dh: Optional[torch.Tensor] = None,
+                        chunk: int = TIME_CHUNK) -> tuple[torch.Tensor, ...]:
+    """The gradients ``mamba_scan_bwd`` returns, from the same arguments. A
+    CPU tensor takes the plain version (``mamba_scan_bwd``); a CUDA tensor
+    launches the kernel, or raises; a meta tensor takes the operator's
+    fake implementation."""
+    if dt.device.type == "cpu":
+        return mamba_scan_bwd(dt, dt_bias, b, c, x, z, a_log, d_skip,
+                              starts, dout, dh, chunk)
+    if dt.device.type not in ("cuda", "meta"):
+        raise ValueError(f"mamba_scan_backward: no kernel for {dt.device}")
+    return mamba_scan_backward_op(dt, dt_bias, b, c, x, z, a_log, d_skip,
+                                  starts, dout, dh, chunk)
+
+
+mamba_scan_backward.launches = 0
+# the operator counts on the wrapper as defined here, also while a caller
+# has the module's name patched (a spy, a timing span)
+_MAMBA_SCAN_BACKWARD = mamba_scan_backward
+
+
 class MambaScanFn(torch.autograd.Function):
     """``mamba_scan`` from zeros under autograd, for training: the forward
     is ``mamba_chunk_states`` (the kernel on the card, the plain version on
     the CPU), which keeps the state at each ``TIME_CHUNK`` boundary; the
-    backward is ``mamba_scan_bwd``. Returns (out, final state)."""
+    backward is ``mamba_scan_backward`` (the backward kernel on the card,
+    its plain version ``mamba_scan_bwd`` on the CPU). Returns (out, final
+    state)."""
 
     @staticmethod
     def forward(ctx, dt, dt_bias, b, c, x, z, a_log, d_skip):
@@ -381,4 +563,4 @@ class MambaScanFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, dh):
-        return mamba_scan_bwd(*ctx.saved_tensors, dout, dh)
+        return mamba_scan_backward(*ctx.saved_tensors, dout, dh)

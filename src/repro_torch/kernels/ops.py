@@ -14,13 +14,22 @@
                  for it by name (``chip_smoke.py`` does, to hold the kernels
                  against it on the card).
 
+On the card the two Functions' backwards are kernels too: flash
+attention's ``flash_attention_backward`` (from the forward's output and
+row log-sum-exp, which its training forward keeps) and the Mamba scan's
+``mamba_scan_backward``; ``flash_attention_bwd`` and ``mamba_scan_bwd``
+are their plain versions, which the CPU runs. ``wkv6_bwd`` is torch
+operations on both.
+
 Each attention and WKV6 function takes the JAX kernel's 3-D layout, or
 the model's 4-D layout, which the kernel reads in place through its
 strides. A 3-D input becomes a 4-D view with no copy. ``mamba_scan`` has
 no JAX kernel: it takes the model's (B, S, ...) layout only.
 
-Each wrapper counts its launches in ``.launches``; ``mamba_scan`` also
-counts in ``.token_launches`` those that ran its token body (decode).
+Each wrapper counts its launches in ``.launches`` (the backward kernels'
+too: one call of ``flash_attention_backward`` is one C call of three
+kernels, counted once); ``mamba_scan`` also counts in
+``.token_launches`` those that ran its token body (decode).
 
 Under a mesh (``sharding.ctx``) every function takes DTensors and runs
 the kernel, or on the CPU its plain version, on each rank's local shards
@@ -60,7 +69,9 @@ IMPLS = ("kernel", "reference")
 KERNELS = {"flash_attention": _flash.flash_attention,
            "decode_attention": _decode.decode_attention,
            "wkv6": _wkv6.wkv6,
-           "mamba_scan": _mamba.mamba_scan}
+           "mamba_scan": _mamba.mamba_scan,
+           "flash_attention_backward": _flash.flash_attention_backward,
+           "mamba_scan_backward": _mamba.mamba_scan_backward}
 
 
 def reset_launches() -> None:
@@ -188,7 +199,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _flash.flash_attention_plain(q, k, v, window)
     if torch.is_grad_enabled():
         # training: the kernel's forward under autograd, on either device,
-        # so its backward (flash_attention_bwd) is the one that runs
+        # so its backward (the backward kernel, or flash_attention_bwd on
+        # the CPU) is the one that runs
         return _flash.FlashAttentionFn.apply(q, k, v, window)
     return _flash.flash_attention(q, k, v, window)
 

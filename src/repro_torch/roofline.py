@@ -33,9 +33,10 @@ kernels' operators and DTensor's collectives among them:
   redistributions dispatch, by JAX's ring model
   (``collective_link_bytes``), by kind into ``collective_breakdown``.
 
-The counter also keeps the flops by dtype and by region (the kernels'
-operators by name, a custom autograd Function's backward by its node's
-name, "dense" for the rest), each kernel's calls and the local shapes of
+The counter also keeps the flops by dtype and by region (the forward
+kernels' operators by name, a custom autograd Function's backward by its
+node's name, the backward kernels' operators there too, "dense" for the
+rest), each kernel's calls and the local shapes of
 its first call, and the peak of the storage allocated while it counts.
 
 Terms (seconds, per device, from ``roofline_terms``):
@@ -198,16 +199,30 @@ _DOTS = _aten("mm", "bmm", "addmm", "baddbmm")
 
 def _kernel_ops() -> dict:
     """{operator packet: (name, reference_bytes, the dtype its flops run
-    in, or None for its first input's)} of the kernels: the Mamba scan's
-    recurrence runs in fp32 whatever its inputs' dtype."""
+    in, or None for its first input's, whether its flops go to the
+    autograd node running it)} of the kernels: the Mamba scan's recurrence
+    runs in fp32 whatever its inputs' dtype; the training forward counts
+    as the forward kernel it launches; a backward kernel's flops go to
+    its Function's backward (``FlashAttentionFnBackward``,
+    ``MambaScanFnBackward``), where the bounds count them."""
     from .kernels import decode_attention, flash_attention, mamba_scan, wkv6
-    return {torch.ops.repro_torch.flash_attention:
-            ("flash_attention", flash_attention.reference_bytes, None),
-            torch.ops.repro_torch.decode_attention:
-            ("decode_attention", decode_attention.reference_bytes, None),
-            torch.ops.repro_torch.wkv6: ("wkv6", wkv6.reference_bytes, None),
-            torch.ops.repro_torch.mamba_scan:
-            ("mamba_scan", mamba_scan.reference_bytes, torch.float32)}
+    ops = torch.ops.repro_torch
+    return {ops.flash_attention:
+            ("flash_attention", flash_attention.reference_bytes, None, False),
+            ops.flash_attention_train:
+            ("flash_attention", flash_attention.reference_bytes, None, False),
+            ops.decode_attention:
+            ("decode_attention", decode_attention.reference_bytes, None,
+             False),
+            ops.wkv6: ("wkv6", wkv6.reference_bytes, None, False),
+            ops.mamba_scan:
+            ("mamba_scan", mamba_scan.reference_bytes, torch.float32, False),
+            ops.flash_attention_backward:
+            ("flash_attention_backward",
+             flash_attention.backward_reference_bytes, None, True),
+            ops.mamba_scan_backward:
+            ("mamba_scan_backward", mamba_scan.backward_reference_bytes,
+             torch.float32, True)}
 
 
 def _group_size(args: tuple) -> int:
@@ -327,9 +342,11 @@ class RooflineCounter(TorchDispatchMode):
                 c.hbm_bytes += sum(map(_nbytes, ins + outs))
             return
         if packet in self._kernels:
-            kname, reference_bytes, dtype = self._kernels[packet]
+            kname, reference_bytes, dtype, in_node = self._kernels[packet]
             flops = flop_registry[packet](*args, **kwargs, out_val=out)
-            self._add_flops(flops, dtype or ins[0].dtype, kname)
+            region = _region() if in_node else kname
+            self._add_flops(flops, dtype or ins[0].dtype,
+                            kname if region == "dense" else region)
             boundary = sum(map(_nbytes, ins + outs))
             c.hbm_bytes += boundary
             c.kernel_region_bytes += max(

@@ -97,10 +97,10 @@ def test_flash_attention_matches_plain(cuda, bh, bhkv, s, hd, window, bq,
                          FA_CASES[1:4] + FA_CASES[6:] + FA_CARD_CASES[2:])
 def test_flash_attention_backward_matches_plain(cuda, bh, bhkv, s, hd,
                                                 window, bq, bk, dtype):
-    """FlashAttentionFn (the kernel's forward, flash_attention_bwd) against
-    autograd through the plain version: within the tolerance of each
-    gradient's largest magnitude (bf16: the two paths round P and dS at
-    other points)."""
+    """FlashAttentionFn (the training forward and the backward kernels)
+    against autograd through the plain version: within the tolerance of
+    each gradient's largest magnitude (bf16: the two paths round P and dS
+    at other points)."""
     td = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(x).to(cuda, td)
                for x in fa_inputs(bh, bhkv, s, hd, bh * s + hd + 1))
@@ -373,6 +373,154 @@ def test_mamba_scan_training_carries_the_gradient(cuda, s, dtype):
                 inputs, dout.to(inputs[0].dtype),
                 2e-5 if dtype == "float32" else TOL["bfloat16"])
     assert mamba_scan.launches == before + -(-s // 256)
+
+
+# the backward kernels against their plain versions on the same inputs:
+# attention at every head dim, query groups of 1, 4 and 5 over 2 KV heads,
+# S ragged against the 64- and 32-row tiles, with and without a window;
+# the scan at both state widths, S within a 256-step chunk, with a ragged
+# last chunk and across five, from dh None and given
+BWD_HEAD_DIMS = [32, 64, 80, 96, 128, 160]
+SCAN_BWD_LENGTHS = [40, 300, 4 * 256 + 44]
+
+
+def attention_train_inputs(cuda, grp, s, hd, dtype, seed):
+    """q (2, S, 2 grp, hd), k, v (2, S, 2, hd) and dout, in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    td = getattr(torch, dtype)
+
+    def rand(shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(cuda, td)
+    return (rand((2, s, 2 * grp, hd), 1.0), rand((2, s, 2, hd), 1.0),
+            rand((2, s, 2, hd), 0.5), rand((2, s, 2 * grp, hd), 1.0))
+
+
+def close_to_max(got, want, tol, name=""):
+    """|got - want| <= tol x max |want|, elementwise."""
+    scale = max(want.float().abs().max().item(), 1e-30)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=0,
+                               atol=tol * scale, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("grp", [1, 4, 5])
+@pytest.mark.parametrize("hd", BWD_HEAD_DIMS)
+def test_flash_attention_backward_kernel_matches_plain(cuda, hd, grp,
+                                                       window, dtype):
+    """The training forward's log-sum-exp, and the backward kernels given
+    its out and lse, against their plain versions on the same inputs
+    (``flash_attention_train_plain``; ``flash_attention_bwd`` with out and
+    lse, the kernel's rounding points): lse within 1e-5 absolute (fp32
+    scores; bf16: 2e-2, the scores' products differ in order), dq, dk,
+    dv within TOL of each gradient's largest magnitude; one launch of
+    each."""
+    from repro_torch.kernels import flash_attention as fa
+    s = 333
+    q, k, v, dout = attention_train_inputs(cuda, grp, s, hd, dtype,
+                                           hd + grp + (window or 0))
+    before = fa.flash_attention.launches, fa.flash_attention_backward.launches
+    out, lse = fa.flash_attention_train(q, k, v, window)
+    grads = fa.flash_attention_backward(q, k, v, out, lse, dout, window)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches,
+            fa.flash_attention_backward.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    want_out, want_lse = fa.flash_attention_train_plain(q, k, v, window)
+    assert lse.shape == (2, 2 * grp, s) and lse.dtype == torch.float32
+    close(lse, want_lse, 1e-5 if dtype == "float32" else 2e-2)
+    close(out, want_out, TOL[dtype])
+    want = fa.flash_attention_bwd(q, k, v, dout, window, out=out, lse=lse)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        assert g.dtype == w.dtype == q.dtype and g.shape == w.shape
+        close_to_max(g, w, TOL[dtype], name)
+
+
+@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", SCAN_BWD_LENGTHS)
+@pytest.mark.parametrize("n", [8, 16])
+def test_mamba_scan_backward_kernel_matches_plain(cuda, n, s, dtype, given):
+    """The backward kernel against its plain version (``mamba_scan_bwd``)
+    from the same kept states, dout and dh (None, or given): every
+    gradient in the plain version's dtype and within 2e-5 (fp32) or TOL
+    (bf16) of its largest magnitude; one launch."""
+    from repro_torch.kernels import mamba_scan as ms
+    *inputs, _ = mamba_on(cuda, 2, s, 48, n, s + n, dtype, carried=False)
+    gen = torch.Generator(cuda).manual_seed(s)
+    dout = torch.randn((2, s, 48), device=cuda, generator=gen).to(
+        inputs[0].dtype)
+    dh = torch.randn((2, 48, n), device=cuda, generator=gen) if given \
+        else None
+    _, _, starts = ms.mamba_chunk_states(*inputs)
+    before = ms.mamba_scan_backward.launches
+    got = ms.mamba_scan_backward(*inputs, starts, dout, dh)
+    torch.cuda.synchronize()
+    assert ms.mamba_scan_backward.launches == before + 1
+    want = ms.mamba_scan_bwd(*inputs, starts, dout, dh)
+    tol = 2e-5 if dtype == "float32" else TOL["bfloat16"]
+    names = ("d dt_raw", "d dt_bias", "db", "dc", "dx", "dz", "d a_log",
+             "d d_skip")
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        close_to_max(g, w, tol, name)
+
+
+def test_backward_kernels_raise_rather_than_falling_back(cuda):
+    """CUDA tensors the backward kernels do not take raise and launch
+    nothing: a head dim outside HEAD_DIMS, Sq != Sk; a state width outside
+    STATE_DIMS, di not a multiple of 8, a chunk that is not a multiple of
+    the kernel's tile."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    q, k, v, dout = attention_train_inputs(cuda, 2, 70, 48, "bfloat16", 0)
+    lse = torch.zeros((2, 4, 70), device=cuda)
+    before = fa.flash_attention_backward.launches
+    with pytest.raises(ValueError):
+        fa.flash_attention_backward(q, k, v, q, lse, dout)
+    q, k, v, dout = attention_train_inputs(cuda, 2, 70, 64, "bfloat16", 0)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        fa.flash_attention_backward(q, k[:, :40], v[:, :40], q, lse, dout)
+    assert fa.flash_attention_backward.launches == before
+    before = ms.mamba_scan_backward.launches
+    for n, di, chunk in ((4, 48, 256), (8, 12, 256), (8, 48, 100)):
+        *inputs, _ = mamba_on(cuda, 2, 70, di, n, 3, "bfloat16",
+                              carried=False)
+        starts = torch.zeros((2, -(-70 // chunk), di, n), device=cuda)
+        with pytest.raises(ValueError):
+            ms.mamba_scan_backward(*inputs, starts, inputs[4], None, chunk)
+    assert ms.mamba_scan_backward.launches == before
+
+
+@pytest.mark.parametrize("name", ["flash_attention_train",
+                                  "flash_attention_backward",
+                                  "mamba_scan_backward"])
+def test_training_operators_pass_opcheck(cuda, name):
+    """``torch.library.opcheck`` of the training forward's and the backward
+    kernels' operators on card inputs: schema, fake implementation
+    against the CUDA one, dispatch."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    if name.startswith("flash"):
+        q, k, v, dout = attention_train_inputs(cuda, 4, 200, 64, "bfloat16",
+                                               1)
+        if name == "flash_attention_train":
+            op, args = fa.flash_attention_train_op, (q, k, v, 64)
+        else:
+            out, lse = fa.flash_attention_train(q, k, v, 64)
+            op, args = fa.flash_attention_backward_op, (q, k, v, out, lse,
+                                                        dout, 64)
+    else:
+        *inputs, _ = mamba_on(cuda, 2, 300, 64, 16, 4, "bfloat16",
+                              carried=False)
+        starts = ms.mamba_chunk_states(*inputs)[2]
+        dh = torch.randn((2, 64, 16), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(0))
+        op, args = ms.mamba_scan_backward_op, (*inputs, starts, inputs[4],
+                                               dh, 256)
+    torch.library.opcheck(op, args)
 
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "arctic-480b"])

@@ -317,8 +317,9 @@ def test_counter_counts_a_prefill_by_hand():
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_reduced_family_cell_on_a_fake_mesh(family, kind):
     """One reduced arch per family, grad_accum 2 as JAX's test: the cell
-    runs on meta DTensors to status ok, every kernel of its path counted,
-    and the mesh's 8 ranks divide the per-device flops."""
+    runs on meta DTensors to status ok, every kernel of its path counted
+    (a train cell's backward kernels too), and the mesh's 8 ranks divide
+    the per-device flops."""
     mesh = make_fake_mesh((2, 4), ("data", "model"))
     arch = FAMILIES[family]
     cfg = dataclasses.replace(get_arch(arch).reduced(), grad_accum=2)
@@ -331,6 +332,9 @@ def test_reduced_family_cell_on_a_fake_mesh(family, kind):
         {"decode_attention" if kind == "decode" else "flash_attention"}
     if cfg.hybrid_ssm:
         want.add("mamba_scan")
+    if kind == "train":
+        want |= {f"{k}_backward" for k in want
+                 if k in ("flash_attention", "mamba_scan")}
     assert set(row["kernel_calls"]) == want
     if kind == "train":
         assert row["microbatches_counted"] == 2

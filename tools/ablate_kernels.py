@@ -1,18 +1,22 @@
 """Where the kernels' time goes, by ablation, on one NVIDIA GPU.
 
   python3 tools/ablate_kernels.py [flash_attention] [decode_attention] [wkv6]
-                                  [mamba_scan]
+                                  [mamba_scan] [flash_attention_bwd]
+                                  [mamba_scan_bwd]
 
 Builds variants of the named sources under src/repro_torch/kernels/csrc/
-(all four when none is named), each with one part of the kernel taken
+(all six when none is named), each with one part of the kernel taken
 out, or one tile size changed, by a text edit, into build/ablate/ (one
 nvcc per variant, in parallel). A variant that takes a part out gives a
 wrong output; only its time counts. Each is timed at chip_smoke.py's
 serving shapes (flash attention: B=4, S=512, H=32, Hkv=8, hd=128; flash
 decode: B=4 x Hkv=8, grp 4, 544 slots, and batch 1 against 32,768 slots;
 bf16; WKV6's chunked body: B=4, S=1024, H=40, hd=64, fp32; the fused
-Mamba scan: hymba's B=4, S=4096, di=1600, n=16, bf16), beside the
-unedited kernel, in two rounds, with chip_smoke.py's time_ms. Flash decode
+Mamba scan: hymba's B=4, S=4096, di=1600, n=16, bf16; the backward
+kernels at the training microbatches: attention's at qwen3-8b's B=2,
+S=4096, 32/8 heads of 128, the scan's at hymba-1.5b's B=4, S=4096, both
+bf16), beside the unedited kernel, in two rounds, with chip_smoke.py's
+time_ms. Flash decode
 is also timed on the same cache laid out head-major (B, Hkv, S, hd), which
 the kernel reads through its strides. Each WKV6 variant's relative L2
 error against an fp64 recurrence is printed too (B=2, S=1024, H=5, hd=64
@@ -163,7 +167,57 @@ VARIANTS = {
             ("constexpr int MIN_BLOCKS = 7;", "constexpr int MIN_BLOCKS = 3;")],
         "the token body at every S": [("  if (p.S < T) {", "  if (true) {")],
     },
+    "flash_attention_bwd": {
+        "as shipped": [],
+        "no dQ kernel": [
+            ("    return launch(fa_bwd_dq_bf16_kernel<HD>, BwdBf16Shape<HD>::DQ, "
+             "dq_grid,\n                  NT, p, stream);",
+             "    return cudaSuccess;")],
+        "no dK/dV kernel": [
+            ("    err = launch(fa_bwd_dkdv_bf16_kernel<HD>, "
+             "BwdBf16Shape<HD>::DKDV,\n                 dkdv_grid, NT, p, "
+             "stream);", "    err = cudaSuccess;")],
+        "no delta kernel": [
+            ("    fa_bwd_delta_kernel<__nv_bfloat16>\n"
+             "        <<<delta_grid, 32 * DELTA_WARPS, 0, stream>>>(p, rows);",
+             "    (void)rows;")],
+    },
+    "mamba_scan_bwd": {
+        "as shipped": [],
+        "no forward pass": [("      if (tt + 1 < nt) {", "      if (false) {")],
+        "no stores of the blocks' db/dc partials": [
+            ("        gb_out[i] = db;\n        gc_out[i] = dc;\n", "")],
+        "no db/dc reduction kernel": [
+            ("  mamba_scan_bwd_reduce_kernel<TIn>\n", "  if (false)\n"
+             "  mamba_scan_bwd_reduce_kernel<TIn>\n")],
+        "no db/dc stores into the warps' slices": [
+            ("          sDB[at + perm(l * R + i)] = dbv[i];\n"
+             "          sDC[at + perm(l * R + i)] = dcv[i];\n", "")],
+        "no epilogue": [
+            ("        if (t0 + t >= p.S || d0 + c0 >= p.di) continue;\n"
+             "        float dv[4]",
+             "        if (true) continue;\n        float dv[4]")],
+        "__expf in the passes": [
+            ("const float da = expf(__fmul_rn(dtv[i], aj));",
+             "const float da = __expf(__fmul_rn(dtv[i], aj));"),
+            ("A[i] = expf(__fmul_rn(dtv[i], aj));",
+             "A[i] = __expf(__fmul_rn(dtv[i], aj));")],
+        "no block minimum in the launch bounds": [
+            ("__launch_bounds__(NT, 3)", "__launch_bounds__(NT)")],
+        "4 blocks an SM (128 registers)": [
+            ("__launch_bounds__(NT, 3)", "__launch_bounds__(NT, 4)")],
+        "8 warps a block (16 channels)": [
+            ("constexpr int NW = 4;", "constexpr int NW = 8;"),
+            ("__launch_bounds__(NT, 3)", "__launch_bounds__(NT, 1)")],
+    },
 }
+# where each kernel's wrapper module loads its library: {kernel: (module
+# name, loader)}
+LOADERS = {"flash_attention": ("flash_attention", "_lib"),
+           "decode_attention": ("decode_attention", "_lib"),
+           "wkv6": ("wkv6", "_lib"), "mamba_scan": ("mamba_scan", "_lib"),
+           "flash_attention_bwd": ("flash_attention", "_bwd_lib"),
+           "mamba_scan_bwd": ("mamba_scan", "_bwd_lib")}
 
 
 def build(kernels) -> dict:
@@ -255,16 +309,17 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fam
     from repro_torch.kernels import mamba_scan as msm
     from repro_torch.kernels import wkv6 as wkm
-    mods = {"flash_attention": fam, "decode_attention": dam, "wkv6": wkm,
-            "mamba_scan": msm}
+    modules = {"flash_attention": fam, "decode_attention": dam, "wkv6": wkm,
+               "mamba_scan": msm}
+    mods = {k: modules[m] for k, (m, _) in LOADERS.items()}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}")
     libs = build(kernels)
     # the wrappers set each library's argument types on first load
-    types = {name: getattr(mods[name]._lib(), f"{name}_launch").argtypes
-             for name in kernels}
+    types = {name: getattr(getattr(mods[name], LOADERS[name][1])(),
+                           f"{name}_launch").argtypes for name in kernels}
     for (kernel, _), lib in libs.items():
         fn = getattr(lib, f"{kernel}_launch")
         fn.argtypes = types[kernel]
@@ -297,11 +352,32 @@ def main() -> int:
                  1, 17, device="cuda").float()).expand(1600, 16).contiguous(),
              torch.ones(1600, device="cuda"),
              torch.zeros((4, 1600, 16), device="cuda"))
+    if "flash_attention_bwd" in kernels:
+        aq, ak, av, ado = (cs.randn(gen, shape, bf16, scale) for shape, scale
+                           in (((2, 4096, 32, 128), 1.5),
+                               ((2, 4096, 8, 128), 1.5),
+                               ((2, 4096, 8, 128), 1.0),
+                               ((2, 4096, 32, 128), 1.0)))
+        aout, alse = fam.flash_attention_train(aq, ak, av)
+    if "mamba_scan_bwd" in kernels:
+        scan_in = cs.mamba_train_inputs(gen, 4, 4096, bf16)
+        scan_dout = cs.randn(gen, (4, 4096, 1600), bf16, 1.0)
+        scan_starts = msm.mamba_chunk_states(*scan_in)[2]
 
     times = {}
     for _ in range(2):
         for (kernel, name), lib in libs.items():
-            mods[kernel]._lib = lambda lib=lib: lib
+            setattr(mods[kernel], LOADERS[kernel][1], lambda lib=lib: lib)
+            if kernel == "flash_attention_bwd":
+                times.setdefault(f"attention backward: {name}", []).append(
+                    cs.time_ms(lambda: fam.flash_attention_backward(
+                        aq, ak, av, aout, alse, ado), 10))
+                continue
+            if kernel == "mamba_scan_bwd":
+                times.setdefault(f"mamba scan backward: {name}", []).append(
+                    cs.time_ms(lambda: msm.mamba_scan_backward(
+                        *scan_in, scan_starts, scan_dout), 10))
+                continue
             if kernel == "flash_attention":
                 times.setdefault(f"flash attention: {name}", []).append(
                     cs.time_ms(lambda: fam.flash_attention(q, k, v), 50))

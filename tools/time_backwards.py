@@ -1,16 +1,26 @@
-"""The recurrences' torch-ops backwards, timed on one NVIDIA GPU.
+"""The training path's backwards, timed on one NVIDIA GPU.
 
   python3 tools/time_backwards.py
 
-Times ``wkv6_bwd`` and ``mamba_scan_bwd`` at the training microbatches
-that chip_smoke.py trains (WKV6: rwkv6-3b's B=2, S=4096, H=40, hd=64,
-fp32; the fused Mamba scan: hymba-1.5b's B=4, S=4096, di=1600, n=16,
-bf16), with chip_smoke.py's inputs and time_ms, for each sub-chunk length
-T of the chunked form (``SUB_CHUNK``) and each number of steps recomputed
-at once (``RECOMPUTE_STEPS``: 256 recomputes the kept 256-step chunks one
-by one), each with the peak memory it allocates beyond its inputs. The
-variants run in two rounds, so that a difference between them can be told
-from the spread.
+At the training microbatches that chip_smoke.py trains, with its inputs
+and time_ms:
+
+* the attention backward kernels (``flash_attention_backward``) beside
+  their plain version from the training forward's out and log-sum-exp and
+  beside the torch-ops backward from q, k, v alone (``flash_attention_bwd``,
+  what the card ran before the kernels), at qwen3-8b's (B=2, S=4096, 32/8
+  heads of 128), hymba-1.5b's (B=4, 25/5 heads of 64, window 1024) and
+  moonshot-v1-16b-a3b's (B=2, 16/16 heads of 128) shapes, bf16;
+* the fused Mamba scan's backward kernel (``mamba_scan_backward``) beside
+  its torch-ops plain version (``mamba_scan_bwd``) at hymba-1.5b's (B=4,
+  S=4096, di=1600, n=16, bf16);
+* WKV6's torch-ops backward (``wkv6_bwd``, no kernel yet) at rwkv6-3b's
+  (B=2, S=4096, H=40, hd=64, fp32) for each sub-chunk length T of its
+  chunked form and each number of steps recomputed at once.
+
+Each variant runs in two rounds, in the order A, B, ..., then reversed,
+so that a difference between them can be told from the spread, each with
+the peak memory it allocates beyond its inputs.
 """
 
 from __future__ import annotations
@@ -26,38 +36,45 @@ SUBS = (8, 16, 32)
 STEPS = (256, 1024, 4096)
 
 
-def variants(mod):
-    """{label: (sub, steps)}: the shipped setting, each other T at it, and
-    each other number of steps at the shipped T."""
-    out = {f"T={mod.SUB_CHUNK}, {mod.RECOMPUTE_STEPS} steps at once (as "
-           f"shipped)": (mod.SUB_CHUNK, mod.RECOMPUTE_STEPS)}
-    out.update({f"T={t}": (t, mod.RECOMPUTE_STEPS) for t in SUBS
-                if t != mod.SUB_CHUNK})
-    out.update({f"{n} steps at once": (mod.SUB_CHUNK, n) for n in STEPS
-                if n != mod.RECOMPUTE_STEPS})
-    return out
-
-
-def timed(cs, mod, chunked: str, bwd, args: list) -> None:
-    real = getattr(mod, chunked)
+def rounds(cs, what: str, variants: dict, iters: int = 3) -> None:
+    """Time each of ``variants`` ({label: fn}) in two rounds, the second in
+    reverse order, with the memory each allocates beyond what exists."""
     results: dict = {}
-    for _ in range(2):
-        for label, (sub, steps) in variants(mod).items():
-            setattr(mod, chunked, functools.partial(real, sub=sub))
-            try:
-                torch.cuda.synchronize()
-                base = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                ms = cs.time_ms(lambda: bwd(*args, steps=steps), 3,
-                                warmup=1)
-                peak = (torch.cuda.max_memory_allocated() - base) / 1e9
-            finally:
-                setattr(mod, chunked, real)
+    order = list(variants)
+    for labels in (order, order[::-1]):
+        for label in labels:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cs.time_ms(variants[label], iters, warmup=1)
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
             results.setdefault(label, []).append((ms, peak))
-    for label, runs in results.items():
-        cs.log(f"  {bwd.__name__}, {label}: " + ", ".join(
+    for label in order:
+        runs = results[label]
+        cs.log(f"  {what}, {label}: " + ", ".join(
             f"{ms:.4f} ms" for ms, _ in runs)
             + f"; {max(p for _, p in runs):.2f} GB beyond its inputs")
+
+
+def wkv6_variants(mod, args: list) -> dict:
+    """wkv6_bwd: the shipped setting, each other T at it, and each other
+    number of steps at the shipped T."""
+    real = mod.wkv6_chunked
+    settings = {f"T={mod.SUB_CHUNK}, {mod.RECOMPUTE_STEPS} steps at once "
+                f"(as shipped)": (mod.SUB_CHUNK, mod.RECOMPUTE_STEPS)}
+    settings.update({f"T={t}": (t, mod.RECOMPUTE_STEPS) for t in SUBS
+                     if t != mod.SUB_CHUNK})
+    settings.update({f"{n} steps at once": (mod.SUB_CHUNK, n) for n in STEPS
+                     if n != mod.RECOMPUTE_STEPS})
+
+    def run(sub, steps):
+        mod.wkv6_chunked = functools.partial(real, sub=sub)
+        try:
+            return mod.wkv6_bwd(*args, steps=steps)
+        finally:
+            mod.wkv6_chunked = real
+    return {label: functools.partial(run, *st)
+            for label, st in settings.items()}
 
 
 def main() -> int:
@@ -68,30 +85,50 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import chip_smoke as cs
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import wkv6 as wk
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = cs.environment()
     gen = torch.Generator("cuda").manual_seed(7)
-    # each model's microbatch: TRAIN_BATCH sequences in grad_accum parts
-    b, s = cs.TRAIN_BATCH // get_arch("rwkv6-3b").grad_accum, \
-        cs.TRAIN_SEQ
+    for arch in cs.ATTENTION_TRAINED.values():
+        sh = cs.attention_train_shape(arch)
+        b, s, h, hkv, hd, window = (sh[k] for k in ("b", "s", "h", "hkv",
+                                                    "hd", "window"))
+        q = cs.randn(gen, (b, s, h, hd), torch.bfloat16)
+        k = cs.randn(gen, (b, s, hkv, hd), torch.bfloat16)
+        v = cs.randn(gen, (b, s, hkv, hd), torch.bfloat16, 1.0)
+        dout = cs.randn(gen, (b, s, h, hd), torch.bfloat16, 1.0)
+        out, lse = fa.flash_attention_train(q, k, v, window)
+        rounds(cs, f"attention backward, {arch} B={b} S={s} {h}/{hkv} heads "
+               f"of {hd}, window {window}, bf16", {
+                   "flash_attention_backward (the kernels)":
+                   lambda: fa.flash_attention_backward(q, k, v, out, lse,
+                                                       dout, window),
+                   "flash_attention_bwd from out and lse (plain version)":
+                   lambda: fa.flash_attention_bwd(q, k, v, dout, window,
+                                                  out=out, lse=lse),
+                   "flash_attention_bwd from q, k, v (torch ops before)":
+                   lambda: fa.flash_attention_bwd(q, k, v, dout, window)})
+        del q, k, v, dout, out, lse
+    b, s = cs.TRAIN_BATCH // get_arch("hymba-1.5b").grad_accum, cs.TRAIN_SEQ
+    inputs = cs.mamba_train_inputs(gen, b, s, torch.bfloat16)
+    dout = cs.randn(gen, (b, s, cs.MAMBA_DI), torch.bfloat16, 1.0)
+    starts = ms.mamba_chunk_states(*inputs)[2]
+    rounds(cs, f"Mamba scan backward, B={b}, S={s}, di={cs.MAMBA_DI}, "
+           f"n={cs.MAMBA_N}, bf16", {
+               "mamba_scan_backward (the kernel)":
+               lambda: ms.mamba_scan_backward(*inputs, starts, dout),
+               "mamba_scan_bwd (torch ops)":
+               lambda: ms.mamba_scan_bwd(*inputs, starts, dout)})
+    del inputs, dout, starts
+    b = cs.TRAIN_BATCH // get_arch("rwkv6-3b").grad_accum
     inputs = cs.decay(cs.wkv6_train_inputs(gen, b, s))
     dy = cs.randn(gen, (b, s, cs.RWKV_HEADS, cs.RWKV_HD), torch.float32,
                   1.0)
     starts = wk.wkv6_chunk_states(*inputs)[2]
-    cs.log(f"wkv6_bwd, B={b}, S={s}, H={cs.RWKV_HEADS}, hd={cs.RWKV_HD}, "
-           f"fp32:")
-    timed(cs, wk, "wkv6_chunked", wk.wkv6_bwd, [*inputs, starts, dy])
-    del inputs, dy, starts
-    b = cs.TRAIN_BATCH // get_arch("hymba-1.5b").grad_accum
-    inputs = cs.mamba_train_inputs(gen, b, s, torch.bfloat16)
-    dout = cs.randn(gen, (b, s, cs.MAMBA_DI), torch.bfloat16, 1.0)
-    starts = ms.mamba_chunk_states(*inputs)[2]
-    cs.log(f"mamba_scan_bwd, B={b}, S={s}, di={cs.MAMBA_DI}, "
-           f"n={cs.MAMBA_N}, bf16:")
-    timed(cs, ms, "mamba_scan_chunked", ms.mamba_scan_bwd,
-          [*inputs, starts, dout])
+    rounds(cs, f"wkv6_bwd, B={b}, S={s}, H={cs.RWKV_HEADS}, hd={cs.RWKV_HD},"
+           f" fp32", wkv6_variants(wk, [*inputs, starts, dy]))
     print(smi)
     return 0
 
