@@ -6,8 +6,10 @@ Phases; each raises on failure, so any failure exits non-zero:
   1. environment: card, power limit, versions; build the CUDA kernels from
      src/repro_torch/kernels/csrc/ (one nvcc per source, in parallel),
      print ptxas' registers and spills and each library's count of HMMA
-     (tensor-core) instructions, which must not be 0 for flash attention,
-     its backward and WKV6;
+     (mma.sync), HGMMA (wgmma) and UTMALDG (TMA load) instructions: HMMA
+     must not be 0 for flash attention, its backward (the mma.sync bodies
+     of hd 32, 80, 96, 160) and WKV6, nor HGMMA and UTMALDG for the
+     attention backward (its Hopper bodies at hd 64 and 128);
   2. each kernel against its plain PyTorch version on the card, at the
      serving shapes and in windowed, ragged, 3-D layout, hd 32 and 128,
      fp32, many-split, poisoned-cache and carried-state cases, with its
@@ -73,10 +75,11 @@ Phases; each raises on failure, so any failure exits non-zero:
      25/5 heads of 64, window 1024) and moonshot-v1-16b-a3b (B=2, 16/16
      heads of 128), fp32 and bf16, with two mutants of the plain backward
      that must fail; the backward kernels against their plain version
-     (flash_attention_bwd given the forward's out and log-sum-exp) and
-     timed beside it, beside the old torch-ops backward and SDPA's, at
-     each training shape; the kernel's bf16 forward against its plain
-     version at the training shape, with the temperature mutant; qwen3-8b
+     (flash_attention_bwd given the forward's out and log-sum-exp), two
+     runs bit-equal, and timed beside it, beside the old torch-ops
+     backward and SDPA's, at each training shape; the kernel's bf16
+     forward against its plain version at the training shape, with the
+     temperature mutant; qwen3-8b
      trained at full width
      and depth 8 (AdamW, bf16, 4 microbatches of 2 x 4096 tokens)
      through train_step, a warm-up step and 3 timed ones,
@@ -90,19 +93,22 @@ Phases; each raises on failure, so any failure exits non-zero:
      run_training at the tiny preset on the card, 6 straight steps
      against 3, a commit, a resume and 3 more. The recurrences train
      through Wkv6Fn and MambaScanFn (the kernels' forward one launch per
-     256-step chunk; the backwards the torch-ops wkv6_bwd and the Mamba
-     scan's backward kernel, one launch a call): both held to autograd
-     through the plain loops at full width across two chunks (WKV6 fp32,
-     the scan fp32 and bf16), each with a mutant that does not carry the
-     state's gradient across a chunk (the scan's: its kernel run chunk by
-     chunk); the scan's backward kernel against its plain version
-     (mamba_scan_bwd); each forward and backward timed at its model's
+     256-step chunk; the backwards the WKV6 and the Mamba scan backward
+     kernels, one C call each): both held to autograd through the plain
+     loops at full width across two chunks (WKV6 fp32, the scan fp32 and
+     bf16), each with a mutant that does not carry the state's gradient
+     across a chunk (its backward kernel run chunk by chunk); each
+     backward kernel against its plain version (wkv6_bwd, with the
+     model's decays and with exact 0s and 1s, two runs bit-equal;
+     mamba_scan_bwd); each forward and backward timed at its model's
      training microbatch; rwkv6-3b and hymba-1.5b trained at full width
      and full depth as qwen3-8b is (their WKV6, Mamba scan, flash
-     attention and backward kernel launches a step asserted, and a
-     nonzero gradient on every leaf that
-     feeds a recurrence), each profiled over one microbatch; and their
-     kernel and plain paths at depth 2, 2 x 2048 tokens. moonshot-v1-16b-a3b
+     attention and backward kernel launches a step asserted, the
+     torch-ops backwards called 0 times, and a nonzero gradient on every
+     leaf that feeds a recurrence), each profiled over one microbatch;
+     and their kernel and plain paths at depth 2, 2 x 2048 tokens, with
+     rwkv6-3b's plain path also run in fp64 and each fp32 path's distance
+     from it printed. moonshot-v1-16b-a3b
      (MoE, 64 experts top-6) is trained as qwen3-8b is, at depth 4 of 48
      (47.3 GB of state), with a profile of one microbatch that splits the
      MoE layer's device time into routing, one-hot and scan, scatter,
@@ -138,15 +144,14 @@ Phases; each raises on failure, so any failure exits non-zero:
      counted flops must hold serve_bounds' and train_bound's parts to
      FLOPS_TOL once the named cases where the path does more work are
      added from the shapes (remat, the MoE capacity rows, the backward
-     kernels' recompute; decode attention and WKV6's torch-ops backward are
-     reported), the decode
+     kernels' recompute; decode attention is reported), the decode
      step's counted bytes must reach the bound's, and the predicted peak
      must be within PEAK_TOL of torch.cuda.max_memory_allocated(); then
      one decode_32k cell a family on the (16, 16) fake mesh, in a
      subprocess, its rows written under build/dryrun_rows/. The backward
      kernels' flops are held too: attention's seven products where the
-     bound counts four (its dQ kernel recomputes S and dP), the scan's
-     vjp plus the forward it recomputes.
+     bound counts four (its dQ kernel recomputes S and dP), WKV6's and
+     the scan's vjp plus the forward each recomputes.
 Each phase prints its wall time, and the run its total. The last lines
 are a JSON line of per-kernel numbers (the backward kernels' entries
 also carry "torch_ops_ms", the torch-ops backward the card ran before
@@ -155,7 +160,8 @@ serving shape with the served prefill's launches, "flash_attention_train" at the
 with the timed train steps' launches, "wkv6_train" and "mamba_scan_train"
 at rwkv6-3b's and hymba-1.5b's training microbatch with their timed train
 steps' launches, "flash_attention_bwd" at qwen3-8b's training shape and
-"_hymba", "_moonshot" at those models', "mamba_scan_bwd" at hymba-1.5b's,
+"_hymba", "_moonshot" at those models', "wkv6_backward" at rwkv6-3b's,
+"mamba_scan_bwd" at hymba-1.5b's,
 each with its model's timed train steps' launches, both attention kernels
 once more for
 each of hd 96, 80 and 160, "_hd<n>", and for hymba's group of 5,
@@ -174,6 +180,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -245,6 +252,9 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 4096, 8, 2
 COMPARED = (("qwen3-8b", TRAIN_SEQ, TRAIN_MICRO),
             ("moonshot-v1-16b-a3b", TRAIN_SEQ, TRAIN_MICRO),
             ("rwkv6-3b", 2048, 2), ("hymba-1.5b", 2048, 2))
+# models whose depth-2 comparison also runs the plain path in fp64, to tell
+# which fp32 path carries the gap between them (ROADMAP.md queue 3, n)
+FP64_COMPARED = ("rwkv6-3b",)
 # phase 5f, the grouped MoE dispatch against the flat one: moonshot at
 # depth 1 in fp32, GROUPED_SHAPE (B, S), MOE_GROUPS groups; drop-free
 # (cf = E) its capacity buffers are E / 1.25 = 51x the served ones, which
@@ -387,27 +397,38 @@ def environment() -> str:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {lib.stem.split('-')[0]}: {line.strip()}")
-    hmma = hmma_counts(libs)
-    log(f"HMMA instructions in the SASS: {hmma}")
-    for name, what in (("flash_attention", "bf16 body"),
-                       ("flash_attention_bwd", "bf16 bodies"),
-                       ("wkv6", "chunked body's 3xTF32 products")):
-        if not hmma[name]:
-            raise AssertionError(f"{name}'s library has no HMMA: its {what} "
-                                 f"does not run on the tensor cores")
+    counts = sass_counts(libs)
+    for op, what in SASS_OPS.items():
+        log(f"{op} instructions ({what}) in the SASS: {counts[op]}")
+    for op, name, what in (
+            ("HMMA", "flash_attention", "bf16 body"),
+            ("HMMA", "flash_attention_bwd", "mma.sync bodies (hd 32, 80, "
+                                            "96, 160)"),
+            ("HGMMA", "flash_attention_bwd", "Hopper bodies (hd 64, 128)"),
+            ("UTMALDG", "flash_attention_bwd", "Hopper bodies' TMA tiles"),
+            ("HMMA", "wkv6", "chunked body's 3xTF32 products")):
+        if not counts[op][name]:
+            raise AssertionError(f"{name}'s library has no {op}: its {what} "
+                                 f"do not run as designed")
     return smi
 
 
-def hmma_counts(libs: dict) -> dict:
-    """{kernel source: count of HMMA instructions in cuobjdump -sass}."""
+# SASS opcodes counted per library: the tensor cores by mma.sync and by
+# wgmma, and TMA loads
+SASS_OPS = {"HMMA": "mma.sync", "HGMMA": "wgmma", "UTMALDG": "TMA loads"}
+
+
+def sass_counts(libs: dict) -> dict:
+    """{opcode of SASS_OPS: {kernel source: its count in cuobjdump -sass}}."""
     from torch.utils.cpp_extension import CUDA_HOME
     cuobjdump = Path(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
-    counts = {}
+    counts = {op: {} for op in SASS_OPS}
     for name, lib in libs.items():
         sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                               capture_output=True, text=True,
                               check=True).stdout
-        counts[name] = sum("HMMA" in line for line in sass.splitlines())
+        for op in SASS_OPS:
+            counts[op][name] = len(re.findall(rf"\b{op}\b", sass))
     return counts
 
 
@@ -1782,7 +1803,8 @@ def time_attention_backward(suffix: str, arch: str, q, k, v, dout,
     """The backward kernels at ``arch``'s training shape in bf16 against
     their plain version on the same inputs (``flash_attention_bwd`` given
     the training forward's out and log-sum-exp): each gradient within
-    REL_TOL (rel L2) and TOL of its largest magnitude; timed beside that
+    REL_TOL (rel L2) and TOL of its largest magnitude, and two runs
+    bit-equal (the sums run in a fixed order); timed beside that
     plain version, the old torch-ops backward (``flash_attention_bwd``
     from q, k, v alone, which the Function ran on the card before the
     kernels), SDPA's backward and the bound: four products over the
@@ -1793,9 +1815,15 @@ def time_attention_backward(suffix: str, arch: str, q, k, v, dout,
     b, s, h, hd = q.shape
     out, lse = fa.flash_attention_train(q, k, v, window)
     got = fa.flash_attention_backward(q, k, v, out, lse, dout, window)
+    again = fa.flash_attention_backward(q, k, v, out, lse, dout, window)
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
     want = fa.flash_attention_bwd(q, k, v, dout, window, out=out, lse=lse)
     what = f"flash_attention_backward, {arch} B={b} S={s} {h}/{k.shape[2]} " \
         f"heads of {hd}, window {window}, bf16"
+    log(f"  {what}: two runs give the same bits: {same}")
+    if not same:
+        raise AssertionError(f"{what}: two runs on the same inputs differ")
+    del again
     err = 0.0
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         e, rel = max_err(g, w), rel_err(g, w)
@@ -1920,11 +1948,12 @@ def recurrence_grads(fn, inputs: list, dout, impl: str) -> list:
 
 
 def chunk_by_chunk(bwd, inputs: list, seq: tuple, starts, dout) -> list:
-    """A mutant of ``bwd`` (wkv6_bwd or mamba_scan_backward): each TIME_CHUNK
-    chunk's gradient from its own start state with the final gradient of
-    the state taken as zero, so the state's gradient is not carried across
-    the chunk boundary. ``seq`` are the indices of the (B, S, ...) inputs;
-    the others' gradients are summed over the chunks."""
+    """A mutant of ``bwd`` (wkv6_backward or mamba_scan_backward): each
+    TIME_CHUNK chunk's gradient from its own start state with the final
+    gradient of the state taken as zero, so the state's gradient is not
+    carried across the chunk boundary. ``seq`` are the indices of the
+    (B, S, ...) inputs; the others' gradients are summed over the
+    chunks."""
     from repro_torch.kernels.wkv6 import TIME_CHUNK
     parts = []
     for i in range(starts.shape[1]):
@@ -1977,8 +2006,8 @@ def decay(inputs: list) -> list:
 def wkv6_model(r, k, v, x, u, impl: str):
     """ops.wkv6 fed the model's decay of x: the gradient that reaches x is
     the one the model's rwkv_decay passes on. (Where exp(-exp(x))
-    underflows, wkv6_bwd gives dw = 0, as the log decays it works in are
-    clamped; both paths then pass 0 on to x.)"""
+    underflows, the backward kernel and wkv6_bwd give dw = 0; both paths
+    then pass 0 on to x.)"""
     from repro_torch.kernels import ops
     return ops.wkv6(r, k, v, torch.exp(-torch.exp(x)), u, impl=impl)
 
@@ -2003,25 +2032,24 @@ def mamba_train_inputs(gen, b: int, s: int, dtype) -> list:
 
 def check_recurrence_backward() -> dict:
     """Wkv6Fn and MambaScanFn (the kernels' forward one launch per
-    TIME_CHUNK steps; the backwards the torch-ops wkv6_bwd and the scan's
-    backward kernel) against autograd through the plain loops, at each
-    family's full width across RECURRENT_CHECK_SEQ // 256 remat chunks:
-    WKV6 in fp32, the scan in fp32 (rel L2 within REL_TOL) and bf16
-    (within BWD_BF16_RATIO x the plain path's own error against fp32). A
-    mutant of each backward (the state's gradient not carried across the
-    chunk boundary: wkv6_bwd, and the scan's kernel, run chunk by chunk)
-    must fail the fp32 limit. Then each forward and backward is timed at
-    its model's training microbatch. Returns {"entries": JSON entries
-    "wkv6_train", "mamba_scan_train" and "mamba_scan_bwd", "bwd_ms":
-    {(backward, model): backward ms}}."""
+    TIME_CHUNK steps; the backwards the two backward kernels) against
+    autograd through the plain loops, at each family's full width across
+    RECURRENT_CHECK_SEQ // 256 remat chunks: WKV6 in fp32, the scan in
+    fp32 (rel L2 within REL_TOL) and bf16 (within BWD_BF16_RATIO x the
+    plain path's own error against fp32). A mutant of each backward (the
+    state's gradient not carried across the chunk boundary: each backward
+    kernel run chunk by chunk) must fail the fp32 limit. Then each
+    forward and backward is timed at its model's training microbatch.
+    Returns {"entries": JSON entries "wkv6_train", "wkv6_backward",
+    "mamba_scan_train" and "mamba_scan_bwd", "bwd_ms": {(backward,
+    model): backward ms}}."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import wkv6 as wk
     gen = torch.Generator("cuda").manual_seed(6)
     b, s = TRAIN_MICRO, RECURRENT_CHECK_SEQ
     log(f"recurrence backwards (Wkv6Fn, MambaScanFn: the kernels' forward "
-        f"per {wk.TIME_CHUNK}-step chunk; wkv6_bwd, the scan's backward "
-        f"kernel) vs "
+        f"per {wk.TIME_CHUNK}-step chunk, the backward kernels) vs "
         f"autograd through the plain loops, B={b}, S={s}:")
     inputs = wkv6_train_inputs(gen, b, s)
     dy = randn(gen, (b, s, RWKV_HEADS, RWKV_HD), torch.float32, 1.0)
@@ -2031,9 +2059,9 @@ def check_recurrence_backward() -> dict:
                 recurrence_grads(wkv6_model, inputs, dy, "kernel"), truth)
     w = decay(inputs)
     _, _, starts = wk.wkv6_chunk_states(*w)
-    mutant = chunk_by_chunk(wk.wkv6_bwd, w, (0, 1, 2, 3), starts, dy)
+    mutant = chunk_by_chunk(wk.wkv6_backward, w, (0, 1, 2, 3), starts, dy)
     mutant[3] = mutant[3] * w[3] * -torch.exp(inputs[3])     # dw -> dx
-    check_mutant_grads("wkv6_bwd, dState not carried across a chunk",
+    check_mutant_grads("wkv6_backward, dState not carried across a chunk",
                        mutant, truth)
     seq = (0, 2, 3, 4, 5)
     for dtype in (torch.float32, torch.bfloat16):
@@ -2100,19 +2128,37 @@ def time_recurrences_training() -> dict:
                          {torch.float32: fwd_f})
     bbound, bby = bound_ms(9 * size + starts.numel() * 4,
                            {torch.float32: bwd_f})
+    bwd_err = check_wkv6_backward(f"B={b} S={s}, the model's decays",
+                                  inputs, starts, dy)
+    # exact 0s (a decay that wipes the state) and 1s mixed in
+    pick = torch.rand(inputs[3].shape, generator=gen, device="cuda")
+    edges = [*inputs[:3], torch.where(pick < 0.05, 0.0, torch.where(
+        pick > 0.9, 1.0, inputs[3])), inputs[4]]
+    check_wkv6_backward(f"B={b} S={s}, exact 0 and 1 decays mixed in",
+                        edges, wk.wkv6_chunk_states(*edges)[2], dy)
+    del edges, pick
     fwd = time_ms(lambda: wk.wkv6_chunk_states(*inputs), 10)
     plain = time_ms(lambda: wk.wkv6_plain(*inputs), 1, warmup=1)
-    t_bwd = time_ms(lambda: wk.wkv6_bwd(*inputs, starts, dy), 3, warmup=1)
-    bwd["wkv6_bwd", "rwkv6-3b"] = t_bwd
+    t_bwd = time_ms(lambda: wk.wkv6_backward(*inputs, starts, dy), 10)
+    t_plain = time_ms(lambda: wk.wkv6_bwd(*inputs, starts, dy), 3, warmup=1)
+    bwd["wkv6_backward", "rwkv6-3b"] = t_bwd
     log(f"  wkv6 training shape (B={b}, S={s}, H={RWKV_HEADS}, "
         f"hd={RWKV_HD}): forward {fwd:.4f} ms in {starts.shape[1]} "
         f"launches (plain loop {plain:.4f} ms, bound {bound:.4f} ms by {by}); "
-        f"wkv6_bwd {t_bwd:.4f} ms (bound {bbound:.4f} ms by {bby})")
+        f"backward kernel {t_bwd:.4f} ms in 1 launch, its plain version "
+        f"(the torch-ops wkv6_bwd) {t_plain:.4f} ms, bound {bbound:.4f} ms "
+        f"({bby}), {t_bwd / bbound:.2f}x the bound")
     entries.append({"name": "wkv6_train", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/wkv6.cu",
                     "replaces": "src/repro/kernels/rwkv6.py:49",
                     "max_abs_err": err, "ms": fwd, "plain_ms": plain,
                     "bound_ms": bound, "bound_by": by, "library_ms": None})
+    entries.append({"name": "wkv6_backward", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+                    "replaces": "src/repro/models/ssm.py:30",
+                    "max_abs_err": bwd_err, "ms": t_bwd, "plain_ms": t_plain,
+                    "bound_ms": bbound, "bound_by": bby, "library_ms": None,
+                    "torch_ops_ms": t_plain})
     del inputs, dy, y, starts
     b = TRAIN_BATCH // get_arch("hymba-1.5b").grad_accum
     inputs = mamba_train_inputs(gen, b, s, torch.bfloat16)
@@ -2174,6 +2220,34 @@ def time_recurrences_training() -> dict:
     return {"entries": entries, "bwd_ms": bwd}
 
 
+def check_wkv6_backward(what: str, inputs: list, starts, dy) -> float:
+    """The WKV6 backward kernel against its plain version (``wkv6_bwd``)
+    on the same inputs, kept states and dy: dr, dk, dv, dw and du each
+    within REL_TOL (rel L2) and TOL of its largest magnitude, finite; and
+    a second run gives the same bits. Returns the largest max_abs_err."""
+    from repro_torch.kernels import wkv6 as wk
+    got = wk.wkv6_backward(*inputs, starts, dy)
+    again = wk.wkv6_backward(*inputs, starts, dy)
+    want = wk.wkv6_bwd(*inputs, starts, dy)
+    worst = 0.0
+    for name, g, a, w in zip(("dr", "dk", "dv", "dw", "du"), got, again,
+                             want):
+        e, rel = max_err(g, w), rel_err(g, w)
+        scale = w.float().abs().max().item()
+        same = torch.equal(g, a)
+        log(f"  wkv6_backward {what} vs its plain version, {name}: "
+            f"max_abs_err {e:.3e} (limit {TOL[torch.float32]} x max |plain| "
+            f"{scale:.3e}), rel L2 {rel:.3e} (limit {REL_TOL[torch.float32]})"
+            f", two runs bit-equal: {same}")
+        if e > TOL[torch.float32] * scale or rel > REL_TOL[torch.float32] \
+                or not same or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"wkv6_backward {what} {name}: kernel "
+                                 f"disagrees with its plain version ({e}, "
+                                 f"{rel}) or with itself ({same})")
+        worst = max(worst, e)
+    return worst
+
+
 def train_counts(cfg, seq: int = TRAIN_SEQ) -> dict:
     """Launches of one train step of ``seq``-token sequences: remat runs
     each layer's forward twice, so 2 per layer and microbatch of flash
@@ -2187,6 +2261,7 @@ def train_counts(cfg, seq: int = TRAIN_SEQ) -> dict:
     chunks = -(-seq // TIME_CHUNK)
     if cfg.attn_free:
         want["wkv6"] = 2 * per * chunks
+        want["wkv6_backward"] = per
     else:
         want["flash_attention"] = 2 * per
         want["flash_attention_backward"] = per
@@ -2223,9 +2298,9 @@ def train_full_width(arch: str, bwd_ms: dict) -> dict:
     (and the Mamba scan's all in its chunked body), and in the warm-up
     step a nonzero gradient on every leaf that feeds the recurrence.
     Spies on the torch-ops backwards that the kernels replaced
-    (flash_attention_bwd, mamba_scan_bwd): the timed steps must call them
-    0 times. Prints a profile (of a step, or for the recurrent families of
-    one microbatch) and CUDA-event spans of the step's parts, each
+    (flash_attention_bwd, wkv6_bwd, mamba_scan_bwd): the timed steps must
+    call them 0 times. Prints a profile (of a step, or for the recurrent
+    families of one microbatch) and CUDA-event spans of the step's parts, each
     backward among them. ``bwd_ms``: {(backward, model): ms alone at the
     model's shape}."""
     from repro_torch.configs import get_arch
@@ -2233,6 +2308,7 @@ def train_full_width(arch: str, bwd_ms: dict) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms_mod
     from repro_torch.kernels import ops
+    from repro_torch.kernels import wkv6 as wk
     from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.train import train_step as ts
     from repro_torch.train.data import synth_batch
@@ -2272,7 +2348,8 @@ def train_full_width(arch: str, bwd_ms: dict) -> dict:
         return real_updates(grads, *args, **kwargs)
 
     # the torch-ops backwards the kernels replaced: never called on the card
-    torch_ops = {"flash_attention_bwd": 0, "mamba_scan_bwd": 0}
+    torch_ops = {"flash_attention_bwd": 0, "wkv6_bwd": 0,
+                 "mamba_scan_bwd": 0}
 
     def spy(mod, name):
         real = getattr(mod, name)
@@ -2287,7 +2364,7 @@ def train_full_width(arch: str, bwd_ms: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
         with mock.patch.object(ts, "apply_updates", first_grads), \
-                spy(fa, "flash_attention_bwd"), \
+                spy(fa, "flash_attention_bwd"), spy(wk, "wkv6_bwd"), \
                 spy(ms_mod, "mamba_scan_bwd"):
             start.record()
             state, m = ts.train_step(state, batch, cfg, opt_cfg)
@@ -2403,6 +2480,12 @@ def compare_train_paths(arch: str, seq: int, micro: int) -> None:
         if share < 1:
             runs["fp32", "kernel"] = run(p, cfg32, "kernel", pinned=truth)
     del p
+    if arch in FP64_COMPARED:
+        p = _map(params, lambda t: t.double())
+        with mock.patch.object(torch.Tensor, "float", _kept_fp64):
+            fp64 = run(p, dataclasses.replace(cfg, param_dtype="float64"),
+                       "reference")
+        del p
     for impl in ("kernel", "reference"):
         runs["bf16", impl] = run(params, cfg, impl, pinned=pinned)
     del params
@@ -2423,6 +2506,8 @@ def compare_train_paths(arch: str, seq: int, micro: int) -> None:
     if max(err["fp32", "kernel"]) > FP32_REL_TOL:
         raise AssertionError(f"{arch}: fp32 training paths disagree: "
                              f"{err['fp32', 'kernel']}")
+    if arch in FP64_COMPARED:
+        log_fp64_distances(arch, runs, fp64)
     kern, plain = err["bf16", "kernel"], err["bf16", "reference"]
     log(f"  bf16 kernel path within {BWD_BF16_RATIO} x the plain path's "
         f"error: " + ", ".join(f"{w} {k / p:.3f} x" if p else f"{w} {k} vs 0"
@@ -2433,13 +2518,42 @@ def compare_train_paths(arch: str, seq: int, micro: int) -> None:
                                  f"plain {p}")
 
 
+def _kept_fp64(t: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+    """Tensor.float for the fp64 run: the model's casts to fp32 (norms, the
+    recurrence's inputs, the logits) keep an fp64 tensor as it is."""
+    if t.dtype == torch.float64:
+        return t
+    return torch._C.TensorBase.float(t, *args, **kwargs)
+
+
+def log_fp64_distances(arch: str, runs: dict, fp64: tuple) -> None:
+    """Each fp32 path's loss and gradients against the plain path run in
+    fp64 (every fp32 cast of the model kept in fp64; the chunked loss's
+    accumulator stays fp32, which rounds the loss's value, not its
+    gradients): the side nearer the fp64 run is the more exact one."""
+    loss64, norm64, embed64, rest64 = fp64
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+    for impl in ("reference", "kernel"):
+        loss, norm, embed, rest = runs["fp32", impl]
+        log(f"  {arch} fp32 {impl} path vs the fp64 plain path (relative): "
+            f"loss {abs(loss - loss64) / abs(loss64):.3e}, grad norm "
+            f"{abs(norm - norm64) / norm64:.3e}, embedding grad "
+            f"{rel(embed, embed64):.3e}, other grads {rel(rest, rest64):.3e}")
+    _, _, e_p, r_p = runs["fp32", "reference"]
+    _, _, e_k, r_k = runs["fp32", "kernel"]
+    log(f"  {arch} fp32 kernel vs fp32 plain (relative): embedding grad "
+        f"{rel(e_k, e_p):.3e}, other grads {rel(r_k, r_p):.3e}")
+
+
 def time_step_parts(state, batch, cfg, opt_cfg, step_ms: float) -> None:
     """One more step, with CUDA events around the optimizer update
     (``apply_updates``: clip and AdamW), around the gradient-tree
     operations of ``train_step`` (zeroed buffers, the fp32 accumulation of
-    each microbatch) and around each backward that the step runs (the
-    kernels' flash_attention_backward and mamba_scan_backward, the
-    torch-ops wkv6_bwd): the device time
+    each microbatch) and around each backward kernel that the step runs
+    (flash_attention_backward, wkv6_backward, mamba_scan_backward): the
+    device time
     between each pair, summed, and its share of the timed steps' mean. The
     stream is busy, so a span holds its own kernels, and the host time a
     span's launches take when the device waits on them."""
@@ -2462,7 +2576,7 @@ def time_step_parts(state, batch, cfg, opt_cfg, step_ms: float) -> None:
     parts = ((ts, "apply_updates", "optimizer (clip, AdamW)"),
              (ts, "tree_map", "gradient buffers and fp32 accumulation"),
              (fa, "flash_attention_backward", "flash_attention_backward"),
-             (wk, "wkv6_bwd", "wkv6_bwd"),
+             (wk, "wkv6_backward", "wkv6_backward"),
              (ms, "mamba_scan_backward", "mamba_scan_backward"))
     with contextlib.ExitStack() as stack:
         for mod, attr, name in parts:
@@ -2481,6 +2595,7 @@ def time_step_parts(state, batch, cfg, opt_cfg, step_ms: float) -> None:
 
 KINDS = (("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
          ("flash attention kernel", ("fa_bf16", "fa_f32")),
+         ("flash attention backward kernels", ("fa_bwd",)),
          ("flash decode kernel", ("fd_split", "fd_merge")),
          ("Mamba scan kernel", ("mamba_scan",)),
          ("WKV6 kernel", ("wkv6_",)),
@@ -3074,11 +3189,13 @@ def roofline_trained(arch: str, run: dict) -> None:
             want[kernel] = REMAT_KERNEL * parts[kernel]
     # the backward kernels, by their flop formulas: attention's dQ kernel
     # recomputes S and dP (seven products where the bound counts four over
-    # the visible pairs); the scan's recomputes its forward from the kept
-    # states
+    # the visible pairs); WKV6's and the scan's recompute their forward
+    # from the kept states
     if "FlashAttentionFnBackward" in parts:
         want["FlashAttentionFnBackward"] = \
             parts["FlashAttentionFnBackward"] * 7 // 4
+    if "Wkv6FnBackward" in parts:
+        want["Wkv6FnBackward"] = parts["Wkv6FnBackward"] + parts["wkv6"]
     if "MambaScanFnBackward" in parts:
         want["MambaScanFnBackward"] = \
             parts["MambaScanFnBackward"] + parts["mamba_scan"]
@@ -3168,6 +3285,7 @@ def train_phase() -> list:
         free()
     launched_by = {"flash_attention_train": ("qwen3-8b", "flash_attention"),
                    "wkv6_train": ("rwkv6-3b", "wkv6"),
+                   "wkv6_backward": ("rwkv6-3b", "wkv6_backward"),
                    "mamba_scan_train": ("hymba-1.5b", "mamba_scan"),
                    "mamba_scan_bwd": ("hymba-1.5b", "mamba_scan_backward")}
     for suffix, arch in ATTENTION_TRAINED.items():

@@ -26,37 +26,54 @@
 // What bounds it: operations. At qwen3-8b's training shape (B=2, S=4096,
 // 32/8 heads, hd 128, bf16) the backward's four products over the causal
 // pairs are 550 GFLOP, 0.556 ms at the bf16 tensor-core peak, against
-// 0.10 GB to move (q, k, v, dO read once, dq, dk, dv written once).
+// 0.10 GB to move (q, k, v, dO read once, dq, dk, dv written once). The
+// first design, all on mma.sync with cp.async, took 4.99 ms there; the
+// Hopper bodies' times are in PERF.md.
 //
-// Three kernels in one C call, on one stream:
-//   1. delta: D = rowsum(dO o O) in fp32, one warp a (batch, row, head);
-//   2. dK/dV: one block per (batch, KV head, 64-key tile), 4 warps of 16
-//      keys each. dK and dV stay in fp32 registers for the whole block, so
-//      they need no atomics: the block loops over the g query heads of the
-//      group and over the 32-query tiles that can see its keys (from the
-//      tile's first key to the end, or to its last key + window - 1), with
-//      Q, dO, lse and D of the next tile in flight (cp.async, two stages)
-//      under the current one;
-//   3. dQ: one block per (batch, head, 64-query tile), 4 warps of 16 rows,
-//      looping over 32-key tiles (two stages) from the window's edge to the
-//      causal limit, recomputing P and dP: deterministic, where atomics
-//      into dQ from kernel 2 would sum in a different order each run.
-// Kernels 2 and 3 thus run seven products where the bound counts four
-// (S and dP twice). Each warp skips a tile in which every (key, query)
-// pair is masked and masks only tiles that straddle the diagonal, S or
-// the window edge.
+// Three kernels in one C call, on one stream: 1. delta: D = rowsum(dO o
+// O) in fp32, one warp a (batch, row, head); 2. dK/dV: a block per (batch,
+// KV head, 64-key tile) keeps its dK and dV in fp32 registers for the
+// whole block and loops over the g query heads of the group and the query
+// tiles that see its keys (from the tile's first key to the end, or to its
+// last key + window - 1), so it needs no atomics; 3. dQ: a block per
+// (batch, head, 64-query tile) loops over the key tiles from the window's
+// edge to the causal limit, recomputing P and dP: deterministic, where
+// atomics into dQ from kernel 2 would sum in a different order each run
+// (phase 6 of chip_smoke.py holds the sharded step bit-equal). Kernels 2
+// and 3 thus run seven products where the bound counts four (S and dP
+// twice). Only tiles that straddle the diagonal, S or the window's edge
+// are masked.
 //
-// bf16 bodies: mma.sync.m16n8k16 (bf16 in, fp32 accumulate) with ldmatrix
-// from shared memory rows padded by 16 bytes (conflict-free), as the
-// forward's body: S^T = K Q^T takes K as A and Q by ldmatrix; P^T (from
-// the accumulators, rounded to bf16 in registers) is the A operand of
-// dV += P^T dO, dO by ldmatrix.trans; the same for dP^T = V dO^T and
-// dK += dS^T Q. The dQ kernel is the forward's layout with dO V^T beside
-// Q K^T and dQ += dS K (K by ldmatrix.trans). Register pressure: the dK
-// and dV accumulators are hd / 2 + hd / 2 registers a thread (160 at hd
-// 160), so the streamed tiles are 32 wide (16 registers each for S and dP)
-// and K, V, Q, dO fragments are loaded from shared memory where they are
-// used, not kept in registers. wgmma with TMA is the next step.
+// Hopper bodies, bf16 at hd 64 and 128 (the head dims that train on the
+// card: hymba-1.5b, qwen3-8b, moonshot): each block is two warpgroups.
+// Warpgroup 0 gives up its registers (setmaxnreg 24) and its first warp
+// loads: K and V (dK/dV) or Q and dO (dQ) once, then the streamed tiles
+// (Q, dO, with lse and D by the warp's lanes; or K, V) by TMA into a ring
+// of NST stages, each stage a full and an empty mbarrier, in the 128-byte
+// swizzle that the wgmma descriptors name: a 64-row tile's row of hd bf16
+// is hd / 64 boxes of 128 bytes, each box 64 rows x 128 bytes (8 KB). The
+// consumer warpgroup (setmaxnreg 232) runs the products on wgmma
+// m64nNk16 (bf16 in, fp32 accumulate), 64 rows a warpgroup: dK/dV takes
+// S^T = K Q^T and dP^T = V dO^T with both operands in shared memory
+// (K-major), forms P^T and dS^T = P^T o (dP^T - D) in registers, then dV
+// += T(P^T) dO and dK += T(dS^T) Q with P^T and dS^T as the register A
+// operand and dO, Q MN-major; dQ takes S = Q K^T, dP = dO V^T and dQ +=
+// T(dS) K the same way. Registers a consumer thread at hd 128: dK and dV
+// 64 + 64, S^T and dP^T 32 + 32. Shared memory: two 64 x hd tiles kept
+// and NST stages of two (hd 128: 16 KB a tile, NST 2, 98 KB: two blocks
+// an SM; hd 64: NST 3, 66 KB). Launch bounds hold a thread to 128
+// registers at entry (two blocks an SM), which setmaxnreg then moves from
+// the producer warpgroup (24) to the consumer one (232).
+//
+// mma.sync bodies, bf16 at hd 32, 80, 96 and 160 (chosen in the same C
+// call; their redesign is ROADMAP.md queue 2): mma.sync.m16n8k16 with
+// ldmatrix from shared memory rows padded by 16 bytes, 4 warps of 16 rows
+// a block, 32-wide streamed tiles by cp.async in two stages: S^T = K Q^T
+// takes K as A and Q by ldmatrix; P^T (rounded to bf16 in registers) is
+// the A operand of dV += P^T dO, dO by ldmatrix.trans; the same for dP^T
+// = V dO^T and dK += dS^T Q; the dQ kernel is the forward's layout with
+// dO V^T beside Q K^T and dQ += dS K. At hd 160 the dK and dV
+// accumulators take 160 registers a thread.
 //
 // fp32 bodies (tests, compare_paths; not a training dtype): CUDA cores, 256
 // threads of 8-lane row groups, each thread two rows (keys in dK/dV,
@@ -66,6 +83,8 @@
 // Every instance of the forward's head dims (32, 64, 80, 96, 128, 160);
 // operands read through their strides, head dim contiguous, rows 16-byte
 // aligned (the wrapper checks); dq, dk, dv written in the inputs' dtype.
+
+#include <cuda.h>
 
 #include "common.cuh"
 
@@ -768,6 +787,636 @@ __global__ void __launch_bounds__(NT32) fa_bwd_dq_f32_kernel(
   }
 }
 
+// ------------------------------------------- 4. Hopper bf16 bodies (hd 64, 128)
+// wgmma with its operands in shared memory by TMA (128-byte swizzle) and a
+// producer warp; the header says why. HT rows a consumer warpgroup (keys
+// in dK/dV, queries in dQ) and a streamed tile; a tile's row of HD bf16 is
+// HD / 64 boxes of 128 bytes, each box HT rows x 128 bytes (8 KB), which the
+// swizzle's 8-row x 128-byte atoms tile with no padding.
+constexpr int HT = 64;
+constexpr int BOX = 64;    // hd columns a TMA box
+constexpr int HNT = 256;   // a producer and a consumer warpgroup
+// TMA ring depth of the streamed tiles: two at hd 128, where a third stage
+// would leave room for one block an SM (tools/ablate_kernels.py)
+template <int HD>
+constexpr int hopper_stages() { return HD == 128 ? 2 : 3; }
+
+template <int HD, int NST>
+struct HopperShape {
+  static constexpr int TILE = HT * HD * 2;  // bytes of a 64-row bf16 tile
+  static constexpr int BOXB = HT * BOX * 2;
+  // dK/dV: K, V, then NST x (Q, dO); dQ: Q, dO, then NST x (K, V); then
+  // (dK/dV) NST x (lse, D) floats; then the mbarriers
+  static constexpr int OFF_STAGE = 2 * TILE;
+  static constexpr int OFF_LD = OFF_STAGE + NST * 2 * TILE;
+  static constexpr int OFF_BAR = OFF_LD + NST * 2 * HT * 4;
+  static constexpr int BYTES = OFF_BAR + (2 * NST + 1) * 8 + 1024;  // + align
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_addr(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(count) : "memory");
+}
+// an arrival that also expects `bytes` of TMA copies in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
+// a box of a (B, S, H, hd) operand by TMA: columns [c, c + 64) of head h,
+// rows [s, s + 64) of batch row b (rows past S zero-filled), completing on
+// `bar`
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        uint64_t* bar, int c, int h, int s,
+                                        int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c),
+      "r"(h), "r"(s), "r"(b) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+// K-major operand (rows x hd, the product's depth along hd), its k-step kk
+// of 16 columns: box kk / 4, 32 bytes a step inside the box's 128-byte rows;
+// 8-row groups 1024 bytes apart
+template <int HD>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  return gmma_desc(tile + (kk / 4) * HT * BOX * 2 + (kk % 4) * 32, 16, 1024);
+}
+// MN-major operand (the product's depth along the tile's rows, N = hd),
+// its k-step kk of 16 rows; 8-row groups 1024 bytes apart, the next 64
+// columns one box (8 KB) on
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return gmma_desc(tile + kk * 16 * 128, HT * BOX * 2, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep registers that an asynchronous wgmma writes or reads in place until
+// its wait: the compiler sees them used here
+template <int N>
+__device__ __forceinline__ void keep(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void keep_frags(uint32_t (*a)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+
+// d (64 x 64) += A B, A (64 x 16) and B (16 x 64) K-major in shared
+// memory (descriptors da, db)
+__device__ __forceinline__ void wgmma_ss_64(float* d, uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 64) += A B, A (64 x 16) bf16 in registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B (16 x 64) MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_64(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128) += A B, A (64 x 16) bf16 in registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B (16 x 128) MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_128(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (N == 64)
+    wgmma_rs_64(d, a, db);
+  else
+    wgmma_rs_128(d, a, db);
+}
+
+// the four 16-column steps of a 64 x 64 accumulator (rows of each warp's
+// 16, in wgmma's accumulator layout) as bf16 A fragments
+__device__ __forceinline__ void to_frags(const float* s, uint32_t (*a)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// dK/dV: a block per (batch, KV head, 64-key tile). Warpgroup 0 is the
+// producer: its warp 0 loads K and V once, then walks the (query head,
+// 64-query tile) pairs that see the keys, putting Q and dO by TMA and lse
+// and D by its lanes into an NST-stage ring. Warpgroup 1 computes: per
+// tile S^T = K Q^T and dP^T = V dO^T (wgmma, both operands in shared
+// memory), P^T and dS^T in registers, then dV += T(P^T) dO and dK +=
+// T(dS^T) Q with P^T and dS^T as the register A operand; dK and dV stay
+// in its registers for the whole block.
+template <int HD, int NST>
+__global__ void __launch_bounds__(HNT, 2) fa_bwd_dkdv_hopper_kernel(
+    const __grid_constant__ CUtensorMap mq,
+    const __grid_constant__ CUtensorMap mk,
+    const __grid_constant__ CUtensorMap mv,
+    const __grid_constant__ CUtensorMap mdo, const BwdParams p) {
+  using C = HopperShape<HD, NST>;
+  using T = __nv_bfloat16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t* empty = full + NST;
+  uint64_t* kv_bar = empty + NST;
+  float* sLD = reinterpret_cast<float*>(smem + C::OFF_LD);
+
+  const int b = blockIdx.y / p.Hkv, hk = blockIdx.y % p.Hkv;
+  const int grp = p.H / p.Hkv;
+  const int k0 = blockIdx.x * HT;  // the first key tiles see the most
+  const int per_head = (query_end(p, k0) - k0 + HT - 1) / HT;
+  const int n_tiles = per_head * grp;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full + s, 32);    // the producer warp's lanes
+      mbar_init(empty + s, 128);  // the consumers
+    }
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // ---- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp != 0) return;
+    if (lane == 0) {
+      mbar_expect_tx(kv_bar, 2 * C::TILE);
+      for (int c = 0; c < HD / BOX; ++c) {
+        tma_box(smem + c * C::BOXB, &mk, kv_bar, BOX * c, hk, k0, b);
+        tma_box(smem + C::TILE + c * C::BOXB, &mv, kv_bar, BOX * c, hk, k0,
+                b);
+      }
+    }
+    for (int n = 0; n < n_tiles; ++n) {
+      const int st = n % NST;
+      if (n >= NST) mbar_wait(empty + st, ((n / NST) & 1) ^ 1);
+      const int h = hk * grp + n / per_head, q0 = k0 + (n % per_head) * HT;
+      float* ld = sLD + st * 2 * HT;
+      for (int i = lane; i < HT; i += 32) {
+        // a query past S gets lse = +inf: its P is 0
+        const int q = q0 + i;
+        const bool ok = q < p.S;
+        ld[i] = ok ? p.lse[row_index(p, b, h, q)] * LOG2E : INFINITY;
+        ld[HT + i] = ok ? p.delta[row_index(p, b, h, q)] : 0.f;
+      }
+      if (lane == 0) {
+        unsigned char* dst = smem + C::OFF_STAGE + st * 2 * C::TILE;
+        mbar_expect_tx(full + st, 2 * C::TILE);
+        for (int c = 0; c < HD / BOX; ++c) {
+          tma_box(dst + c * C::BOXB, &mq, full + st, BOX * c, h, q0, b);
+          tma_box(dst + C::TILE + c * C::BOXB, &mdo, full + st, BOX * c, h,
+                  q0, b);
+        }
+      } else {
+        mbar_arrive(full + st);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer: warp cw of the warpgroup holds keys wk0 + [0, 16)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  constexpr int NA = HD / 2;  // a 64 x HD accumulator's floats a thread
+  const int cw = warp - 4, g = lane >> 2, t = lane & 3;
+  const int wk0 = k0 + 16 * cw;
+  const uint32_t sK = smem_addr(smem), sV = sK + C::TILE;
+  float dk[NA], dv[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) dk[i] = dv[i] = 0.f;
+  const float sl2 = p.scale * LOG2E;
+  mbar_wait(kv_bar, 0);
+
+  for (int n = 0; n < n_tiles; ++n) {
+    const int st = n % NST;
+    mbar_wait(full + st, (n / NST) & 1);
+    const int q0 = k0 + (n % per_head) * HT;
+    const uint32_t sQ = sK + C::OFF_STAGE + st * 2 * C::TILE;
+    const uint32_t sO = sQ + C::TILE;
+    const float* lb = sLD + st * 2 * HT;
+    const float* db = lb + HT;
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_64(s, kmajor<HD>(sK, kk), kmajor<HD>(sQ, kk));
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_64(dp, kmajor<HD>(sV, kk), kmajor<HD>(sO, kk));
+    wg_commit();
+    wg_wait0();
+    keep<32>(s);
+    keep<32>(dp);
+
+    // P^T = 2^(S^T scale log2 e - lse log2 e) and dS^T = P^T o (dP^T - D);
+    // s[4 j + 2 r + e] is key wk0 + g + 8 r, query q0 + 8 j + 2 t + e
+    const bool edge = q0 < wk0 + 15 ||
+                      (p.window > 0 && q0 + HT - 1 - wk0 >= p.window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * t + e;
+        const float l2 = lb[c], dl = db[c];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * j + 2 * r + e;
+          float pv = fast_exp2(fmaf(s[i], sl2, -l2));
+          if (edge) {
+            const int dq = q0 + c - (wk0 + g + 8 * r);  // query - key
+            if (dq < 0 || (p.window > 0 && dq >= p.window)) pv = 0.f;
+          }
+          s[i] = pv;
+          dp[i] = pv * (dp[i] - dl);
+        }
+      }
+    uint32_t pa[4][4], sa[4][4];
+    to_frags(s, pa);
+    to_frags(dp, sa);
+    // dV += T(P^T) dO and dK += T(dS^T) Q, 16 queries a step
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(dv, pa[kk], mnmajor(sO, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(dk, sa[kk], mnmajor(sQ, kk));
+    wg_commit();
+    wg_wait0();
+    keep<NA>(dv);
+    keep<NA>(dk);
+    keep_frags(pa);
+    keep_frags(sa);
+    mbar_arrive(empty + st);
+  }
+
+  // dv[4 d + 2 r + e] is key wk0 + g + 8 r, column 8 d + 2 t + e
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = wk0 + g + 8 * r;
+    if (key >= p.S) continue;
+    T* dkr = static_cast<T*>(p.dk) + b * p.dk_sb + (int64_t)key * p.dk_ss +
+             hk * p.dk_sh + 2 * t;
+    T* dvr = static_cast<T*>(p.dv) + b * p.dv_sb + (int64_t)key * p.dv_ss +
+             hk * p.dv_sh + 2 * t;
+#pragma unroll
+    for (int d = 0; d < HD / 8; ++d) {
+      store2(dkr + 8 * d, dk[4 * d + 2 * r] * p.scale,
+             dk[4 * d + 2 * r + 1] * p.scale);
+      store2(dvr + 8 * d, dv[4 * d + 2 * r], dv[4 * d + 2 * r + 1]);
+    }
+  }
+}
+
+// dQ: a block per (batch, head, 64-query tile), the heaviest tiles first.
+// The producer loads Q and dO once, then the 64-key tiles from the
+// window's edge to the causal limit, K and V by TMA into the ring; the
+// consumer warpgroup runs S = Q K^T and dP = dO V^T, P and dS in
+// registers, and dQ += T(dS) K with dS as the register A operand.
+template <int HD, int NST>
+__global__ void __launch_bounds__(HNT, 2) fa_bwd_dq_hopper_kernel(
+    const __grid_constant__ CUtensorMap mq,
+    const __grid_constant__ CUtensorMap mk,
+    const __grid_constant__ CUtensorMap mv,
+    const __grid_constant__ CUtensorMap mdo, const BwdParams p) {
+  using C = HopperShape<HD, NST>;
+  using T = __nv_bfloat16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t* empty = full + NST;
+  uint64_t* q_bar = empty + NST;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const int q0 = qt * HT;
+  const int k_begin =
+      p.window > 0 ? max(0, q0 - p.window + 1) / HT * HT : 0;
+  const int k_end = min(p.S, q0 + HT);  // causal limit (Sq == Sk)
+  const int n_tiles = (k_end - k_begin + HT - 1) / HT;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 128);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x != 0) return;
+    mbar_expect_tx(q_bar, 2 * C::TILE);
+    for (int c = 0; c < HD / BOX; ++c) {
+      tma_box(smem + c * C::BOXB, &mq, q_bar, BOX * c, h, q0, b);
+      tma_box(smem + C::TILE + c * C::BOXB, &mdo, q_bar, BOX * c, h, q0, b);
+    }
+    for (int n = 0; n < n_tiles; ++n) {
+      const int st = n % NST;
+      if (n >= NST) mbar_wait(empty + st, ((n / NST) & 1) ^ 1);
+      unsigned char* dst = smem + C::OFF_STAGE + st * 2 * C::TILE;
+      const int k0 = k_begin + n * HT;
+      mbar_expect_tx(full + st, 2 * C::TILE);
+      for (int c = 0; c < HD / BOX; ++c) {
+        tma_box(dst + c * C::BOXB, &mk, full + st, BOX * c, hk, k0, b);
+        tma_box(dst + C::TILE + c * C::BOXB, &mv, full + st, BOX * c, hk, k0,
+                b);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  constexpr int NA = HD / 2;
+  const int cw = warp - 4, g = lane >> 2, t = lane & 3;
+  const int wq0 = q0 + 16 * cw;
+  const uint32_t sQ = smem_addr(smem), sO = sQ + C::TILE;
+  // rows g and g + 8 of the warp: lse (exp2 domain) and D
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = wq0 + g + 8 * r;
+    const bool ok = q < p.S;
+    l2[r] = ok ? p.lse[row_index(p, b, h, q)] * LOG2E : INFINITY;
+    dl[r] = ok ? p.delta[row_index(p, b, h, q)] : 0.f;
+  }
+  float dq[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) dq[i] = 0.f;
+  const float sl2 = p.scale * LOG2E;
+  mbar_wait(q_bar, 0);
+
+  for (int n = 0; n < n_tiles; ++n) {
+    const int st = n % NST;
+    mbar_wait(full + st, (n / NST) & 1);
+    const int k0 = k_begin + n * HT;
+    const uint32_t sKt = sQ + C::OFF_STAGE + st * 2 * C::TILE;
+    const uint32_t sVt = sKt + C::TILE;
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_64(s, kmajor<HD>(sQ, kk), kmajor<HD>(sKt, kk));
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_64(dp, kmajor<HD>(sO, kk), kmajor<HD>(sVt, kk));
+    wg_commit();
+    wg_wait0();
+    keep<32>(s);
+    keep<32>(dp);
+    // dS = P o (dP - D), P recomputed; s[4 j + 2 r + e] is query wq0 + g +
+    // 8 r, key k0 + 8 j + 2 t + e
+    const bool edge = k0 + HT - 1 > wq0 || k0 + HT > p.S ||
+                      (p.window > 0 && wq0 + 15 - k0 >= p.window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * r + e;
+          float pv = fast_exp2(fmaf(s[i], sl2, -l2[r]));
+          if (edge) {
+            const int key = k0 + 8 * j + 2 * t + e;
+            const int d = wq0 + g + 8 * r - key;  // query - key
+            if (d < 0 || key >= p.S || (p.window > 0 && d >= p.window))
+              pv = 0.f;
+          }
+          dp[i] = pv * (dp[i] - dl[r]);
+        }
+    uint32_t sa[4][4];
+    to_frags(dp, sa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(dq, sa[kk], mnmajor(sKt, kk));
+    wg_commit();
+    wg_wait0();
+    keep<NA>(dq);
+    keep_frags(sa);
+    mbar_arrive(empty + st);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = wq0 + g + 8 * r;
+    if (q >= p.S) continue;
+    T* row = static_cast<T*>(p.dq) + b * p.dq_sb + (int64_t)q * p.dq_ss +
+             h * p.dq_sh + 2 * t;
+#pragma unroll
+    for (int d = 0; d < HD / 8; ++d)
+      store2(row + 8 * d, dq[4 * d + 2 * r] * p.scale,
+             dq[4 * d + 2 * r + 1] * p.scale);
+  }
+}
+
+// cuTensorMapEncodeTiled, a driver call, through the runtime's entry point
+// (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the TMA map of a (B, S, heads, hd) bf16 operand with element strides
+// (batch, seq, head): dims (hd, heads, S, B), 64 x 1 x 64 x 1 boxes,
+// 128-byte swizzle, rows past S read as zeros
+int make_map(CUtensorMap* map, const void* base, int64_t sb, int64_t ss,
+             int64_t sh, int B, int S, int heads, int hd) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {BOX, 1, HT, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
+}
+
+// setmaxnreg moves registers inside a block's allocation: the producer
+// warpgroup's 128 threads drop to 24 and the consumer's rise to 232, which
+// needs 128 a thread at entry (256 x 128 = 128 x (24 + 232)). With fewer
+// the consumers' setmaxnreg.inc would wait for ever, so such a build is
+// refused before its first launch.
+template <typename Kernel>
+int check_entry_registers(Kernel kernel) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return e;
+  return a.numRegs >= 128 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+template <int HD>
+int launch_hopper(const BwdParams& p, int B, cudaStream_t stream) {
+  constexpr int NST = hopper_stages<HD>();
+  using C = HopperShape<HD, NST>;
+  CUtensorMap mq, mk, mv, mdo;
+  int err = make_map(&mq, p.q, p.q_sb, p.q_ss, p.q_sh, B, p.S, p.H, HD);
+  if (!err) err = make_map(&mk, p.k, p.k_sb, p.k_ss, p.k_sh, B, p.S, p.Hkv, HD);
+  if (!err) err = make_map(&mv, p.v, p.v_sb, p.v_ss, p.v_sh, B, p.S, p.Hkv, HD);
+  if (!err)
+    err = make_map(&mdo, p.dout, p.do_sb, p.do_ss, p.do_sh, B, p.S, p.H, HD);
+  if (err) return err;
+  static const int attr = [] {
+    int e = check_entry_registers(fa_bwd_dkdv_hopper_kernel<HD, NST>);
+    if (!e) e = check_entry_registers(fa_bwd_dq_hopper_kernel<HD, NST>);
+    if (!e)
+      e = cudaFuncSetAttribute(fa_bwd_dkdv_hopper_kernel<HD, NST>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::BYTES);
+    if (!e)
+      e = cudaFuncSetAttribute(fa_bwd_dq_hopper_kernel<HD, NST>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::BYTES);
+    return e;
+  }();
+  if (attr != cudaSuccess) return attr;
+  const dim3 dkdv_grid((p.S + HT - 1) / HT, B * p.Hkv);
+  fa_bwd_dkdv_hopper_kernel<HD, NST>
+      <<<dkdv_grid, HNT, C::BYTES, stream>>>(mq, mk, mv, mdo, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 dq_grid((p.S + HT - 1) / HT, B * p.H);
+  fa_bwd_dq_hopper_kernel<HD, NST>
+      <<<dq_grid, HNT, C::BYTES, stream>>>(mq, mk, mv, mdo, p);
+  return cudaGetLastError();
+}
+
 // ------------------------------------------------------------ launch
 template <typename Kernel>
 int launch(Kernel kernel, size_t smem, dim3 grid, int threads,
@@ -796,11 +1445,17 @@ int launch_hd(const BwdParams& p, int B, bool bf16, cudaStream_t stream) {
   const dim3 dkdv_grid((p.S + KB - 1) / KB, B * p.Hkv);
   const dim3 dq_grid((p.S + QR - 1) / QR, B * p.H);
   if (bf16) {
-    err = launch(fa_bwd_dkdv_bf16_kernel<HD>, BwdBf16Shape<HD>::DKDV,
-                 dkdv_grid, NT, p, stream);
-    if (err != cudaSuccess) return err;
-    return launch(fa_bwd_dq_bf16_kernel<HD>, BwdBf16Shape<HD>::DQ, dq_grid,
-                  NT, p, stream);
+    // hd 64 and 128 (the head dims that train on the card): the Hopper
+    // bodies; the others: mma.sync
+    if constexpr (HD == 64 || HD == 128) {
+      return launch_hopper<HD>(p, B, stream);
+    } else {
+      err = launch(fa_bwd_dkdv_bf16_kernel<HD>, BwdBf16Shape<HD>::DKDV,
+                   dkdv_grid, NT, p, stream);
+      if (err != cudaSuccess) return err;
+      return launch(fa_bwd_dq_bf16_kernel<HD>, BwdBf16Shape<HD>::DQ,
+                    dq_grid, NT, p, stream);
+    }
   }
   err = launch(fa_bwd_dkdv_f32_kernel<HD>, BwdF32Shape<HD>::DKDV, dkdv_grid,
                NT32, p, stream);

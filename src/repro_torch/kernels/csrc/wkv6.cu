@@ -314,42 +314,6 @@ __device__ __forceinline__ void mma3(float* c, const FragA& a,
   mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
 }
 
-// Sums over the N lanes of a group (N | 32, M and N powers of 2; `group`
-// the mask of the lanes calling, the group's own at least) of v[0..M),
-// reduce-scattered: with N <= M, the group's lane l ends with the sums of
-// entries [l M/N, (l+1) M/N) in v[0..M/N), after M - M/N shuffles, where
-// a butterfly of each entry would take M log2 N; with N > M, lanes l and
-// l + M hold entry l % M in v[0].
-template <int M, int N>
-__device__ __forceinline__ void reduce_scatter(float* v, int lane,
-                                               unsigned group) {
-  if constexpr (N > M) {
-#pragma unroll
-    for (int j = 0; j < M; ++j)
-      v[j] += __shfl_xor_sync(group, v[j], N / 2);
-    reduce_scatter<M, N / 2>(v, lane, group);
-  } else if constexpr (N > 1) {
-    constexpr int half = M / 2, o = N / 2;
-    const bool upper = lane & o;
-#pragma unroll
-    for (int j = 0; j < half; ++j) {
-      const float send = upper ? v[j] : v[j + half];
-      const float keep = upper ? v[j + half] : v[j];
-      v[j] = keep + __shfl_xor_sync(group, send, o);
-    }
-    reduce_scatter<half, o>(v, lane, group);
-  }
-}
-
-// sum over N neighbouring lanes (N a power of 2; `group` as above)
-template <int N>
-__device__ __forceinline__ float sum_lanes(float x, unsigned group) {
-#pragma unroll
-  for (int o = N / 2; o > 0; o >>= 1)
-    x += __shfl_xor_sync(group, x, o);
-  return x;
-}
-
 // N floats from shared memory, 16 bytes a load
 template <int N>
 __device__ __forceinline__ void load_row(float* dst, const float* src) {

@@ -466,8 +466,10 @@ def _flash_attention_backward_cuda(q, k, v, out, lse, dout, window):
     tensors in the inputs' dtype, D a scratch buffer."""
     _check_backward(q, k, v, out, lse, dout, window)
     _check_kernel(q, k, v)
-    if _misaligned(dout):
-        dout = dout.contiguous()
+    # a broadcast dout (a stride of 0) is copied too: the Hopper bodies
+    # read it through a TMA map of its strides
+    if _misaligned(dout) or 0 in dout.stride():
+        dout = dout.clone(memory_format=torch.contiguous_format)
     _check_operand("out", out, q)
     _check_operand("dout", dout, q)
     if lse.dtype != torch.float32 or not lse.is_contiguous() \

@@ -5,21 +5,21 @@
                  nothing falls back), the kernel's plain version for a CPU
                  tensor. The model always uses this. With grad mode on,
                  flash attention goes through ``FlashAttentionFn``, whose
-                 backward is ``flash_attention_bwd``; WKV6 and the Mamba
-                 scan go through ``Wkv6Fn`` and ``MambaScanFn`` (backward
-                 ``wkv6_bwd``, ``mamba_scan_bwd``) when an input also
-                 requires grad. Those train from a zero state: a state
-                 given under autograd raises.
+                 backward is ``flash_attention_backward``; WKV6 and the
+                 Mamba scan go through ``Wkv6Fn`` and ``MambaScanFn``
+                 (backward ``wkv6_backward``, ``mamba_scan_backward``)
+                 when an input also requires grad. Those train from a
+                 zero state: a state given under autograd raises.
   * "reference"  the plain version on any device, only when a caller asks
                  for it by name (``chip_smoke.py`` does, to hold the kernels
                  against it on the card).
 
-On the card the two Functions' backwards are kernels too: flash
+On the card the three Functions' backwards are kernels too: flash
 attention's ``flash_attention_backward`` (from the forward's output and
-row log-sum-exp, which its training forward keeps) and the Mamba scan's
-``mamba_scan_backward``; ``flash_attention_bwd`` and ``mamba_scan_bwd``
-are their plain versions, which the CPU runs. ``wkv6_bwd`` is torch
-operations on both.
+row log-sum-exp, which its training forward keeps), WKV6's
+``wkv6_backward`` and the Mamba scan's ``mamba_scan_backward``;
+``flash_attention_bwd``, ``wkv6_bwd`` and ``mamba_scan_bwd`` are their
+plain versions, which the CPU runs.
 
 Each attention and WKV6 function takes the JAX kernel's 3-D layout, or
 the model's 4-D layout, which the kernel reads in place through its
@@ -71,6 +71,7 @@ KERNELS = {"flash_attention": _flash.flash_attention,
            "wkv6": _wkv6.wkv6,
            "mamba_scan": _mamba.mamba_scan,
            "flash_attention_backward": _flash.flash_attention_backward,
+           "wkv6_backward": _wkv6.wkv6_backward,
            "mamba_scan_backward": _mamba.mamba_scan_backward}
 
 
@@ -248,7 +249,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         return _wkv6.wkv6_plain(r, k, v, w, u, state)
     if _training("wkv6", state, r, k, v, w, u):
         # the kernel's forward under autograd, on either device, so its
-        # backward (wkv6_bwd) is the one that runs
+        # backward (wkv6_backward) is the one that runs
         return _wkv6.Wkv6Fn.apply(r, k, v, w, u)
     return _wkv6.wkv6(r, k, v, w, u, state)
 

@@ -20,12 +20,13 @@ be contiguous), so views of the model's projections go in without a copy.
 Training goes through ``Wkv6Fn``: its forward launches the kernel once per
 ``TIME_CHUNK`` tokens from the previous chunk's state and keeps the state
 at each chunk boundary, as JAX's ``chunked_time_scan`` keeps them
-(``repro/models/ssm.py:30-47``); its backward, ``wkv6_bwd``, recomputes
-each chunk from its saved start state in the chunked form of
-``wkv6_chunked`` (torch operations), takes autograd's gradient of it and
-carries the state's gradient from chunk to chunk backwards
-(``_remat.py``). JAX has no backward kernel for the recurrence either:
-its gradient is XLA's of the scan.
+(``repro/models/ssm.py:30-47``); its backward is ``wkv6_backward``: on the
+card the backward kernel ``csrc/wkv6_bwd.cu`` (its header says how it
+works), on the CPU its plain version ``wkv6_bwd``, which recomputes each
+chunk from its saved start state in the chunked form of ``wkv6_chunked``
+(torch operations), takes autograd's gradient of it and carries the
+state's gradient from chunk to chunk backwards (``_remat.py``). JAX has
+no backward kernel for the recurrence: its gradient is XLA's of the scan.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from ._remat import TIME_CHUNK, acc_dtype, remat_backward
-from .flash_attention import _check_operand
+from .flash_attention import _check_operand, _misaligned
 
 HEAD_DIMS = (16, 32, 64)
 # training: the tokens of a sub-chunk in the backward's chunked form
@@ -295,11 +296,150 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (*grads, du)
 
 
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("wkv6_bwd")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.wkv6_bwd_launch.argtypes = [vp] * 6 + [
+        ctypes.POINTER(ctypes.c_int64)] + [vp] * 10 + [i32] * 5 + [vp]
+    lib.wkv6_bwd_launch.restype = i32
+    lib.wkv6_bwd_sub_chunk.restype = i32
+    return lib
+
+
+def _check_backward(r, k, v, w, u, starts, dy, dstate, chunk) -> None:
+    b, s, h, hd = r.shape
+    _check_shapes(r, k, v, w, u, torch.empty((b, h, hd, hd), device="meta"))
+    if chunk < 1 or starts.shape != (b, -(-s // chunk), h, hd, hd) \
+            or dy.shape != r.shape \
+            or (dstate is not None and dstate.shape != (b, h, hd, hd)):
+        raise ValueError(f"wkv6_backward: starts {tuple(starts.shape)}, dy "
+                         f"{tuple(dy.shape)} for r {tuple(r.shape)}, chunk "
+                         f"{chunk}")
+
+
+torch.library.define(
+    "repro_torch::wkv6_backward",
+    "(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor starts, "
+    "Tensor dy, Tensor? dstate, SymInt chunk) -> (Tensor, Tensor, Tensor, "
+    "Tensor, Tensor)")
+
+
+def _wkv6_backward_cuda(r, k, v, w, u, starts, dy, dstate, chunk):
+    """The backward kernel's launch (``csrc/wkv6_bwd.cu``, three kernels in
+    one C call), as the CUDA implementation of
+    ``repro_torch::wkv6_backward``. Its scratch (the state every 16 steps,
+    the carried chunk gradients) is allocated here; du comes per (batch
+    row, chunk) and is summed here, in a fixed order."""
+    _check_backward(r, k, v, w, u, starts, dy, dstate, chunk)
+    b, s, h, hd = r.shape
+    lib = _bwd_lib()
+    sub = lib.wkv6_bwd_sub_chunk()
+    if r.dtype != torch.float32 or hd not in HEAD_DIMS or chunk % sub:
+        raise ValueError(f"wkv6_backward: unsupported {r.dtype}, hd={hd}, "
+                         f"chunk {chunk}")
+    if _misaligned(dy):
+        dy = dy.contiguous()
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("dy", dy)):
+        _check_operand(name, t, r)
+    if u.device != r.device or u.dtype != r.dtype:
+        raise ValueError("wkv6_backward: u must be fp32 on r's device")
+    u = u.contiguous()
+    starts = starts.to(torch.float32).contiguous()
+    if dstate is not None:
+        dstate = dstate.to(torch.float32).contiguous()
+    nc = starts.shape[1]
+    new = functools.partial(torch.empty, dtype=torch.float32,
+                            device=r.device)
+    grads = [new((b, s, h, hd)) for _ in range(4)]
+    ckpt = new((b, -(-s // sub), h, hd, hd))
+    acc = new((b, nc, h, hd, hd))
+    fade, du_part = new((b, nc, h, hd)), new((b, nc, h, hd))
+    strides = (ctypes.c_int64 * 16)(
+        *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *w.stride()[:3],
+        *dy.stride()[:3], u.stride(0))
+    err = lib.wkv6_bwd_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+        dy.data_ptr(), u.data_ptr(), strides, starts.data_ptr(),
+        None if dstate is None else dstate.data_ptr(), ckpt.data_ptr(),
+        acc.data_ptr(), fade.data_ptr(), *(g.data_ptr() for g in grads),
+        du_part.data_ptr(), b, h, s, hd, chunk,
+        torch.cuda.current_stream(r.device).cuda_stream)
+    _build.check(lib, err, "wkv6_backward")
+    _WKV6_BACKWARD.launches += 1
+    return (*grads, du_part.sum((0, 1)))
+
+
+torch.library.impl("repro_torch::wkv6_backward", "cuda",
+                   _wkv6_backward_cuda)
+
+
+@torch.library.register_fake("repro_torch::wkv6_backward")
+def _(r, k, v, w, u, starts, dy, dstate, chunk):
+    _check_backward(r, k, v, w, u, starts, dy, dstate, chunk)
+    return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                 for t in (r, k, v, w, u))
+
+
+def _backward_flops(tokens: int, heads: int, hd: int) -> int:
+    """fp32 flops of the backward over ``tokens`` (batch x steps) of
+    ``heads`` heads: the vjp of the token step, dS <- w dS + r dy^T (3
+    hd^2), dr = S dy, dk = dS v, dv = dS^T k and dw = the row sums of dS o
+    S (2 hd^2 each), 11 hd^2, and the forward it recomputes from the kept
+    states, 5 hd^2 (``wkv6``'s formula)."""
+    return 16 * hd * hd * heads * tokens
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6_backward)
+def _(r_shape, *args, out_shape=None, **kwargs):
+    b, s, h, hd = r_shape
+    return _backward_flops(b * s, h, hd)
+
+
+wkv6_backward_op = torch.ops.repro_torch.wkv6_backward.default
+
+
+def backward_reference_bytes(r, k, v, w, u, starts, dy, dstate,
+                             chunk) -> int:
+    """HBM bytes of the plain body of JAX's gradient of its scan
+    (``chunked_time_scan`` around ``wkv_step``, ``repro/models/ssm.py:30-47``,
+    ``:97-103``): each chunk's forward recomputed from its kept state, each
+    step reading and writing the fp32 state (B, H, hd, hd) and keeping it
+    for the backward (one more write); the backward reading each kept
+    state and reading and writing the state's gradient (3); per step the
+    forward's r, k, v, w, y (``reference_bytes``) and dy, dr, dk, dv, dw,
+    all (B, H, hd) fp32; u and du once."""
+    b, s, h, hd = r.shape
+    return 4 * s * (7 * b * h * hd * hd + 10 * b * h * hd) + 8 * u.numel()
+
+
+def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor, starts: torch.Tensor,
+                  dy: torch.Tensor, dstate: Optional[torch.Tensor] = None,
+                  chunk: int = TIME_CHUNK) -> tuple[torch.Tensor, ...]:
+    """The gradients ``wkv6_bwd`` returns, (dr, dk, dv, dw, du), from the
+    same arguments. A CPU tensor takes the plain version (``wkv6_bwd``); a
+    CUDA tensor launches the kernel, or raises; a meta tensor takes the
+    operator's fake implementation."""
+    if r.device.type == "cpu":
+        return wkv6_bwd(r, k, v, w, u, starts, dy, dstate, chunk)
+    if r.device.type not in ("cuda", "meta"):
+        raise ValueError(f"wkv6_backward: no kernel for {r.device}")
+    return wkv6_backward_op(r, k, v, w, u, starts, dy, dstate, chunk)
+
+
+wkv6_backward.launches = 0
+# the operator counts on the wrapper as defined here, also while a caller
+# has the module's name patched (a spy, a timing span)
+_WKV6_BACKWARD = wkv6_backward
+
+
 class Wkv6Fn(torch.autograd.Function):
     """``wkv6`` from zeros under autograd, for training: the forward is
     ``wkv6_chunk_states`` (the kernel on the card, the plain version on the
     CPU), which keeps the state at each ``TIME_CHUNK`` boundary; the
-    backward is ``wkv6_bwd``. Returns (y, final state)."""
+    backward is ``wkv6_backward`` (the backward kernel on the card, its
+    plain version ``wkv6_bwd`` on the CPU). Returns (y, final state)."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u):
@@ -309,4 +449,4 @@ class Wkv6Fn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        return wkv6_bwd(*ctx.saved_tensors, dy, dstate)
+        return wkv6_backward(*ctx.saved_tensors, dy, dstate)

@@ -204,7 +204,8 @@ def _kernel_ops() -> dict:
     runs in fp32 whatever its inputs' dtype; the training forward counts
     as the forward kernel it launches; a backward kernel's flops go to
     its Function's backward (``FlashAttentionFnBackward``,
-    ``MambaScanFnBackward``), where the bounds count them."""
+    ``Wkv6FnBackward``, ``MambaScanFnBackward``), where the bounds count
+    them."""
     from .kernels import decode_attention, flash_attention, mamba_scan, wkv6
     ops = torch.ops.repro_torch
     return {ops.flash_attention:
@@ -220,6 +221,8 @@ def _kernel_ops() -> dict:
             ops.flash_attention_backward:
             ("flash_attention_backward",
              flash_attention.backward_reference_bytes, None, True),
+            ops.wkv6_backward:
+            ("wkv6_backward", wkv6.backward_reference_bytes, None, True),
             ops.mamba_scan_backward:
             ("mamba_scan_backward", mamba_scan.backward_reference_bytes,
              torch.float32, True)}

@@ -187,12 +187,13 @@ def test_backward_flop_formulas_count_the_kernels_work():
         (14 * 8 + 15 + 7 * 8 + 10) * 16 * 2 * 300
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "hymba-1.5b", "rwkv6-3b"])
 def test_counter_files_backward_kernels_under_their_functions(arch):
     """A reduced train step on meta: each backward kernel launches once a
     layer and microbatch, its flops land in its Function's backward region
-    (attention: 7/2 of the forward's, in the inputs' dtype; the scan: its
-    formula, in fp32), and the forwards stay in their own regions."""
+    (attention: 7/2 of the forward's, in the inputs' dtype; WKV6 and the
+    scan: their formulas, in fp32), and the forwards stay in their own
+    regions."""
     cfg = dataclasses.replace(get_arch(arch).reduced(), n_layers=2,
                               grad_accum=2)
     opt = OptConfig(name=cfg.optimizer, warmup_steps=2, total_steps=10)
@@ -206,11 +207,18 @@ def test_counter_files_backward_kernels_under_their_functions(arch):
     got = counter.take()
     calls = {k: v["calls"] for k, v in got.kernels.items()}
     per = cfg.n_layers * cfg.grad_accum
-    assert calls["flash_attention"] == 2 * per
-    assert calls["flash_attention_backward"] == per
     region = got.flops_by_region
-    assert region["FlashAttentionFnBackward"] * 4 == \
-        region["flash_attention"] * 7
+    if cfg.attn_free:
+        heads, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        assert calls["wkv6_backward"] == per
+        assert region["Wkv6FnBackward"] == \
+            16 * hd * hd * heads * 4 * 96 * cfg.n_layers
+        assert "wkv6_backward" not in region
+    else:
+        assert calls["flash_attention"] == 2 * per
+        assert calls["flash_attention_backward"] == per
+        assert region["FlashAttentionFnBackward"] * 4 == \
+            region["flash_attention"] * 7
     if cfg.hybrid_ssm:
         di, n = cfg.n_heads * cfg.hd, cfg.ssm_state
         assert calls["mamba_scan_backward"] == per

@@ -468,13 +468,77 @@ def test_mamba_scan_backward_kernel_matches_plain(cuda, n, s, dtype, given):
         close_to_max(g, w, tol, name)
 
 
+# WKV6's backward kernel against wkv6_bwd from the same kept states: every
+# head dim, S within a 256-step chunk and off the kernel's 16-step
+# sub-chunks, with a ragged last chunk and across five, decays in the
+# model's range or with exact 0s and 1s, dstate None or given
+WKV_BWD_CASES = [(hd, s, decays, given)
+                 for hd, s in ((16, 40), (32, 300), (64, 4 * 256 + 44))
+                 for decays in ("inputs", "0 and 1")
+                 for given in (False, True)]
+
+
+def wkv6_backward_inputs(cuda, b, s, h, hd, decays, seed):
+    """r, k, v, w, u on the card from wkv_inputs, w with exact 0s and 1s
+    mixed in if asked, and dy."""
+    r, k, v, w, u = (torch.from_numpy(x) for x in
+                     wkv_inputs((b, s, h, hd), seed))
+    rng = np.random.default_rng(seed + 1)
+    if decays == "0 and 1":
+        pick = torch.from_numpy(rng.uniform(size=w.shape))
+        w = torch.where(pick < 0.05, 0.0, torch.where(pick > 0.9, 1.0, w))
+    dy = torch.from_numpy(rng.standard_normal((b, s, h, hd))
+                          .astype(np.float32))
+    return [x.to(cuda) for x in (r, k, v, w, u)], dy.to(cuda)
+
+
+@pytest.mark.parametrize("hd,s,decays,given", WKV_BWD_CASES)
+def test_wkv6_backward_kernel_matches_plain(cuda, hd, s, decays, given):
+    """The backward kernel against its plain version (``wkv6_bwd``) from
+    the same kept states, dy and dstate: dr, dk, dv, dw, du in fp32 within
+    2e-5 of each gradient's largest magnitude; one launch, and the same
+    bits from a second run."""
+    from repro_torch.kernels import wkv6 as wk
+    inputs, dy = wkv6_backward_inputs(cuda, 2, s, 3, hd, decays, hd + s)
+    dstate = torch.randn((2, 3, hd, hd), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(s)) \
+        if given else None
+    _, _, starts = wk.wkv6_chunk_states(*inputs)
+    before = wk.wkv6_backward.launches
+    got = wk.wkv6_backward(*inputs, starts, dy, dstate)
+    again = wk.wkv6_backward(*inputs, starts, dy, dstate)
+    torch.cuda.synchronize()
+    assert wk.wkv6_backward.launches == before + 2
+    want = wk.wkv6_bwd(*inputs, starts, dy, dstate)
+    for name, g, a, w in zip(("dr", "dk", "dv", "dw", "du"), got, again,
+                             want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, a), name
+        close_to_max(g, w, 2e-5, name)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_backward_gives_the_same_bits_twice(cuda, hd):
+    """The attention backward sums in a fixed order: two runs on the same
+    inputs give the same bits (bf16, GQA 4x, a window)."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, dout = attention_train_inputs(cuda, 4, 700, hd, "bfloat16", hd)
+    out, lse = fa.flash_attention_train(q, k, v, 300)
+    first = fa.flash_attention_backward(q, k, v, out, lse, dout, 300)
+    second = fa.flash_attention_backward(q, k, v, out, lse, dout, 300)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
 def test_backward_kernels_raise_rather_than_falling_back(cuda):
     """CUDA tensors the backward kernels do not take raise and launch
     nothing: a head dim outside HEAD_DIMS, Sq != Sk; a state width outside
     STATE_DIMS, di not a multiple of 8, a chunk that is not a multiple of
-    the kernel's tile."""
+    the kernel's tile; WKV6 at hd 48, in fp64, with a chunk that is not a
+    multiple of its 16-step sub-chunk."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import wkv6 as wk
     q, k, v, dout = attention_train_inputs(cuda, 2, 70, 48, "bfloat16", 0)
     lse = torch.zeros((2, 4, 70), device=cuda)
     before = fa.flash_attention_backward.launches
@@ -492,10 +556,22 @@ def test_backward_kernels_raise_rather_than_falling_back(cuda):
         with pytest.raises(ValueError):
             ms.mamba_scan_backward(*inputs, starts, inputs[4], None, chunk)
     assert ms.mamba_scan_backward.launches == before
+    before = wk.wkv6_backward.launches
+    for hd, dtype, chunk in ((48, torch.float32, 256),
+                             (64, torch.float64, 256),
+                             (64, torch.float32, 100)):
+        inputs, dy = wkv6_backward_inputs(cuda, 2, 70, 2, hd, "inputs", 0)
+        inputs, dy = [x.to(dtype) for x in inputs], dy.to(dtype)
+        starts = torch.zeros((2, -(-70 // chunk), 2, hd, hd), device=cuda,
+                             dtype=dtype)
+        with pytest.raises(ValueError):
+            wk.wkv6_backward(*inputs, starts, dy, None, chunk)
+    assert wk.wkv6_backward.launches == before
 
 
 @pytest.mark.parametrize("name", ["flash_attention_train",
                                   "flash_attention_backward",
+                                  "wkv6_backward",
                                   "mamba_scan_backward"])
 def test_training_operators_pass_opcheck(cuda, name):
     """``torch.library.opcheck`` of the training forward's and the backward
@@ -512,6 +588,13 @@ def test_training_operators_pass_opcheck(cuda, name):
             out, lse = fa.flash_attention_train(q, k, v, 64)
             op, args = fa.flash_attention_backward_op, (q, k, v, out, lse,
                                                         dout, 64)
+    elif name == "wkv6_backward":
+        from repro_torch.kernels import wkv6 as wk
+        inputs, dy = wkv6_backward_inputs(cuda, 2, 300, 2, 64, "inputs", 2)
+        starts = wk.wkv6_chunk_states(*inputs)[2]
+        dstate = torch.randn((2, 2, 64, 64), device=cuda,
+                             generator=torch.Generator(cuda).manual_seed(0))
+        op, args = wk.wkv6_backward_op, (*inputs, starts, dy, dstate, 256)
     else:
         *inputs, _ = mamba_on(cuda, 2, 300, 64, 16, 4, "bfloat16",
                               carried=False)

@@ -334,7 +334,7 @@ def test_reduced_family_cell_on_a_fake_mesh(family, kind):
         want.add("mamba_scan")
     if kind == "train":
         want |= {f"{k}_backward" for k in want
-                 if k in ("flash_attention", "mamba_scan")}
+                 if k in ("flash_attention", "wkv6", "mamba_scan")}
     assert set(row["kernel_calls"]) == want
     if kind == "train":
         assert row["microbatches_counted"] == 2

@@ -2,10 +2,10 @@
 
   python3 tools/ablate_kernels.py [flash_attention] [decode_attention] [wkv6]
                                   [mamba_scan] [flash_attention_bwd]
-                                  [mamba_scan_bwd]
+                                  [wkv6_bwd] [mamba_scan_bwd]
 
 Builds variants of the named sources under src/repro_torch/kernels/csrc/
-(all six when none is named), each with one part of the kernel taken
+(all seven when none is named), each with one part of the kernel taken
 out, or one tile size changed, by a text edit, into build/ablate/ (one
 nvcc per variant, in parallel). A variant that takes a part out gives a
 wrong output; only its time counts. Each is timed at chip_smoke.py's
@@ -14,8 +14,10 @@ decode: B=4 x Hkv=8, grp 4, 544 slots, and batch 1 against 32,768 slots;
 bf16; WKV6's chunked body: B=4, S=1024, H=40, hd=64, fp32; the fused
 Mamba scan: hymba's B=4, S=4096, di=1600, n=16, bf16; the backward
 kernels at the training microbatches: attention's at qwen3-8b's B=2,
-S=4096, 32/8 heads of 128, the scan's at hymba-1.5b's B=4, S=4096, both
-bf16), beside the unedited kernel, in two rounds, with chip_smoke.py's
+S=4096, 32/8 heads of 128 and hymba-1.5b's B=4, 25/5 heads of 64, window
+1024, bf16; WKV6's at rwkv6-3b's B=2, S=4096, H=40, hd=64, fp32, the
+model's decays; the scan's at hymba-1.5b's B=4, S=4096, bf16), beside
+the unedited kernel, in two rounds, with chip_smoke.py's
 time_ms. Flash decode
 is also timed on the same cache laid out head-major (B, Hkv, S, hd), which
 the kernel reads through its strides. Each WKV6 variant's relative L2
@@ -169,18 +171,110 @@ VARIANTS = {
     },
     "flash_attention_bwd": {
         "as shipped": [],
+        "the mma.sync bodies at hd 64 and 128": [
+            ("    if constexpr (HD == 64 || HD == 128) {",
+             "    if constexpr (false) {")],
         "no dQ kernel": [
-            ("    return launch(fa_bwd_dq_bf16_kernel<HD>, BwdBf16Shape<HD>::DQ, "
-             "dq_grid,\n                  NT, p, stream);",
-             "    return cudaSuccess;")],
+            ("  fa_bwd_dq_hopper_kernel<HD, NST>\n"
+             "      <<<dq_grid, HNT, C::BYTES, stream>>>(mq, mk, mv, mdo, p);",
+             "  (void)dq_grid;")],
         "no dK/dV kernel": [
-            ("    err = launch(fa_bwd_dkdv_bf16_kernel<HD>, "
-             "BwdBf16Shape<HD>::DKDV,\n                 dkdv_grid, NT, p, "
-             "stream);", "    err = cudaSuccess;")],
+            ("  fa_bwd_dkdv_hopper_kernel<HD, NST>\n"
+             "      <<<dkdv_grid, HNT, C::BYTES, stream>>>(mq, mk, mv, mdo, p);",
+             "  (void)dkdv_grid;")],
         "no delta kernel": [
             ("    fa_bwd_delta_kernel<__nv_bfloat16>\n"
              "        <<<delta_grid, 32 * DELTA_WARPS, 0, stream>>>(p, rows);",
              "    (void)rows;")],
+        "TMA ring of 2 stages at every hd": [
+            ("return HD == 128 ? 2 : 3;", "return HD == 128 ? 2 : 2;")],
+        "TMA ring of 3 stages at every hd (hd 128: one block an SM)": [
+            ("return HD == 128 ? 2 : 3;", "return HD == 128 ? 3 : 3;")],
+        "TMA ring of 4 stages at every hd": [
+            ("return HD == 128 ? 2 : 3;", "return HD == 128 ? 4 : 4;")],
+        "no setmaxnreg (consumers keep 128 registers)": [
+            ('    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\\n");\n',
+             ""),
+            ('  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\\n");\n',
+             "")],
+        "dQ: no producer warp (the first consumer thread loads each tile "
+        "once its stage is released)": [
+            ("    for (int n = 0; n < n_tiles; ++n) {\n"
+             "      const int st = n % NST;\n"
+             "      if (n >= NST) mbar_wait(empty + st, ((n / NST) & 1) ^ 1);\n"
+             "      unsigned char* dst = smem + C::OFF_STAGE + st * 2 * C::TILE;\n",
+             "    for (int n = 0; n < 0; ++n) {\n"
+             "      const int st = n % NST;\n"
+             "      unsigned char* dst = smem + C::OFF_STAGE + st * 2 * C::TILE;\n"),
+            ("  mbar_wait(q_bar, 0);\n\n"
+             "  for (int n = 0; n < n_tiles; ++n) {\n",
+             "  mbar_wait(q_bar, 0);\n"
+             "  auto issue = [&](int n) {\n"
+             "    const int st = n % NST, k0 = k_begin + n * HT;\n"
+             "    unsigned char* dst = smem + C::OFF_STAGE + st * 2 * C::TILE;\n"
+             "    mbar_expect_tx(full + st, 2 * C::TILE);\n"
+             "    for (int c = 0; c < HD / BOX; ++c) {\n"
+             "      tma_box(dst + c * C::BOXB, &mk, full + st, BOX * c, hk, k0, b);\n"
+             "      tma_box(dst + C::TILE + c * C::BOXB, &mv, full + st, BOX * c,\n"
+             "              hk, k0, b);\n"
+             "    }\n"
+             "  };\n"
+             "  if (threadIdx.x == 128)\n"
+             "    for (int n = 0; n < NST && n < n_tiles; ++n) issue(n);\n"
+             "  for (int n = 0; n < n_tiles; ++n) {\n"),
+            ("    keep<NA>(dq);\n    keep_frags(sa);\n"
+             "    mbar_arrive(empty + st);\n",
+             "    keep<NA>(dq);\n    keep_frags(sa);\n"
+             "    mbar_arrive(empty + st);\n"
+             "    if (threadIdx.x == 128 && n + NST < n_tiles) {\n"
+             "      mbar_wait(empty + st, (n / NST) & 1);\n"
+             "      issue(n + NST);\n"
+             "    }\n")],
+    },
+    "wkv6_bwd": {
+        "as shipped": [],
+        "kernel 1 alone (states every 16 steps, G_c, A_c)": [
+            ("  wkv6_bwd_carry_kernel<<<",
+             "  if (false) wkv6_bwd_carry_kernel<<<"),
+            ("  wkv6_bwd_grads_kernel<HD><<<",
+             "  if (false) wkv6_bwd_grads_kernel<HD><<<")],
+        "kernel 2 alone (the carry over chunks)": [
+            ("  wkv6_bwd_states_kernel<HD><<<",
+             "  if (false) wkv6_bwd_states_kernel<HD><<<"),
+            ("  wkv6_bwd_grads_kernel<HD><<<",
+             "  if (false) wkv6_bwd_grads_kernel<HD><<<")],
+        "kernel 3 alone (the sub-chunks' gradients)": [
+            ("  wkv6_bwd_states_kernel<HD><<<",
+             "  if (false) wkv6_bwd_states_kernel<HD><<<"),
+            ("  wkv6_bwd_carry_kernel<<<",
+             "  if (false) wkv6_bwd_carry_kernel<<<")],
+        "kernel 3 at one block an SM (no register cap, no spills)": [
+            ("__launch_bounds__(GradShape<HD>::NT, 2)",
+             "__launch_bounds__(GradShape<HD>::NT, 1)")],
+        "kernel 3 without Z and X (its products with S0 and dS)": [
+            ("    for (int j = 0; j < HD; j += 4) {\n"
+             "      float dy4[4], v4[4];\n",
+             "    for (int j = 0; j < 0; j += 4) {\n"
+             "      float dy4[4], v4[4];\n")],
+        "kernel 3 without dv's product with dS": [
+            ("      for (int i = 0; i < HD; i += 4) {\n"
+             "        float ke4[4];\n",
+             "      for (int i = 0; i < 0; i += 4) {\n"
+             "        float ke4[4];\n")],
+        "kernel 3 without the dS update": [
+            ("      for (int tt = 0; tt < L; ++tt) {\n"
+             "        const float rdv",
+             "      for (int tt = 0; tt < 0; ++tt) {\n"
+             "        const float rdv")],
+        "kernel 3 without the per-row walks (up and down)": [
+            ("        if (tp > t) {\n", "        if (false) {\n"),
+            ("      for (int s = t - 1; s >= 0; --s) {\n",
+             "      for (int s = -1; s >= 0; --s) {\n")],
+        "kernel 3 without the triple sum T4's inner walk": [
+            ("        for (int tp = t + 1; tp < L; ++tp) {\n"
+             "          float rp[4], wp[4];\n",
+             "        for (int tp = L; tp < L; ++tp) {\n"
+             "          float rp[4], wp[4];\n")],
     },
     "mamba_scan_bwd": {
         "as shipped": [],
@@ -217,6 +311,7 @@ LOADERS = {"flash_attention": ("flash_attention", "_lib"),
            "decode_attention": ("decode_attention", "_lib"),
            "wkv6": ("wkv6", "_lib"), "mamba_scan": ("mamba_scan", "_lib"),
            "flash_attention_bwd": ("flash_attention", "_bwd_lib"),
+           "wkv6_bwd": ("wkv6", "_bwd_lib"),
            "mamba_scan_bwd": ("mamba_scan", "_bwd_lib")}
 
 
@@ -352,13 +447,25 @@ def main() -> int:
                  1, 17, device="cuda").float()).expand(1600, 16).contiguous(),
              torch.ones(1600, device="cuda"),
              torch.zeros((4, 1600, 16), device="cuda"))
+    attention = {}
     if "flash_attention_bwd" in kernels:
-        aq, ak, av, ado = (cs.randn(gen, shape, bf16, scale) for shape, scale
-                           in (((2, 4096, 32, 128), 1.5),
-                               ((2, 4096, 8, 128), 1.5),
-                               ((2, 4096, 8, 128), 1.0),
-                               ((2, 4096, 32, 128), 1.0)))
-        aout, alse = fam.flash_attention_train(aq, ak, av)
+        # qwen3-8b's training microbatch (hd 128) and hymba-1.5b's (hd 64,
+        # a 1024-token window)
+        for label, b, h, hkv, hd, window in (
+                ("qwen3-8b", 2, 32, 8, 128, None),
+                ("hymba-1.5b", 4, 25, 5, 64, 1024)):
+            aq, ak, av, ado = (cs.randn(gen, shape, bf16, scale)
+                               for shape, scale in (
+                                   ((b, 4096, h, hd), 1.5),
+                                   ((b, 4096, hkv, hd), 1.5),
+                                   ((b, 4096, hkv, hd), 1.0),
+                                   ((b, 4096, h, hd), 1.0)))
+            attention[label] = (aq, ak, av, *fam.flash_attention_train(
+                aq, ak, av, window), ado, window)
+    if "wkv6_bwd" in kernels:
+        wkv_bwd_in = cs.decay(cs.wkv6_train_inputs(gen, 2, 4096))
+        wkv_bwd_dy = cs.randn(gen, (2, 4096, 40, 64), torch.float32, 1.0)
+        wkv_bwd_starts = wkm.wkv6_chunk_states(*wkv_bwd_in)[2]
     if "mamba_scan_bwd" in kernels:
         scan_in = cs.mamba_train_inputs(gen, 4, 4096, bf16)
         scan_dout = cs.randn(gen, (4, 4096, 1600), bf16, 1.0)
@@ -369,9 +476,15 @@ def main() -> int:
         for (kernel, name), lib in libs.items():
             setattr(mods[kernel], LOADERS[kernel][1], lambda lib=lib: lib)
             if kernel == "flash_attention_bwd":
-                times.setdefault(f"attention backward: {name}", []).append(
-                    cs.time_ms(lambda: fam.flash_attention_backward(
-                        aq, ak, av, aout, alse, ado), 10))
+                for label, args in attention.items():
+                    times.setdefault(f"attention backward, {label}: {name}",
+                                     []).append(cs.time_ms(
+                        lambda: fam.flash_attention_backward(*args), 10))
+                continue
+            if kernel == "wkv6_bwd":
+                times.setdefault(f"wkv6 backward: {name}", []).append(
+                    cs.time_ms(lambda: wkm.wkv6_backward(
+                        *wkv_bwd_in, wkv_bwd_starts, wkv_bwd_dy), 10))
                 continue
             if kernel == "mamba_scan_bwd":
                 times.setdefault(f"mamba scan backward: {name}", []).append(

@@ -14,9 +14,9 @@ and time_ms:
 * the fused Mamba scan's backward kernel (``mamba_scan_backward``) beside
   its torch-ops plain version (``mamba_scan_bwd``) at hymba-1.5b's (B=4,
   S=4096, di=1600, n=16, bf16);
-* WKV6's torch-ops backward (``wkv6_bwd``, no kernel yet) at rwkv6-3b's
-  (B=2, S=4096, H=40, hd=64, fp32) for each sub-chunk length T of its
-  chunked form and each number of steps recomputed at once.
+* WKV6's backward kernel (``wkv6_backward``) beside its torch-ops plain
+  version (``wkv6_bwd``) at rwkv6-3b's (B=2, S=4096, H=40, hd=64, fp32),
+  with the model's decays.
 
 Each variant runs in two rounds, in the order A, B, ..., then reversed,
 so that a difference between them can be told from the spread, each with
@@ -25,15 +25,12 @@ the peak memory it allocates beyond its inputs.
 
 from __future__ import annotations
 
-import functools
 import sys
 from pathlib import Path
 
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-SUBS = (8, 16, 32)
-STEPS = (256, 1024, 4096)
 
 
 def rounds(cs, what: str, variants: dict, iters: int = 3) -> None:
@@ -54,27 +51,6 @@ def rounds(cs, what: str, variants: dict, iters: int = 3) -> None:
         cs.log(f"  {what}, {label}: " + ", ".join(
             f"{ms:.4f} ms" for ms, _ in runs)
             + f"; {max(p for _, p in runs):.2f} GB beyond its inputs")
-
-
-def wkv6_variants(mod, args: list) -> dict:
-    """wkv6_bwd: the shipped setting, each other T at it, and each other
-    number of steps at the shipped T."""
-    real = mod.wkv6_chunked
-    settings = {f"T={mod.SUB_CHUNK}, {mod.RECOMPUTE_STEPS} steps at once "
-                f"(as shipped)": (mod.SUB_CHUNK, mod.RECOMPUTE_STEPS)}
-    settings.update({f"T={t}": (t, mod.RECOMPUTE_STEPS) for t in SUBS
-                     if t != mod.SUB_CHUNK})
-    settings.update({f"{n} steps at once": (mod.SUB_CHUNK, n) for n in STEPS
-                     if n != mod.RECOMPUTE_STEPS})
-
-    def run(sub, steps):
-        mod.wkv6_chunked = functools.partial(real, sub=sub)
-        try:
-            return mod.wkv6_bwd(*args, steps=steps)
-        finally:
-            mod.wkv6_chunked = real
-    return {label: functools.partial(run, *st)
-            for label, st in settings.items()}
 
 
 def main() -> int:
@@ -127,8 +103,12 @@ def main() -> int:
     dy = cs.randn(gen, (b, s, cs.RWKV_HEADS, cs.RWKV_HD), torch.float32,
                   1.0)
     starts = wk.wkv6_chunk_states(*inputs)[2]
-    rounds(cs, f"wkv6_bwd, B={b}, S={s}, H={cs.RWKV_HEADS}, hd={cs.RWKV_HD},"
-           f" fp32", wkv6_variants(wk, [*inputs, starts, dy]))
+    rounds(cs, f"WKV6 backward, B={b}, S={s}, H={cs.RWKV_HEADS}, "
+           f"hd={cs.RWKV_HD}, fp32", {
+               "wkv6_backward (the kernel)":
+               lambda: wk.wkv6_backward(*inputs, starts, dy),
+               "wkv6_bwd (torch ops)":
+               lambda: wk.wkv6_bwd(*inputs, starts, dy)})
     print(smi)
     return 0
 
