@@ -99,8 +99,10 @@ Phases; each raises on failure, so any failure exits non-zero:
      bf16), each with a mutant that does not carry the state's gradient
      across a chunk (its backward kernel run chunk by chunk); each
      backward kernel against its plain version (wkv6_bwd, with the
-     model's decays and with exact 0s and 1s, two runs bit-equal;
-     mamba_scan_bwd); each forward and backward timed at its model's
+     model's decays and with exact 0s and 1s; mamba_scan_bwd in bf16;
+     then both at B=1 over a ragged 1068 steps from a given final-state
+     gradient, and the scan at n=8 in fp32; two runs bit-equal in every
+     case); each forward and backward timed at its model's
      training microbatch; rwkv6-3b and hymba-1.5b trained at full width
      and full depth as qwen3-8b is (their WKV6, Mamba scan, flash
      attention and backward kernel launches a step asserted, the
@@ -406,7 +408,8 @@ def environment() -> str:
                                             "96, 160)"),
             ("HGMMA", "flash_attention_bwd", "Hopper bodies (hd 64, 128)"),
             ("UTMALDG", "flash_attention_bwd", "Hopper bodies' TMA tiles"),
-            ("HMMA", "wkv6", "chunked body's 3xTF32 products")):
+            ("HMMA", "wkv6", "chunked body's 3xTF32 products"),
+            ("HMMA", "wkv6_bwd", "3xTF32 state products")):
         if not counts[op][name]:
             raise AssertionError(f"{name}'s library has no {op}: its {what} "
                                  f"do not run as designed")
@@ -2012,22 +2015,22 @@ def wkv6_model(r, k, v, x, u, impl: str):
     return ops.wkv6(r, k, v, torch.exp(-torch.exp(x)), u, impl=impl)
 
 
-def mamba_train_inputs(gen, b: int, s: int, dtype) -> list:
-    """hymba-1.5b's fused-scan inputs (di=1600, n=16), as check_mamba_scan
-    draws them: dt_raw ~ N(-2, 2), dt_bias ~ N(0, 0.3), b, c, x, z ~ N(0,
-    1) in ``dtype`` (b and c the halves of one projection, z the second
-    half of another), a_log = log(1..n) + N(0, 0.3), d_skip ~ 1 + N(0,
-    0.5)."""
+def mamba_train_inputs(gen, b: int, s: int, dtype, n: int = MAMBA_N
+                       ) -> list:
+    """hymba-1.5b's fused-scan inputs (di=1600, n=16 unless given), as
+    check_mamba_scan draws them: dt_raw ~ N(-2, 2), dt_bias ~ N(0, 0.3), b,
+    c, x, z ~ N(0, 1) in ``dtype`` (b and c the halves of one projection,
+    z the second half of another), a_log = log(1..n) + N(0, 0.3), d_skip
+    ~ 1 + N(0, 0.5)."""
     f32 = torch.float32
-    bc = randn(gen, (b, s, 2 * MAMBA_N), dtype, 1.0)
+    bc = randn(gen, (b, s, 2 * n), dtype, 1.0)
     zz = randn(gen, (b, s, 2 * MAMBA_DI), dtype, 1.0)
-    a_log = torch.log(torch.arange(1, MAMBA_N + 1, device="cuda").float()) \
-        + randn(gen, (MAMBA_DI, MAMBA_N), f32, 0.3)
+    a_log = torch.log(torch.arange(1, n + 1, device="cuda").float()) \
+        + randn(gen, (MAMBA_DI, n), f32, 0.3)
     return [(randn(gen, (b, s, MAMBA_DI), f32, 2.0) - 2.0).to(dtype),
-            randn(gen, (MAMBA_DI,), f32, 0.3), bc[..., :MAMBA_N],
-            bc[..., MAMBA_N:], randn(gen, (b, s, MAMBA_DI), dtype, 1.0),
-            zz[..., MAMBA_DI:], a_log,
-            1.0 + randn(gen, (MAMBA_DI,), f32, 0.5)]
+            randn(gen, (MAMBA_DI,), f32, 0.3), bc[..., :n], bc[..., n:],
+            randn(gen, (b, s, MAMBA_DI), dtype, 1.0), zz[..., MAMBA_DI:],
+            a_log, 1.0 + randn(gen, (MAMBA_DI,), f32, 0.5)]
 
 
 def check_recurrence_backward() -> dict:
@@ -2095,6 +2098,7 @@ def check_recurrence_backward() -> dict:
                 raise AssertionError(f"{what} d {name}: {ek} vs plain "
                                      f"{ep}")
     del truth, inputs
+    check_backward_edges()
     return time_recurrences_training()
 
 
@@ -2173,25 +2177,8 @@ def time_recurrences_training() -> dict:
     fwd_f, bwd_f = mamba_flops(b * s, MAMBA_DI, MAMBA_N)
     bbound, bby = bound_ms(2 * n_bytes + out.numel() * 2 + starts.numel() * 4,
                            {torch.float32: bwd_f})
-    got = ms.mamba_scan_backward(*inputs, starts, dout)
-    want = ms.mamba_scan_bwd(*inputs, starts, dout)
-    bwd_err = 0.0
-    names = ("dt_raw", "dt_bias", "b", "c", "x", "z", "a_log", "d_skip")
-    for name, g, w in zip(names, got, want):
-        e, rel = max_err(g, w), rel_err(g, w)
-        scale = w.float().abs().max().item()
-        log(f"  mamba_scan_backward B={b} S={s} bf16 vs its plain version, "
-            f"d {name}: max_abs_err {e:.3e} (limit {TOL[torch.bfloat16]} x "
-            f"max |plain| {scale:.3e}), rel L2 {rel:.3e} (limit "
-            f"{REL_TOL[torch.bfloat16]})")
-        if e > TOL[torch.bfloat16] * scale or rel > REL_TOL[torch.bfloat16] \
-                or g.dtype != w.dtype \
-                or not bool(torch.isfinite(g.float()).all()):
-            raise AssertionError(f"mamba_scan_backward d {name}: kernel "
-                                 f"disagrees with its plain version ({e}, "
-                                 f"{rel})")
-        bwd_err = max(bwd_err, e)
-    del got, want
+    bwd_err = check_mamba_scan_backward(f"B={b} S={s} bf16", inputs, starts,
+                                        dout)
     fwd = time_ms(lambda: ms.mamba_chunk_states(*inputs), 10)
     plain = time_ms(lambda: ms.mamba_scan_plain(*inputs), 1, warmup=1)
     t_bwd = time_ms(lambda: ms.mamba_scan_backward(*inputs, starts, dout),
@@ -2220,15 +2207,17 @@ def time_recurrences_training() -> dict:
     return {"entries": entries, "bwd_ms": bwd}
 
 
-def check_wkv6_backward(what: str, inputs: list, starts, dy) -> float:
+def check_wkv6_backward(what: str, inputs: list, starts, dy,
+                        dstate=None) -> float:
     """The WKV6 backward kernel against its plain version (``wkv6_bwd``)
-    on the same inputs, kept states and dy: dr, dk, dv, dw and du each
-    within REL_TOL (rel L2) and TOL of its largest magnitude, finite; and
-    a second run gives the same bits. Returns the largest max_abs_err."""
+    on the same inputs, kept states, dy and final-state gradient (None:
+    zeros): dr, dk, dv, dw and du each within REL_TOL (rel L2) and TOL of
+    its largest magnitude, finite; and a second run gives the same bits.
+    Returns the largest max_abs_err."""
     from repro_torch.kernels import wkv6 as wk
-    got = wk.wkv6_backward(*inputs, starts, dy)
-    again = wk.wkv6_backward(*inputs, starts, dy)
-    want = wk.wkv6_bwd(*inputs, starts, dy)
+    got = wk.wkv6_backward(*inputs, starts, dy, dstate)
+    again = wk.wkv6_backward(*inputs, starts, dy, dstate)
+    want = wk.wkv6_bwd(*inputs, starts, dy, dstate)
     worst = 0.0
     for name, g, a, w in zip(("dr", "dk", "dv", "dw", "du"), got, again,
                              want):
@@ -2246,6 +2235,65 @@ def check_wkv6_backward(what: str, inputs: list, starts, dy) -> float:
                                  f"{rel}) or with itself ({same})")
         worst = max(worst, e)
     return worst
+
+
+def check_mamba_scan_backward(what: str, inputs: list, starts, dout,
+                              dh=None) -> float:
+    """The scan's backward kernel against its plain version
+    (``mamba_scan_bwd``) on the same inputs, kept states, dout and
+    final-state gradient (None: zeros): each gradient in the plain
+    version's dtype, within REL_TOL (rel L2) and TOL of its largest
+    magnitude for the inputs' dtype, finite; and a second run gives the
+    same bits. Returns the largest max_abs_err."""
+    from repro_torch.kernels import mamba_scan as ms
+    got = ms.mamba_scan_backward(*inputs, starts, dout, dh)
+    again = ms.mamba_scan_backward(*inputs, starts, dout, dh)
+    want = ms.mamba_scan_bwd(*inputs, starts, dout, dh)
+    dtype, worst = inputs[0].dtype, 0.0
+    names = ("dt_raw", "dt_bias", "b", "c", "x", "z", "a_log", "d_skip")
+    for name, g, a, w in zip(names, got, again, want):
+        e, rel = max_err(g, w), rel_err(g, w)
+        scale = w.float().abs().max().item()
+        same = torch.equal(g, a)
+        log(f"  mamba_scan_backward {what} vs its plain version, d {name}: "
+            f"max_abs_err {e:.3e} (limit {TOL[dtype]} x max |plain| "
+            f"{scale:.3e}), rel L2 {rel:.3e} (limit {REL_TOL[dtype]}), two "
+            f"runs bit-equal: {same}")
+        if e > TOL[dtype] * scale or rel > REL_TOL[dtype] \
+                or g.dtype != w.dtype or not same \
+                or not bool(torch.isfinite(g.float()).all()):
+            raise AssertionError(f"mamba_scan_backward {what} d {name}: "
+                                 f"kernel disagrees with its plain version "
+                                 f"({e}, {rel}) or with itself ({same})")
+        worst = max(worst, e)
+    return worst
+
+
+def check_backward_edges() -> None:
+    """Both backward kernels at B=1 over a ragged 1068 steps (four chunks
+    and 44 steps: a ragged last chunk, sub-chunk and time tile) from a
+    given final-state gradient, WKV6 in fp32 with the model's decays and
+    the scan in bf16 at full width; the scan also at n=8 in fp32 (B=2,
+    S=300), each against its plain version, two runs bit-equal."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import wkv6 as wk
+    gen = torch.Generator("cuda").manual_seed(8)
+    s = 4 * wk.TIME_CHUNK + 44
+    inputs = decay(wkv6_train_inputs(gen, 1, s))
+    dy = randn(gen, (1, s, RWKV_HEADS, RWKV_HD), torch.float32, 1.0)
+    dstate = randn(gen, (1, RWKV_HEADS, RWKV_HD, RWKV_HD), torch.float32,
+                   1.0)
+    check_wkv6_backward(f"B=1 S={s}, dstate given", inputs,
+                        wk.wkv6_chunk_states(*inputs)[2], dy, dstate)
+    del inputs, dy, dstate
+    for b, s, dtype, n in ((1, s, torch.bfloat16, MAMBA_N),
+                           (2, 300, torch.float32, 8)):
+        inputs = mamba_train_inputs(gen, b, s, dtype, n)
+        dout = randn(gen, (b, s, MAMBA_DI), dtype, 1.0)
+        dh = randn(gen, (b, MAMBA_DI, n), torch.float32, 1.0)
+        check_mamba_scan_backward(f"B={b} S={s} n={n} {str(dtype)[6:]}, dh "
+                                  f"given", inputs,
+                                  ms.mamba_chunk_states(*inputs)[2], dout, dh)
 
 
 def train_counts(cfg, seq: int = TRAIN_SEQ) -> dict:

@@ -1,7 +1,9 @@
 // Shared helpers for the kernels: element conversion, paired loads and
 // stores, tile copies from device to shared memory (plain and cp.async),
 // the ldmatrix / mma.sync operations of the bf16 tensor-core path, and
-// the TF32 mma.sync with its hi/lo split (WKV6's 3xTF32 products).
+// the TF32 mma.sync with its hi/lo split, split fragments and their
+// loaders from shared memory (WKV6's 3xTF32 products, forward and
+// backward).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -191,6 +193,60 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
       "{%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- 3xTF32: an operand split as x = hi + lo, and the product of split
+// fragments accumulated as lo*hi + hi*lo + hi*hi in fp32 (~22 bits per
+// operand; lo*lo, below 2^-22 relative, dropped). WKV6's forward and
+// backward run their fp32 products this way.
+struct FragA { uint32_t hi[4], lo[4]; };
+struct FragB { uint32_t hi[2], lo[2]; };
+
+__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2,
+                                        float a3) {
+  FragA f;
+  split_tf32(a0, f.hi[0], f.lo[0]);
+  split_tf32(a1, f.hi[1], f.lo[1]);
+  split_tf32(a2, f.hi[2], f.lo[2]);
+  split_tf32(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+__device__ __forceinline__ FragB frag_b(float b0, float b1) {
+  FragB f;
+  split_tf32(b0, f.hi[0], f.lo[0]);
+  split_tf32(b1, f.hi[1], f.lo[1]);
+  return f;
+}
+// c += a * b in 3xTF32: the small terms first, lo * lo dropped
+__device__ __forceinline__ void mma3(float* c, const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
+}
+
+// Fragments of fp32 operands in shared memory, `p` at the tile's first
+// row and column (g = lane / 4, tq = lane % 4). A 16 x 8 A tile stored
+// row-major ([m][k], row stride ld: conflict-free for ld = 4 mod 32) or
+// k-major ([k][m]: ld = 8 or 24 mod 32); an 8 x 8 B tile stored k-major
+// ([k][n]: ld = 8 or 24 mod 32) or n-major ([n][k]: ld = 4 mod 32).
+__device__ __forceinline__ FragA lda_rm(const float* p, int ld, int g,
+                                        int tq) {
+  return frag_a(p[g * ld + tq], p[(g + 8) * ld + tq], p[g * ld + tq + 4],
+                p[(g + 8) * ld + tq + 4]);
+}
+__device__ __forceinline__ FragA lda_km(const float* p, int ld, int g,
+                                        int tq) {
+  return frag_a(p[tq * ld + g], p[tq * ld + g + 8], p[(tq + 4) * ld + g],
+                p[(tq + 4) * ld + g + 8]);
+}
+__device__ __forceinline__ FragB ldb_km(const float* p, int ld, int g,
+                                        int tq) {
+  return frag_b(p[tq * ld + g], p[(tq + 4) * ld + g]);
+}
+__device__ __forceinline__ FragB ldb_nm(const float* p, int ld, int g,
+                                        int tq) {
+  return frag_b(p[g * ld + tq], p[g * ld + tq + 4]);
 }
 
 // 2^x by the SFU in one instruction (flushes denormal results to 0;

@@ -1,7 +1,7 @@
 // Mamba selective scan backward (training) for Hopper, sm_90a: the
 // gradient of the fused scan of mamba_scan.cu (dt's softplus, the scan,
 // the skip term and the gating) from the states kept at every chunk's
-// start, in one launch.
+// start, chunk-parallel, in one C call.
 //
 // No Pallas kernel stands behind it: the JAX package trains through XLA's
 // gradient of chunked_time_scan (repro/models/ssm.py:30-47) around `step`
@@ -34,45 +34,64 @@
 // fp32 work. As in the forward, no tensor cores: the decay differs from
 // state to state.
 //
-// Layout: the forward's chunked body (mamba_scan.cu: tiles of T = 64
+// The adjoint is linear in its value at a chunk's end: E_start(c) = F_c o
+// E_end(c) + H_c, F_c the product of A over the chunk and H_c the chunk's
+// own part from dy c. Four kernels in one C call; the two that walk the
+// steps run a block per (8 channels, batch row, chunk), 16x the blocks of
+// one per (channels, batch row) at 256-step chunks, so no wave tail and
+// no idle card at B = 1:
+//   1. chunk: walks its chunk's tiles forward from the kept start state:
+//      the forward pass (the state at every tile's start, kept in device
+//      memory, 26 MB at hymba's microbatch, so that kernel 3 runs no
+//      forward pass) and the composition (F_c, H_c) of the adjoint's steps;
+//   2. carry: a thread per (batch row, channel, state) walks the chunks
+//      backwards from dh, E_end(c-1) = F_c E_end(c) + H_c, in place of H;
+//   3. grads: walks its chunk's tiles backwards from E_end(c), each tile
+//      from its kept start state (the backward pass below), and sums db and
+//      dc over channels through the cluster's shared memory;
+//   4. reduce: sums the clusters' db/dc partials in order.
+// Layout of a tile, as the forward's chunked body (mamba_scan.cu): T = 64
 // steps, L = 8 lanes of R = 8 consecutive steps each per (channel, state
-// group), G = 2 state groups a channel, 8 channels a block of 4 warps, one
-// batch row a block). A block walks its chunks from the last to the first
-// and, in each, runs two passes over the chunk's tiles:
-//   forward, tile by tile from the kept start state: each lane composes
-//     its R steps (A, U) in registers, the L lanes scan across by warp
-//     shuffles (the forward's inclusive scan), and the state at every
-//     tile's start is kept in shared memory;
-//   backward, tile by tile from the last: from its start state each lane
-//     rebuilds its R states; the adjoint E has the same associative form
-//     run backwards (E_t = A_t E_{t+1} + A_t dy_t c_t), so each lane
-//     composes its steps from the last, the L lanes scan with shuffles
-//     down, and each lane then walks its steps backwards once, summing
-//     every gradient term in registers. E at the tile's first step is
-//     carried to the tile before, and from the chunk's first tile to the
-//     previous chunk's last, inside the kernel.
+// group), G = 2 state groups a channel, 8 channels a block of 4 warps.
+// Each lane composes its R steps (A, U) in registers and the L lanes scan
+// across by warp shuffles; the adjoint has the same associative form run
+// backwards (E_t = A_t E_{t+1} + A_t dy_t c_t), scanned with shuffles down.
+// In kernel 3 each lane then rebuilds its R states and walks its steps
+// backwards once, summing every gradient term in registers; E at the
+// tile's first step is carried to the tile before inside the block.
 // Sums: d dt and dx over the states inside a thread and over the G groups
 // by one shuffle; d a_log over a lane's steps in registers, its L lanes by
 // shuffles and the tiles in shared memory; d_skip and dt_bias over a
-// thread's steps in registers; all three written per batch row, which the
-// wrapper sums over the rows. db and dc sum over channels: the two
-// channels of a warp by a shuffle, the block's four warps through a slice
-// of shared memory each (plain stores, summed in the epilogue: shared-
-// memory float atomics, which compile to compare-and-swap loops, took 10.8
-// of 13.1 ms, tools/ablate_kernels.py), and the blocks by a second kernel
-// in the same C call, which sums each block's fp32 partial (B, S, n) in
-// block order and writes db and dc in the model's dtype: deterministic,
-// where fp32 atomics across blocks summed in another order each run (the
-// card's sharded and unsharded hymba steps then parted by 1.4e-4, over
-// chip_smoke.py's 1e-4). The partials are 2 x di / 8 x B x S x n fp32
-// (0.42 GB at hymba's microbatch), written once and read once. The
-// tile's raw inputs go into shared memory by cp.async one tile ahead, as
-// in the forward. Three blocks an SM: 168 registers a thread, and 73 KB
-// of shared memory a block (bf16).
+// thread's steps in registers; all three written per (batch row, chunk),
+// which the wrapper sums. db and dc sum over channels: the two channels of
+// a warp by a shuffle, the block's four warps through a slice of shared
+// memory each (plain stores: shared-memory float atomics, compare-and-swap
+// loops, took 10.8 of 13.1 ms in the first design), then the blocks of a
+// thread-block cluster (CS neighbouring channel blocks, the largest of 8,
+// 4, 2, 1 that divides the launch's channel blocks, as a rank's share under
+// a mesh may not be a multiple of 8 blocks) through distributed shared
+// memory: each block sums its warps' slices into one (step, state) tile,
+// and each rank sums a CS-th of it over the cluster's ranks, four
+// elements a load, in a fixed order and writes one fp32
+// partial per cluster (di / 8 / CS, B, S, n: 52 MB at hymba's microbatch,
+// where one per block took 0.42 GB); kernel 4 sums the partials in order
+// and writes db and dc in the model's dtype. Deterministic: no
+// atomics (float atomics across blocks summed in another order each run,
+// and the card's sharded and unsharded hymba steps parted by 1.4e-4, over
+// chip_smoke.py's 1e-4). Cluster barriers are split (arrive, then wait
+// after independent work: the epilogue runs while the peers catch up).
+// Remote shared memory is read four floats a load after each block has
+// summed its own warps: 64 scalar remote loads a thread a tile made a
+// call 6.7 ms, against 2.4 ms this way. What the time is spent on: PERF.md, tools/ablate_kernels.py
+// mamba_scan_bwd.
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -97,26 +116,28 @@ struct BwdParams {
   const void* z;
   const float* a_log;    // (di, n) contiguous
   const float* d_skip;   // (di)
-  const float* starts;   // (B, chunks, di, n) contiguous: kept states
+  const float* starts;   // (B, NC, di, n) contiguous: kept states
   const void* dout;      // (B, S, di)
   const float* dh;       // (B, di, n) contiguous, or null (zeros)
   void* d_dt;            // (B, S, di) contiguous, the model's dtype
   void* d_x;
   void* d_z;
-  float* part_b;         // (di / CH, B, S, n) fp32: each block's db, dc
+  float* part_b;         // (di / CH / CS, B, S, n) fp32: a cluster's db, dc
   float* part_c;
   void* d_b;             // (B, S, n) contiguous, the model's dtype
   void* d_c;
-  float* p_bias;         // (B, di): per batch row, summed by the wrapper
-  float* p_skip;
-  float* p_alog;         // (B, di, n)
+  float* p_bias;         // (B, NC, di): per (batch row, chunk), summed by
+  float* p_skip;         //   the wrapper
+  float* p_alog;         // (B, NC, di, n)
+  float* tiles;          // (B, ceil(S / T), di, n): the state at each tile
+  float* fh;             // (2, B, NC, di, n): F_c; H_c, then E_end(c)
   int64_t dt_sb, dt_ss;  // element strides (batch, step)
   int64_t b_sb, b_ss;
   int64_t c_sb, c_ss;
   int64_t x_sb, x_ss;
   int64_t z_sb, z_ss;
   int64_t do_sb, do_ss;
-  int S, di, chunk;
+  int B, S, di, chunk, NC, NTILE, CS;
 };
 
 // F.softplus with beta 1 and threshold 20, as the forward
@@ -182,8 +203,17 @@ __device__ __forceinline__ void load_steps(const float* row, int l,
   }
 }
 
+// split cluster barrier: arrive (releasing this thread's shared-memory
+// writes to the cluster), later wait (acquiring the others')
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 template <typename TIn, int N>
-struct BwdShape {
+struct Shape {
   static constexpr int V = Vec<TIn>::N;  // elements a 16-byte vector
   static constexpr int NS = N / G;       // states a lane
   static constexpr int LY = CH + 1;      // y's rows: conflict-free stores
@@ -191,131 +221,336 @@ struct BwdShape {
   static_assert(CH % V == 0 && N % V == 0, "vector shape");
   static_assert(2 * (4 * T * CH + 2 * T * N) * sizeof(TIn) / 4 >= NT * 8,
                 "the final sums reuse the raw buffers");
-  // shared memory, in floats: two raw buffers (dt, x, z, dout as T x CH
-  // and b, c as T x N, in the model's dtype); dt, u = dt x and dy (CH x T,
-  // permuted); b and c (N x T, permuted); y, sum_j w a and sum_j G b
-  // (T x LY); db and dc of the tile, a slice a warp (NW x N x LB,
-  // permuted); the bias, the skip, a (CH x N), d a_log's sums (CH x N),
-  // two buffers of the adjoint carry (CH x N); then the kept state at each
-  // tile's start of a chunk (tiles x CH x N)
+  // a raw buffer: dt, x, z, dout as T x CH and b, c as T x N, in the
+  // model's dtype, in floats
   static constexpr int RAW = (4 * T * CH + 2 * T * N) * sizeof(TIn) / 4;
-  static constexpr int FIXED = 2 * RAW + 3 * CH * T + 2 * N * T +
-                               3 * T * LY + 2 * NW * N * LB + 2 * CH +
-                               4 * CH * N;
-  static size_t bytes(int tiles) {
-    return size_t(FIXED + tiles * CH * N) * 4;
-  }
+  // shared memory of both walking kernels, in floats: two raw buffers; dt,
+  // u = dt x and dy (CH x T, permuted); b and c (N x T, permuted); the
+  // bias, the skip (CH); a (CH x N); then each kernel's own
+  static constexpr int OFF_DT = 2 * RAW;
+  static constexpr int OFF_U = OFF_DT + CH * T;
+  static constexpr int OFF_DY = OFF_U + CH * T;
+  static constexpr int OFF_B = OFF_DY + CH * T;
+  static constexpr int OFF_C = OFF_B + N * T;
+  static constexpr int OFF_BIAS = OFF_C + N * T;
+  static constexpr int OFF_SKIP = OFF_BIAS + CH;
+  static constexpr int OFF_A = OFF_SKIP + CH;
+  static constexpr int OFF_OWN = OFF_A + CH * N;
+  static_assert(OFF_BIAS - OFF_B >= 2 * T * N && OFF_B % 4 == 0,
+                "kernel 3's block sums of db and dc lie on b's and c's rows");
+  // kernel 1: the state at the tile's start and the next's (2 x CH x N),
+  // F and H of the chunk so far (CH x N each)
+  static constexpr int CHUNK_FLOATS = OFF_OWN + 4 * CH * N;
+  // kernel 3: y, sum_j w a and sum_j G b (T x LY); db and dc of the tile, a
+  // slice a warp (NW x N x LB, permuted); d a_log's sums (CH x N); two
+  // buffers of the adjoint carry and of the tile's start state (CH x N)
+  static constexpr int OFF_Y = OFF_OWN;
+  static constexpr int OFF_AW = OFF_Y + T * LY;
+  static constexpr int OFF_GB = OFF_AW + T * LY;
+  static constexpr int OFF_DB = OFF_GB + T * LY;
+  static constexpr int OFF_DC = OFF_DB + NW * N * LB;
+  static constexpr int OFF_DA = OFF_DC + NW * N * LB;
+  static constexpr int OFF_E = OFF_DA + CH * N;
+  static constexpr int OFF_HS = OFF_E + 2 * CH * N;
+  static constexpr int GRADS_FLOATS = OFF_HS + 2 * CH * N;
 };
 
-// the job n of a block: chunks from the last, each a forward pass over its
-// tiles and then a backward pass from its last tile. `ntc` tiles a chunk,
-// `ntl` in the last chunk (S may end inside it).
-__device__ __forceinline__ void job_of(int n, int nch, int ntc, int ntl,
-                                       int& ci, int& tt, bool& bwd) {
-  int r, nt;
-  if (n < 2 * ntl) {
-    ci = nch - 1;
-    r = n;
-    nt = ntl;
-  } else {
-    n -= 2 * ntl;
-    ci = nch - 2 - n / (2 * ntc);
-    r = n % (2 * ntc);
-    nt = ntc;
-  }
-  bwd = r >= nt;
-  tt = bwd ? 2 * nt - 1 - r : r;
-}
-
+// The pieces both walking kernels share: the block's channels, batch row
+// and chunk, its tiles, and a tile's copies and conversion.
 template <typename TIn, int N>
-__global__ void __launch_bounds__(NT, 3)
-    mamba_scan_bwd_kernel(const BwdParams p) {
-  using C = BwdShape<TIn, N>;
-  constexpr int V = C::V;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* sDt = smem + 2 * C::RAW;
-  float* sU = sDt + CH * T;
-  float* sDy = sU + CH * T;
-  float* sB = sDy + CH * T;
-  float* sC = sB + N * T;
-  float* sY = sC + N * T;        // y summed over the states (no skip)
-  float* sAW = sY + T * C::LY;   // sum_j w a
-  float* sGB = sAW + T * C::LY;  // sum_j G b
-  float* sDB = sGB + T * C::LY;  // db of the tile, a warp's two channels
-  float* sDC = sDB + NW * N * C::LB;
-  float* sBias = sDC + NW * N * C::LB;
-  float* sSkip = sBias + CH;
-  float* sA = sSkip + CH;     // a[ch][j]
-  float* sDa = sA + CH * N;   // d a: sum over steps of w dt
-  float* sE = sDa + CH * N;   // two buffers of the adjoint carry
-  float* sHs = sE + 2 * CH * N;   // the state at each tile's start
+struct Walk {
+  using C = Shape<TIn, N>;
+  const BwdParams& p;
+  float* smem;
+  int bi, ci, d0, tid, t_first, t_end, nt;
+  const TIn *dtg, *xg, *zg, *og, *bg, *cg_;
 
-  const int bi = blockIdx.y, d0 = blockIdx.x * CH, tid = threadIdx.x;
-  const int lane = tid % 32, l = lane % L, g = lane / L % G;
-  const int ch = (tid / 32) * (32 / (L * G)) + lane / (L * G);
-  const TIn* dtg = static_cast<const TIn*>(p.dt) + bi * p.dt_sb + d0;
-  const TIn* xg = static_cast<const TIn*>(p.x) + bi * p.x_sb + d0;
-  const TIn* zg = static_cast<const TIn*>(p.z) + bi * p.z_sb + d0;
-  const TIn* og = static_cast<const TIn*>(p.dout) + bi * p.do_sb + d0;
-  const TIn* bg = static_cast<const TIn*>(p.b) + bi * p.b_sb;
-  const TIn* cg = static_cast<const TIn*>(p.c) + bi * p.c_sb;
+  __device__ Walk(const BwdParams& p_, float* smem_) : p(p_), smem(smem_) {
+    d0 = blockIdx.x * CH;
+    bi = blockIdx.y;
+    ci = blockIdx.z;
+    tid = threadIdx.x;
+    t_first = ci * p.chunk;
+    t_end = min(p.S, t_first + p.chunk);
+    nt = (t_end - t_first + T - 1) / T;
+    dtg = static_cast<const TIn*>(p.dt) + bi * p.dt_sb + d0;
+    xg = static_cast<const TIn*>(p.x) + bi * p.x_sb + d0;
+    zg = static_cast<const TIn*>(p.z) + bi * p.z_sb + d0;
+    og = static_cast<const TIn*>(p.dout) + bi * p.do_sb + d0;
+    bg = static_cast<const TIn*>(p.b) + bi * p.b_sb;
+    cg_ = static_cast<const TIn*>(p.c) + bi * p.c_sb;
+  }
 
-  const int nch = (p.S + p.chunk - 1) / p.chunk;
-  const int ntc = p.chunk / T;
-  const int ntl = (p.S - (nch - 1) * p.chunk + T - 1) / T;
-  const int jobs = 2 * (ntl + (nch - 1) * ntc);
-
-  auto raw = [&](int buf, int which) {  // 0 dt, 1 x, 2 z, 3 dout, 4 b, 5 c
+  // 0 dt, 1 x, 2 z, 3 dout, 4 b, 5 c of raw buffer buf
+  __device__ TIn* raw(int buf, int which) const {
     TIn* base = reinterpret_cast<TIn*>(smem + buf * C::RAW);
     return which < 4 ? base + which * T * CH
                      : base + 4 * T * CH + (which - 4) * T * N;
-  };
+  }
+
   // rows t0 .. t0+T-1 of a (rows, W) operand by 16-byte cp.async copies;
-  // rows past S and columns past `cols` zero-filled without a read
-  auto stage_rows = [&](auto w_tag, TIn* dst, const TIn* src, int64_t ss,
-                        int t0, int cols) {
-    constexpr int W = decltype(w_tag)::value, CPR = W / V;
+  // rows past S zero-filled without a read
+  template <int W>
+  __device__ void stage_rows(TIn* dst, const TIn* src, int64_t ss,
+                             int t0) const {
+    constexpr int V = C::V, CPR = W / V;
 #pragma unroll
     for (int r = 0; r < (T * CPR + NT - 1) / NT; ++r) {
       const int i = tid + r * NT, t = i / CPR, c = i % CPR * V;
       if (T * CPR % NT != 0 && i >= T * CPR) break;
-      const bool ok = t0 + t < p.S && c < cols;
+      const bool ok = t0 + t < p.S;
       cp_async16(dst + t * W + c, ok ? src + (t0 + t) * ss + c : src, ok);
     }
-  };
-  // job n's tile into buffer buf: dt, x and b for a forward pass, and z,
-  // dout and c besides for a backward pass
-  auto stage = [&](int buf, int n) {
-    if (n < jobs) {
-      int ci, tt;
-      bool bwd;
-      job_of(n, nch, ntc, ntl, ci, tt, bwd);
-      const int t0 = ci * p.chunk + tt * T;
-      using Wc = std::integral_constant<int, CH>;
-      using Wn = std::integral_constant<int, N>;
-      stage_rows(Wc(), raw(buf, 0), dtg, p.dt_ss, t0, p.di - d0);
-      stage_rows(Wc(), raw(buf, 1), xg, p.x_ss, t0, p.di - d0);
-      stage_rows(Wn(), raw(buf, 4), bg, p.b_ss, t0, N);
-      if (bwd) {
-        stage_rows(Wc(), raw(buf, 2), zg, p.z_ss, t0, p.di - d0);
-        stage_rows(Wc(), raw(buf, 3), og, p.do_ss, t0, p.di - d0);
-        stage_rows(Wn(), raw(buf, 5), cg, p.c_ss, t0, N);
+  }
+
+  // the tile at t0 into raw buffer buf (not committed)
+  __device__ void stage(int buf, int t0) const {
+    stage_rows<CH>(raw(buf, 0), dtg, p.dt_ss, t0);
+    stage_rows<CH>(raw(buf, 1), xg, p.x_ss, t0);
+    stage_rows<CH>(raw(buf, 2), zg, p.z_ss, t0);
+    stage_rows<CH>(raw(buf, 3), og, p.do_ss, t0);
+    stage_rows<N>(raw(buf, 4), bg, p.b_ss, t0);
+    stage_rows<N>(raw(buf, 5), cg_, p.c_ss, t0);
+  }
+
+  // the bias, the skip and a of the block's channels
+  __device__ void constants() const {
+    float* sBias = smem + C::OFF_BIAS;
+    float* sSkip = smem + C::OFF_SKIP;
+    float* sA = smem + C::OFF_A;
+    for (int i = tid; i < CH; i += NT) {
+      sBias[i] = p.dt_bias[d0 + i];
+      sSkip[i] = p.d_skip[d0 + i];
+    }
+    for (int i = tid; i < CH * N; i += NT)
+      sA[i] = -expf(p.a_log[(int64_t)d0 * N + i]);
+  }
+
+  // raw buffer buf of the tile at t0 converted: dt's bias and softplus, u
+  // = dt x and dy; b and c as fp32 rows; four elements a thread at a time
+  __device__ void convert(int buf, int t0) const {
+    float* sDt = smem + C::OFF_DT;
+    float* sU = smem + C::OFF_U;
+    float* sDy = smem + C::OFF_DY;
+    const float* sBias = smem + C::OFF_BIAS;
+    const TIn* rdt = raw(buf, 0);
+    const TIn* rx = raw(buf, 1);
+    const TIn* rz = raw(buf, 2);
+    const TIn* ro = raw(buf, 3);
+#pragma unroll
+    for (int r = 0; r < (T * CH / 4 + NT - 1) / NT; ++r) {
+      const int i = tid + r * NT, t = i / (CH / 4), c0 = i % (CH / 4) * 4;
+      if (T * CH / 4 % NT != 0 && i >= T * CH / 4) break;
+      const bool live = t0 + t < p.S;
+      float dv[4], xv[4], zv[4], ov[4];
+      load4(rdt + t * CH + c0, dv);
+      load4(rx + t * CH + c0, xv);
+      load4(rz + t * CH + c0, zv);
+      load4(ro + t * CH + c0, ov);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float dtv =
+            live ? softplus(__fadd_rn(dv[e], sBias[c0 + e])) : 0.f;
+        sDt[(c0 + e) * T + perm(t)] = dtv;
+        sU[(c0 + e) * T + perm(t)] = __fmul_rn(dtv, xv[e]);
+        sDy[(c0 + e) * T + perm(t)] =
+            live ? rnd(ov[e] * silu_t<TIn>(zv[e]), TIn()) : 0.f;
       }
     }
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+#pragma unroll
+      for (int r = 0; r < (T * N / 4 + NT - 1) / NT; ++r) {
+        const int i = tid + r * NT, j0 = i / T * 4, t = i % T;
+        if (T * N / 4 % NT != 0 && i >= T * N / 4) break;
+        float v[4];
+        load4(raw(buf, 4 + w) + t * N + j0, v);
+        float* dst = smem + (w == 0 ? C::OFF_B : C::OFF_C) + perm(t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dst[(j0 + e) * T] = v[e];
+      }
+    }
+  }
+};
+
+// ------------------------------------------------------------ 1. chunk
+// The forward pass over the chunk from its kept start state, keeping the
+// state at every tile's start, and the adjoint's composition over the
+// chunk: E_start = F E_end + H, tile by tile (H += F Q_tile, F *= P_tile).
+template <typename TIn, int N>
+__global__ void __launch_bounds__(NT, 4)
+    mamba_scan_bwd_chunk_kernel(const BwdParams p) {
+  using C = Shape<TIn, N>;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Walk<TIn, N> wk(p, smem);
+  const float* sDt = smem + C::OFF_DT;
+  const float* sU = smem + C::OFF_U;
+  const float* sDy = smem + C::OFF_DY;
+  const float* sB = smem + C::OFF_B;
+  const float* sC = smem + C::OFF_C;
+  const float* sA = smem + C::OFF_A;
+  float* sH = smem + C::OFF_OWN;          // two buffers of the tile state
+  float* sF = sH + 2 * CH * N;
+  float* sQ = sF + CH * N;
+  const int tid = threadIdx.x, lane = tid % 32, l = lane % L;
+  const int g = lane / L % G;
+  const int ch = (tid / 32) * (32 / (L * G)) + lane / (L * G);
+  const int64_t cn = (int64_t)p.di * N;   // a (batch row, chunk)'s states
+
+  wk.constants();
+  {
+    const float* st = p.starts + ((int64_t)wk.bi * p.NC + wk.ci) * cn +
+                      (int64_t)wk.d0 * N;
+    for (int i = tid; i < CH * N; i += NT) {
+      sH[i] = st[i];
+      sF[i] = 1.f;
+      sQ[i] = 0.f;
+    }
+  }
+  wk.stage(0, wk.t_first);
+  cp_async_commit();
+  for (int k = 0; k < wk.nt; ++k) {
+    const int t0 = wk.t_first + k * T, buf = k & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile k landed; tile k-1's reads are done
+    if (k + 1 < wk.nt) wk.stage(buf ^ 1, t0 + T);
     cp_async_commit();
+    wk.convert(buf, t0);
+    __syncthreads();
+
+    float dtv[R], uv[R], dyv[R];
+    load_steps(sDt + ch * T, l, dtv);
+    load_steps(sU + ch * T, l, uv);
+    load_steps(sDy + ch * T, l, dyv);
+    const float* h_in = sH + buf * CH * N;
+    float* h_out = sH + (buf ^ 1) * CH * N;
+    float* tile = p.tiles + ((int64_t)wk.bi * p.NTILE + t0 / T) * cn +
+                  (int64_t)wk.d0 * N;
+#pragma unroll 1
+    for (int j = g * C::NS; j < (g + 1) * C::NS; ++j) {
+      const float aj = sA[ch * N + j];
+      float bq[R], cq[R], A[R];
+      load_steps(sB + j * T, l, bq);
+      load_steps(sC + j * T, l, cq);
+      // this lane's steps composed: forward (Af, Uf), and the adjoint
+      // backward from its last step, E_first = Af E_after + Qb
+      float Af = 1.f, Uf = 0.f, Qb = 0.f;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        A[i] = expf(__fmul_rn(dtv[i], aj));
+        Uf = fmaf(A[i], Uf, __fmul_rn(uv[i], bq[i]));
+        Af *= A[i];
+      }
+#pragma unroll
+      for (int i = R - 1; i >= 0; --i) Qb = A[i] * fmaf(dyv[i], cq[i], Qb);
+      // inclusive scans over the L lanes: lanes 0..l forwards, lanes
+      // l..L-1 backwards; out-of-range lanes compose with (1, 0)
+      float Ac = Af, Uc = Uf, Pr = Af, Qr = Qb;
+#pragma unroll
+      for (int o = 1; o < L; o <<= 1) {
+        const float Ap = __shfl_up_sync(FULL, Ac, o, L);
+        const float Up = __shfl_up_sync(FULL, Uc, o, L);
+        const float Pn = __shfl_down_sync(FULL, Pr, o, L);
+        const float Qn = __shfl_down_sync(FULL, Qr, o, L);
+        Uc = fmaf(Ac, l >= o ? Up : 0.f, Uc);
+        Ac *= l >= o ? Ap : 1.f;
+        if (l + o < L) {
+          Qr = fmaf(Pr, Qn, Qr);
+          Pr *= Pn;
+        }
+      }
+      const float h_tile = h_in[ch * N + j];
+      const float h_end = __shfl_sync(FULL, fmaf(Ac, h_tile, Uc), L - 1, L);
+      if (l == 0) {
+        tile[ch * N + j] = h_tile;
+        h_out[ch * N + j] = h_end;
+        // lane 0 holds the tile's whole adjoint composition (Pr, Qr)
+        const float f = sF[ch * N + j];
+        sQ[ch * N + j] = fmaf(f, Qr, sQ[ch * N + j]);
+        sF[ch * N + j] = f * Pr;
+      }
+    }
+  }
+  __syncthreads();
+  const int64_t at = ((int64_t)wk.bi * p.NC + wk.ci) * cn +
+                     (int64_t)wk.d0 * N;
+  const int64_t half = (int64_t)p.B * p.NC * cn;
+  for (int i = tid; i < CH * N; i += NT) {
+    p.fh[at + i] = sF[i];
+    p.fh[half + at + i] = sQ[i];
+  }
+}
+
+// ----------------------------------------------------------------- 2. carry
+__global__ void __launch_bounds__(256)
+    mamba_scan_bwd_carry_kernel(const BwdParams p, int n) {
+  const int64_t per = (int64_t)p.di * n;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= p.B * per) return;
+  const int64_t b = idx / per, rem = idx % per;
+  const int64_t half = (int64_t)p.B * p.NC * per;
+  float e = p.dh ? p.dh[idx] : 0.f;
+  for (int c = p.NC - 1; c >= 0; --c) {
+    const int64_t at = (b * p.NC + c) * per + rem;
+    const float h = p.fh[half + at];
+    p.fh[half + at] = e;
+    e = fmaf(p.fh[at], e, h);
+  }
+}
+
+// ----------------------------------------------------------------- 3. grads
+template <typename TIn, int N>
+__global__ void __launch_bounds__(NT, 3)
+    mamba_scan_bwd_kernel(const BwdParams p) {
+  using C = Shape<TIn, N>;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Walk<TIn, N> wk(p, smem);
+  const float* sDt = smem + C::OFF_DT;
+  const float* sU = smem + C::OFF_U;
+  const float* sDy = smem + C::OFF_DY;
+  const float* sB = smem + C::OFF_B;
+  const float* sC = smem + C::OFF_C;
+  const float* sBias = smem + C::OFF_BIAS;
+  const float* sSkip = smem + C::OFF_SKIP;
+  const float* sA = smem + C::OFF_A;
+  float* sY = smem + C::OFF_Y;     // y summed over the states (no skip)
+  float* sAW = smem + C::OFF_AW;   // sum_j w a
+  float* sGB = smem + C::OFF_GB;   // sum_j G b
+  float* sDB = smem + C::OFF_DB;   // db of the tile, a warp's two channels
+  float* sDC = smem + C::OFF_DC;
+  float* sDa = smem + C::OFF_DA;   // d a: sum over steps of w dt
+  float* sE = smem + C::OFF_E;     // two buffers of the adjoint carry
+  float* sHs = smem + C::OFF_HS;   // two buffers of the tile's start state
+  float* sSum = smem + C::OFF_B;   // db, dc of the tile [t][j], a block's
+
+  const int bi = wk.bi, d0 = wk.d0, tid = threadIdx.x;
+  const int lane = tid % 32, l = lane % L, g = lane / L % G;
+  const int ch = (tid / 32) * (32 / (L * G)) + lane / (L * G);
+  const int64_t cn = (int64_t)p.di * N;
+  const int rank = blockIdx.x % p.CS, share = T * N / p.CS;
+  cg::cluster_group cluster = cg::this_cluster();
+
+  // the tile state of job k into buffer buf (not committed)
+  auto stage_state = [&](int buf, int k) {
+    const int tt = wk.nt - 1 - k;
+    const float* src = p.tiles + ((int64_t)bi * p.NTILE +
+                                  (wk.t_first + tt * T) / T) * cn +
+                       (int64_t)d0 * N;
+    for (int i = tid; i < CH * N / 4; i += NT)
+      cp_async16(sHs + buf * CH * N + 4 * i, src + 4 * i);
   };
 
-  for (int i = tid; i < CH; i += NT) {
-    sBias[i] = d0 + i < p.di ? p.dt_bias[d0 + i] : 0.f;
-    sSkip[i] = d0 + i < p.di ? p.d_skip[d0 + i] : 0.f;
-  }
-  for (int i = tid; i < CH * N; i += NT) {
-    const bool ok = d0 + i / N < p.di;
-    sA[i] = ok ? -expf(p.a_log[(int64_t)d0 * N + i]) : 0.f;
-    sDa[i] = 0.f;
-    sE[i] = ok && p.dh != nullptr
-                ? p.dh[((int64_t)bi * p.di + d0) * N + i] : 0.f;
+  wk.constants();
+  {
+    const float* e_end = p.fh + (int64_t)p.B * p.NC * cn +
+                         ((int64_t)bi * p.NC + wk.ci) * cn +
+                         (int64_t)d0 * N;
+    for (int i = tid; i < CH * N; i += NT) {
+      sDa[i] = 0.f;
+      sE[i] = e_end[i];
+    }
   }
   // this thread's epilogue columns: channels c0 .. c0+3 (fixed: NT is a
   // multiple of CH / 4), their d_skip and dt_bias sums
@@ -323,110 +558,33 @@ __global__ void __launch_bounds__(NT, 3)
                                                           0.f};
   int e_buf = 0;  // the adjoint carry's read buffer
 
-  stage(0, 0);
-  for (int n = 0; n < jobs; ++n) {
-    const int buf = n & 1;
-    int ci, tt;
-    bool bwd;
-    job_of(n, nch, ntc, ntl, ci, tt, bwd);
-    const int t0 = ci * p.chunk + tt * T;
-    const int nt = ci == nch - 1 ? ntl : ntc;
+  wk.stage(0, wk.t_first + (wk.nt - 1) * T);
+  stage_state(0, 0);
+  cp_async_commit();
+  for (int k = 0; k < wk.nt; ++k) {
+    const int buf = k & 1, tt = wk.nt - 1 - k;
+    const int t0 = wk.t_first + tt * T;
     cp_async_wait<0>();
-    __syncthreads();  // job n landed; job n-1's epilogue is done
-    stage(buf ^ 1, n + 1);  // in flight under job n
-
-    // convert: dt's bias and softplus, u = dt x, and in a backward pass
-    // dy; b (and c) as fp32 rows; four elements a thread at a time
-    if (!bwd && tt == 0) {
-      const float* st = p.starts +
-                        (((int64_t)bi * nch + ci) * p.di + d0) * N;
-      for (int i = tid; i < CH * N; i += NT)
-        sHs[i] = d0 + i / N < p.di ? st[i] : 0.f;
+    __syncthreads();  // job k landed; job k-1's epilogue is done
+    if (k + 1 < wk.nt) {
+      wk.stage(buf ^ 1, t0 - T);
+      stage_state(buf ^ 1, k + 1);
     }
-    {
-      const TIn* rdt = raw(buf, 0);
-      const TIn* rx = raw(buf, 1);
-      const TIn* rz = raw(buf, 2);
-      const TIn* ro = raw(buf, 3);
-#pragma unroll
-      for (int r = 0; r < (T * CH / 4 + NT - 1) / NT; ++r) {
-        const int i = tid + r * NT, t = i / (CH / 4), c0 = i % (CH / 4) * 4;
-        if (T * CH / 4 % NT != 0 && i >= T * CH / 4) break;
-        const bool live = t0 + t < p.S;
-        float dv[4], xv[4], zv[4], ov[4];
-        load4(rdt + t * CH + c0, dv);
-        load4(rx + t * CH + c0, xv);
-        if (bwd) {
-          load4(rz + t * CH + c0, zv);
-          load4(ro + t * CH + c0, ov);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float dtv =
-              live ? softplus(__fadd_rn(dv[e], sBias[c0 + e])) : 0.f;
-          sDt[(c0 + e) * T + perm(t)] = dtv;
-          sU[(c0 + e) * T + perm(t)] = __fmul_rn(dtv, xv[e]);
-          if (bwd)
-            sDy[(c0 + e) * T + perm(t)] =
-                live ? rnd(ov[e] * silu_t<TIn>(zv[e]), TIn()) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int w = 0; w < 2; ++w) {
-        if (w == 1 && !bwd) break;
-#pragma unroll
-        for (int r = 0; r < (T * N / 4 + NT - 1) / NT; ++r) {
-          const int i = tid + r * NT, j0 = i / T * 4, t = i % T;
-          if (T * N / 4 % NT != 0 && i >= T * N / 4) break;
-          float v[4];
-          load4(raw(buf, 4 + w) + t * N + j0, v);
-          float* dst = (w == 0 ? sB : sC) + perm(t);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dst[(j0 + e) * T] = v[e];
-        }
-      }
-    }
+    cp_async_commit();
+    // the cluster's ranks have read this block's db/dc sums of the last
+    // tile, which lie where the conversion writes b and c
+    if (k > 0) cluster_wait();
+    wk.convert(buf, t0);
     __syncthreads();
 
-    float dtv[R], uv[R];
+    // backward pass over the tile
+    float dtv[R], uv[R], dyv[R], yv[R], aw[R], gb[R];
     load_steps(sDt + ch * T, l, dtv);
     load_steps(sU + ch * T, l, uv);
-    float* hs = sHs + tt * CH * N;
-    if (!bwd) {
-      // forward pass: the state at the next tile's start
-      if (tt + 1 < nt) {
-#pragma unroll 1
-        for (int j = g * C::NS; j < (g + 1) * C::NS; ++j) {
-          const float aj = sA[ch * N + j];
-          float bq[R];
-          load_steps(sB + j * T, l, bq);
-          float A = 1.f, U = 0.f;
-#pragma unroll
-          for (int i = 0; i < R; ++i) {
-            const float da = expf(__fmul_rn(dtv[i], aj));
-            U = fmaf(da, U, __fmul_rn(uv[i], bq[i]));
-            A *= da;
-          }
-#pragma unroll
-          for (int o = 1; o < L; o <<= 1) {
-            const float Ap = __shfl_up_sync(FULL, A, o, L);
-            const float Up = __shfl_up_sync(FULL, U, o, L);
-            U = fmaf(A, l >= o ? Up : 0.f, U);
-            A *= l >= o ? Ap : 1.f;
-          }
-          const float h_last = __shfl_sync(
-              FULL, fmaf(A, hs[ch * N + j], U), L - 1, L);
-          if (l == 0) hs[CH * N + ch * N + j] = h_last;
-        }
-      }
-      continue;  // the next job's barrier orders the kept state
-    }
-
-    // backward pass over tile tt
-    float dyv[R], yv[R], aw[R], gb[R];
     load_steps(sDy + ch * T, l, dyv);
 #pragma unroll
     for (int i = 0; i < R; ++i) yv[i] = aw[i] = gb[i] = 0.f;
+    const float* hs = sHs + buf * CH * N;
     const float* e_in = sE + e_buf * CH * N;
     float* e_out = sE + (e_buf ^ 1) * CH * N;
 #pragma unroll 1
@@ -532,15 +690,30 @@ __global__ void __launch_bounds__(NT, 3)
       }
     }
     __syncthreads();
+    // db and dc of the tile summed over the block's warps, in warp order,
+    // [t][j] where b's and c's rows were (read no more in this tile)
+    for (int i = tid; i < T * N; i += NT) {
+      const int at = (i % N) * C::LB + perm(i / N);
+      float db = 0.f, dc = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        db += sDB[w * N * C::LB + at];
+        dc += sDC[w * N * C::LB + at];
+      }
+      sSum[i] = db;
+      sSum[T * N + i] = dc;
+    }
+    __syncthreads();
+    cluster_arrive();  // this block's db/dc sums of the tile are written
 
     // epilogue: the gating's, the skip's and the softplus's gradients,
-    // four elements a thread at a time; db and dc of the tile to the
-    // global sums
+    // four elements a thread at a time, dt and dy from their converted
+    // rows
     {
-      const TIn* rdt = raw(buf, 0);
-      const TIn* rx = raw(buf, 1);
-      const TIn* rz = raw(buf, 2);
-      const TIn* ro = raw(buf, 3);
+      const TIn* rdt = wk.raw(buf, 0);
+      const TIn* rx = wk.raw(buf, 1);
+      const TIn* rz = wk.raw(buf, 2);
+      const TIn* ro = wk.raw(buf, 3);
       TIn* gdt = static_cast<TIn*>(p.d_dt) + (int64_t)bi * p.S * p.di + d0;
       TIn* gx = static_cast<TIn*>(p.d_x) + (int64_t)bi * p.S * p.di + d0;
       TIn* gz = static_cast<TIn*>(p.d_z) + (int64_t)bi * p.S * p.di + d0;
@@ -548,7 +721,7 @@ __global__ void __launch_bounds__(NT, 3)
       for (int r = 0; r < (T * CH / 4 + NT - 1) / NT; ++r) {
         const int i = tid + r * NT, t = i / (CH / 4), c0 = i % (CH / 4) * 4;
         if (T * CH / 4 % NT != 0 && i >= T * CH / 4) break;
-        if (t0 + t >= p.S || d0 + c0 >= p.di) continue;
+        if (t0 + t >= p.S) continue;
         float dv[4], xv[4], zv[4], ov[4], odt[4], ox[4], oz[4];
         load4(rdt + t * CH + c0, dv);
         load4(rx + t * CH + c0, xv);
@@ -558,9 +731,9 @@ __global__ void __launch_bounds__(NT, 3)
         for (int e = 0; e < 4; ++e) {
           const int at = t * C::LY + c0 + e;
           const float v = __fadd_rn(dv[e], sBias[c0 + e]);
-          const float dtv = softplus(v);
+          const float dtv = sDt[(c0 + e) * T + perm(t)];
           const float y = __fadd_rn(sY[at], __fmul_rn(sSkip[c0 + e], xv[e]));
-          const float dy = rnd(ov[e] * silu_t<TIn>(zv[e]), TIn());
+          const float dy = sDy[(c0 + e) * T + perm(t)];
           const float gsz = rnd(ov[e] * rnd(y, TIn()), TIn());
           const float sig = 1.f / (1.f + expf(-zv[e]));
           oz[e] = gsz * sig * (1.f + zv[e] * (1.f - sig));
@@ -576,28 +749,34 @@ __global__ void __launch_bounds__(NT, 3)
         store4(gx + at, ox);
         store4(gz + at, oz);
       }
-      // this block's partial db and dc of the tile
-      const int64_t part = ((int64_t)blockIdx.x * gridDim.y + bi) * p.S + t0;
-      float* gb_out = p.part_b + part * N;
-      float* gc_out = p.part_c + part * N;
-      for (int i = tid; i < T * N; i += NT) {
-        const int t = i / N, at = (i % N) * C::LB + perm(t);
-        if (t0 + t >= p.S) continue;
-        float db = 0.f, dc = 0.f;
-#pragma unroll
-        for (int w = 0; w < NW; ++w) {
-          db += sDB[w * N * C::LB + at];
-          dc += sDC[w * N * C::LB + at];
+    }
+    // db and dc of the tile: this rank's share of the (step, state)
+    // elements, four at a time, summed over the cluster's ranks in rank
+    // order, into the cluster's partial
+    cluster_wait();
+    {
+      const int64_t part = ((int64_t)(blockIdx.x / p.CS) * p.B + bi) *
+                               p.S + t0;
+      for (int v = tid; v < 2 * share / 4; v += NT) {
+        const int which = v / (share / 4);
+        const int i = rank * share + 4 * (v % (share / 4));
+        if (t0 + i / N >= p.S) continue;
+        float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int q = 0; q < p.CS; ++q) {
+          const float4 r = *reinterpret_cast<const float4*>(
+              cluster.map_shared_rank(sSum + which * T * N + i, q));
+          s.x += r.x; s.y += r.y; s.z += r.z; s.w += r.w;
         }
-        gb_out[i] = db;
-        gc_out[i] = dc;
+        *reinterpret_cast<float4*>((which ? p.part_c : p.part_b) +
+                                   part * N + i) = s;
       }
     }
+    cluster_arrive();  // this rank is done reading the others' sums
   }
 
-  // per batch row: d a_log = a sum(w dt); d_skip and dt_bias by this
-  // thread's columns c0..c0+3, summed over the block's threads in thread
-  // order through the raw buffers, idle now
+  // per (batch row, chunk): d a_log = a sum(w dt); d_skip and dt_bias by
+  // this thread's columns c0..c0+3, summed over the block's threads in
+  // thread order through the raw buffers, idle now
   __syncthreads();  // the last job's epilogue is done with them
   float* sRed = smem;  // NT x 8: each thread's skip and bias sums
 #pragma unroll
@@ -606,23 +785,24 @@ __global__ void __launch_bounds__(NT, 3)
     sRed[tid * 8 + 4 + e] = bias_acc[e];
   }
   __syncthreads();
+  const int64_t pc = (int64_t)bi * p.NC + wk.ci;
   for (int i = tid; i < CH * N; i += NT)
-    if (d0 + i / N < p.di)
-      p.p_alog[((int64_t)bi * p.di + d0) * N + i] = sDa[i] * sA[i];
-  if (tid < CH && d0 + tid < p.di) {
+    p.p_alog[pc * cn + (int64_t)d0 * N + i] = sDa[i] * sA[i];
+  if (tid < CH) {
     // the threads whose columns hold channel tid: tid / 4 + k CH / 4
     float skip = 0.f, bias = 0.f;
     for (int t = tid / 4; t < NT; t += CH / 4) {
       skip += sRed[t * 8 + tid % 4];
       bias += sRed[t * 8 + 4 + tid % 4];
     }
-    p.p_skip[(int64_t)bi * p.di + d0 + tid] = skip;
-    p.p_bias[(int64_t)bi * p.di + d0 + tid] = bias;
+    p.p_skip[pc * p.di + d0 + tid] = skip;
+    p.p_bias[pc * p.di + d0 + tid] = bias;
   }
+  cluster_wait();  // no rank reads this block's shared memory any more
 }
 
-// db and dc: the blocks' partials summed in block order, four (step,
-// state) elements a thread, written in the model's dtype
+// db and dc: the clusters' partials summed in order, four (step, state)
+// elements a thread, written in the model's dtype
 template <typename TIn>
 __global__ void __launch_bounds__(256)
     mamba_scan_bwd_reduce_kernel(const BwdParams p, int parts,
@@ -644,21 +824,58 @@ __global__ void __launch_bounds__(256)
   store4(static_cast<TIn*>(p.d_c) + q * 4, dc);
 }
 
+// the cluster size for `blocks` channel blocks: the largest of 8, 4, 2, 1
+// that divides it
+int cluster_size(int blocks) {
+  for (int cs = 8; cs > 1; cs /= 2)
+    if (blocks % cs == 0) return cs;
+  return 1;
+}
+
 template <typename TIn, int N>
-int launch(const BwdParams& p, int B, cudaStream_t stream) {
-  const size_t bytes = BwdShape<TIn, N>::bytes(p.chunk / T);
-  const int e = cudaFuncSetAttribute(
-      mamba_scan_bwd_kernel<TIn, N>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (e != cudaSuccess) return e;
-  const dim3 grid((p.di + CH - 1) / CH, B);
-  mamba_scan_bwd_kernel<TIn, N><<<grid, NT, bytes, stream>>>(p);
-  const int err = cudaGetLastError();
+int launch(BwdParams p, int B, cudaStream_t stream) {
+  using C = Shape<TIn, N>;
+  constexpr int chunk_bytes = C::CHUNK_FLOATS * 4;
+  constexpr int grads_bytes = C::GRADS_FLOATS * 4;
+  static const int attr = [] {
+    const int e = cudaFuncSetAttribute(
+        mamba_scan_bwd_chunk_kernel<TIn, N>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, chunk_bytes);
+    return e ? e
+             : cudaFuncSetAttribute(
+                   mamba_scan_bwd_kernel<TIn, N>,
+                   cudaFuncAttributeMaxDynamicSharedMemorySize, grads_bytes);
+  }();
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(p.di / CH, B, p.NC);
+  mamba_scan_bwd_chunk_kernel<TIn, N><<<grid, NT, chunk_bytes, stream>>>(p);
+  int err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t cells = (int64_t)B * p.di * N;
+  mamba_scan_bwd_carry_kernel<<<static_cast<unsigned>((cells + 255) / 256),
+                                256, 0, stream>>>(p, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = grads_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute cl[1];
+  cl[0].id = cudaLaunchAttributeClusterDimension;
+  cl[0].val.clusterDim.x = p.CS;
+  cl[0].val.clusterDim.y = 1;
+  cl[0].val.clusterDim.z = 1;
+  cfg.attrs = cl;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, mamba_scan_bwd_kernel<TIn, N>, p);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int64_t quads = (int64_t)B * p.S * N / 4;
   mamba_scan_bwd_reduce_kernel<TIn>
       <<<static_cast<unsigned>((quads + 255) / 256), 256, 0, stream>>>(
-          p, grid.x, quads);
+          p, grid.x / p.CS, quads);
   return cudaGetLastError();
 }
 
@@ -679,20 +896,23 @@ int launch_n(const BwdParams& p, int B, int n, cudaStream_t stream) {
 // chunks, di, n) fp32 contiguous, the state at the start of every `chunk`
 // steps (a multiple of mamba_scan_bwd_time_tile()), and dh (B, di, n) fp32
 // contiguous or null. Outputs: d_dt, d_x, d_z (B, S, di) and d_b, d_c (B,
-// S, n) contiguous in the dtype; p_bias, p_skip (B, di) and p_alog (B, di,
-// n) fp32, each batch row's sums. Scratch: part_b, part_c (di / 8, B, S,
-// n) fp32 (mamba_scan_bwd_channels() channels a block). One call launches
-// the backward kernel, one block per 8 channels and batch row, and the
-// reduction of db and dc. Returns the first CUDA error, 0 on success.
+// S, n) contiguous in the dtype; p_bias, p_skip (B, chunks, di) and p_alog
+// (B, chunks, di, n) fp32, each (batch row, chunk)'s sums. Scratch, fp32:
+// part_b, part_c (mamba_scan_bwd_parts(di), B, S, n); tiles (B, ceil(S /
+// time tile), di, n); fh (2, B, chunks, di, n). One call launches the
+// chunk kernel, the carry, the gradients' kernel (one block per 8
+// channels, batch row and chunk, in clusters of mamba_scan_bwd_parts'
+// divisor) and the reduction of db and dc. Returns the first CUDA error, 0
+// on success.
 extern "C" int mamba_scan_bwd_launch(
     const void* dt, const float* dt_bias, const void* b, const void* c,
     const void* x, const void* z, const float* a_log, const float* d_skip,
     const float* starts, const void* dout, const float* dh, void* d_dt,
     void* d_x, void* d_z, float* part_b, float* part_c, void* d_b,
-    void* d_c, float* p_bias, float* p_skip, float* p_alog,
-    const int64_t* strides, int dtype, int B,
-    int S, int di, int n, int chunk, void* stream) {
-  if (B <= 0 || S <= 0 || di <= 0 || di % 8 || chunk <= 0 || chunk % T)
+    void* d_c, float* p_bias, float* p_skip, float* p_alog, float* tiles,
+    float* fh, const int64_t* strides, int dtype, int B, int S, int di,
+    int n, int chunk, void* stream) {
+  if (B <= 0 || S <= 0 || di <= 0 || di % CH || chunk <= 0 || chunk % T)
     return cudaErrorInvalidValue;
   BwdParams p;
   p.dt = dt; p.dt_bias = dt_bias; p.b = b; p.c = c; p.x = x; p.z = z;
@@ -700,13 +920,17 @@ extern "C" int mamba_scan_bwd_launch(
   p.dh = dh; p.d_dt = d_dt; p.d_x = d_x; p.d_z = d_z;
   p.part_b = part_b; p.part_c = part_c; p.d_b = d_b; p.d_c = d_c;
   p.p_bias = p_bias; p.p_skip = p_skip; p.p_alog = p_alog;
+  p.tiles = tiles; p.fh = fh;
   p.dt_sb = strides[0]; p.dt_ss = strides[1];
   p.b_sb = strides[2]; p.b_ss = strides[3];
   p.c_sb = strides[4]; p.c_ss = strides[5];
   p.x_sb = strides[6]; p.x_ss = strides[7];
   p.z_sb = strides[8]; p.z_ss = strides[9];
   p.do_sb = strides[10]; p.do_ss = strides[11];
-  p.S = S; p.di = di; p.chunk = chunk;
+  p.B = B; p.S = S; p.di = di; p.chunk = chunk;
+  p.NC = (S + chunk - 1) / chunk;
+  p.NTILE = (S + T - 1) / T;
+  p.CS = cluster_size(di / CH);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case DTYPE_F32: return launch_n<float>(p, B, n, s);
@@ -718,6 +942,7 @@ extern "C" int mamba_scan_bwd_launch(
 // the tile T of the backward's passes: `chunk` must be a multiple of it
 extern "C" int mamba_scan_bwd_time_tile() { return T; }
 
-// channels a block: the partials of db and dc are (ceil(di / this), B, S,
-// n)
-extern "C" int mamba_scan_bwd_channels() { return CH; }
+// the db/dc partials for di channels: one per cluster of channel blocks
+extern "C" int mamba_scan_bwd_parts(int di) {
+  return di / CH / cluster_size(di / CH);
+}

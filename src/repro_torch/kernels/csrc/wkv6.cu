@@ -287,33 +287,6 @@ struct ChunkShape {
   static_assert(NWR * T * LDY <= RKW, "y partials");
 };
 
-// an operand split for 3xTF32: x = hi + lo
-struct FragA { uint32_t hi[4], lo[4]; };
-struct FragB { uint32_t hi[2], lo[2]; };
-
-__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2,
-                                        float a3) {
-  FragA f;
-  split_tf32(a0, f.hi[0], f.lo[0]);
-  split_tf32(a1, f.hi[1], f.lo[1]);
-  split_tf32(a2, f.hi[2], f.lo[2]);
-  split_tf32(a3, f.hi[3], f.lo[3]);
-  return f;
-}
-__device__ __forceinline__ FragB frag_b(float b0, float b1) {
-  FragB f;
-  split_tf32(b0, f.hi[0], f.lo[0]);
-  split_tf32(b1, f.hi[1], f.lo[1]);
-  return f;
-}
-// c += a * b in 3xTF32: the small terms first, lo * lo dropped
-__device__ __forceinline__ void mma3(float* c, const FragA& a,
-                                     const FragB& b) {
-  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
-  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
-  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
-}
-
 // N floats from shared memory, 16 bytes a load
 template <int N>
 __device__ __forceinline__ void load_row(float* dst, const float* src) {

@@ -33,9 +33,11 @@ Training goes through ``MambaScanFn``: its forward launches the kernel once
 per ``TIME_CHUNK`` steps from the previous chunk's state and keeps the
 state at each chunk boundary, as JAX's ``chunked_time_scan`` keeps them
 (``repro/models/ssm.py:30-47``). JAX's gradient of its scan is XLA's,
-fused on the TPU. On the card the backward is one launch of
-``csrc/mamba_scan_bwd.cu`` (``mamba_scan_backward``), which walks the
-chunks backwards from their kept start states. Its plain version,
+fused on the TPU. On the card the backward is one C call of
+``csrc/mamba_scan_bwd.cu`` (``mamba_scan_backward``), chunk-parallel: each
+chunk's adjoint is composed from its own steps, carried over the chunks
+from the final state's gradient, and then every chunk's gradients run at
+once from its kept start state. Its plain version,
 ``mamba_scan_bwd``, which the CPU runs, recomputes each chunk from its
 saved start state in the chunked form of ``mamba_scan_chunked`` (torch
 operations), takes autograd's gradient of it and carries the state's
@@ -347,11 +349,12 @@ def mamba_chunk_states(dt: torch.Tensor, dt_bias: torch.Tensor,
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("mamba_scan_bwd")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.mamba_scan_bwd_launch.argtypes = [vp] * 21 + [
+    lib.mamba_scan_bwd_launch.argtypes = [vp] * 23 + [
         ctypes.POINTER(ctypes.c_int64), i32, i32, i32, i32, i32, i32, vp]
     lib.mamba_scan_bwd_launch.restype = i32
     lib.mamba_scan_bwd_time_tile.restype = i32
-    lib.mamba_scan_bwd_channels.restype = i32
+    lib.mamba_scan_bwd_parts.argtypes = [i32]
+    lib.mamba_scan_bwd_parts.restype = i32
     return lib
 
 
@@ -408,12 +411,14 @@ torch.library.define(
 
 def _mamba_scan_backward_cuda(dt, dt_bias, b, c, x, z, a_log, d_skip,
                               starts, dout, dh, chunk):
-    """The backward kernel's launch (``csrc/mamba_scan_bwd.cu``), as the
-    CUDA implementation of ``repro_torch::mamba_scan_backward``. The C
-    call also sums db and dc over the kernel's blocks from their fp32
-    partials (scratch here), in a fixed order; the kernel writes the
-    per-parameter gradients per batch row, which are summed over the
-    rows here."""
+    """The backward kernel's launch (``csrc/mamba_scan_bwd.cu``: the chunk
+    kernel, the carry, the gradients' kernel and the sum of db and dc in
+    one C call), as the CUDA implementation of
+    ``repro_torch::mamba_scan_backward``. Its scratch is allocated here:
+    the state at each time tile's start, each chunk's adjoint composition,
+    and the fp32 partials of db and dc, one per cluster of channel
+    blocks, which the C call sums in a fixed order. The per-parameter
+    gradients come per (batch row, chunk) and are summed here."""
     _check_backward(dt, dt_bias, b, c, x, z, a_log, d_skip, starts, dout,
                     dh, chunk)
     bsz, s, di = dt.shape
@@ -450,12 +455,13 @@ def _mamba_scan_backward_cuda(dt, dt_bias, b, c, x, z, a_log, d_skip,
                                   device=dt.device) for _ in range(3))
     d_b, d_c = (torch.empty((bsz, s, n), dtype=dt.dtype, device=dt.device)
                 for _ in range(2))
-    parts = -(-di // lib.mamba_scan_bwd_channels())
-    partials = torch.empty((2, parts, bsz, s, n), dtype=f32,
-                           device=dt.device)
-    p_alog = torch.empty((bsz, di, n), dtype=f32, device=dt.device)
-    p_bias, p_skip = (torch.empty((bsz, di), dtype=f32, device=dt.device)
-                      for _ in range(2))
+    nc, tile = starts.shape[1], lib.mamba_scan_bwd_time_tile()
+    new = functools.partial(torch.empty, dtype=f32, device=dt.device)
+    partials = new((2, lib.mamba_scan_bwd_parts(di), bsz, s, n))
+    tiles = new((bsz, -(-s // tile), di, n))
+    fh = new((2, bsz, nc, di, n))
+    p_alog = new((bsz, nc, di, n))
+    p_bias, p_skip = new((bsz, nc, di)), new((bsz, nc, di))
     strides = (ctypes.c_int64 * 12)(
         *dt.stride()[:2], *b.stride()[:2], *c.stride()[:2], *x.stride()[:2],
         *z.stride()[:2], *dout.stride()[:2])
@@ -466,13 +472,13 @@ def _mamba_scan_backward_cuda(dt, dt_bias, b, c, x, z, a_log, d_skip,
         None if dh is None else dh.data_ptr(), d_dt.data_ptr(),
         d_x.data_ptr(), d_z.data_ptr(), partials[0].data_ptr(),
         partials[1].data_ptr(), d_b.data_ptr(), d_c.data_ptr(),
-        p_bias.data_ptr(), p_skip.data_ptr(),
-        p_alog.data_ptr(), strides, DTYPES[dt.dtype], bsz, s, di, n, chunk,
-        torch.cuda.current_stream(dt.device).cuda_stream)
+        p_bias.data_ptr(), p_skip.data_ptr(), p_alog.data_ptr(),
+        tiles.data_ptr(), fh.data_ptr(), strides, DTYPES[dt.dtype], bsz, s,
+        di, n, chunk, torch.cuda.current_stream(dt.device).cuda_stream)
     _build.check(lib, err, "mamba_scan_backward")
     _MAMBA_SCAN_BACKWARD.launches += 1
-    return (d_dt, p_bias.sum(0), d_b, d_c, d_x, d_z, p_alog.sum(0),
-            p_skip.sum(0))
+    return (d_dt, p_bias.sum((0, 1)), d_b, d_c, d_x, d_z,
+            p_alog.sum((0, 1)), p_skip.sum((0, 1)))
 
 
 torch.library.impl("repro_torch::mamba_scan_backward", "cuda",

@@ -328,9 +328,10 @@ torch.library.define(
 def _wkv6_backward_cuda(r, k, v, w, u, starts, dy, dstate, chunk):
     """The backward kernel's launch (``csrc/wkv6_bwd.cu``, three kernels in
     one C call), as the CUDA implementation of
-    ``repro_torch::wkv6_backward``. Its scratch (the state every 16 steps,
-    the carried chunk gradients) is allocated here; du comes per (batch
-    row, chunk) and is summed here, in a fixed order."""
+    ``repro_torch::wkv6_backward``. Its scratch (the state every
+    ``wkv6_bwd_sub_chunk()`` = 32 steps, the carried chunk gradients) is
+    allocated here; du comes per (batch row, chunk) and is summed here, in
+    a fixed order."""
     _check_backward(r, k, v, w, u, starts, dy, dstate, chunk)
     b, s, h, hd = r.shape
     lib = _bwd_lib()

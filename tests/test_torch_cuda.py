@@ -438,44 +438,57 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, hd, grp,
         close_to_max(g, w, TOL[dtype], name)
 
 
-@pytest.mark.parametrize("given", [False, True])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("s", SCAN_BWD_LENGTHS)
-@pytest.mark.parametrize("n", [8, 16])
-def test_mamba_scan_backward_kernel_matches_plain(cuda, n, s, dtype, given):
+# the scan's backward kernel against mamba_scan_bwd: batch rows, n, S
+# (one chunk, a ragged last chunk, five chunks), dtype, dh given; at B=1
+# every chunk is a block column of its own
+SCAN_BWD_CASES = [(b, n, s, dtype, given)
+                  for b, n in ((2, 8), (2, 16), (1, 16))
+                  for s in SCAN_BWD_LENGTHS
+                  for dtype in ("float32", "bfloat16")
+                  for given in ((False, True) if b == 2 else (True,))]
+
+
+@pytest.mark.parametrize("b,n,s,dtype,given", SCAN_BWD_CASES)
+def test_mamba_scan_backward_kernel_matches_plain(cuda, b, n, s, dtype,
+                                                  given):
     """The backward kernel against its plain version (``mamba_scan_bwd``)
     from the same kept states, dout and dh (None, or given): every
     gradient in the plain version's dtype and within 2e-5 (fp32) or TOL
-    (bf16) of its largest magnitude; one launch."""
+    (bf16) of its largest magnitude; one launch, and the same bits from a
+    second run."""
     from repro_torch.kernels import mamba_scan as ms
-    *inputs, _ = mamba_on(cuda, 2, s, 48, n, s + n, dtype, carried=False)
+    *inputs, _ = mamba_on(cuda, b, s, 48, n, s + n, dtype, carried=False)
     gen = torch.Generator(cuda).manual_seed(s)
-    dout = torch.randn((2, s, 48), device=cuda, generator=gen).to(
+    dout = torch.randn((b, s, 48), device=cuda, generator=gen).to(
         inputs[0].dtype)
-    dh = torch.randn((2, 48, n), device=cuda, generator=gen) if given \
+    dh = torch.randn((b, 48, n), device=cuda, generator=gen) if given \
         else None
     _, _, starts = ms.mamba_chunk_states(*inputs)
     before = ms.mamba_scan_backward.launches
     got = ms.mamba_scan_backward(*inputs, starts, dout, dh)
+    again = ms.mamba_scan_backward(*inputs, starts, dout, dh)
     torch.cuda.synchronize()
-    assert ms.mamba_scan_backward.launches == before + 1
+    assert ms.mamba_scan_backward.launches == before + 2
     want = ms.mamba_scan_bwd(*inputs, starts, dout, dh)
     tol = 2e-5 if dtype == "float32" else TOL["bfloat16"]
     names = ("d dt_raw", "d dt_bias", "db", "dc", "dx", "dz", "d a_log",
              "d d_skip")
-    for name, g, w in zip(names, got, want):
+    for name, g, a, w in zip(names, got, again, want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, a), name
         close_to_max(g, w, tol, name)
 
 
 # WKV6's backward kernel against wkv6_bwd from the same kept states: every
 # head dim, S within a 256-step chunk and off the kernel's 16-step
-# sub-chunks, with a ragged last chunk and across five, decays in the
-# model's range or with exact 0s and 1s, dstate None or given
-WKV_BWD_CASES = [(hd, s, decays, given)
+# sub-chunks and 32-step kept states, with a ragged last chunk and across
+# five, decays in the model's range or with exact 0s and 1s, dstate None
+# or given; two batch rows, and one at hd 64 and 32
+WKV_BWD_CASES = [(2, hd, s, decays, given)
                  for hd, s in ((16, 40), (32, 300), (64, 4 * 256 + 44))
                  for decays in ("inputs", "0 and 1")
-                 for given in (False, True)]
+                 for given in (False, True)] + [
+    (1, 64, 300, "inputs", True), (1, 32, 4 * 256 + 44, "0 and 1", True)]
 
 
 def wkv6_backward_inputs(cuda, b, s, h, hd, decays, seed):
@@ -492,15 +505,15 @@ def wkv6_backward_inputs(cuda, b, s, h, hd, decays, seed):
     return [x.to(cuda) for x in (r, k, v, w, u)], dy.to(cuda)
 
 
-@pytest.mark.parametrize("hd,s,decays,given", WKV_BWD_CASES)
-def test_wkv6_backward_kernel_matches_plain(cuda, hd, s, decays, given):
+@pytest.mark.parametrize("b,hd,s,decays,given", WKV_BWD_CASES)
+def test_wkv6_backward_kernel_matches_plain(cuda, b, hd, s, decays, given):
     """The backward kernel against its plain version (``wkv6_bwd``) from
     the same kept states, dy and dstate: dr, dk, dv, dw, du in fp32 within
     2e-5 of each gradient's largest magnitude; one launch, and the same
     bits from a second run."""
     from repro_torch.kernels import wkv6 as wk
-    inputs, dy = wkv6_backward_inputs(cuda, 2, s, 3, hd, decays, hd + s)
-    dstate = torch.randn((2, 3, hd, hd), device=cuda,
+    inputs, dy = wkv6_backward_inputs(cuda, b, s, 3, hd, decays, hd + s)
+    dstate = torch.randn((b, 3, hd, hd), device=cuda,
                          generator=torch.Generator(cuda).manual_seed(s)) \
         if given else None
     _, _, starts = wk.wkv6_chunk_states(*inputs)
@@ -535,7 +548,7 @@ def test_backward_kernels_raise_rather_than_falling_back(cuda):
     nothing: a head dim outside HEAD_DIMS, Sq != Sk; a state width outside
     STATE_DIMS, di not a multiple of 8, a chunk that is not a multiple of
     the kernel's tile; WKV6 at hd 48, in fp64, with a chunk that is not a
-    multiple of its 16-step sub-chunk."""
+    multiple of its 32-step kept states."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import wkv6 as wk

@@ -4,25 +4,30 @@ decomposition transcribed in torch, and its operator's routes.
 The kernel cannot run here, so ``decomposed`` below does what its three
 kernels do, step for step, in torch operations:
 
-1. from each 256-step chunk's kept start state, the chunk walked token by
-   token: the state at every 16-step sub-chunk's start, and the chunk's
-   own part of the state's gradient at its start, G_c = sum_t (prod_{tau<t}
-   w_tau) o r_t dy_t^T, with its fade A_c = prod_t w_t;
+1. from each 256-step chunk's kept start state, the chunk walked forward
+   in 16-step sub-chunks by the forward's update S <- A o S + (K o E)^T V
+   (products, no token walk), the state kept at every 32-step pair's
+   start, and the chunk's own part of the state's gradient at its start
+   summed as products, G_c = sum over sub-chunks of (R o D o Dg)^T dY (Dg
+   the product of w before the sub-chunk), with its fade A_c = prod_t w_t;
 2. the carry, backwards over chunks: dS_end(c-1) = A_c o dS_end(c) + G_c;
-3. each chunk's sub-chunks walked backwards from dS_end(c): the gradients
-   of a sub-chunk from its start state S0 and its end's dS in the closed
-   form of the kernel's header, with P(s, t) = prod_{s<tau<t} w_tau (no
-   division), dw in the direct form rowsum(dS_t o S_{t-1}) written out,
-   and dS <- A o dS + (R o D)^T dY.
+3. each chunk's pairs of sub-chunks walked backwards from dS_end(c): the
+   pair's second start state rebuilt from its kept one by one update,
+   then the gradients of each sub-chunk from its start state S0 and its
+   end's dS in the closed form of the kernel's header, with P(s, t) =
+   prod_{s<tau<t} w_tau (no division), the last term of dw from W_t[s] =
+   sum_{t'>t} P(t,t') r_t' Q[t'][s] carried down by its recurrence W_t =
+   r_{t+1} Q[t+1] + w_{t+1} W_{t+1}, and dS <- A o dS + (R o D)^T dY.
 
 It is held to fp64 autograd through the plain loop (1e-10, the algebra
 exactly) and to ``jax.vjp`` of JAX's ``chunked_time_scan`` of
 ``wkv_step`` (2e-5 of each gradient's largest magnitude, fp32) at S = 40,
-300 (a ragged last chunk) and 512 (two chunks), from a nonzero gradient
-of the final state, with decays near 0, exactly 0 and exactly 1; and the
-gradient through the model's underflowing decay exp(-exp(x)) against the
-plain path's. Where w < the smallest normal number the kernel's dw is 0,
-the plain version's convention. Inputs are made with numpy from a seed.
+300 (a ragged last chunk, and a last pair of one sub-chunk) and 512 (two
+chunks), from a nonzero gradient of the final state, with decays near 0,
+exactly 0 and exactly 1; and the gradient through the model's underflowing
+decay exp(-exp(x)) against the plain path's. Where w < the smallest normal
+number the kernel's dw is 0, the plain version's convention. Inputs are
+made with numpy from a seed.
 """
 
 import dataclasses
@@ -38,28 +43,56 @@ from repro.models import ssm as jssm
 from repro_torch.kernels import ops
 from repro_torch.kernels import wkv6 as wk
 
-SUB = 16            # the kernel's sub-chunk: a state kept every 16 steps
+SUB = 16            # the kernel's sub-chunk
+KEEP = 32           # the state kept every pair of sub-chunks
 LENGTHS = [40, 300, 512]
 
 
+def heads_first(t, t0, t1):
+    """Tokens [t0, t1) of a (B, S, H, hd) tensor as (B, H, n, hd)."""
+    return t.transpose(1, 2)[:, :, t0:t1]
+
+
+def sub_decays(w):
+    """D_t = prod_{tau<t} w_tau, E_t = prod_{tau>t} w_tau (B, H, n, hd) and
+    A = prod_tau w_tau (B, H, hd) of a sub-chunk, by running products."""
+    n = w.shape[2]
+    d, e = torch.ones_like(w), torch.ones_like(w)
+    for t in range(1, n):
+        d[:, :, t] = d[:, :, t - 1] * w[:, :, t - 1]
+        e[:, :, n - 1 - t] = e[:, :, n - t] * w[:, :, n - t]
+    return d, e, d[:, :, -1] * w[:, :, -1]
+
+
+def update(state, k, v, w):
+    """The forward's update over a sub-chunk: A o S + (K o E)^T V."""
+    _, e, a = sub_decays(w)
+    return a[..., None] * state + (k * e).transpose(-1, -2) @ v
+
+
 def chunk_pass(r, k, v, w, dy, starts, chunk):
-    """Kernel 1: per chunk, from its kept start, the state at each
-    sub-chunk's start (B, ceil(S / SUB), H, hd, hd), G_c and A_c."""
+    """Kernel 1: per chunk, from its kept start, the state at each pair's
+    start (B, ceil(S / KEEP), H, hd, hd), G_c and A_c, sub-chunk by
+    sub-chunk in products."""
     b, s, h, hd = r.shape
     nc = starts.shape[1]
-    ckpt = r.new_zeros((b, -(-s // SUB), h, hd, hd))
+    ckpt = r.new_zeros((b, -(-s // KEEP), h, hd, hd))
     grow = r.new_zeros((b, nc, h, hd, hd))
     fade = r.new_ones((b, nc, h, hd))
     for c in range(nc):
-        state, d = starts[:, c].clone(), r.new_ones((b, h, hd))
-        for t in range(c * chunk, min(s, (c + 1) * chunk)):
-            if t % SUB == 0:
-                ckpt[:, t // SUB] = state
-            grow[:, c] += (d * r[:, t])[..., None] * dy[:, t][..., None, :]
-            d = d * w[:, t]
-            state = w[:, t][..., None] * state \
-                + k[:, t][..., None] * v[:, t][..., None, :]
-        fade[:, c] = d
+        state, dg = starts[:, c].clone(), r.new_ones((b, h, hd))
+        first, last = c * chunk, min(s, (c + 1) * chunk)
+        for t0 in range(first, last, SUB):
+            t1 = min(last, t0 + SUB)
+            if t0 % KEEP == 0:
+                ckpt[:, t0 // KEEP] = state
+            rr, kk, vv, ww, gy = (heads_first(x, t0, t1)
+                                  for x in (r, k, v, w, dy))
+            d, _, a = sub_decays(ww)
+            grow[:, c] += (rr * d * dg[:, :, None]).transpose(-1, -2) @ gy
+            state = update(state, kk, vv, ww)
+            dg = dg * a
+        fade[:, c] = dg
     return ckpt, grow, fade
 
 
@@ -90,11 +123,7 @@ def sub_chunk_grads(r, k, v, w, dy, u, s0, ds):
         for t in range(a + 1, n):
             p[:, :, a, t] = run
             run = run * w[:, :, t]
-    d, e = torch.ones_like(r), torch.ones_like(r)
-    for t in range(1, n):
-        d[:, :, t] = d[:, :, t - 1] * w[:, :, t - 1]
-        e[:, :, n - 1 - t] = e[:, :, n - t] * w[:, :, n - t]
-    fade = d[:, :, -1] * w[:, :, -1]
+    d, e, fade = sub_decays(w)
     diag = torch.diagonal(q, dim1=-2, dim2=-1)[..., None]
     uk, ur = u[None, :, None] * k, u[None, :, None] * r
     dr = d * z + torch.einsum("bhts,bhsi,bhsti->bhti", q, k, p) + uk * diag
@@ -102,10 +131,21 @@ def sub_chunk_grads(r, k, v, w, dy, u, s0, ds):
     m = torch.einsum("bhti,bhsi,bhsti->bhts", r, k, p) \
         + torch.diag_embed((r * uk).sum(-1))
     dv = (k * e) @ ds + m.transpose(-1, -2) @ dy
+    # the last term of dw: W_t[s] carried down from W_{n-1} = 0, then
+    # sum_{s<t} P(s,t) k_s W_t[s] by a running product down from s = t - 1
+    t4 = torch.zeros_like(r)
+    big_w = r.new_zeros((*r.shape[:2], n, r.shape[-1]))    # W_t[s][i]
+    for t in range(n - 2, -1, -1):
+        big_w = r[:, :, t + 1, None] * q[:, :, t + 1, :, None] \
+            + w[:, :, t + 1, None] * big_w
+        run, acc = torch.ones_like(r[:, :, 0]), torch.zeros_like(r[:, :, 0])
+        for s_ in range(t - 1, -1, -1):
+            acc = acc + run * k[:, :, s_] * big_w[:, :, s_]
+            run = run * w[:, :, s_]
+        t4[:, :, t] = acc
     dw = d * e * rowsum[:, :, None] \
         + e * torch.einsum("bhsti,bhsi,bhsi->bhti", p, k, x) \
-        + d * torch.einsum("bhtxi,bhxi,bhxi->bhti", p, r, z) \
-        + torch.einsum("bhsti,bhtxi,bhsi,bhxi,bhxs->bhti", p, p, k, r, q)
+        + d * torch.einsum("bhtxi,bhxi,bhxi->bhti", p, r, z) + t4
     du = (r * k * diag).sum((0, 2))
     return dr, dk, dv, dw, du, fade[..., None] * ds + (r * d).transpose(
         -1, -2) @ dy
@@ -121,14 +161,19 @@ def decomposed(r, k, v, w, u, starts, dy, dstate=None, chunk=256):
     for c in range(starts.shape[1]):
         ds = ends[:, c]
         first, last = c * chunk, min(s, (c + 1) * chunk)
-        for t0 in reversed(range(first, last, SUB)):
-            t1 = min(last, t0 + SUB)
-            part = (t.transpose(1, 2)[:, :, t0:t1] for t in (r, k, v, w, dy))
-            *got, du_c, ds = sub_chunk_grads(*part, u, ckpt[:, t0 // SUB],
-                                             ds)
-            for g, x in zip(grads, got):
-                g[:, t0:t1] = x.transpose(1, 2)
-            du += du_c
+        for p0 in reversed(range(first, last, KEEP)):
+            s0 = ckpt[:, p0 // KEEP]
+            subs = [(p0, min(last, p0 + SUB), s0)]
+            if p0 + SUB < last:     # the second start state, rebuilt
+                part = (heads_first(t, p0, p0 + SUB) for t in (k, v, w))
+                subs.append((p0 + SUB, min(last, p0 + KEEP),
+                             update(s0, *part)))
+            for t0, t1, st in reversed(subs):
+                part = (heads_first(t, t0, t1) for t in (r, k, v, w, dy))
+                *got, du_c, ds = sub_chunk_grads(*part, u, st, ds)
+                for g, x in zip(grads, got):
+                    g[:, t0:t1] = x.transpose(1, 2)
+                du += du_c
     dw = torch.where(w < torch.finfo(w.dtype).tiny, 0.0, grads[3])
     return (*grads[:3], dw, du)
 

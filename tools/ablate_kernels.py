@@ -39,6 +39,14 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "ablate"
 
+# every 3xTF32 product of a source as one plain TF32 mma (hi * hi)
+TF32_ONLY = [
+    ('#include "common.cuh"\n',
+     '#include "common.cuh"\n__device__ __forceinline__ void mma1(float* c, '
+     'const FragA& a, const FragB& b) {\n  mma_tf32(c, a.hi, b.hi[0], '
+     'b.hi[1]);\n}\n'),
+    ("mma3(", "mma1(")]
+
 # kernel -> {variant: [(text, replacement), ...]}
 VARIANTS = {
     "flash_attention": {
@@ -81,9 +89,7 @@ VARIANTS = {
              "  return false ? launch_chunk<HD>(p, B, stream)")],
         "no chunk loads after the first": [
             ("    if (c + 1 < nchunk) stage((c + 1) & 1, t0 + T);\n", "")],
-        "no 3xTF32 lo terms": [
-            ("  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);\n"
-             "  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);\n", "")],
+        "no 3xTF32 lo terms": TF32_ONLY,
         "no pairwise M": [
             ("      build_m<HD>(sr, sk, sw, uu, sM, tid);\n", "      (void)0;\n")],
         "no decay products D, E, A": [
@@ -233,7 +239,7 @@ VARIANTS = {
     },
     "wkv6_bwd": {
         "as shipped": [],
-        "kernel 1 alone (states every 16 steps, G_c, A_c)": [
+        "kernel 1 alone (the states every 32 steps, G_c, A_c)": [
             ("  wkv6_bwd_carry_kernel<<<",
              "  if (false) wkv6_bwd_carry_kernel<<<"),
             ("  wkv6_bwd_grads_kernel<HD><<<",
@@ -248,61 +254,81 @@ VARIANTS = {
              "  if (false) wkv6_bwd_states_kernel<HD><<<"),
             ("  wkv6_bwd_carry_kernel<<<",
              "  if (false) wkv6_bwd_carry_kernel<<<")],
-        "kernel 3 at one block an SM (no register cap, no spills)": [
-            ("__launch_bounds__(GradShape<HD>::NT, 2)",
-             "__launch_bounds__(GradShape<HD>::NT, 1)")],
-        "kernel 3 without Z and X (its products with S0 and dS)": [
-            ("    for (int j = 0; j < HD; j += 4) {\n"
-             "      float dy4[4], v4[4];\n",
-             "    for (int j = 0; j < 0; j += 4) {\n"
-             "      float dy4[4], v4[4];\n")],
-        "kernel 3 without dv's product with dS": [
-            ("      for (int i = 0; i < HD; i += 4) {\n"
-             "        float ke4[4];\n",
-             "      for (int i = 0; i < 0; i += 4) {\n"
-             "        float ke4[4];\n")],
+        "kernel 3 at one block an SM": [
+            ("__launch_bounds__(Shape<HD>::NT, 2)\n    wkv6_bwd_grads_kernel",
+             "__launch_bounds__(Shape<HD>::NT, 1)\n    wkv6_bwd_grads_kernel")],
+        "kernel 3's phase-1 products in one chain each": [
+            ("        mma3(z2[kk & 1], ady,", "        mma3(z2[0], ady,"),
+            ("        mma3(x2[kk & 1], av,", "        mma3(x2[0], av,"),
+            ("          mma3(q2[kk & 1], ady,", "          mma3(q2[0], ady,")],
+        "kernel 3 without Z, X and Q (phase 1's products)": [
+            ("      for (int kk = 0; kk < HD / 8; ++kk) {\n"
+             "        const FragA ady",
+             "      for (int kk = 0; kk < 0; ++kk) {\n"
+             "        const FragA ady")],
+        "kernel 3 without dv's products with dS": [
+            ("      for (int kk = 0; kk < HD / 8; ++kk)\n        mma3(d2[",
+             "      for (int kk = 0; kk < 0; ++kk)\n        mma3(d2[")],
         "kernel 3 without the dS update": [
-            ("      for (int tt = 0; tt < L; ++tt) {\n"
-             "        const float rdv",
-             "      for (int tt = 0; tt < 0; ++tt) {\n"
-             "        const float rdv")],
-        "kernel 3 without the per-row walks (up and down)": [
+            ("    mat_update<HD>(ds, sRD, LDP, bdy, sA, g, tq);\n", "")],
+        "kernel 3 without the up and down walks": [
             ("        if (tp > t) {\n", "        if (false) {\n"),
             ("      for (int s = t - 1; s >= 0; --s) {\n",
              "      for (int s = -1; s >= 0; --s) {\n")],
-        "kernel 3 without the triple sum T4's inner walk": [
-            ("        for (int tp = t + 1; tp < L; ++tp) {\n"
-             "          float rp[4], wp[4];\n",
-             "        for (int tp = L; tp < L; ++tp) {\n"
-             "          float rp[4], wp[4];\n")],
+        "kernel 3 without W's walk (dw's last term)": [
+            ("    switch (part) {\n", "    if (part < 0) switch (part) {\n")],
+        "kernels 1 and 3's rebuild without the decays D, E": [
+            ("      if (tau < t) dd[x] *= wv[x];\n"
+             "      if (tau > t) ee[x] *= wv[x];\n", "")],
+        "no 3xTF32 lo terms (plain TF32)": TF32_ONLY,
     },
     "mamba_scan_bwd": {
         "as shipped": [],
-        "no forward pass": [("      if (tt + 1 < nt) {", "      if (false) {")],
-        "no stores of the blocks' db/dc partials": [
-            ("        gb_out[i] = db;\n        gc_out[i] = dc;\n", "")],
+        "kernel 1 alone (forward pass, the adjoint's composition)": [
+            ("  mamba_scan_bwd_carry_kernel<<<",
+             "  if (false) mamba_scan_bwd_carry_kernel<<<"),
+            ("  err = cudaLaunchKernelEx(", "  if (false) err = "
+             "cudaLaunchKernelEx("),
+            ("  mamba_scan_bwd_reduce_kernel<TIn>\n", "  if (false)\n"
+             "  mamba_scan_bwd_reduce_kernel<TIn>\n")],
+        "kernel 3 alone (the tiles' gradients)": [
+            ("  mamba_scan_bwd_chunk_kernel<TIn, N><<<",
+             "  if (false) mamba_scan_bwd_chunk_kernel<TIn, N><<<"),
+            ("  mamba_scan_bwd_carry_kernel<<<",
+             "  if (false) mamba_scan_bwd_carry_kernel<<<"),
+            ("  mamba_scan_bwd_reduce_kernel<TIn>\n", "  if (false)\n"
+             "  mamba_scan_bwd_reduce_kernel<TIn>\n")],
         "no db/dc reduction kernel": [
             ("  mamba_scan_bwd_reduce_kernel<TIn>\n", "  if (false)\n"
              "  mamba_scan_bwd_reduce_kernel<TIn>\n")],
-        "no db/dc stores into the warps' slices": [
-            ("          sDB[at + perm(l * R + i)] = dbv[i];\n"
-             "          sDC[at + perm(l * R + i)] = dcv[i];\n", "")],
+        "clusters of 1 (a partial per block)": [
+            ("  for (int cs = 8; cs > 1; cs /= 2)",
+             "  for (int cs = 1; cs > 1; cs /= 2)")],
+        "no cluster sum (a rank's own slices only)": [
+            ("        for (int q = 0; q < p.CS; ++q) {",
+             "        for (int q = rank; q <= rank; ++q) {")],
         "no epilogue": [
-            ("        if (t0 + t >= p.S || d0 + c0 >= p.di) continue;\n"
-             "        float dv[4]",
+            ("        if (t0 + t >= p.S) continue;\n        float dv[4]",
              "        if (true) continue;\n        float dv[4]")],
         "__expf in the passes": [
-            ("const float da = expf(__fmul_rn(dtv[i], aj));",
-             "const float da = __expf(__fmul_rn(dtv[i], aj));"),
             ("A[i] = expf(__fmul_rn(dtv[i], aj));",
              "A[i] = __expf(__fmul_rn(dtv[i], aj));")],
-        "no block minimum in the launch bounds": [
-            ("__launch_bounds__(NT, 3)", "__launch_bounds__(NT)")],
-        "4 blocks an SM (128 registers)": [
-            ("__launch_bounds__(NT, 3)", "__launch_bounds__(NT, 4)")],
-        "8 warps a block (16 channels)": [
-            ("constexpr int NW = 4;", "constexpr int NW = 8;"),
-            ("__launch_bounds__(NT, 3)", "__launch_bounds__(NT, 1)")],
+        "clusters of at most 4": [
+            ("  for (int cs = 8; cs > 1; cs /= 2)",
+             "  for (int cs = 4; cs > 1; cs /= 2)")],
+        "kernel 3's state loop unrolled by 2": [
+            ("#pragma unroll 1\n    for (int j = g * C::NS; j < (g + 1) * C::NS; "
+             "++j) {\n      const float aj = sA[ch * N + j];\n"
+             "      const float h_tile = hs[",
+             "#pragma unroll 2\n    for (int j = g * C::NS; j < (g + 1) * C::NS; "
+             "++j) {\n      const float aj = sA[ch * N + j];\n"
+             "      const float h_tile = hs[")],
+        "kernel 1 at 5 blocks an SM": [
+            ("__launch_bounds__(NT, 4)\n    mamba_scan_bwd_chunk_kernel",
+             "__launch_bounds__(NT, 5)\n    mamba_scan_bwd_chunk_kernel")],
+        "kernel 3 at 4 blocks an SM (128 registers)": [
+            ("__launch_bounds__(NT, 3)\n    mamba_scan_bwd_kernel",
+             "__launch_bounds__(NT, 4)\n    mamba_scan_bwd_kernel")],
     },
 }
 # where each kernel's wrapper module loads its library: {kernel: (module
