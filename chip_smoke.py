@@ -8,8 +8,8 @@ Phases; each raises on failure, so any failure exits non-zero:
      print ptxas' registers and spills and each library's count of HMMA
      (mma.sync), HGMMA (wgmma) and UTMALDG (TMA load) instructions: HMMA
      must not be 0 for flash attention, its backward (the mma.sync bodies
-     of hd 32, 80, 96, 160) and WKV6, nor HGMMA and UTMALDG for the
-     attention backward (its Hopper bodies at hd 64 and 128);
+     of hd 32 and 160) and WKV6, nor HGMMA and UTMALDG for the attention
+     backward (its Hopper bodies at hd 64, 80, 96 and 128);
   2. each kernel against its plain PyTorch version on the card, at the
      serving shapes and in windowed, ragged, 3-D layout, hd 32 and 128,
      fp32, many-split, poisoned-cache and carried-state cases, with its
@@ -72,14 +72,17 @@ Phases; each raises on failure, so any failure exits non-zero:
      each row's log-sum-exp, and the backward kernels) against autograd
      through the plain version at the serving shape and at the training
      shapes of qwen3-8b (B=2, S=4096, 32/8 heads), hymba-1.5b (B=4,
-     25/5 heads of 64, window 1024) and moonshot-v1-16b-a3b (B=2, 16/16
-     heads of 128), fp32 and bf16, with two mutants of the plain backward
-     that must fail; the backward kernels against their plain version
-     (flash_attention_bwd given the forward's out and log-sum-exp), two
-     runs bit-equal, and timed beside it, beside the old torch-ops
-     backward and SDPA's, at each training shape; the kernel's bf16
-     forward against its plain version at the training shape, with the
-     temperature mutant; qwen3-8b
+     25/5 heads of 64, window 1024), moonshot-v1-16b-a3b (B=2, 16/16
+     heads of 128), phi3-mini-3.8b (B=2, 32/32 heads of 96) and
+     h2o-danube-1.8b (B=4, 32/8 heads of 80, window 4096), fp32 and
+     bf16, with two mutants of the plain backward that must fail, bf16
+     asserted to run the Hopper (wgmma, TMA) bodies at each of them; the
+     backward kernels against their plain version (flash_attention_bwd
+     given the forward's out and log-sum-exp), two runs bit-equal, and
+     timed beside it, beside the old torch-ops backward and SDPA's (causal
+     where the window covers S), at each training shape; the kernel's bf16
+     forward against its plain version at qwen3-8b's, phi3's and
+     h2o-danube's training shapes, with the temperature mutant; qwen3-8b
      trained at full width
      and depth 8 (AdamW, bf16, 4 microbatches of 2 x 4096 tokens)
      through train_step, a warm-up step and 3 timed ones,
@@ -110,7 +113,12 @@ Phases; each raises on failure, so any failure exits non-zero:
      leaf that feeds a recurrence), each profiled over one microbatch;
      and their kernel and plain paths at depth 2, 2 x 2048 tokens, with
      rwkv6-3b's plain path also run in fp64 and each fp32 path's distance
-     from it printed. moonshot-v1-16b-a3b
+     from it printed; phi3-mini-3.8b (32 layers, d_model 3072, MHA 32
+     heads of 96) and h2o-danube-1.8b (24 layers, d_model 2560, GQA 32/8
+     heads of 80, window 4096) trained at full width and full depth as
+     qwen3-8b is (128 and 48 attention backward launches a step), their
+     kernel and plain paths compared at depth 2 at their training
+     microbatches. moonshot-v1-16b-a3b
      (MoE, 64 experts top-6) is trained as qwen3-8b is, at depth 4 of 48
      (47.3 GB of state), with a profile of one microbatch that splits the
      MoE layer's device time into routing, one-hot and scan, scatter,
@@ -163,7 +171,8 @@ with the timed train steps' launches, "wkv6_train" and "mamba_scan_train"
 at rwkv6-3b's and hymba-1.5b's training microbatch with their timed train
 steps' launches, "flash_attention_bwd" at qwen3-8b's training shape and
 "_hymba", "_moonshot" at those models', "wkv6_backward" at rwkv6-3b's,
-"mamba_scan_bwd" at hymba-1.5b's,
+"mamba_scan_bwd" at hymba-1.5b's, "_phi3" and "_danube" for both the
+backward and the training forward at those models' training shapes,
 each with its model's timed train steps' launches, both attention kernels
 once more for
 each of hd 96, 80 and 160, "_hd<n>", and for hymba's group of 5,
@@ -240,20 +249,26 @@ BF16_ERR_RATIO = 1.1
 # fp32 accumulator, m and v): qwen3-8b cut to 8 of its 36 layers (44.6 GB
 # against 131 GB at full depth), moonshot-v1-16b-a3b to 4 of its 48 (47.3
 # GB: its embedding and LM head hold 0.335 B parameters each, each layer
-# 0.570 B), rwkv6-3b (49.2 GB) and hymba-1.5b (22.4 GB) at full depth;
-# TRAIN_4K's 4096 tokens a sequence, TRAIN_BATCH of its 256 sequences a
-# step (the run's time limit) in each config's grad_accum microbatches
-# (qwen3-8b, moonshot and rwkv6-3b: 4 of TRAIN_MICRO, hymba-1.5b: 2 of 4)
+# 0.570 B), rwkv6-3b (49.2 GB), hymba-1.5b (22.4 GB), phi3-mini-3.8b (32
+# layers, a step's peak 64.31 GB predicted on meta) and h2o-danube-1.8b
+# (24 layers, 34.10 GB predicted) at full depth; TRAIN_4K's 4096 tokens a
+# sequence, TRAIN_BATCH of its 256 sequences a step (the run's time limit)
+# in each config's grad_accum microbatches (qwen3-8b, moonshot, rwkv6-3b
+# and phi3-mini-3.8b: 4 of TRAIN_MICRO; hymba-1.5b and h2o-danube-1.8b: 2
+# of 4)
 TRAINED = {"qwen3-8b": 8, "moonshot-v1-16b-a3b": 4, "rwkv6-3b": 32,
-           "hymba-1.5b": 32}
+           "hymba-1.5b": 32, "phi3-mini-3.8b": 32, "h2o-danube-1.8b": 24}
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 4096, 8, 2
-# the kernel path against the plain one at depth 2, (model, S, B): qwen3-8b
-# and moonshot at the training shape; rwkv6-3b and hymba-1.5b at 2048
-# tokens (8 of the 256-step remat chunks, twice hymba's window), where the
-# plain loops' 2048 steps under autograd take seconds, not minutes
+# the kernel path against the plain one at depth 2, (model, S, B): qwen3-8b,
+# moonshot, phi3-mini-3.8b and h2o-danube-1.8b at their training
+# microbatches; rwkv6-3b and hymba-1.5b at 2048 tokens (8 of the 256-step
+# remat chunks, twice hymba's window), where the plain loops' 2048 steps
+# under autograd take seconds, not minutes
 COMPARED = (("qwen3-8b", TRAIN_SEQ, TRAIN_MICRO),
             ("moonshot-v1-16b-a3b", TRAIN_SEQ, TRAIN_MICRO),
-            ("rwkv6-3b", 2048, 2), ("hymba-1.5b", 2048, 2))
+            ("rwkv6-3b", 2048, 2), ("hymba-1.5b", 2048, 2),
+            ("phi3-mini-3.8b", TRAIN_SEQ, TRAIN_MICRO),
+            ("h2o-danube-1.8b", TRAIN_SEQ, 4))
 # models whose depth-2 comparison also runs the plain path in fp64, to tell
 # which fp32 path carries the gap between them (ROADMAP.md queue 3, n)
 FP64_COMPARED = ("rwkv6-3b",)
@@ -294,9 +309,16 @@ BWD_BF16_RATIO = 2.0
 # phase 5a: the attention backward at each trained attention model's
 # training shape, {JSON suffix: model}: qwen3-8b's GQA 32/8 heads of 128,
 # hymba-1.5b's 25/5 heads of 64 with its 1024-token window, moonshot's
-# 16/16 heads of 128
+# 16/16 heads of 128, phi3-mini-3.8b's 32/32 heads of 96, h2o-danube-1.8b's
+# 32/8 heads of 80 with its 4096-token window (every causal pair of a
+# 4096-token sequence)
 ATTENTION_TRAINED = {"": "qwen3-8b", "_hymba": "hymba-1.5b",
-                     "_moonshot": "moonshot-v1-16b-a3b"}
+                     "_moonshot": "moonshot-v1-16b-a3b",
+                     "_phi3": "phi3-mini-3.8b",
+                     "_danube": "h2o-danube-1.8b"}
+# the JSON suffixes of ATTENTION_TRAINED whose training forward phase 5a
+# also checks and times (hd 128, 96 and 80)
+FORWARD_TRAINED = ("", "_phi3", "_danube")
 # the training forward's log-sum-exp against its plain version (natural
 # log units; the scores' products sum in other orders)
 LSE_ATOL = 1e-3
@@ -404,9 +426,9 @@ def environment() -> str:
         log(f"{op} instructions ({what}) in the SASS: {counts[op]}")
     for op, name, what in (
             ("HMMA", "flash_attention", "bf16 body"),
-            ("HMMA", "flash_attention_bwd", "mma.sync bodies (hd 32, 80, "
-                                            "96, 160)"),
-            ("HGMMA", "flash_attention_bwd", "Hopper bodies (hd 64, 128)"),
+            ("HMMA", "flash_attention_bwd", "mma.sync bodies (hd 32, 160)"),
+            ("HGMMA", "flash_attention_bwd", "Hopper bodies (hd 64, 80, 96, "
+                                             "128)"),
             ("UTMALDG", "flash_attention_bwd", "Hopper bodies' TMA tiles"),
             ("HMMA", "wkv6", "chunked body's 3xTF32 products"),
             ("HMMA", "wkv6_bwd", "3xTF32 state products")):
@@ -930,6 +952,26 @@ def check_mamba_scan() -> list:
     return entries
 
 
+def sdpa_operands(q, k, v, window):
+    """SDPA's (B, H, S, hd) operands and keyword arguments for causal
+    attention of (B, S, H, hd) q, k, v with an optional window: is_causal
+    (GQA by enable_gqa) where the window is None or covers the whole
+    sequence, the same function on SDPA's fast path; else a boolean mask,
+    with K and V repeated per query head (SDPA has no window), which runs
+    its slow path."""
+    s = q.shape[1]
+    qt = q.transpose(1, 2).contiguous()
+    if window is None or window >= s:
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+        return (qt, kt, vt), {"is_causal": True, "enable_gqa": True}
+    grp = q.shape[2] // k.shape[2]
+    kt, vt = (t.repeat_interleave(grp, dim=2).transpose(1, 2).contiguous()
+              for t in (k, v))
+    pos = torch.arange(s, device=q.device)
+    return (qt, kt, vt), {"attn_mask": (pos[:, None] >= pos[None, :])
+                         & (pos[:, None] - pos[None, :] < window)}
+
+
 def prompt_len_of(arch: str) -> int:
     return {**SERVED, **STUB_SERVED}[arch]
 
@@ -1001,21 +1043,11 @@ def check_attention_shape(tag: str) -> list:
     plain = time_ms(lambda: ops.flash_attention(q, k, v, window=window,
                                                 impl="reference"), 3,
                     warmup=1)
-    qt = q.transpose(1, 2).contiguous()
-    if window is None:
-        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-        what = "SDPA"
-    else:     # SDPA has no window: a boolean mask, K and V per query head
-        kt, vt = (t.repeat_interleave(grp, dim=2).transpose(1, 2)
-                  .contiguous() for t in (k, v))
-        pos = torch.arange(s, device="cuda")
-        mask = (pos[:, None] >= pos[None, :]) & \
-            (pos[:, None] - pos[None, :] < window)
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask), 5, warmup=1)
-        what = "SDPA, window mask"
+    (qt, kt, vt), kw = sdpa_operands(q, k, v, window)
+    masked = "attn_mask" in kw
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw),
+                  5 if masked else 20, warmup=1 if masked else 3)
+    what = "SDPA, window mask" if masked else "SDPA"
     log(f"  prefill hd {hd} time: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
         f"{what} {lib:.4f} ms, bound {bound:.4f} ms ({by})")
     entries.append({"name": f"flash_attention_{tag}", "route": "cuda",
@@ -1711,11 +1743,13 @@ def check_backward_against_autograd(label: str, gen, b, s, h, hkv, hd,
 def check_attention_backward() -> dict:
     """Phase 5a. The attention backward through FlashAttentionFn against
     autograd through the plain version at the serving shape (with the
-    mutants) and at each ATTENTION_TRAINED model's training shape; the
-    kernel's bf16 forward and log-sum-exp against their plain versions at
-    qwen3-8b's; then, at each training shape, the backward kernels against
+    mutants) and at each ATTENTION_TRAINED model's training shape, where
+    bf16 must run the Hopper (wgmma, TMA) bodies; the kernel's bf16 forward
+    and log-sum-exp against their plain versions at the FORWARD_TRAINED
+    models'; then, at each training shape, the backward kernels against
     their plain version, timed (``time_attention_backward``). Returns
     {"bwd_ms": {model: kernel ms}, "entries": JSON entries}."""
+    from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator("cuda").manual_seed(3)
     log("flash attention backward (FlashAttentionFn: the training forward "
         "and the backward kernels) vs autograd through the plain version:")
@@ -1724,12 +1758,17 @@ def check_attention_backward() -> dict:
     bwd_ms, entries = {}, []
     for suffix, arch in ATTENTION_TRAINED.items():
         shape = attention_train_shape(arch)
+        body = fa.backward_body(shape["hd"], torch.bfloat16)
+        log(f"  {arch}: bf16 at hd {shape['hd']} runs the {body} bodies")
+        if body != "wgmma":
+            raise AssertionError(f"{arch}: bf16 at hd {shape['hd']} runs the "
+                                 f"{body} bodies, not the Hopper ones")
         q, k, v, dout = check_backward_against_autograd(
             f"{arch} training", gen, **shape)
         window = shape["window"]
         entry = None
-        if not suffix:
-            entry = check_training_forward(q, k, v)
+        if suffix in FORWARD_TRAINED:
+            entry = check_training_forward(suffix, q, k, v, window)
         bwd = time_attention_backward(suffix, arch, q, k, v, dout, window)
         bwd_ms[arch] = bwd["ms"]
         entries += [e for e in (entry, bwd) if e is not None]
@@ -1738,41 +1777,44 @@ def check_attention_backward() -> dict:
     return {"bwd_ms": bwd_ms, "entries": entries}
 
 
-def check_training_forward(q, k, v) -> dict:
-    """The kernel's bf16 training forward at the training shape (the body
+def check_training_forward(suffix: str, q, k, v, window) -> dict:
+    """The kernel's bf16 training forward at a training shape (the body
     each train step launches 2 x layers x microbatches times) against its
     plain version, out with the temperature mutant and each row's
     log-sum-exp within LSE_ATOL; timed beside the plain forward, SDPA's
-    forward and its bound. Returns the JSON entry
-    "flash_attention_train"."""
+    forward (``sdpa_operands``) and its bound. Returns the JSON entry
+    "flash_attention_train" + suffix."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     b, s, h, hd = q.shape
-    want, want_lse = fa.flash_attention_train_plain(q, k, v)
-    name = f"training forward B={b} S={s} bf16"
-    out, lse = fa.flash_attention_train(q, k, v)
+    want, want_lse = fa.flash_attention_train_plain(q, k, v, window)
+    name = f"training forward B={b} S={s} {h}/{k.shape[2]} heads of {hd}, " \
+        f"window {window}, bf16"
+    out, lse = fa.flash_attention_train(q, k, v, window)
     err = assert_close(name, out, want)
     assert_mutant_caught(name, fa.flash_attention_plain(q * MUTANT_TEMP, k,
-                                                        v), want)
+                                                        v, window), want)
     lse_err = max_err(lse, want_lse)
     log(f"  {name}, log-sum-exp: max_abs_err {lse_err:.3e} (limit "
         f"{LSE_ATOL})")
     if lse_err > LSE_ATOL or lse.dtype != torch.float32:
         raise AssertionError(f"{name}: log-sum-exp disagrees ({lse_err})")
     del want, want_lse, out, lse
-    fwd_flops = 4 * b * h * hd * (s * (s + 1) // 2)
+    fwd_flops = 4 * b * h * hd * visible_pairs(s, window)
     # Q, K, V read once, O (the size of Q) written once
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     bound, by = bound_ms(n_bytes, {q.dtype: fwd_flops})
-    fwd = time_ms(lambda: fa.flash_attention_train(q, k, v), 10)
-    plain = time_ms(lambda: fa.flash_attention_plain(q, k, v), 2, warmup=1)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 10)
-    log(f"  training shape B={b} S={s} bf16: kernel forward with "
-        f"log-sum-exp {fwd:.4f} ms (plain {plain:.4f}, SDPA {lib:.4f}, "
-        f"bound {bound:.4f} ms by {by})")
-    return {"name": "flash_attention_train", "route": "cuda",
+    fwd = time_ms(lambda: fa.flash_attention_train(q, k, v, window), 10)
+    plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, window), 2,
+                    warmup=1)
+    operands, kw = sdpa_operands(q, k, v, window)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(*operands, **kw),
+                  10)
+    log(f"  {name}: kernel forward with log-sum-exp {fwd:.4f} ms (plain "
+        f"{plain:.4f}, SDPA{' (window mask)' if 'attn_mask' in kw else ''} "
+        f"{lib:.4f}, bound {bound:.4f} ms by {by}), {fwd / bound:.2f}x the "
+        f"bound")
+    return {"name": f"flash_attention_train{suffix}", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:75",
             "max_abs_err": err, "ms": fwd, "plain_ms": plain,
@@ -1782,21 +1824,12 @@ def check_training_forward(q, k, v) -> dict:
 def sdpa_backward(q, k, v, dout, window):
     """One PyTorch call computing the attention backward, for its time: a
     closure running SDPA's backward alone (its forward run once, its graph
-    kept), causal, or with a window mask and K and V per query head (SDPA
-    has no window)."""
+    kept), on ``sdpa_operands``: causal where the window is None or covers
+    S, else with a window mask."""
     import torch.nn.functional as F
-    grp = q.shape[2] // k.shape[2]
-    qt, dt = (t.transpose(1, 2).contiguous() for t in (q, dout))
-    if window is None:
-        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
-        kw = {"is_causal": True, "enable_gqa": True}
-    else:
-        kt, vt = (t.repeat_interleave(grp, dim=2).transpose(1, 2)
-                  .contiguous() for t in (k, v))
-        pos = torch.arange(q.shape[1], device="cuda")
-        kw = {"attn_mask": (pos[:, None] >= pos[None, :])
-              & (pos[:, None] - pos[None, :] < window)}
-    leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+    operands, kw = sdpa_operands(q, k, v, window)
+    dt = dout.transpose(1, 2).contiguous()
+    leaves = [t.detach().requires_grad_(True) for t in operands]
     out = F.scaled_dot_product_attention(*leaves, **kw)
     return lambda: torch.autograd.grad(out, leaves, dt, retain_graph=True)
 
@@ -1854,8 +1887,8 @@ def time_attention_backward(suffix: str, arch: str, q, k, v, dout,
     lib = time_ms(sdpa_backward(q, k, v, dout, window), 5, warmup=1)
     log(f"  {what}: kernels {ms:.4f} ms, plain version {plain:.4f} ms, "
         f"the old torch-ops backward {old:.4f} ms, SDPA's backward alone"
-        f"{'' if window is None else ' (window mask)'} {lib:.4f} ms, bound "
-        f"{bound:.4f} ms ({by}), {ms / bound:.2f}x the bound")
+        f"{' (window mask)' if window and window < s else ''} {lib:.4f} ms, "
+        f"bound {bound:.4f} ms ({by}), {ms / bound:.2f}x the bound")
     return {"name": f"flash_attention_bwd{suffix}", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/models/layers.py:91",
@@ -3331,14 +3364,15 @@ def train_phase() -> list:
     with phase("5f, moonshot's grouped MoE dispatch against the flat one"):
         check_grouped_dispatch()
         free()
-    launched_by = {"flash_attention_train": ("qwen3-8b", "flash_attention"),
-                   "wkv6_train": ("rwkv6-3b", "wkv6"),
+    launched_by = {"wkv6_train": ("rwkv6-3b", "wkv6"),
                    "wkv6_backward": ("rwkv6-3b", "wkv6_backward"),
                    "mamba_scan_train": ("hymba-1.5b", "mamba_scan"),
                    "mamba_scan_bwd": ("hymba-1.5b", "mamba_scan_backward")}
     for suffix, arch in ATTENTION_TRAINED.items():
         launched_by[f"flash_attention_bwd{suffix}"] = \
             (arch, "flash_attention_backward")
+        launched_by[f"flash_attention_train{suffix}"] = \
+            (arch, "flash_attention")
     entries = [*attention["entries"], *recurrences["entries"]]
     for e in entries:
         arch, kernel = launched_by[e["name"]]

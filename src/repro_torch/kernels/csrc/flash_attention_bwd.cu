@@ -44,29 +44,44 @@
 // twice). Only tiles that straddle the diagonal, S or the window's edge
 // are masked.
 //
-// Hopper bodies, bf16 at hd 64 and 128 (the head dims that train on the
-// card: hymba-1.5b, qwen3-8b, moonshot): each block is two warpgroups.
+// Hopper bodies, bf16 at hd 64, 80, 96 and 128 (the head dims that train
+// on the card: hymba-1.5b; h2o-danube-1.8b; phi3-mini-3.8b; qwen3-8b and
+// moonshot): each block is two warpgroups.
 // Warpgroup 0 gives up its registers (setmaxnreg 24) and its first warp
 // loads: K and V (dK/dV) or Q and dO (dQ) once, then the streamed tiles
 // (Q, dO, with lse and D by the warp's lanes; or K, V) by TMA into a ring
 // of NST stages, each stage a full and an empty mbarrier, in the 128-byte
 // swizzle that the wgmma descriptors name: a 64-row tile's row of hd bf16
-// is hd / 64 boxes of 128 bytes, each box 64 rows x 128 bytes (8 KB). The
-// consumer warpgroup (setmaxnreg 232) runs the products on wgmma
+// is ceil(hd / 64) boxes of 128 bytes, each box 64 rows x 128 bytes (8
+// KB). The consumer warpgroup (setmaxnreg 232) runs the products on wgmma
 // m64nNk16 (bf16 in, fp32 accumulate), 64 rows a warpgroup: dK/dV takes
 // S^T = K Q^T and dP^T = V dO^T with both operands in shared memory
 // (K-major), forms P^T and dS^T = P^T o (dP^T - D) in registers, then dV
 // += T(P^T) dO and dK += T(dS^T) Q with P^T and dS^T as the register A
 // operand and dO, Q MN-major; dQ takes S = Q K^T, dP = dO V^T and dQ +=
 // T(dS) K the same way. Registers a consumer thread at hd 128: dK and dV
-// 64 + 64, S^T and dP^T 32 + 32. Shared memory: two 64 x hd tiles kept
-// and NST stages of two (hd 128: 16 KB a tile, NST 2, 98 KB: two blocks
-// an SM; hd 64: NST 3, 66 KB). Launch bounds hold a thread to 128
-// registers at entry (two blocks an SM), which setmaxnreg then moves from
-// the producer warpgroup (24) to the consumer one (232).
+// 64 + 64, S^T and dP^T 32 + 32 (hd 96: 48 + 48; hd 80: 40 + 40). Shared
+// memory: two 64 x hd tiles kept and NST stages of two (hd 80 to 128: two
+// boxes, 16 KB a tile, NST 2, 98 KB: two blocks an SM; hd 64: NST 3, 66
+// KB). Launch bounds hold a thread to 128 registers at entry (two blocks
+// an SM), which setmaxnreg then moves from the producer warpgroup (24) to
+// the consumer one (232).
 //
-// mma.sync bodies, bf16 at hd 32, 80, 96 and 160 (chosen in the same C
-// call; their redesign is ROADMAP.md queue 2): mma.sync.m16n8k16 with
+// hd 80 and 96 are 1.25 and 1.5 boxes. Their tiles are laid out as hd
+// 128's, two 128-byte-swizzle boxes a row, and the second box's columns
+// past hd are TMA's zero fill (the map's innermost extent is hd), so one
+// layout, one ring and whole-box transaction counts serve all four head
+// dims. The K-major products (S^T, dP^T; S, dP) step hd / 16 = 5 or 6
+// k-steps and never read the fill; the MN-major ones (dV, dK; dQ), N = hd,
+// run N = 64 over the first box and an N = 16 or 32 tail from the second
+// box's start, so no product runs over the zero columns either, and dK, dV
+// and dQ hold hd columns of accumulators. (The other design, a 32- or
+// 16-column tail box in a narrower swizzle, would give each descriptor its
+// own swizzle mode and the ring a second box shape for the same work.)
+//
+// mma.sync bodies, bf16 at hd 32 and 160 (chosen in the same C call; no
+// configuration trains at hd 32 on the card, and hd 160 is pixtral-12b's,
+// trained on the CPU only; ROADMAP.md queue 6): mma.sync.m16n8k16 with
 // ldmatrix from shared memory rows padded by 16 bytes, 4 warps of 16 rows
 // a block, 32-wide streamed tiles by cp.async in two stages: S^T = K Q^T
 // takes K as A and Q by ldmatrix; P^T (rounded to bf16 in registers) is
@@ -787,24 +802,27 @@ __global__ void __launch_bounds__(NT32) fa_bwd_dq_f32_kernel(
   }
 }
 
-// ------------------------------------------- 4. Hopper bf16 bodies (hd 64, 128)
+// ------------------------------ 4. Hopper bf16 bodies (hd 64, 80, 96, 128)
 // wgmma with its operands in shared memory by TMA (128-byte swizzle) and a
 // producer warp; the header says why. HT rows a consumer warpgroup (keys
 // in dK/dV, queries in dQ) and a streamed tile; a tile's row of HD bf16 is
-// HD / 64 boxes of 128 bytes, each box HT rows x 128 bytes (8 KB), which the
-// swizzle's 8-row x 128-byte atoms tile with no padding.
+// NB = ceil(HD / 64) boxes of 128 bytes, each box HT rows x 128 bytes (8
+// KB), which the swizzle's 8-row x 128-byte atoms tile with no padding. At
+// hd 80 and 96 the second box's columns past hd are TMA's zero fill.
 constexpr int HT = 64;
 constexpr int BOX = 64;    // hd columns a TMA box
+constexpr int BOXB = HT * BOX * 2;  // bytes of a box
 constexpr int HNT = 256;   // a producer and a consumer warpgroup
-// TMA ring depth of the streamed tiles: two at hd 128, where a third stage
-// would leave room for one block an SM (tools/ablate_kernels.py)
+// TMA ring depth of the streamed tiles: two where a tile is two boxes,
+// where a third stage would leave room for one block an SM
+// (tools/ablate_kernels.py)
 template <int HD>
-constexpr int hopper_stages() { return HD == 128 ? 2 : 3; }
+constexpr int hopper_stages() { return HD > BOX ? 2 : 3; }
 
 template <int HD, int NST>
 struct HopperShape {
-  static constexpr int TILE = HT * HD * 2;  // bytes of a 64-row bf16 tile
-  static constexpr int BOXB = HT * BOX * 2;
+  static constexpr int NB = (HD + BOX - 1) / BOX;  // boxes a tile row
+  static constexpr int TILE = NB * BOXB;  // bytes of a 64-row bf16 tile
   // dK/dV: K, V, then NST x (Q, dO); dQ: Q, dO, then NST x (K, V); then
   // (dK/dV) NST x (lse, D) floats; then the mbarriers
   static constexpr int OFF_STAGE = 2 * TILE;
@@ -865,16 +883,16 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
 }
 // K-major operand (rows x hd, the product's depth along hd), its k-step kk
 // of 16 columns: box kk / 4, 32 bytes a step inside the box's 128-byte rows;
-// 8-row groups 1024 bytes apart
-template <int HD>
+// 8-row groups 1024 bytes apart. hd / 16 steps: at hd 80 and 96 the last
+// one or two read the second box's first columns, never its zero fill.
 __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
-  return gmma_desc(tile + (kk / 4) * HT * BOX * 2 + (kk % 4) * 32, 16, 1024);
+  return gmma_desc(tile + (kk / 4) * BOXB + (kk % 4) * 32, 16, 1024);
 }
 // MN-major operand (the product's depth along the tile's rows, N = hd),
 // its k-step kk of 16 rows; 8-row groups 1024 bytes apart, the next 64
 // columns one box (8 KB) on
 __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
-  return gmma_desc(tile + kk * 16 * 128, HT * BOX * 2, 1024);
+  return gmma_desc(tile + kk * 16 * 128, BOXB, 1024);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -981,13 +999,53 @@ __device__ __forceinline__ void wgmma_rs_128(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int N>
+// d (64 x 32) += A B and d (64 x 16) += A B, as wgmma_rs_64: the tails of
+// hd 96 and hd 80 in the second box
+__device__ __forceinline__ void wgmma_rs_32(float* d, const uint32_t* a,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs_16(float* d, const uint32_t* a,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x HD) += A B over a tile's k-step kk, B MN-major (N = hd): one
+// instruction at hd 64 and 128 (the second box LBO on); at hd 80 and 96 the
+// first box's 64 columns, then an N = 16 or 32 instruction from the second
+// box's start, whose columns past hd (TMA's zero fill) no product reads.
+// d[4 j + 2 r + e] is column 8 j + 2 t + e in both cases.
+template <int HD>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t db) {
-  if constexpr (N == 64)
-    wgmma_rs_64(d, a, db);
-  else
-    wgmma_rs_128(d, a, db);
+                                         uint32_t tile, int kk) {
+  if constexpr (HD == 128) {
+    wgmma_rs_128(d, a, mnmajor(tile, kk));
+  } else {
+    wgmma_rs_64(d, a, mnmajor(tile, kk));
+    if constexpr (HD == 96)
+      wgmma_rs_32(d + 32, a, mnmajor(tile + BOXB, kk));
+    else if constexpr (HD == 80)
+      wgmma_rs_16(d + 32, a, mnmajor(tile + BOXB, kk));
+    else
+      static_assert(HD == 64, "Hopper bodies: hd 64, 80, 96, 128");
+  }
 }
 
 // the four 16-column steps of a 64 x 64 accumulator (rows of each warp's
@@ -1047,10 +1105,9 @@ __global__ void __launch_bounds__(HNT, 2) fa_bwd_dkdv_hopper_kernel(
     if (warp != 0) return;
     if (lane == 0) {
       mbar_expect_tx(kv_bar, 2 * C::TILE);
-      for (int c = 0; c < HD / BOX; ++c) {
-        tma_box(smem + c * C::BOXB, &mk, kv_bar, BOX * c, hk, k0, b);
-        tma_box(smem + C::TILE + c * C::BOXB, &mv, kv_bar, BOX * c, hk, k0,
-                b);
+      for (int c = 0; c < C::NB; ++c) {
+        tma_box(smem + c * BOXB, &mk, kv_bar, BOX * c, hk, k0, b);
+        tma_box(smem + C::TILE + c * BOXB, &mv, kv_bar, BOX * c, hk, k0, b);
       }
     }
     for (int n = 0; n < n_tiles; ++n) {
@@ -1068,10 +1125,10 @@ __global__ void __launch_bounds__(HNT, 2) fa_bwd_dkdv_hopper_kernel(
       if (lane == 0) {
         unsigned char* dst = smem + C::OFF_STAGE + st * 2 * C::TILE;
         mbar_expect_tx(full + st, 2 * C::TILE);
-        for (int c = 0; c < HD / BOX; ++c) {
-          tma_box(dst + c * C::BOXB, &mq, full + st, BOX * c, h, q0, b);
-          tma_box(dst + C::TILE + c * C::BOXB, &mdo, full + st, BOX * c, h,
-                  q0, b);
+        for (int c = 0; c < C::NB; ++c) {
+          tma_box(dst + c * BOXB, &mq, full + st, BOX * c, h, q0, b);
+          tma_box(dst + C::TILE + c * BOXB, &mdo, full + st, BOX * c, h, q0,
+                  b);
         }
       } else {
         mbar_arrive(full + st);
@@ -1107,10 +1164,10 @@ __global__ void __launch_bounds__(HNT, 2) fa_bwd_dkdv_hopper_kernel(
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_64(s, kmajor<HD>(sK, kk), kmajor<HD>(sQ, kk));
+      wgmma_ss_64(s, kmajor(sK, kk), kmajor(sQ, kk));
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_64(dp, kmajor<HD>(sV, kk), kmajor<HD>(sO, kk));
+      wgmma_ss_64(dp, kmajor(sV, kk), kmajor(sO, kk));
     wg_commit();
     wg_wait0();
     keep<32>(s);
@@ -1144,9 +1201,9 @@ __global__ void __launch_bounds__(HNT, 2) fa_bwd_dkdv_hopper_kernel(
     // dV += T(P^T) dO and dK += T(dS^T) Q, 16 queries a step
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(dv, pa[kk], mnmajor(sO, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(dv, pa[kk], sO, kk);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(dk, sa[kk], mnmajor(sQ, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(dk, sa[kk], sQ, kk);
     wg_commit();
     wg_wait0();
     keep<NA>(dv);
@@ -1216,9 +1273,9 @@ __global__ void __launch_bounds__(HNT, 2) fa_bwd_dq_hopper_kernel(
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x != 0) return;
     mbar_expect_tx(q_bar, 2 * C::TILE);
-    for (int c = 0; c < HD / BOX; ++c) {
-      tma_box(smem + c * C::BOXB, &mq, q_bar, BOX * c, h, q0, b);
-      tma_box(smem + C::TILE + c * C::BOXB, &mdo, q_bar, BOX * c, h, q0, b);
+    for (int c = 0; c < C::NB; ++c) {
+      tma_box(smem + c * BOXB, &mq, q_bar, BOX * c, h, q0, b);
+      tma_box(smem + C::TILE + c * BOXB, &mdo, q_bar, BOX * c, h, q0, b);
     }
     for (int n = 0; n < n_tiles; ++n) {
       const int st = n % NST;
@@ -1226,10 +1283,9 @@ __global__ void __launch_bounds__(HNT, 2) fa_bwd_dq_hopper_kernel(
       unsigned char* dst = smem + C::OFF_STAGE + st * 2 * C::TILE;
       const int k0 = k_begin + n * HT;
       mbar_expect_tx(full + st, 2 * C::TILE);
-      for (int c = 0; c < HD / BOX; ++c) {
-        tma_box(dst + c * C::BOXB, &mk, full + st, BOX * c, hk, k0, b);
-        tma_box(dst + C::TILE + c * C::BOXB, &mv, full + st, BOX * c, hk, k0,
-                b);
+      for (int c = 0; c < C::NB; ++c) {
+        tma_box(dst + c * BOXB, &mk, full + st, BOX * c, hk, k0, b);
+        tma_box(dst + C::TILE + c * BOXB, &mv, full + st, BOX * c, hk, k0, b);
       }
     }
     return;
@@ -1267,10 +1323,10 @@ __global__ void __launch_bounds__(HNT, 2) fa_bwd_dq_hopper_kernel(
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_64(s, kmajor<HD>(sQ, kk), kmajor<HD>(sKt, kk));
+      wgmma_ss_64(s, kmajor(sQ, kk), kmajor(sKt, kk));
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_64(dp, kmajor<HD>(sO, kk), kmajor<HD>(sVt, kk));
+      wgmma_ss_64(dp, kmajor(sO, kk), kmajor(sVt, kk));
     wg_commit();
     wg_wait0();
     keep<32>(s);
@@ -1299,7 +1355,7 @@ __global__ void __launch_bounds__(HNT, 2) fa_bwd_dq_hopper_kernel(
     to_frags(dp, sa);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(dq, sa[kk], mnmajor(sKt, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(dq, sa[kk], sKt, kk);
     wg_commit();
     wg_wait0();
     keep<NA>(dq);
@@ -1349,7 +1405,7 @@ EncodeTiled encode_tiled() {
 
 // the TMA map of a (B, S, heads, hd) bf16 operand with element strides
 // (batch, seq, head): dims (hd, heads, S, B), 64 x 1 x 64 x 1 boxes,
-// 128-byte swizzle, rows past S read as zeros
+// 128-byte swizzle, rows past S and columns past hd read as zeros
 int make_map(CUtensorMap* map, const void* base, int64_t sb, int64_t ss,
              int64_t sh, int B, int S, int heads, int hd) {
   const EncodeTiled encode = encode_tiled();
@@ -1418,6 +1474,16 @@ int launch_hopper(const BwdParams& p, int B, cudaStream_t stream) {
 }
 
 // ------------------------------------------------------------ launch
+// the bodies a (hd, dtype) pair runs: the Hopper bodies for bf16 at hd 64,
+// 80, 96 and 128, the mma.sync bodies for bf16 at hd 32 and 160, the
+// CUDA-core bodies for fp32 (flash_attention_bwd_body below reports it)
+enum : int { BODY_CUDA_CORES = 0, BODY_MMA_SYNC = 1, BODY_WGMMA = 2 };
+constexpr int body_of(int hd, bool bf16) {
+  return !bf16 ? BODY_CUDA_CORES
+         : hd == 64 || hd == 80 || hd == 96 || hd == 128 ? BODY_WGMMA
+                                                          : BODY_MMA_SYNC;
+}
+
 template <typename Kernel>
 int launch(Kernel kernel, size_t smem, dim3 grid, int threads,
            const BwdParams& p, cudaStream_t stream) {
@@ -1445,9 +1511,7 @@ int launch_hd(const BwdParams& p, int B, bool bf16, cudaStream_t stream) {
   const dim3 dkdv_grid((p.S + KB - 1) / KB, B * p.Hkv);
   const dim3 dq_grid((p.S + QR - 1) / QR, B * p.H);
   if (bf16) {
-    // hd 64 and 128 (the head dims that train on the card): the Hopper
-    // bodies; the others: mma.sync
-    if constexpr (HD == 64 || HD == 128) {
+    if constexpr (body_of(HD, true) == BODY_WGMMA) {
       return launch_hopper<HD>(p, B, stream);
     } else {
       err = launch(fa_bwd_dkdv_bf16_kernel<HD>, BwdBf16Shape<HD>::DKDV,
@@ -1464,7 +1528,21 @@ int launch_hd(const BwdParams& p, int B, bool bf16, cudaStream_t stream) {
                 p, stream);
 }
 
+bool is_head_dim(int hd) {
+  return hd == 32 || hd == 64 || hd == 80 || hd == 96 || hd == 128 ||
+         hd == 160;
+}
+
 }  // namespace
+
+// The body that flash_attention_bwd_launch runs for head dim `hd` and
+// `dtype`: 0 the fp32 CUDA-core bodies, 1 the mma.sync bodies, 2 the Hopper
+// (wgmma, TMA) bodies; -1 for a pair it refuses.
+extern "C" int flash_attention_bwd_body(int hd, int dtype) {
+  if (!is_head_dim(hd) || (dtype != DTYPE_F32 && dtype != DTYPE_BF16))
+    return -1;
+  return body_of(hd, dtype == DTYPE_BF16);
+}
 
 // q, o, dout, dq: (B, S, H, hd); k, v, dk, dv: (B, S, Hkv, hd), one dtype
 // (`dtype`: DTYPE_F32 or DTYPE_BF16), each given by its data pointer and

@@ -240,7 +240,25 @@ def _bwd_lib() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int64), i32, i32, i32, i32, i32, i32, i32,
         vp]
     lib.flash_attention_bwd_launch.restype = i32
+    lib.flash_attention_bwd_body.argtypes = [i32, i32]
+    lib.flash_attention_bwd_body.restype = i32
     return lib
+
+
+BACKWARD_BODIES = ("cuda cores", "mma.sync", "wgmma")
+
+
+def backward_body(hd: int, dtype: torch.dtype) -> str:
+    """The body that the backward kernels run on the card for head dim
+    ``hd`` and ``dtype``, as the library's dispatch reports it: "wgmma"
+    (the Hopper bodies: wgmma on TMA tiles; bf16 at hd 64, 80, 96, 128),
+    "mma.sync" (bf16 at hd 32, 160) or "cuda cores" (fp32). Builds and
+    loads the library."""
+    code = _bwd_lib().flash_attention_bwd_body(hd, DTYPE_CODES.get(dtype, -1))
+    if code < 0:
+        raise ValueError(f"flash_attention_backward: no body for hd={hd}, "
+                         f"{dtype}")
+    return BACKWARD_BODIES[code]
 
 
 def _misaligned(t: torch.Tensor) -> bool:

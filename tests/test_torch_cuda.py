@@ -530,7 +530,36 @@ def test_wkv6_backward_kernel_matches_plain(cuda, b, hd, s, decays, given):
         close_to_max(g, w, 2e-5, name)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+# the trained models' attention, cut in batch and length: h2o-danube-1.8b's
+# GQA 4x at hd 80 with its window equal to S (every causal pair visible),
+# phi3-mini-3.8b's MHA at hd 96; (grp, hd, S, window)
+BWD_MODEL_CASES = [(4, 80, 1000, 1000), (1, 96, 1000, None)]
+
+
+@pytest.mark.parametrize("grp,hd,s,window", BWD_MODEL_CASES,
+                         ids=["h2o-danube", "phi3"])
+def test_flash_attention_backward_kernel_at_a_model_shape(cuda, grp, hd, s,
+                                                          window):
+    """bf16 at hd 80 and 96 runs the Hopper (wgmma, TMA) bodies, within
+    TOL of the plain backward given the same out and lse, and within 2x
+    the plain path's own error against the fp32 plain backward."""
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.backward_body(hd, torch.bfloat16) == "wgmma"
+    q, k, v, dout = attention_train_inputs(cuda, grp, s, hd, "bfloat16",
+                                           hd + s)
+    out, lse = fa.flash_attention_train(q, k, v, window)
+    grads = fa.flash_attention_backward(q, k, v, out, lse, dout, window)
+    want = fa.flash_attention_bwd(q, k, v, dout, window, out=out, lse=lse)
+    f32 = [t.float() for t in (q, k, v, dout)]
+    out32, lse32 = fa.flash_attention_train_plain(*f32[:3], window)
+    truth = fa.flash_attention_bwd(*f32, window, out=out32, lse=lse32)
+    for name, g, w, t in zip(("dq", "dk", "dv"), grads, want, truth):
+        close_to_max(g, w, TOL["bfloat16"], name)
+        err = (g.float() - t).norm() / t.norm()
+        assert err <= 2 * (w.float() - t).norm() / t.norm(), name
+
+
+@pytest.mark.parametrize("hd", [64, 80, 96, 128])
 def test_flash_attention_backward_gives_the_same_bits_twice(cuda, hd):
     """The attention backward sums in a fixed order: two runs on the same
     inputs give the same bits (bf16, GQA 4x, a window)."""

@@ -85,7 +85,11 @@ ATTN_CASES = [
     (1, 600, 2, 1, 16, None),        # S not a multiple of 512: ragged chunk
     (1, 1100, 2, 1, 8, 40),          # window narrower than a chunk, 3 chunks
     (1, 1100, 6, 2, 8, 700),         # window wider than a chunk
+    (1, 96, 8, 2, 80, 96),           # hd 80, GQA 4x, window = S (h2o-danube)
+    (1, 80, 3, 3, 96, None),         # hd 96, MHA (phi3-mini)
 ]
+# the rows held to jax.vjp: the small ones and the trained head dims
+VJP_CASES = ATTN_CASES[:3] + ATTN_CASES[5:]
 
 
 def attn_inputs(b, s, h, hkv, hd, seed):
@@ -137,7 +141,7 @@ def jax_attention_vjp(case, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", ATTN_CASES[:3])
+@pytest.mark.parametrize("case", VJP_CASES)
 def test_attention_bwd_matches_jax_vjp(case, dtype):
     (q, k, v, do), want = jax_attention_vjp(case, dtype)
     td = getattr(torch, dtype)
@@ -183,12 +187,13 @@ def torch_batch(batch):
 
 
 @pytest.fixture(scope="module", params=[("qwen3-8b", 24),
+                                        ("phi3-mini-3.8b", 24),
                                         ("h2o-danube-1.8b", 40),
                                         ("rwkv6-3b", 40), ("rwkv6-3b", 512),
                                         ("hymba-1.5b", 40),
                                         ("hymba-1.5b", 512)],
-                ids=["qwen3-8b", "h2o-danube-windowed", "rwkv6", "rwkv6-512",
-                     "hymba", "hymba-512"])
+                ids=["qwen3-8b", "phi3-mini", "h2o-danube-windowed", "rwkv6",
+                     "rwkv6-512", "hymba", "hymba-512"])
 def model_case(request):
     """JAX's loss and gradients for a reduced fp32 config (h2o-danube's
     window, 16, is shorter than its 40 tokens; rwkv6's WKV6 recurrence and

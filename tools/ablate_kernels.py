@@ -14,11 +14,12 @@ decode: B=4 x Hkv=8, grp 4, 544 slots, and batch 1 against 32,768 slots;
 bf16; WKV6's chunked body: B=4, S=1024, H=40, hd=64, fp32; the fused
 Mamba scan: hymba's B=4, S=4096, di=1600, n=16, bf16; the backward
 kernels at the training microbatches: attention's at qwen3-8b's B=2,
-S=4096, 32/8 heads of 128 and hymba-1.5b's B=4, 25/5 heads of 64, window
-1024, bf16; WKV6's at rwkv6-3b's B=2, S=4096, H=40, hd=64, fp32, the
-model's decays; the scan's at hymba-1.5b's B=4, S=4096, bf16), beside
-the unedited kernel, in two rounds, with chip_smoke.py's
-time_ms. Flash decode
+S=4096, 32/8 heads of 128, hymba-1.5b's B=4, 25/5 heads of 64, window
+1024, phi3-mini-3.8b's B=2, 32/32 heads of 96 and h2o-danube-1.8b's B=4,
+32/8 heads of 80, window 4096, bf16; WKV6's at rwkv6-3b's B=2, S=4096,
+H=40, hd=64, fp32, the model's decays; the scan's at hymba-1.5b's B=4,
+S=4096, bf16), beside the unedited kernel, in two rounds, with
+chip_smoke.py's time_ms. Flash decode
 is also timed on the same cache laid out head-major (B, Hkv, S, hd), which
 the kernel reads through its strides. Each WKV6 variant's relative L2
 error against an fp64 recurrence is printed too (B=2, S=1024, H=5, hd=64
@@ -177,9 +178,16 @@ VARIANTS = {
     },
     "flash_attention_bwd": {
         "as shipped": [],
-        "the mma.sync bodies at hd 64 and 128": [
-            ("    if constexpr (HD == 64 || HD == 128) {",
+        "the mma.sync bodies at hd 64, 80, 96 and 128": [
+            ("    if constexpr (body_of(HD, true) == BODY_WGMMA) {",
              "    if constexpr (false) {")],
+        "hd 80 and 96 as hd 128: N = 128 over the zero columns": [
+            ("  if constexpr (HD == 128) {\n    wgmma_rs_128",
+             "  if constexpr (HD > 64) {\n    wgmma_rs_128"),
+            ("  constexpr int NA = HD / 2;  // a 64 x HD accumulator's floats",
+             "  constexpr int NA = HD > 64 ? 64 : HD / 2;  //"),
+            ("  constexpr int NA = HD / 2;\n",
+             "  constexpr int NA = HD > 64 ? 64 : HD / 2;\n")],
         "no dQ kernel": [
             ("  fa_bwd_dq_hopper_kernel<HD, NST>\n"
              "      <<<dq_grid, HNT, C::BYTES, stream>>>(mq, mk, mv, mdo, p);",
@@ -193,16 +201,20 @@ VARIANTS = {
              "        <<<delta_grid, 32 * DELTA_WARPS, 0, stream>>>(p, rows);",
              "    (void)rows;")],
         "TMA ring of 2 stages at every hd": [
-            ("return HD == 128 ? 2 : 3;", "return HD == 128 ? 2 : 2;")],
-        "TMA ring of 3 stages at every hd (hd 128: one block an SM)": [
-            ("return HD == 128 ? 2 : 3;", "return HD == 128 ? 3 : 3;")],
+            ("return HD > BOX ? 2 : 3;", "return HD > BOX ? 2 : 2;")],
+        "TMA ring of 3 stages at every hd (hd 80-128: one block an SM)": [
+            ("return HD > BOX ? 2 : 3;", "return HD > BOX ? 3 : 3;")],
         "TMA ring of 4 stages at every hd": [
-            ("return HD == 128 ? 2 : 3;", "return HD == 128 ? 4 : 4;")],
+            ("return HD > BOX ? 2 : 3;", "return HD > BOX ? 4 : 4;")],
         "no setmaxnreg (consumers keep 128 registers)": [
             ('    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\\n");\n',
              ""),
             ('  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\\n");\n',
-             "")],
+             ""),
+            # without setmaxnreg no block waits for registers, and ptxas
+            # may use fewer than 128 at entry (127 at hd 80 and 96)
+            ("  return a.numRegs >= 128 ? cudaSuccess",
+             "  return a.numRegs >= 0 ? cudaSuccess")],
         "dQ: no producer warp (the first consumer thread loads each tile "
         "once its stage is released)": [
             ("    for (int n = 0; n < n_tiles; ++n) {\n"
@@ -219,9 +231,9 @@ VARIANTS = {
              "    const int st = n % NST, k0 = k_begin + n * HT;\n"
              "    unsigned char* dst = smem + C::OFF_STAGE + st * 2 * C::TILE;\n"
              "    mbar_expect_tx(full + st, 2 * C::TILE);\n"
-             "    for (int c = 0; c < HD / BOX; ++c) {\n"
-             "      tma_box(dst + c * C::BOXB, &mk, full + st, BOX * c, hk, k0, b);\n"
-             "      tma_box(dst + C::TILE + c * C::BOXB, &mv, full + st, BOX * c,\n"
+             "    for (int c = 0; c < C::NB; ++c) {\n"
+             "      tma_box(dst + c * BOXB, &mk, full + st, BOX * c, hk, k0, b);\n"
+             "      tma_box(dst + C::TILE + c * BOXB, &mv, full + st, BOX * c,\n"
              "              hk, k0, b);\n"
              "    }\n"
              "  };\n"
@@ -475,11 +487,14 @@ def main() -> int:
              torch.zeros((4, 1600, 16), device="cuda"))
     attention = {}
     if "flash_attention_bwd" in kernels:
-        # qwen3-8b's training microbatch (hd 128) and hymba-1.5b's (hd 64,
-        # a 1024-token window)
+        # qwen3-8b's training microbatch (hd 128), hymba-1.5b's (hd 64, a
+        # 1024-token window), phi3-mini-3.8b's (hd 96) and h2o-danube-1.8b's
+        # (hd 80, a 4096-token window)
         for label, b, h, hkv, hd, window in (
                 ("qwen3-8b", 2, 32, 8, 128, None),
-                ("hymba-1.5b", 4, 25, 5, 64, 1024)):
+                ("hymba-1.5b", 4, 25, 5, 64, 1024),
+                ("phi3-mini-3.8b", 2, 32, 32, 96, None),
+                ("h2o-danube-1.8b", 4, 32, 8, 80, 4096)):
             aq, ak, av, ado = (cs.randn(gen, shape, bf16, scale)
                                for shape, scale in (
                                    ((b, 4096, h, hd), 1.5),

@@ -8,9 +8,11 @@ and time_ms:
 * the attention backward kernels (``flash_attention_backward``) beside
   their plain version from the training forward's out and log-sum-exp and
   beside the torch-ops backward from q, k, v alone (``flash_attention_bwd``,
-  what the card ran before the kernels), at qwen3-8b's (B=2, S=4096, 32/8
-  heads of 128), hymba-1.5b's (B=4, 25/5 heads of 64, window 1024) and
-  moonshot-v1-16b-a3b's (B=2, 16/16 heads of 128) shapes, bf16;
+  what the card ran before the kernels), at each of chip_smoke.py's
+  ATTENTION_TRAINED shapes: qwen3-8b's (B=2, S=4096, 32/8 heads of 128),
+  hymba-1.5b's (B=4, 25/5 heads of 64, window 1024), moonshot-v1-16b-a3b's
+  (B=2, 16/16 heads of 128), phi3-mini-3.8b's (B=2, 32/32 heads of 96)
+  and h2o-danube-1.8b's (B=4, 32/8 heads of 80, window 4096), bf16;
 * the fused Mamba scan's backward kernel (``mamba_scan_backward``) beside
   its torch-ops plain version (``mamba_scan_bwd``) at hymba-1.5b's (B=4,
   S=4096, di=1600, n=16, bf16);
@@ -24,14 +26,13 @@ the peak memory it allocates beyond its inputs.
 
   python3 tools/time_backwards.py --previous DIR
 
-also builds ``DIR/wkv6_bwd.cu`` and ``DIR/mamba_scan_bwd.cu`` (another
-checkout's ``src/repro_torch/kernels/csrc``, with its own common.cuh, e.g.
-the parent commit's unpacked by ``git archive HEAD src | tar -x -C
-build/parent``) into build/previous/ and times each beside the shipped
-kernel on the same inputs. WKV6's C entry point kept its arguments, so
-the previous library runs behind the current wrapper; the scan's previous
-design is called through ``previous_mamba_scan_backward``, its wrapper as
-it was.
+also builds ``DIR/flash_attention_bwd.cu``, ``DIR/wkv6_bwd.cu`` and
+``DIR/mamba_scan_bwd.cu`` (another checkout's
+``src/repro_torch/kernels/csrc``, with its own common.cuh, e.g. the parent
+commit's unpacked by ``git archive HEAD src | tar -x -C build/parent``)
+into build/previous/ and times each beside the shipped kernel on the same
+inputs. The three C entry points keep their arguments, so each previous
+library runs behind the current wrapper.
 """
 
 from __future__ import annotations
@@ -68,13 +69,13 @@ def rounds(cs, what: str, variants: dict, iters: int = 3) -> None:
 
 
 def build_previous(csrc: Path) -> dict:
-    """{kernel: library} of csrc's wkv6_bwd.cu and mamba_scan_bwd.cu, built
-    in parallel with the shipped flags into build/previous/."""
+    """{kernel: library} of csrc's backward kernels, built in parallel with
+    the shipped flags into build/previous/."""
     from repro_torch.kernels import _build
     out = ROOT / "build" / "previous"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ("wkv6_bwd", "mamba_scan_bwd"):
+    for name in ("flash_attention_bwd", "wkv6_bwd", "mamba_scan_bwd"):
         lib = out / f"{name}.so"
         procs[name] = (lib, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
@@ -95,65 +96,23 @@ def build_previous(csrc: Path) -> dict:
     return libs
 
 
-def previous_wkv6_backward(wk, lib):
-    """``wkv6_backward`` through the previous library (the same C
-    arguments; its scratch sized by its own wkv6_bwd_sub_chunk())."""
-    current = wk._bwd_lib()
-    lib.wkv6_bwd_launch.argtypes = current.wkv6_bwd_launch.argtypes
-    lib.wkv6_bwd_launch.restype = ctypes.c_int
-    lib.wkv6_bwd_sub_chunk.restype = ctypes.c_int
+def behind(module, lib, wrapper):
+    """``wrapper`` of ``module`` (its backward, which loads its library by
+    ``module._bwd_lib``) run with the previous library ``lib`` in the
+    current one's place: each C function the current wrapper declared
+    gets the same argument and result types there."""
+    current = module._bwd_lib()
+    for name, fn in vars(current).items():
+        if isinstance(fn, ctypes._CFuncPtr) and hasattr(lib, name):
+            getattr(lib, name).argtypes = fn.argtypes
+            getattr(lib, name).restype = fn.restype
 
     def run(*args):
-        wk._bwd_lib = lambda: lib
+        module._bwd_lib = lambda: lib
         try:
-            return wk.wkv6_backward(*args)
+            return wrapper(*args)
         finally:
-            wk._bwd_lib = lambda: current
-    return run
-
-
-def previous_mamba_scan_backward(ms, lib):
-    """The scan's previous design (one block per 8 channels and batch row
-    walking every chunk, its db/dc partials per block in device memory and
-    summed by a second kernel), called as its wrapper called it."""
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.mamba_scan_bwd_launch.argtypes = [vp] * 21 + [
-        ctypes.POINTER(ctypes.c_int64), i32, i32, i32, i32, i32, i32, vp]
-    lib.mamba_scan_bwd_launch.restype = i32
-    lib.mamba_scan_bwd_channels.restype = i32
-
-    def run(dt, dt_bias, b, c, x, z, a_log, d_skip, starts, dout, dh=None,
-            chunk=ms.TIME_CHUNK):
-        bsz, s, di = dt.shape
-        n = a_log.shape[-1]
-        f32 = torch.float32
-        new = dict(device=dt.device)
-        d_dt, d_x, d_z = (torch.empty((bsz, s, di), dtype=dt.dtype, **new)
-                          for _ in range(3))
-        d_b, d_c = (torch.empty((bsz, s, n), dtype=dt.dtype, **new)
-                    for _ in range(2))
-        parts = -(-di // lib.mamba_scan_bwd_channels())
-        partials = torch.empty((2, parts, bsz, s, n), dtype=f32, **new)
-        p_alog = torch.empty((bsz, di, n), dtype=f32, **new)
-        p_bias, p_skip = (torch.empty((bsz, di), dtype=f32, **new)
-                          for _ in range(2))
-        strides = (ctypes.c_int64 * 12)(
-            *dt.stride()[:2], *b.stride()[:2], *c.stride()[:2],
-            *x.stride()[:2], *z.stride()[:2], *dout.stride()[:2])
-        err = lib.mamba_scan_bwd_launch(
-            dt.data_ptr(), dt_bias.data_ptr(), b.data_ptr(), c.data_ptr(),
-            x.data_ptr(), z.data_ptr(), a_log.data_ptr(), d_skip.data_ptr(),
-            starts.data_ptr(), dout.data_ptr(),
-            None if dh is None else dh.data_ptr(), d_dt.data_ptr(),
-            d_x.data_ptr(), d_z.data_ptr(), partials[0].data_ptr(),
-            partials[1].data_ptr(), d_b.data_ptr(), d_c.data_ptr(),
-            p_bias.data_ptr(), p_skip.data_ptr(), p_alog.data_ptr(), strides,
-            ms.DTYPES[dt.dtype], bsz, s, di, n, chunk,
-            torch.cuda.current_stream(dt.device).cuda_stream)
-        if err:
-            raise RuntimeError(f"previous mamba_scan_bwd: CUDA error {err}")
-        return (d_dt, p_bias.sum(0), d_b, d_c, d_x, d_z, p_alog.sum(0),
-                p_skip.sum(0))
+            module._bwd_lib = lambda: current
     return run
 
 
@@ -184,17 +143,22 @@ def main() -> int:
         v = cs.randn(gen, (b, s, hkv, hd), torch.bfloat16, 1.0)
         dout = cs.randn(gen, (b, s, h, hd), torch.bfloat16, 1.0)
         out, lse = fa.flash_attention_train(q, k, v, window)
+        given = (q, k, v, out, lse, dout, window)
+        variants = {f"flash_attention_backward (the kernels, "
+                    f"{fa.backward_body(hd, q.dtype)})":
+                    lambda: fa.flash_attention_backward(*given)}
+        if previous:
+            old = behind(fa, previous["flash_attention_bwd"],
+                         fa.flash_attention_backward)
+            variants["the previous design"] = lambda: old(*given)
+        variants["flash_attention_bwd from out and lse (plain version)"] = \
+            lambda: fa.flash_attention_bwd(q, k, v, dout, window, out=out,
+                                           lse=lse)
+        variants["flash_attention_bwd from q, k, v (torch ops before)"] = \
+            lambda: fa.flash_attention_bwd(q, k, v, dout, window)
         rounds(cs, f"attention backward, {arch} B={b} S={s} {h}/{hkv} heads "
-               f"of {hd}, window {window}, bf16", {
-                   "flash_attention_backward (the kernels)":
-                   lambda: fa.flash_attention_backward(q, k, v, out, lse,
-                                                       dout, window),
-                   "flash_attention_bwd from out and lse (plain version)":
-                   lambda: fa.flash_attention_bwd(q, k, v, dout, window,
-                                                  out=out, lse=lse),
-                   "flash_attention_bwd from q, k, v (torch ops before)":
-                   lambda: fa.flash_attention_bwd(q, k, v, dout, window)})
-        del q, k, v, dout, out, lse
+               f"of {hd}, window {window}, bf16", variants)
+        del q, k, v, dout, out, lse, given, variants
     s = cs.TRAIN_SEQ
     b = cs.TRAIN_BATCH // get_arch("hymba-1.5b").grad_accum
     inputs = cs.mamba_train_inputs(gen, b, s, torch.bfloat16)
@@ -203,7 +167,7 @@ def main() -> int:
     variants = {"mamba_scan_backward (the kernel)":
                 lambda: ms.mamba_scan_backward(*inputs, starts, dout)}
     if previous:
-        old = previous_mamba_scan_backward(ms, previous["mamba_scan_bwd"])
+        old = behind(ms, previous["mamba_scan_bwd"], ms.mamba_scan_backward)
         variants["the previous design"] = lambda: old(*inputs, starts,
                                                       dout)
     variants["mamba_scan_bwd (torch ops)"] = \
@@ -219,7 +183,7 @@ def main() -> int:
     variants = {"wkv6_backward (the kernel)":
                 lambda: wk.wkv6_backward(*inputs, starts, dy)}
     if previous:
-        old = previous_wkv6_backward(wk, previous["wkv6_bwd"])
+        old = behind(wk, previous["wkv6_bwd"], wk.wkv6_backward)
         variants["the previous design"] = lambda: old(*inputs, starts,
                                                       dy)
     variants["wkv6_bwd (torch ops)"] = \
