@@ -7,12 +7,17 @@ Phases; each raises on failure, so any failure exits non-zero:
      src/repro_torch/kernels/csrc/ (one nvcc per source, in parallel),
      print ptxas' registers and spills and each library's count of HMMA
      (mma.sync), HGMMA (wgmma) and UTMALDG (TMA load) instructions: HMMA
-     must not be 0 for flash attention, its backward (the mma.sync bodies
-     of hd 32 and 160) and WKV6, nor HGMMA and UTMALDG for the attention
-     backward (its Hopper bodies at hd 64, 80, 96 and 128);
+     must not be 0 for the attention backward (the mma.sync bodies of hd
+     32 and 160) and WKV6, nor HGMMA and UTMALDG for flash attention (its
+     Hopper bf16 body at every head dim) and its backward (the Hopper
+     bodies at hd 64, 80, 96 and 128);
   2. each kernel against its plain PyTorch version on the card, at the
      serving shapes and in windowed, ragged, 3-D layout, hd 32 and 128,
-     fp32, many-split, poisoned-cache and carried-state cases, with its
+     fp32, many-split, poisoned-cache and carried-state cases (flash
+     attention also at S=333, not a multiple of its 128-row tile, with a
+     window edge inside a tile, at hymba-1.5b's query group of 5; its bf16
+     cases asserted to run the Hopper body, and every forward case run
+     twice, bit-equal), with its
      time beside the plain version's and one PyTorch library call's where
      one computes the same function; flash decode is also timed at batch 1
      against a 32,768-slot cache; WKV6 also at its chunk edges (S of T-1,
@@ -81,8 +86,9 @@ Phases; each raises on failure, so any failure exits non-zero:
      given the forward's out and log-sum-exp), two runs bit-equal, and
      timed beside it, beside the old torch-ops backward and SDPA's (causal
      where the window covers S), at each training shape; the kernel's bf16
-     forward against its plain version at qwen3-8b's, phi3's and
-     h2o-danube's training shapes, with the temperature mutant; qwen3-8b
+     forward (the Hopper body, asserted) and log-sum-exp against their
+     plain versions at qwen3-8b's, phi3's and h2o-danube's training
+     shapes, two runs bit-equal, with the temperature mutant; qwen3-8b
      trained at full width
      and depth 8 (AdamW, bf16, 4 microbatches of 2 x 4096 tokens)
      through train_step, a warm-up step and 3 timed ones,
@@ -425,7 +431,8 @@ def environment() -> str:
     for op, what in SASS_OPS.items():
         log(f"{op} instructions ({what}) in the SASS: {counts[op]}")
     for op, name, what in (
-            ("HMMA", "flash_attention", "bf16 body"),
+            ("HGMMA", "flash_attention", "Hopper bf16 body"),
+            ("UTMALDG", "flash_attention", "Hopper bf16 body's TMA tiles"),
             ("HMMA", "flash_attention_bwd", "mma.sync bodies (hd 32, 160)"),
             ("HGMMA", "flash_attention_bwd", "Hopper bodies (hd 64, 80, 96, "
                                              "128)"),
@@ -462,11 +469,30 @@ def randn(gen, shape, dtype, scale=QK_SCALE):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
+def forward_twice(name: str, q, k, v, window):
+    """The forward kernel's output (ops.flash_attention) on q, k, v, run
+    twice: the two must be bit-equal (its sums run in a fixed order). In
+    bf16 the library must report its Hopper (wgmma, TMA) body."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    if q.dtype == torch.bfloat16:
+        body = fa.forward_body(q.shape[-1], q.dtype)
+        if body != "wgmma":
+            raise AssertionError(f"{name}: bf16 at hd {q.shape[-1]} runs "
+                                 f"the {body} body, not the Hopper one")
+    got = ops.flash_attention(q, k, v, window=window)
+    again = ops.flash_attention(q, k, v, window=window)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two runs on the same inputs differ")
+    return got
+
+
 def check_flash_attention() -> dict:
     from repro_torch.kernels import ops
     import torch.nn.functional as F
     gen = torch.Generator("cuda").manual_seed(0)
-    log("flash_attention (prefill) vs its plain version:")
+    log("flash_attention (prefill) vs its plain version (bf16: the Hopper "
+        "body; every case run twice, bit-equal):")
     # (name, B, S, H, Hkv, hd, window, dtype, 3-D layout)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [("serving prefill", 4, PROMPT_LEN, 32, 8, 128, None, bf16,
@@ -477,6 +503,9 @@ def check_flash_attention() -> dict:
               True),
              ("hd 128, S=300 (not a multiple of 64), windowed", 2, 300, 8,
               4, 128, 100, bf16, False),
+             ("S=333 (not a multiple of 128), window 100 (an edge inside a "
+              "128-row tile), group 5 (hymba's)", 2, 333, 10, 2, 64, 100,
+              bf16, False),
              ("ragged fp32, (BH, S, hd)", 1, 193, 6, 2, 32, None, f32,
               True)]
     result = {}
@@ -486,7 +515,7 @@ def check_flash_attention() -> dict:
         v = randn(gen, (b, s, hkv, hd), dtype, 1.0)
         if flat:   # the JAX kernel's (BH, S, hd) layout
             q, k, v = (t[0].transpose(0, 1).contiguous() for t in (q, k, v))
-        got = ops.flash_attention(q, k, v, window=window)
+        got = forward_twice(name, q, k, v, window)
         want = ops.flash_attention(q, k, v, window=window, impl="reference")
         torch.cuda.synchronize()
         err = assert_close(name, got, want)
@@ -989,7 +1018,8 @@ def check_attention_shape(tag: str) -> list:
     prompt length; decode against the cache the engine keeps after that
     prompt: a full ring of window slots for h2o-danube and hymba, else
     prompt + MAX_NEW slots with ragged cache_len), bf16 and fp32, each
-    against its plain version with the temperature mutant; then timed in
+    against its plain version with the temperature mutant (the prefill
+    run twice, bit-equal, bf16 on the Hopper body); then timed in
     bf16 beside the plain version, one SDPA call (with a window mask, or
     masked by cache_len) and the bound. Returns the two kernels' JSON
     entries, named ``<kernel>_<tag>``."""
@@ -1015,10 +1045,10 @@ def check_attention_shape(tag: str) -> list:
         q = randn(gen, (b, s, h, hd), dtype)
         k = randn(gen, (b, s, hkv, hd), dtype)
         v = randn(gen, (b, s, hkv, hd), dtype, 1.0)
-        want = ops.flash_attention(q, k, v, window=window, impl="reference")
-        got = ops.flash_attention(q, k, v, window=window)
-        torch.cuda.synchronize()
         name = f"prefill hd {hd} {str(dtype)[6:]}"
+        want = ops.flash_attention(q, k, v, window=window, impl="reference")
+        got = forward_twice(name, q, k, v, window)
+        torch.cuda.synchronize()
         err = assert_close(name, got, want)
         assert_mutant_caught(name, ops.flash_attention(
             q * MUTANT_TEMP, k, v, window=window, impl="reference"), want)
@@ -1779,9 +1809,10 @@ def check_attention_backward() -> dict:
 
 def check_training_forward(suffix: str, q, k, v, window) -> dict:
     """The kernel's bf16 training forward at a training shape (the body
-    each train step launches 2 x layers x microbatches times) against its
-    plain version, out with the temperature mutant and each row's
-    log-sum-exp within LSE_ATOL; timed beside the plain forward, SDPA's
+    each train step launches 2 x layers x microbatches times; the Hopper
+    one, asserted, and two runs bit-equal) against its plain version, out
+    with the temperature mutant and each row's log-sum-exp within
+    LSE_ATOL; timed beside the plain forward, SDPA's
     forward (``sdpa_operands``) and its bound. Returns the JSON entry
     "flash_attention_train" + suffix."""
     import torch.nn.functional as F
@@ -1790,7 +1821,14 @@ def check_training_forward(suffix: str, q, k, v, window) -> dict:
     want, want_lse = fa.flash_attention_train_plain(q, k, v, window)
     name = f"training forward B={b} S={s} {h}/{k.shape[2]} heads of {hd}, " \
         f"window {window}, bf16"
+    body = fa.forward_body(hd, q.dtype)
     out, lse = fa.flash_attention_train(q, k, v, window)
+    again, lse_again = fa.flash_attention_train(q, k, v, window)
+    same = torch.equal(out, again) and torch.equal(lse, lse_again)
+    log(f"  {name}: the {body} body; two runs give the same bits: {same}")
+    if body != "wgmma" or not same:
+        raise AssertionError(f"{name}: the {body} body, bit-equal {same}")
+    del again, lse_again
     err = assert_close(name, out, want)
     assert_mutant_caught(name, fa.flash_attention_plain(q * MUTANT_TEMP, k,
                                                         v, window), want)
@@ -2675,7 +2713,7 @@ def time_step_parts(state, batch, cfg, opt_cfg, step_ms: float) -> None:
 
 
 KINDS = (("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
-         ("flash attention kernel", ("fa_bf16", "fa_f32")),
+         ("flash attention kernel", ("fa_hopper", "fa_f32")),
          ("flash attention backward kernels", ("fa_bwd",)),
          ("flash decode kernel", ("fd_split", "fd_merge")),
          ("Mamba scan kernel", ("mamba_scan",)),

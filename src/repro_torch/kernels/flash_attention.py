@@ -229,6 +229,8 @@ def _lib() -> ctypes.CDLL:
         vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_int64),
         i32, i32, i32, i32, i32, i32, i32, i32, vp]
     lib.flash_attention_launch.restype = i32
+    lib.flash_attention_body.argtypes = [i32, i32]
+    lib.flash_attention_body.restype = i32
     return lib
 
 
@@ -245,7 +247,21 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-BACKWARD_BODIES = ("cuda cores", "mma.sync", "wgmma")
+# the bodies a C library reports by code (``flash_attention_body``,
+# ``flash_attention_bwd_body``)
+BODIES = ("cuda cores", "mma.sync", "wgmma")
+
+
+def forward_body(hd: int, dtype: torch.dtype) -> str:
+    """The body that the forward kernel runs on the card for head dim
+    ``hd`` and ``dtype``, as the library's dispatch reports it: "wgmma"
+    (the Hopper body: wgmma on TMA tiles with a producer warp; bf16 at
+    every head dim) or "cuda cores" (fp32). Builds and loads the library,
+    so it raises where the kernels cannot be built (no nvcc)."""
+    code = _lib().flash_attention_body(hd, DTYPE_CODES.get(dtype, -1))
+    if code < 0:
+        raise ValueError(f"flash_attention: no body for hd={hd}, {dtype}")
+    return BODIES[code]
 
 
 def backward_body(hd: int, dtype: torch.dtype) -> str:
@@ -258,7 +274,7 @@ def backward_body(hd: int, dtype: torch.dtype) -> str:
     if code < 0:
         raise ValueError(f"flash_attention_backward: no body for hd={hd}, "
                          f"{dtype}")
-    return BACKWARD_BODIES[code]
+    return BODIES[code]
 
 
 def _misaligned(t: torch.Tensor) -> bool:
@@ -317,6 +333,10 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     also writes each row's log-sum-exp there."""
     _check_shapes(q, k, v, window)
     _check_kernel(q, k, v)
+    # a broadcast operand (a stride of 0) is copied: the bf16 body reads
+    # each operand through a TMA map of its strides
+    q, k, v = (t.clone(memory_format=torch.contiguous_format)
+               if 0 in t.stride() else t for t in (q, k, v))
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)

@@ -559,6 +559,43 @@ def test_flash_attention_backward_kernel_at_a_model_shape(cuda, grp, hd, s,
         assert err <= 2 * (w.float() - t).norm() / t.norm(), name
 
 
+# the forward's Hopper body (128 query rows a block, two consumer
+# warpgroups of 64): (B, S, H, Hkv, window) at every head dim; S not a
+# multiple of 128 with a window edge inside a 128-row tile, hymba-1.5b's
+# query group of 5 with its window, and a ragged S under 64 rows
+FWD_BODY_CASES = [(2, 333, 4, 1, 100), (1, 700, 10, 2, 300),
+                  (2, 45, 4, 4, None), (1, 1100, 8, 2, None)]
+
+
+@pytest.mark.parametrize("b,s,h,hkv,window", FWD_BODY_CASES,
+                         ids=["ragged-window", "group5-window", "short",
+                              "gqa4-causal"])
+@pytest.mark.parametrize("hd", BWD_HEAD_DIMS)
+def test_flash_attention_forward_body_matches_plain(cuda, hd, b, s, h, hkv,
+                                                    window):
+    """bf16 runs the Hopper (wgmma, TMA) forward body at every head dim:
+    out within TOL and each row's log-sum-exp within 2e-2 of
+    ``flash_attention_train_plain`` (the scores' products sum in another
+    order), the same bits from a second run, one launch each."""
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.forward_body(hd, torch.bfloat16) == "wgmma"
+    rng = np.random.default_rng(hd + s + h)
+    q, k, v = (torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(cuda, torch.bfloat16)
+               for shape, scale in (((b, s, h, hd), 1.5),
+                                    ((b, s, hkv, hd), 1.5),
+                                    ((b, s, hkv, hd), 1.0)))
+    before = fa.flash_attention.launches
+    out, lse = fa.flash_attention_train(q, k, v, window)
+    again, lse_again = fa.flash_attention_train(q, k, v, window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 2
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+    want, want_lse = fa.flash_attention_train_plain(q, k, v, window)
+    close(out, want, TOL["bfloat16"])
+    close(lse, want_lse, 2e-2)
+
+
 @pytest.mark.parametrize("hd", [64, 80, 96, 128])
 def test_flash_attention_backward_gives_the_same_bits_twice(cuda, hd):
     """The attention backward sums in a fixed order: two runs on the same

@@ -187,6 +187,67 @@ def test_build_raises_without_nvcc(monkeypatch):
         _build._nvcc()
 
 
+def test_forward_body_raises_without_nvcc(monkeypatch, tmp_path):
+    """``forward_body`` asks the built library which body a launch runs:
+    where the kernels cannot be built it raises, naming nvcc, and reports
+    no body."""
+    import torch.utils.cpp_extension as cpp
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    monkeypatch.setattr(cpp, "CUDA_HOME", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    caches = (fa._lib, _build.load, _build.build_all)
+    for fn in caches:
+        fn.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            fa.forward_body(128, torch.bfloat16)
+    finally:
+        for fn in caches:
+            fn.cache_clear()
+
+
+def _forward_operands(case: str):
+    """q, k, v on the CPU that the forward kernel's wrapper refuses, and
+    the window, one per ``case``."""
+    q = torch.zeros((2, 64, 4, 64), dtype=torch.bfloat16)
+    k = torch.zeros((2, 64, 2, 64), dtype=torch.bfloat16)
+    window = None
+    if case == "fp16":
+        q, k = q.half(), k.half()
+    elif case == "hd 48":
+        q, k = q[..., :48].contiguous(), k[..., :48].contiguous()
+    elif case == "k in another dtype":
+        k = k.float()
+    elif case == "strided head dim":
+        q = torch.zeros((2, 64, 4, 128), dtype=torch.bfloat16)[..., ::2]
+    elif case == "rows not 16-byte aligned":
+        q = torch.zeros((2, 64, 4 * 64 + 4), dtype=torch.bfloat16)[
+            ..., 4:].view(2, 64, 4, 64)
+    elif case == "3 dims":
+        q = q[0]
+    elif case == "group not whole":
+        q = q[:, :, :3]
+    elif case == "window 0":
+        window = 0
+    return q, k, k, window
+
+
+@pytest.mark.parametrize("case", [
+    "fp16", "hd 48", "k in another dtype", "strided head dim",
+    "rows not 16-byte aligned", "3 dims", "group not whole", "window 0"])
+def test_forward_kernel_wrapper_refuses_what_the_kernel_cannot_read(case):
+    """The forward kernel's launch checks its operands before it loads the
+    library: each case raises ValueError and launches nothing (on the
+    card the same checks run before the C call)."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, window = _forward_operands(case)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError):
+        fa._forward(q, k, v, window, None)
+    assert fa.flash_attention.launches == before
+
+
 @pytest.mark.parametrize("rows,capacity,n_sm", [
     (32, 544, 132),      # qwen3-8b serving decode: B=4 x Hkv=8
     (8, 32768, 132),     # batch 1 against a long cache

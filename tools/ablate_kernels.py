@@ -3,14 +3,17 @@
   python3 tools/ablate_kernels.py [flash_attention] [decode_attention] [wkv6]
                                   [mamba_scan] [flash_attention_bwd]
                                   [wkv6_bwd] [mamba_scan_bwd]
+                                  [--previous DIR]
 
 Builds variants of the named sources under src/repro_torch/kernels/csrc/
 (all seven when none is named), each with one part of the kernel taken
 out, or one tile size changed, by a text edit, into build/ablate/ (one
 nvcc per variant, in parallel). A variant that takes a part out gives a
 wrong output; only its time counts. Each is timed at chip_smoke.py's
-serving shapes (flash attention: B=4, S=512, H=32, Hkv=8, hd=128; flash
-decode: B=4 x Hkv=8, grp 4, 544 slots, and batch 1 against 32,768 slots;
+serving shapes (flash attention: FA_SHAPES, the serving prefills of
+qwen3-8b, phi3-mini-3.8b, pixtral-12b, h2o-danube-1.8b and hymba-1.5b
+and the training forward at qwen3-8b's, phi3-mini-3.8b's and
+h2o-danube-1.8b's microbatches; flash decode: B=4 x Hkv=8, grp 4, 544 slots, and batch 1 against 32,768 slots;
 bf16; WKV6's chunked body: B=4, S=1024, H=40, hd=64, fp32; the fused
 Mamba scan: hymba's B=4, S=4096, di=1600, n=16, bf16; the backward
 kernels at the training microbatches: attention's at qwen3-8b's B=2,
@@ -18,8 +21,13 @@ S=4096, 32/8 heads of 128, hymba-1.5b's B=4, 25/5 heads of 64, window
 1024, phi3-mini-3.8b's B=2, 32/32 heads of 96 and h2o-danube-1.8b's B=4,
 32/8 heads of 80, window 4096, bf16; WKV6's at rwkv6-3b's B=2, S=4096,
 H=40, hd=64, fp32, the model's decays; the scan's at hymba-1.5b's B=4,
-S=4096, bf16), beside the unedited kernel, in two rounds, with
-chip_smoke.py's time_ms. Flash decode
+S=4096, bf16), beside the unedited kernel, in two rounds (the second in
+reverse order), with chip_smoke.py's time_ms. With ``--previous DIR``
+(another checkout's ``src/repro_torch/kernels/csrc``, e.g. the parent
+commit's unpacked by ``git archive HEAD src | tar -x -C build/parent``)
+each named kernel's source there is built with that directory's headers
+and timed in the same rounds behind the current wrapper, its C entry
+point keeping its arguments. Flash decode
 is also timed on the same cache laid out head-major (B, Hkv, S, hd), which
 the kernel reads through its strides. Each WKV6 variant's relative L2
 error against an fp64 recurrence is printed too (B=2, S=1024, H=5, hd=64
@@ -30,6 +38,7 @@ raises.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -52,21 +61,50 @@ TF32_ONLY = [
 VARIANTS = {
     "flash_attention": {
         "as shipped": [],
-        "no tile loads after the first": [
-            ("    stage_kv(n + NSTAGE - 1);\n", "    cp_async_commit();\n")],
-        "no Q K^T mma": [
-            ("          mma_bf16(s[2 * j], qf[kk], kf[0], kf[1]);\n"
-             "          mma_bf16(s[2 * j + 1], qf[kk], kf[2], kf[3]);\n", "")],
-        "no P V mma": [
-            ("          mma_bf16(o[2 * dd], a, vf[0], vf[1]);\n"
-             "          mma_bf16(o[2 * dd + 1], a, vf[2], vf[3]);\n", "")],
+        # the producer still completes each stage's full barrier, so the
+        # consumers run on stale bytes
+        "no K/V tile loads after each item's first": [
+            ("      mbar_expect_tx(full + st, 2 * C::KTILE);\n",
+             "      if (n > 0) {\n        mbar_arrive(full + st);\n"
+             "        continue;\n      }\n"
+             "      mbar_expect_tx(full + st, 2 * C::KTILE);\n")],
+        "no Q K^T wgmma": [
+            ("      wgmma_ss<KN>(s, kmajor(sQ, kk, C::QBOX), "
+             "kmajor(sK, kk, C::KBOX),\n                   kk > 0);\n",
+             "      (void)kk;\n")],
+        "no P V wgmma": [
+            ("wgmma_rs<HD, C::KBOX>(o, pa[kk], sV, kk);", "(void)pa[kk];")],
+        "no turns between the consumer warpgroups": [
+            ('  asm volatile("bar.sync %0, 256;\\n" ::"r"(id) : "memory");',
+             "  (void)id;"),
+            ('  asm volatile("bar.arrive %0, 256;\\n" ::"r"(id) : "memory");',
+             "  (void)id;")],
+        "the softmax after P V (no overlap)": [
+            ("        pass_turn();\n        wg_wait<1>();\n",
+             "        pass_turn();\n        wg_wait0();\n")],
         "no exp2 of the scores": [
-            ("          s[j][2 * r] = fast_exp2(fmaf(s[j][2 * r], sl2, -base));\n"
-             "          s[j][2 * r + 1] = fast_exp2(fmaf(s[j][2 * r + 1], sl2, "
-             "-base));\n", "")],
-        "no masks": [("        if (edge) {", "        if (false) {")],
-        "2-stage ring": [("BLOCK_RESERVED) <= SM_SMEM ? 3 : 2;",
-                          "BLOCK_RESERVED) <= SM_SMEM ? 2 : 2;")],
+            ("        sj[0] = fast_exp2(fmaf(sj[0], sl2, -base));\n"
+             "        sj[1] = fast_exp2(fmaf(sj[1], sl2, -base));\n", "")],
+        "no masks": [("      if (edge) {", "      if (false) {")],
+        "one ring stage fewer": [
+            ("      hopper_bytes(QTILE, KTILE, 4) <= MAX_SMEM   ? 4\n"
+             "      : hopper_bytes(QTILE, KTILE, 3) <= MAX_SMEM ? 3\n"
+             "                                                  : 2;",
+             "      (hopper_bytes(QTILE, KTILE, 4) <= MAX_SMEM   ? 4\n"
+             "       : hopper_bytes(QTILE, KTILE, 3) <= MAX_SMEM ? 3\n"
+             "                                                   : 2) - 1;")],
+        "64-key tiles at every hd": [
+            ("  static constexpr int BN = HD > 128 ? 64 : 128;",
+             "  static constexpr int BN = 64;")],
+        # without setmaxnreg no warpgroup waits for registers, and every
+        # thread keeps the 168 of the launch bounds (ptxas may use fewer)
+        "no setmaxnreg (consumers keep 168 registers)": [
+            ('    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\\n");\n',
+             ""),
+            ('  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\\n");\n',
+             ""),
+            ("check_entry_registers(fa_hopper_kernel<HD>, ENTRY_REGS)",
+             "check_entry_registers(fa_hopper_kernel<HD>, 0)")],
     },
     "decode_attention": {
         "as shipped": [],
@@ -182,8 +220,7 @@ VARIANTS = {
             ("    if constexpr (body_of(HD, true) == BODY_WGMMA) {",
              "    if constexpr (false) {")],
         "hd 80 and 96 as hd 128: N = 128 over the zero columns": [
-            ("  if constexpr (HD == 128) {\n    wgmma_rs_128",
-             "  if constexpr (HD > 64) {\n    wgmma_rs_128"),
+            ("wgmma_rs<HD>(", "wgmma_rs<(HD > 64 ? 128 : HD)>("),
             ("  constexpr int NA = HD / 2;  // a 64 x HD accumulator's floats",
              "  constexpr int NA = HD > 64 ? 64 : HD / 2;  //"),
             ("  constexpr int NA = HD / 2;\n",
@@ -213,8 +250,7 @@ VARIANTS = {
              ""),
             # without setmaxnreg no block waits for registers, and ptxas
             # may use fewer than 128 at entry (127 at hd 80 and 96)
-            ("  return a.numRegs >= 128 ? cudaSuccess",
-             "  return a.numRegs >= 0 ? cudaSuccess")],
+            ("HD, NST>, 128);", "HD, NST>, 0);")],
         "dQ: no producer warp (the first consumer thread loads each tile "
         "once its stage is released)": [
             ("    for (int n = 0; n < n_tiles; ++n) {\n"
@@ -343,6 +379,21 @@ VARIANTS = {
              "__launch_bounds__(NT, 4)\n    mamba_scan_bwd_kernel")],
     },
 }
+# the variant built from another checkout's source (--previous)
+PREVIOUS = "the previous design"
+# flash attention's shapes, {label: (B, S, H, Hkv, hd, window, training)}:
+# chip_smoke.py's serving prefills (qwen3-8b, phi3-mini-3.8b, pixtral-12b;
+# h2o-danube-1.8b's and hymba-1.5b's past their windows) and the training
+# forward (with its log-sum-exp) at the microbatches it trains
+FA_SHAPES = {
+    "serving qwen3-8b": (4, 512, 32, 8, 128, None, False),
+    "serving phi3-mini-3.8b": (4, 512, 32, 32, 96, None, False),
+    "serving pixtral-12b": (4, 512, 32, 8, 160, None, False),
+    "serving h2o-danube-1.8b": (4, 5120, 32, 8, 80, 4096, False),
+    "serving hymba-1.5b": (4, 4096, 25, 5, 64, 1024, False),
+    "training qwen3-8b": (2, 4096, 32, 8, 128, None, True),
+    "training phi3-mini-3.8b": (2, 4096, 32, 32, 96, None, True),
+    "training h2o-danube-1.8b": (4, 4096, 32, 8, 80, 4096, True)}
 # where each kernel's wrapper module loads its library: {kernel: (module
 # name, loader)}
 LOADERS = {"flash_attention": ("flash_attention", "_lib"),
@@ -353,8 +404,10 @@ LOADERS = {"flash_attention": ("flash_attention", "_lib"),
            "mamba_scan_bwd": ("mamba_scan", "_bwd_lib")}
 
 
-def build(kernels) -> dict:
-    """{(kernel, variant): loaded library}, all variants built in parallel."""
+def build(kernels, previous: Path | None = None) -> dict:
+    """{(kernel, variant): loaded library}, all variants built in parallel;
+    with ``previous`` (another checkout's csrc) also each kernel's source
+    there, with that directory's headers, as the variant PREVIOUS."""
     from repro_torch.kernels import _build
     OUT.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
@@ -376,6 +429,12 @@ def build(kernels) -> dict:
                 [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
                  str(lib), str(cu)], stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
+        if previous is not None:
+            lib = OUT / f"{kernel}_previous.so"
+            procs[kernel, PREVIOUS] = (lib, subprocess.Popen(
+                [nvcc, *_build.NVCC_FLAGS, "-I", str(previous), "-o",
+                 str(lib), str(previous / f"{kernel}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for key, (lib, proc) in procs.items():
         log = proc.communicate()[0]
@@ -427,7 +486,11 @@ def wkv6_errors(libs: dict, wkm) -> None:
 
 
 def main() -> int:
-    kernels = sys.argv[1:] or list(VARIANTS)
+    parser = argparse.ArgumentParser()
+    parser.add_argument("kernels", nargs="*")
+    parser.add_argument("--previous", type=Path, default=None)
+    args = parser.parse_args()
+    kernels = args.kernels or list(VARIANTS)
     unknown = set(kernels) - set(VARIANTS)
     if unknown:
         print(f"ablate_kernels: no variants of {sorted(unknown)}",
@@ -449,7 +512,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}")
-    libs = build(kernels)
+    libs = build(kernels, args.previous)
     # the wrappers set each library's argument types on first load
     types = {name: getattr(getattr(mods[name], LOADERS[name][1])(),
                            f"{name}_launch").argtypes for name in kernels}
@@ -460,9 +523,13 @@ def main() -> int:
 
     gen = torch.Generator("cuda").manual_seed(0)
     bf16 = torch.bfloat16
-    q = cs.randn(gen, (4, 512, 32, 128), bf16)
-    k = cs.randn(gen, (4, 512, 8, 128), bf16)
-    v = cs.randn(gen, (4, 512, 8, 128), bf16, 1.0)
+    fa_inputs = {}
+    if "flash_attention" in kernels:
+        for label, (b, s, h, hkv, hd, window, train) in FA_SHAPES.items():
+            fa_inputs[label] = (cs.randn(gen, (b, s, h, hd), bf16),
+                                cs.randn(gen, (b, s, hkv, hd), bf16),
+                                cs.randn(gen, (b, s, hkv, hd), bf16, 1.0),
+                                window, train)
     decode = {}
     for label, b, s, lens in (("B=4, 544 slots", 4, 544, [544, 528, 520, 513]),
                               ("B=1, 32768 slots", 1, 32768, [32768])):
@@ -513,8 +580,9 @@ def main() -> int:
         scan_starts = msm.mamba_chunk_states(*scan_in)[2]
 
     times = {}
-    for _ in range(2):
-        for (kernel, name), lib in libs.items():
+    for rnd in range(2):   # the second round in reverse order
+        for (kernel, name), lib in (list(libs.items())[::-1] if rnd
+                                    else libs.items()):
             setattr(mods[kernel], LOADERS[kernel][1], lambda lib=lib: lib)
             if kernel == "flash_attention_bwd":
                 for label, args in attention.items():
@@ -533,8 +601,12 @@ def main() -> int:
                         *scan_in, scan_starts, scan_dout), 10))
                 continue
             if kernel == "flash_attention":
-                times.setdefault(f"flash attention: {name}", []).append(
-                    cs.time_ms(lambda: fam.flash_attention(q, k, v), 50))
+                for label, (q, k, v, window, train) in fa_inputs.items():
+                    fn = fam.flash_attention_train if train \
+                        else fam.flash_attention
+                    times.setdefault(f"flash attention, {label}: {name}",
+                                     []).append(cs.time_ms(
+                        lambda: fn(q, k, v, window), 10))
                 continue
             if kernel == "wkv6":
                 times.setdefault(f"wkv6 prefill: {name}", []).append(
