@@ -7,10 +7,10 @@ Phases; each raises on failure, so any failure exits non-zero:
      src/repro_torch/kernels/csrc/ (one nvcc per source, in parallel),
      print ptxas' registers and spills and each library's count of HMMA
      (mma.sync), HGMMA (wgmma) and UTMALDG (TMA load) instructions: HMMA
-     must not be 0 for the attention backward (the mma.sync bodies of hd
-     32 and 160) and WKV6, nor HGMMA and UTMALDG for flash attention (its
-     Hopper bf16 body at every head dim) and its backward (the Hopper
-     bodies at hd 64, 80, 96 and 128);
+     must not be 0 for WKV6 (its 3xTF32 products) and its backward, nor
+     HGMMA and UTMALDG for flash attention and its backward (their Hopper
+     bf16 bodies at every head dim), and the attention backward must have
+     no HMMA (no mma.sync body is left in it) and no spill;
   2. each kernel against its plain PyTorch version on the card, at the
      serving shapes and in windowed, ragged, 3-D layout, hd 32 and 128,
      fp32, many-split, poisoned-cache and carried-state cases (flash
@@ -78,17 +78,20 @@ Phases; each raises on failure, so any failure exits non-zero:
      through the plain version at the serving shape and at the training
      shapes of qwen3-8b (B=2, S=4096, 32/8 heads), hymba-1.5b (B=4,
      25/5 heads of 64, window 1024), moonshot-v1-16b-a3b (B=2, 16/16
-     heads of 128), phi3-mini-3.8b (B=2, 32/32 heads of 96) and
-     h2o-danube-1.8b (B=4, 32/8 heads of 80, window 4096), fp32 and
-     bf16, with two mutants of the plain backward that must fail, bf16
-     asserted to run the Hopper (wgmma, TMA) bodies at each of them; the
+     heads of 128), phi3-mini-3.8b (B=2, 32/32 heads of 96),
+     h2o-danube-1.8b (B=4, 32/8 heads of 80, window 4096), pixtral-12b
+     (B=1, 32/8 heads of 160) and musicgen-large (B=2, 32/32 heads of
+     64), fp32 and bf16, with two mutants of the plain backward that must
+     fail, bf16 asserted to run the Hopper (wgmma, TMA) bodies at each of
+     them; the
      backward kernels against their plain version (flash_attention_bwd
      given the forward's out and log-sum-exp), two runs bit-equal, and
      timed beside it, beside the old torch-ops backward and SDPA's (causal
      where the window covers S), at each training shape; the kernel's bf16
      forward (the Hopper body, asserted) and log-sum-exp against their
-     plain versions at qwen3-8b's, phi3's and h2o-danube's training
-     shapes, two runs bit-equal, with the temperature mutant; qwen3-8b
+     plain versions at qwen3-8b's, phi3's, h2o-danube's and pixtral's
+     training shapes, two runs bit-equal, with the temperature mutant;
+     qwen3-8b
      trained at full width
      and depth 8 (AdamW, bf16, 4 microbatches of 2 x 4096 tokens)
      through train_step, a warm-up step and 3 timed ones,
@@ -98,7 +101,8 @@ Phases; each raises on failure, so any failure exits non-zero:
      attention backward, no other kernel's; the torch-ops backwards
      called 0 times) and a profile of one step; the first microbatch's loss and
      grads at depth 2 through the kernels and the plain versions, bf16 and
-     fp32 (the embedding's gradient and the other leaves' held apart);
+     fp32 (bf16 held by its mean loss, its tokens' losses, grad norm, the
+     embedding's gradient and the other leaves' apart);
      run_training at the tiny preset on the card, 6 straight steps
      against 3, a commit, a resume and 3 more. The recurrences train
      through Wkv6Fn and MambaScanFn (the kernels' forward one launch per
@@ -124,7 +128,15 @@ Phases; each raises on failure, so any failure exits non-zero:
      heads of 80, window 4096) trained at full width and full depth as
      qwen3-8b is (128 and 48 attention backward launches a step), their
      kernel and plain paths compared at depth 2 at their training
-     microbatches. moonshot-v1-16b-a3b
+     microbatches; the stub-frontend family, fed embeddings made from the
+     seed as train/data.py makes them: pixtral-12b (d_model 5120, GQA
+     32/8 heads of 160) at depth 9 of 40, the largest whose step's peak
+     phase 7 predicts at most 70 GB (8 microbatches of 1 x 4096), and
+     musicgen-large (MHA 32 heads of 64) at its full 48 layers (4 of 2 x
+     4096), trained as qwen3-8b is (72 and 192 attention backward launches
+     a step, a nonzero gradient on every leaf but the unread token table,
+     whose gradient is 0) and compared at depth 2 at their microbatches.
+     moonshot-v1-16b-a3b
      (MoE, 64 experts top-6) is trained as qwen3-8b is, at depth 4 of 48
      (47.3 GB of state), with a profile of one microbatch that splits the
      MoE layer's device time into routing, one-hot and scan, scatter,
@@ -179,7 +191,9 @@ steps' launches, "flash_attention_bwd" at qwen3-8b's training shape and
 "_hymba", "_moonshot" at those models', "wkv6_backward" at rwkv6-3b's,
 "mamba_scan_bwd" at hymba-1.5b's, "_phi3" and "_danube" for both the
 backward and the training forward at those models' training shapes,
-each with its model's timed train steps' launches, both attention kernels
+"_pixtral" for both at pixtral-12b's (hd 160) and "_musicgen" for the
+backward at musicgen-large's, each with its model's timed train steps'
+launches, both attention kernels
 once more for
 each of hd 96, 80 and 160, "_hd<n>", and for hymba's group of 5,
 "_hymba", at the shape and with the launches of the model served there,
@@ -257,24 +271,32 @@ BF16_ERR_RATIO = 1.1
 # GB: its embedding and LM head hold 0.335 B parameters each, each layer
 # 0.570 B), rwkv6-3b (49.2 GB), hymba-1.5b (22.4 GB), phi3-mini-3.8b (32
 # layers, a step's peak 64.31 GB predicted on meta) and h2o-danube-1.8b
-# (24 layers, 34.10 GB predicted) at full depth; TRAIN_4K's 4096 tokens a
-# sequence, TRAIN_BATCH of its 256 sequences a step (the run's time limit)
-# in each config's grad_accum microbatches (qwen3-8b, moonshot, rwkv6-3b
-# and phi3-mini-3.8b: 4 of TRAIN_MICRO; hymba-1.5b and h2o-danube-1.8b: 2
-# of 4)
+# (24 layers, 34.10 GB predicted) at full depth; the stub-frontend family:
+# pixtral-12b at the largest depth whose step's peak, as phase 7 predicts
+# it on meta, is at most 70 GB: 9 of its 40 layers (67.96 GB predicted;
+# 72.6 at 10; its unread token table and LM head hold 0.671 B parameters
+# each, each layer 0.286 B), musicgen-large at full depth (48 layers,
+# 57.96 GB predicted); TRAIN_4K's 4096 tokens a sequence, TRAIN_BATCH of
+# its 256 sequences a step (the run's time limit) in each config's
+# grad_accum microbatches (qwen3-8b, moonshot, rwkv6-3b and
+# phi3-mini-3.8b: 4 of TRAIN_MICRO; hymba-1.5b, h2o-danube-1.8b and
+# musicgen-large: 2 of 4; pixtral-12b: 8 of 1)
 TRAINED = {"qwen3-8b": 8, "moonshot-v1-16b-a3b": 4, "rwkv6-3b": 32,
-           "hymba-1.5b": 32, "phi3-mini-3.8b": 32, "h2o-danube-1.8b": 24}
+           "hymba-1.5b": 32, "phi3-mini-3.8b": 32, "h2o-danube-1.8b": 24,
+           "pixtral-12b": 9, "musicgen-large": 48}
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 4096, 8, 2
 # the kernel path against the plain one at depth 2, (model, S, B): qwen3-8b,
-# moonshot, phi3-mini-3.8b and h2o-danube-1.8b at their training
-# microbatches; rwkv6-3b and hymba-1.5b at 2048 tokens (8 of the 256-step
-# remat chunks, twice hymba's window), where the plain loops' 2048 steps
-# under autograd take seconds, not minutes
+# moonshot, phi3-mini-3.8b, h2o-danube-1.8b, pixtral-12b and
+# musicgen-large at their training microbatches; rwkv6-3b and hymba-1.5b
+# at 2048 tokens (8 of the 256-step remat chunks, twice hymba's window),
+# where the plain loops' 2048 steps under autograd take seconds, not
+# minutes
 COMPARED = (("qwen3-8b", TRAIN_SEQ, TRAIN_MICRO),
             ("moonshot-v1-16b-a3b", TRAIN_SEQ, TRAIN_MICRO),
             ("rwkv6-3b", 2048, 2), ("hymba-1.5b", 2048, 2),
             ("phi3-mini-3.8b", TRAIN_SEQ, TRAIN_MICRO),
-            ("h2o-danube-1.8b", TRAIN_SEQ, 4))
+            ("h2o-danube-1.8b", TRAIN_SEQ, 4), ("pixtral-12b", TRAIN_SEQ, 1),
+            ("musicgen-large", TRAIN_SEQ, 2))
 # models whose depth-2 comparison also runs the plain path in fp64, to tell
 # which fp32 path carries the gap between them (ROADMAP.md queue 3, n)
 FP64_COMPARED = ("rwkv6-3b",)
@@ -312,19 +334,28 @@ FP32_PARTS = ("wkv6", "mamba_scan", "Wkv6FnBackward", "MambaScanFnBackward",
 # paths, against fp32: within this factor of the plain path's own error
 # (two bf16 paths round independently; the fp32 checks are the tight ones)
 BWD_BF16_RATIO = 2.0
+# the depth-2 check's mean loss: the bf16 kernel path's from the bf16 plain
+# path's, relative to the fp32 loss. Not a ratio of their errors: each is
+# a sum of signed terms that cancel, so the plain path's can sit near 0 by
+# chance (pixtral-12b's first microbatch: 4.98e-5 against 1.14e-5). The
+# eight compared models' gaps were 3.9e-6 to 3.84e-5 (pixtral-12b)
+BF16_LOSS_GAP = 1e-4
 # phase 5a: the attention backward at each trained attention model's
 # training shape, {JSON suffix: model}: qwen3-8b's GQA 32/8 heads of 128,
 # hymba-1.5b's 25/5 heads of 64 with its 1024-token window, moonshot's
 # 16/16 heads of 128, phi3-mini-3.8b's 32/32 heads of 96, h2o-danube-1.8b's
 # 32/8 heads of 80 with its 4096-token window (every causal pair of a
-# 4096-token sequence)
+# 4096-token sequence), pixtral-12b's 32/8 heads of 160 (B=1) and
+# musicgen-large's 32/32 heads of 64
 ATTENTION_TRAINED = {"": "qwen3-8b", "_hymba": "hymba-1.5b",
                      "_moonshot": "moonshot-v1-16b-a3b",
                      "_phi3": "phi3-mini-3.8b",
-                     "_danube": "h2o-danube-1.8b"}
+                     "_danube": "h2o-danube-1.8b",
+                     "_pixtral": "pixtral-12b",
+                     "_musicgen": "musicgen-large"}
 # the JSON suffixes of ATTENTION_TRAINED whose training forward phase 5a
-# also checks and times (hd 128, 96 and 80)
-FORWARD_TRAINED = ("", "_phi3", "_danube")
+# also checks and times (hd 128, 96, 80 and 160)
+FORWARD_TRAINED = ("", "_phi3", "_danube", "_pixtral")
 # the training forward's log-sum-exp against its plain version (natural
 # log units; the scores' products sum in other orders)
 LSE_ATOL = 1e-3
@@ -433,16 +464,38 @@ def environment() -> str:
     for op, name, what in (
             ("HGMMA", "flash_attention", "Hopper bf16 body"),
             ("UTMALDG", "flash_attention", "Hopper bf16 body's TMA tiles"),
-            ("HMMA", "flash_attention_bwd", "mma.sync bodies (hd 32, 160)"),
-            ("HGMMA", "flash_attention_bwd", "Hopper bodies (hd 64, 80, 96, "
-                                             "128)"),
+            ("HGMMA", "flash_attention_bwd", "Hopper bodies (every hd)"),
             ("UTMALDG", "flash_attention_bwd", "Hopper bodies' TMA tiles"),
             ("HMMA", "wkv6", "chunked body's 3xTF32 products"),
             ("HMMA", "wkv6_bwd", "3xTF32 state products")):
         if not counts[op][name]:
             raise AssertionError(f"{name}'s library has no {op}: its {what} "
                                  f"do not run as designed")
+    # the attention backward's bf16 bodies are all on wgmma: an HMMA in its
+    # library, or a spill in its Hopper kernels at hd 160 (whose dK and dV
+    # take 160 registers a consumer thread), is a body that does not run
+    # as designed
+    spills = hopper_spills(libs["flash_attention_bwd"])
+    for name, n in spills.items():
+        log(f"  ptxas flash_attention_bwd: {name}: {n} bytes spill stores")
+    at_160 = [n for name, n in spills.items() if "<160," in name]
+    if counts["HMMA"]["flash_attention_bwd"] or len(at_160) != 2 \
+            or any(at_160):
+        raise AssertionError(
+            f"flash_attention_bwd: {counts['HMMA']['flash_attention_bwd']} "
+            f"HMMA instructions, spill stores {spills}")
     return smi
+
+
+def hopper_spills(lib: Path) -> dict:
+    """{Hopper kernel as name<template arguments>: bytes of spill stores}
+    from a library's ptxas report."""
+    props = re.findall(r"Function properties for \S*?(fa_bwd_\w+?_hopper_"
+                       r"kernel)(I(?:Li\d+E)+)\S*\s+\d+ bytes stack frame, "
+                       r"(\d+) bytes spill stores",
+                       lib.with_suffix(".log").read_text())
+    return {f"{name}<{','.join(re.findall(r'Li(\d+)E', args))}>": int(n)
+            for name, args, n in props}
 
 
 # SASS opcodes counted per library: the tensor cores by mma.sync and by
@@ -2409,13 +2462,49 @@ def check_recurrent_leaves(cfg, grads: dict) -> None:
                              f"gradients {dead}")
 
 
+def check_stub_leaves(cfg, grads: dict) -> None:
+    """A stub-frontend model reads embeddings in place of ids: every leaf
+    but its unread token table got a nonzero finite gradient (a stacked
+    layer leaf in every layer), and the table's gradient is 0 (as JAX's
+    is)."""
+    if not cfg.embedding_stub:
+        return
+    dead = []
+    for path, g in _named_leaves(grads):
+        if path == "embed":
+            if bool(g.any()):
+                raise AssertionError(f"{cfg.name}: the unread token table "
+                                     f"has a nonzero gradient")
+            continue
+        g = g.float().flatten(1) if path.startswith("layers/") \
+            else g.float().reshape(1, -1)
+        per = g.abs().amax(1)
+        if not bool((per > 0).all() & torch.isfinite(per).all()):
+            dead.append(path)
+    log(f"  nonzero finite gradient on every leaf but the unread token "
+        f"table (whose gradient is 0), in all {cfg.n_layers} layers: "
+        f"{not dead}")
+    if dead:
+        raise AssertionError(f"{cfg.name}: zero or non-finite gradients "
+                             f"{dead}")
+
+
+def _named_leaves(tree, prefix: str = "") -> list:
+    """[(path, leaf)] of a nested dict, paths joined by '/'."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in _named_leaves(v, f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
 def train_full_width(arch: str, bwd_ms: dict) -> dict:
     """``arch`` at full width and depth TRAINED[arch]: a warm-up step, then
     TIMED_STEPS steps through train_step, each of TRAIN_BATCH sequences of
     TRAIN_SEQ tokens in grad_accum microbatches. Asserts finite losses and
     grad norms, a first loss near ln(vocab), the launches of train_counts
     (and the Mamba scan's all in its chunked body), and in the warm-up
-    step a nonzero gradient on every leaf that feeds the recurrence.
+    step a nonzero gradient on every leaf that feeds the recurrence (of a
+    stub-frontend model, on every leaf but its unread token table).
     Spies on the torch-ops backwards that the kernels replaced
     (flash_attention_bwd, wkv6_bwd, mamba_scan_bwd): the timed steps must
     call them 0 times. Prints a profile (of a step, or for the recurrent
@@ -2464,6 +2553,7 @@ def train_full_width(arch: str, bwd_ms: dict) -> dict:
         if not seen:
             seen.append(1)
             check_recurrent_leaves(cfg, grads)
+            check_stub_leaves(cfg, grads)
         return real_updates(grads, *args, **kwargs)
 
     # the torch-ops backwards the kernels replaced: never called on the card
@@ -2556,13 +2646,17 @@ def compare_train_paths(arch: str, seq: int, micro: int) -> None:
     """The first microbatch (``micro`` x ``seq`` tokens) of ``arch``'s loss
     and gradients at depth 2, full width, through the kernels and through
     the plain versions (impl="reference"), in bf16 and with the weights
-    widened to fp32; fp32 plain is the truth. fp32 kernel path: within
-    FP32_REL_TOL of it. bf16 kernel path: its loss, grad norm, the rel L2
-    of the embedding's gradient and that of all other leaves, each within
-    BWD_BF16_RATIO x the plain path's own error. The embedding's bf16
-    scatter-add drifts far from fp32 on both paths (as JAX's does:
-    tests/test_torch_bf16_grads.py), so the other leaves are held apart
-    from it, to their own much smaller error. MoE routing is
+    widened to fp32; fp32 plain is the truth. fp32 kernel path: its loss
+    and the rest within FP32_REL_TOL of it. bf16 kernel path: the rel L2
+    of its tokens' losses (``token_losses``), its grad norm, the rel L2 of
+    the embedding's gradient and that of all other leaves, each within
+    BWD_BF16_RATIO x the plain path's own error; its mean loss within
+    BF16_LOSS_GAP of the bf16 plain path's, relative to the fp32 loss.
+    The tokens' losses are every token's of the microbatch once
+    (``forward_chunks``). The embedding's bf16 scatter-add drifts far from
+    fp32 on both paths (as JAX's does: tests/test_torch_bf16_grads.py), so
+    the other leaves are held apart from it, to their own much smaller
+    error. MoE routing is
     discontinuous (``compare_paths``): the fp32 plain path runs first and
     its expert choices pin both bf16 paths (the same experts, each path's
     own gates), and the fp32 kernel path too where its own choices are not
@@ -2577,18 +2671,27 @@ def compare_train_paths(arch: str, seq: int, micro: int) -> None:
     batch = to_device(batch, "cuda")
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
 
-    def run(p, c, impl, record=None, pinned=None):
-        with routing(record=record, pinned=pinned):
+    tokens = {}
+
+    def run(key, p, c, impl, record=None, pinned=None):
+        chunks = []
+        with routing(record=record, pinned=pinned), token_losses(chunks):
             loss, grads = loss_and_grads(p, c, batch, impl)
+        tokens[key] = forward_chunks(chunks, seq, f"{arch} {key}")
         embed = grads.pop("embed").float()
+        if cfg.embedding_stub and bool(embed.any()):
+            raise AssertionError(f"{arch} {c.param_dtype} {impl}: the "
+                                 f"unread token table has a gradient")
         rest = torch.cat([g.float().flatten() for g in _leaves(grads)])
         norm = torch.cat([embed.flatten(), rest]).norm().item()
         return loss.item(), norm, embed.cpu(), rest.cpu()
 
     runs, truth, own = {}, [], []
     p = _map(params, lambda t: t.float())
-    runs["fp32", "reference"] = run(p, cfg32, "reference", record=truth)
-    runs["fp32", "kernel"] = run(p, cfg32, "kernel", record=own)
+    runs["fp32", "reference"] = run(("fp32", "reference"), p, cfg32,
+                                    "reference", record=truth)
+    runs["fp32", "kernel"] = run(("fp32", "kernel"), p, cfg32, "kernel",
+                                 record=own)
     pinned = truth if cfg.is_moe else None
     if cfg.is_moe:
         share = routing_agreement(own, truth)
@@ -2597,33 +2700,44 @@ def compare_train_paths(arch: str, seq: int, micro: int) -> None:
             f"paths{' and the fp32 kernel path' if share < 1 else ''} "
             f"routed as the fp32 plain path")
         if share < 1:
-            runs["fp32", "kernel"] = run(p, cfg32, "kernel", pinned=truth)
+            runs["fp32", "kernel"] = run(("fp32", "kernel"), p, cfg32,
+                                         "kernel", pinned=truth)
     del p
     if arch in FP64_COMPARED:
         p = _map(params, lambda t: t.double())
         with mock.patch.object(torch.Tensor, "float", _kept_fp64):
-            fp64 = run(p, dataclasses.replace(cfg, param_dtype="float64"),
+            fp64 = run("fp64", p,
+                       dataclasses.replace(cfg, param_dtype="float64"),
                        "reference")
         del p
     for impl in ("kernel", "reference"):
-        runs["bf16", impl] = run(params, cfg, impl, pinned=pinned)
+        runs["bf16", impl] = run(("bf16", impl), params, cfg, impl,
+                                 pinned=pinned)
     del params
     t_loss, t_norm, t_embed, t_rest = runs["fp32", "reference"]
     for key, (loss, norm, _, _) in runs.items():
         if not (math.isfinite(loss) and math.isfinite(norm)):
             raise AssertionError(f"{key}: loss {loss}, grad norm {norm}")
-    what = ("loss", "grad norm", "embedding grad", "other grads")
-    err = {key: (abs(loss - t_loss) / t_loss, abs(norm - t_norm) / t_norm,
-                 rel_err(embed, t_embed), rel_err(rest, t_rest))
+    what = ("tokens' losses", "grad norm", "embedding grad", "other grads")
+    # a stub-frontend model's token table is unread: its gradient is 0 on
+    # every path (asserted in run), so no relative error is taken of it
+    err = {key: (rel_err(tokens[key], tokens["fp32", "reference"]),
+                 abs(norm - t_norm) / t_norm,
+                 0.0 if cfg.embedding_stub else rel_err(embed, t_embed),
+                 rel_err(rest, t_rest))
            for key, (loss, norm, embed, rest) in runs.items()}
+    loss_err = {key: abs(r[0] - t_loss) / t_loss for key, r in runs.items()}
     for key, e in err.items():
         log(f"  {arch} depth 2, {micro} x {seq}, {key[0]} {key[1]}: loss "
             f"{runs[key][0]:.6f}, grad norm {runs[key][1]:.6f}, embedding "
             f"grad norm {runs[key][2].norm().item():.4f} (fp32 plain "
-            f"{t_embed.norm().item():.4f}); vs fp32 plain (relative): "
+            f"{t_embed.norm().item():.4f}); vs fp32 plain (relative): loss "
+            f"{loss_err[key]:.3e}, "
             + ", ".join(f"{w} {x:.3e}" for w, x in zip(what, e)))
-    if max(err["fp32", "kernel"]) > FP32_REL_TOL:
-        raise AssertionError(f"{arch}: fp32 training paths disagree: "
+    if max(loss_err["fp32", "kernel"], *err["fp32", "kernel"]) \
+            > FP32_REL_TOL:
+        raise AssertionError(f"{arch}: fp32 training paths disagree: loss "
+                             f"{loss_err['fp32', 'kernel']}, "
                              f"{err['fp32', 'kernel']}")
     if arch in FP64_COMPARED:
         log_fp64_distances(arch, runs, fp64)
@@ -2631,10 +2745,61 @@ def compare_train_paths(arch: str, seq: int, micro: int) -> None:
     log(f"  bf16 kernel path within {BWD_BF16_RATIO} x the plain path's "
         f"error: " + ", ".join(f"{w} {k / p:.3f} x" if p else f"{w} {k} vs 0"
                                for w, k, p in zip(what, kern, plain)))
+    gap = abs(runs["bf16", "kernel"][0] - runs["bf16", "reference"][0]) \
+        / t_loss
+    log(f"  bf16 mean loss: kernel path from plain path {gap:.3e} of the "
+        f"fp32 loss (limit {BF16_LOSS_GAP})")
     for w, k, p in zip(what, kern, plain):
         if k > BWD_BF16_RATIO * p:
             raise AssertionError(f"{arch} bf16 {w}: kernel path {k} vs "
                                  f"plain {p}")
+    if gap > BF16_LOSS_GAP:
+        raise AssertionError(f"{arch} bf16 mean loss: kernel path "
+                             f"{runs['bf16', 'kernel'][0]}, plain "
+                             f"{runs['bf16', 'reference'][0]}")
+
+
+def forward_chunks(chunks: list, seq: int, what: str) -> torch.Tensor:
+    """The tokens' losses (B, seq) of one ``loss_and_grads`` call, from
+    what ``token_losses`` recorded: ``forward_train``'s chunks, then the
+    backward's recompute of each, which must give the same bits (in any
+    order), so the result holds every token of the microbatch once."""
+    from repro_torch.models.transformer import LOSS_CHUNK
+    n = max(1, seq // min(LOSS_CHUNK, seq))
+    if len(chunks) != 2 * n:
+        raise AssertionError(f"{what}: {len(chunks)} loss chunks recorded, "
+                             f"not {n} and their {n} recomputes")
+    forward, left = chunks[:n], chunks[n:]
+    for i, c in enumerate(forward):
+        same = [j for j, r in enumerate(left) if torch.equal(r, c)]
+        if not same:
+            raise AssertionError(f"{what}: loss chunk {i}'s recompute is "
+                                 f"not its bits")
+        left.pop(same[0])
+    out = torch.cat(forward, dim=1)
+    if out.shape[1] != seq:
+        raise AssertionError(f"{what}: loss chunks hold {out.shape[1]} of "
+                             f"{seq} tokens")
+    return out.cpu()
+
+
+@contextlib.contextmanager
+def token_losses(out: list):
+    """Within the block, each chunk of the training loss appends its
+    tokens' cross-entropies (B, chunk) to ``out``, detached, as
+    ``_chunk_ce`` computes their sum: the forward's chunks, then the
+    backward's recompute of each (the chunks are checkpointed)."""
+    from repro_torch.models import transformer as tf
+    real = tf._chunk_ce
+
+    def chunk_ce(h, w, labels):
+        with torch.no_grad():
+            logits = (h @ w).float()
+            gold = logits.gather(-1, labels[..., None])[..., 0]
+            out.append(torch.logsumexp(logits, dim=-1) - gold)
+        return real(h, w, labels)
+    with mock.patch.object(tf, "_chunk_ce", chunk_ce):
+        yield
 
 
 def _kept_fp64(t: torch.Tensor, *args, **kwargs) -> torch.Tensor:
@@ -3184,6 +3349,12 @@ def count_training(arch: str):
                                     opt_cfg, device="meta")
         batch = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.long,
                                 device="meta") for k in ("tokens", "labels")}
+        if cfg.embedding_stub:
+            # the frontend stub's fp32 embeddings, as train/data.py makes
+            # them, in place of the ids
+            batch["embeds"] = torch.empty((TRAIN_BATCH, TRAIN_SEQ,
+                                           cfg.d_model), device="meta")
+            del batch["tokens"]
         counter = RooflineCounter()
         resident = counter.resident((state, batch))
         with counter:

@@ -1,9 +1,8 @@
 // Shared helpers for the kernels: element conversion, paired loads and
 // stores, tile copies from device to shared memory (plain and cp.async),
-// the ldmatrix / mma.sync operations of the bf16 tensor-core path, and
-// the TF32 mma.sync with its hi/lo split, split fragments and their
-// loaders from shared memory (WKV6's 3xTF32 products, forward and
-// backward).
+// bf16 pairs for the tensor cores' fragments, and the TF32 mma.sync with
+// its hi/lo split, split fragments and their loaders from shared memory
+// (WKV6's 3xTF32 products, forward and backward).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -121,42 +120,15 @@ __device__ __forceinline__ void load_tile_async(T* dst, const T* src,
   }
 }
 
-// ---- bf16 tensor cores (mma.sync, m16n8k16, fp32 accumulate).
-// Fragment layouts, with g = lane / 4 and t = lane % 4:
+// ---- Fragment layouts of the tensor cores' m16n8k16 shape (bf16 in, fp32
+// accumulate; the A layout is also wgmma's register A operand, hopper.cuh),
+// with g = lane / 4 and t = lane % 4:
 //   A (16 x 16, row-major) a[0..3]: (g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..),
 //     (g+8, 2t+8..);
 //   B (16 x 8, k x n)      b[0..1]: (k 2t..2t+1, n g), (k 2t+8.., n g);
 //   C (16 x 8, fp32)       c[0..3]: (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1).
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// four 8x8 b16 matrices; lane i gives the address of row i % 8 of matrix
-// i / 8 and receives, of each matrix, row lane / 4, columns 2 (lane % 4)..+1
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-// the same, each matrix transposed: lane receives rows 2 (lane % 4)..+1 of
-// column lane / 4
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-// c += a * b
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 // two floats as a bf16 pair, the first in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -699,13 +699,12 @@ bool is_head_dim(int hd) {
 }  // namespace
 
 // The body that flash_attention_launch runs for head dim `hd` and `dtype`:
-// 0 the fp32 CUDA-core body, 2 the Hopper (wgmma, TMA) body (the codes of
-// flash_attention_bwd_body; this kernel has no mma.sync body); -1 for a
-// pair it refuses.
+// 0 the fp32 CUDA-core body, 1 the Hopper (wgmma, TMA) body (the codes of
+// flash_attention_bwd_body); -1 for a pair it refuses.
 extern "C" int flash_attention_body(int hd, int dtype) {
   if (!is_head_dim(hd) || (dtype != DTYPE_F32 && dtype != DTYPE_BF16))
     return -1;
-  return dtype == DTYPE_BF16 ? 2 : 0;
+  return dtype == DTYPE_BF16 ? 1 : 0;
 }
 
 // q: (B, Sq, H, hd), k/v: (B, Sk, Hkv, hd), o: (B, Sq, H, hd), each given

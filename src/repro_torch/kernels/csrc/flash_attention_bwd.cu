@@ -44,51 +44,49 @@
 // twice). Only tiles that straddle the diagonal, S or the window's edge
 // are masked.
 //
-// Hopper bodies, bf16 at hd 64, 80, 96 and 128 (the head dims that train
-// on the card: hymba-1.5b; h2o-danube-1.8b; phi3-mini-3.8b; qwen3-8b and
-// moonshot): each block is two warpgroups.
-// Warpgroup 0 gives up its registers (setmaxnreg 24) and its first warp
-// loads: K and V (dK/dV) or Q and dO (dQ) once, then the streamed tiles
-// (Q, dO, with lse and D by the warp's lanes; or K, V) by TMA into a ring
-// of NST stages, each stage a full and an empty mbarrier, in the 128-byte
-// swizzle that the wgmma descriptors name: a 64-row tile's row of hd bf16
-// is ceil(hd / 64) boxes of 128 bytes, each box 64 rows x 128 bytes (8
-// KB). The consumer warpgroup (setmaxnreg 232) runs the products on wgmma
-// m64nNk16 (bf16 in, fp32 accumulate), 64 rows a warpgroup: dK/dV takes
-// S^T = K Q^T and dP^T = V dO^T with both operands in shared memory
-// (K-major), forms P^T and dS^T = P^T o (dP^T - D) in registers, then dV
-// += T(P^T) dO and dK += T(dS^T) Q with P^T and dS^T as the register A
-// operand and dO, Q MN-major; dQ takes S = Q K^T, dP = dO V^T and dQ +=
-// T(dS) K the same way. Registers a consumer thread at hd 128: dK and dV
-// 64 + 64, S^T and dP^T 32 + 32 (hd 96: 48 + 48; hd 80: 40 + 40). Shared
-// memory: two 64 x hd tiles kept and NST stages of two (hd 80 to 128: two
-// boxes, 16 KB a tile, NST 2, 98 KB: two blocks an SM; hd 64: NST 3, 66
-// KB). Launch bounds hold a thread to 128 registers at entry (two blocks
+// Hopper bodies, bf16 at every head dim (32, 64, 80, 96, 128, 160; the
+// trained ones: hymba-1.5b and musicgen-large 64; h2o-danube-1.8b 80;
+// phi3-mini-3.8b 96; qwen3-8b and moonshot 128; pixtral-12b 160): each
+// block is two warpgroups. Warpgroup 0 gives up its registers (setmaxnreg
+// 24) and its first warp loads: K and V (dK/dV) or Q and dO (dQ) once, 64
+// rows each, then the streamed tiles of ST rows (Q, dO, with lse and D by
+// the warp's lanes; or K, V) by TMA into a ring of NST stages, each stage
+// a full and an empty mbarrier, in the 128-byte swizzle that the wgmma
+// descriptors name: a tile's row of hd bf16 is ceil(hd / 64) boxes of 128
+// bytes, each box R rows x 128 bytes. The consumer warpgroup (setmaxnreg
+// 232) runs the products on wgmma m64nNk16 (bf16 in, fp32 accumulate), 64
+// rows a warpgroup: dK/dV takes S^T = K Q^T and dP^T = V dO^T with both
+// operands in shared memory (K-major, N = ST), forms P^T and dS^T = P^T o
+// (dP^T - D) in registers, then dV += T(P^T) dO and dK += T(dS^T) Q with
+// P^T and dS^T as the register A operand and dO, Q MN-major (ST / 16
+// k-steps); dQ takes S = Q K^T, dP = dO V^T and dQ += T(dS) K the same
+// way. Launch bounds hold a thread to 128 registers at entry (two blocks
 // an SM), which setmaxnreg then moves from the producer warpgroup (24) to
-// the consumer one (232).
+// the consumer one (232); a build with fewer is refused before its first
+// launch (check_entry_registers).
 //
-// hd 80 and 96 are 1.25 and 1.5 boxes. Their tiles are laid out as hd
-// 128's, two 128-byte-swizzle boxes a row, and the second box's columns
-// past hd are TMA's zero fill (the map's innermost extent is hd), so one
-// layout, one ring and whole-box transaction counts serve all four head
-// dims. The K-major products (S^T, dP^T; S, dP) step hd / 16 = 5 or 6
-// k-steps and never read the fill; the MN-major ones (dV, dK; dQ), N = hd,
-// run N = 64 over the first box and an N = 16 or 32 tail from the second
-// box's start, so no product runs over the zero columns either, and dK, dV
-// and dQ hold hd columns of accumulators. (The other design, a 32- or
-// 16-column tail box in a narrower swizzle, would give each descriptor its
-// own swizzle mode and the ring a second box shape for the same work.)
+// Registers a consumer thread (fp32 words): dK and dV hd / 2 each, S^T and
+// dP^T ST / 2 each: hd 128 64 + 64 + 32 + 32; hd 96 48 + 48 + 32 + 32; hd
+// 160 80 + 80 + 16 + 16, which is why hd 160 streams 32-row tiles (ST =
+// 32; a 64-row one would give 224 words before the A fragments and
+// addresses); hd 32 16 + 16 + 32 + 32. dQ holds hd / 2 and its S and dP,
+// over ST-key tiles too (launch_hopper says why).
+// Shared memory: two 64 x hd tiles kept and NST stages of two ST x hd
+// tiles, 8 KB a 64-row box and 4 KB a 32-row one: hd 80 to 128 two boxes,
+// NST 2, 98 KB; hd 160 three boxes, 48 KB kept and NST 2 of 24 KB, 98 KB;
+// hd 32 and 64 one box, NST 3, 66 KB: two blocks an SM at every hd.
 //
-// mma.sync bodies, bf16 at hd 32 and 160 (chosen in the same C call; no
-// configuration trains at hd 32 on the card, and hd 160 is pixtral-12b's,
-// trained on the CPU only; ROADMAP.md queue 6): mma.sync.m16n8k16 with
-// ldmatrix from shared memory rows padded by 16 bytes, 4 warps of 16 rows
-// a block, 32-wide streamed tiles by cp.async in two stages: S^T = K Q^T
-// takes K as A and Q by ldmatrix; P^T (rounded to bf16 in registers) is
-// the A operand of dV += P^T dO, dO by ldmatrix.trans; the same for dP^T
-// = V dO^T and dK += dS^T Q; the dQ kernel is the forward's layout with
-// dO V^T beside Q K^T and dQ += dS K. At hd 160 the dK and dV
-// accumulators take 160 registers a thread.
+// Where hd is not a multiple of 64 (80, 96: 1.25 and 1.5 boxes; 160: 2.5;
+// 32: 0.5) the tiles are laid out as whole boxes, and the last box's
+// columns past hd are TMA's zero fill (the map's innermost extent is hd),
+// so one layout, one ring and whole-box transaction counts serve every
+// head dim. The K-major products (S^T, dP^T; S, dP) step hd / 16 k-steps
+// (hd 160: 10, hd 32: 2) and never read the fill; the MN-major ones (dV,
+// dK; dQ), N = hd, run N = 64 or 128 over the whole boxes and an N = 16
+// or 32 tail from the last box's start (hd 32: one N = 32), so no product
+// runs over the zero columns either, and dK, dV and dQ hold hd columns of
+// accumulators. The forward lays out hd 160 and 32 the same way
+// (flash_attention.cu); the helpers are hopper.cuh's.
 //
 // fp32 bodies (tests, compare_paths; not a training dtype): CUDA cores, 256
 // threads of 8-lane row groups, each thread two rows (keys in dK/dV,
@@ -103,13 +101,12 @@
 
 namespace {
 
-constexpr int KB = 64;   // dK/dV: keys a block (4 bf16 warps of 16)
-constexpr int QB = 32;   // dK/dV: queries a streamed tile
+// fp32 bodies' tiles (the Hopper bodies' are in section 4)
+constexpr int KB = 64;   // dK/dV: keys a block
+constexpr int QB = 32;   // dK/dV: queries a tile
 constexpr int QR = 64;   // dQ: query rows a block
-constexpr int KT = 32;   // dQ: keys a streamed tile
-constexpr int NT = 128;  // bf16 kernels: 4 warps
+constexpr int KT = 32;   // dQ: keys a tile
 constexpr int NT32 = 256;  // fp32 kernels: 32 row groups of 8 lanes
-constexpr int NSTAGE = 2;  // cp.async stages of the streamed tiles
 constexpr int DELTA_WARPS = 8;
 
 struct BwdParams {
@@ -163,7 +160,7 @@ __global__ void __launch_bounds__(32 * DELTA_WARPS)
   if (lane == 0) p.delta[row_index(p, b, h, s)] = acc;
 }
 
-// the query tiles a key tile's block walks: [k0, q_end), QB at a time
+// the queries that a block of 64 keys from k0 sees: [k0, q_end)
 __device__ __forceinline__ int query_end(const BwdParams& p, int k0) {
   return p.window > 0 ? min(p.S, k0 + KB - 1 + p.window) : p.S;
 }
@@ -172,371 +169,6 @@ __device__ __forceinline__ int query_end(const BwdParams& p, int k0) {
 __device__ __forceinline__ int key_begin(const BwdParams& p, int q0) {
   const int k = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
   return k / KT * KT;
-}
-
-// ------------------------------------------------- 2./3. bf16 bodies
-template <int HD>
-struct BwdBf16Shape {
-  static_assert(HD % 16 == 0, "hd must be a multiple of 16");
-  static constexpr int LD = HD + 8;  // 16-byte pad: conflict-free ldmatrix
-  // dK/dV: K and V (KB rows each), NSTAGE x (Q, dO) of QB rows, then
-  // NSTAGE x (lse, D) of QB floats
-  static constexpr size_t DKDV =
-      size_t(2) * KB * LD * 2 + size_t(NSTAGE) * 2 * QB * LD * 2 +
-      size_t(NSTAGE) * 2 * QB * 4;
-  // dQ: Q and dO (QR rows each), NSTAGE x (K, V) of KT rows
-  static constexpr size_t DQ =
-      size_t(2) * QR * LD * 2 + size_t(NSTAGE) * 2 * KT * LD * 2;
-};
-
-template <int HD>
-__global__ void __launch_bounds__(NT) fa_bwd_dkdv_bf16_kernel(
-    const BwdParams p) {
-  using T = __nv_bfloat16;
-  constexpr int LD = BwdBf16Shape<HD>::LD;
-  constexpr int KD = HD / 16;  // k-steps over the head dim
-  constexpr int ND = HD / 8;   // n-blocks of dK and dV
-  constexpr int NQ = QB / 8;   // n-blocks of S^T over a query tile
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = sK + KB * LD;
-  T* sQD = sV + KB * LD;  // stage i: Q at sQD + 2 i QB LD, dO QB rows on
-  float* sLD = reinterpret_cast<float*>(sQD + NSTAGE * 2 * QB * LD);
-
-  const int b = blockIdx.y / p.Hkv, hk = blockIdx.y % p.Hkv;
-  const int grp = p.H / p.Hkv;
-  const int k0 = blockIdx.x * KB;  // the first key tiles see the most
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wk0 = k0 + 16 * warp;  // this warp's first key
-  const T* K = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* V = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-
-  const int per_head = (query_end(p, k0) - k0 + QB - 1) / QB;
-  const int n_tiles = per_head * grp;
-
-  // tile n (head hk * grp + n / per_head, queries from k0 + QB (n %
-  // per_head)) into stage n % NSTAGE; one commit group a tile, empty past
-  // the last. lse (in the exp2 domain) and D are plain stores: the stage's
-  // previous readers are past the barrier before this is called, its next
-  // ones behind the barrier that follows.
-  auto stage = [&](int n) {
-    if (n < n_tiles) {
-      const int h = hk * grp + n / per_head, q0 = k0 + (n % per_head) * QB;
-      T* dst = sQD + (n % NSTAGE) * 2 * QB * LD;
-      load_tile_async<T, HD, LD, QB, NT>(
-          dst, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss,
-          q0, p.S);
-      load_tile_async<T, HD, LD, QB, NT>(
-          dst + QB * LD,
-          static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh,
-          p.do_ss, q0, p.S);
-      if (tid < QB) {
-        // a query past S gets lse = +inf: its P is 0
-        float* ld = sLD + (n % NSTAGE) * 2 * QB;
-        const int q = q0 + tid;
-        const bool ok = q < p.S;
-        ld[tid] = ok ? p.lse[row_index(p, b, h, q)] * LOG2E : INFINITY;
-        ld[QB + tid] = ok ? p.delta[row_index(p, b, h, q)] : 0.f;
-      }
-    }
-    cp_async_commit();
-  };
-  load_tile_async<T, HD, LD, KB, NT>(sK, K, p.k_ss, k0, p.S);
-  load_tile_async<T, HD, LD, KB, NT>(sV, V, p.v_ss, k0, p.S);
-  stage(0);  // one group with K and V
-
-  float dk[ND][4], dv[ND][4];
-#pragma unroll
-  for (int d = 0; d < ND; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
-  const float sl2 = p.scale * LOG2E;
-
-  for (int n = 0; n < n_tiles; ++n) {
-    cp_async_wait<0>();  // tile n has landed (this thread's part)
-    // every thread's part is visible and every warp is done with tile
-    // n - 1's stage, which the next copy reuses
-    __syncthreads();
-    stage(n + 1);
-    const int q0 = k0 + (n % per_head) * QB;
-    // skip if every (key, query) pair is masked: all queries before the
-    // warp's first key, or all past its last key's window
-    const bool skip = wk0 >= p.S || q0 + QB - 1 < wk0 ||
-                      (p.window > 0 && q0 - (wk0 + 15) >= p.window);
-    if (skip) continue;
-    const T* qb = sQD + (n % NSTAGE) * 2 * QB * LD;
-    const T* ob = qb + QB * LD;
-    const float* lb = sLD + (n % NSTAGE) * 2 * QB;
-    const float* db = lb + QB;
-
-    // S^T = K_w Q^T: rows g, g + 8 of the warp's keys, columns the queries
-    float s[NQ][4];
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t af[4];
-      ldmatrix_x4(af, sK + (16 * warp + (lane & 15)) * LD + 16 * kk +
-                          (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < NQ / 2; ++j) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, qb + (16 * j + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                            16 * kk + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * j], af, bf[0], bf[1]);
-        mma_bf16(s[2 * j + 1], af, bf[2], bf[3]);
-      }
-    }
-    // P^T = 2^(S^T scale log2 e - lse log2 e); column c = 8 j + 2 t + e is
-    // query q0 + c, row r key wk0 + g + 8 r
-    const bool edge = q0 < wk0 + 15 ||
-                      (p.window > 0 && q0 + QB - 1 - wk0 >= p.window);
-#pragma unroll
-    for (int j = 0; j < NQ; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = 8 * j + 2 * t + e;
-        const float l2 = lb[c];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float pv = fast_exp2(fmaf(s[j][2 * r + e], sl2, -l2));
-          if (edge) {
-            const int dq = q0 + c - (wk0 + g + 8 * r);  // query - key
-            if (dq < 0 || (p.window > 0 && dq >= p.window)) pv = 0.f;
-          }
-          s[j][2 * r + e] = pv;
-        }
-      }
-    // dV += T(P^T) dO: P^T's accumulators are the A fragments of 16-query
-    // steps
-#pragma unroll
-    for (int kk = 0; kk < QB / 16; ++kk) {
-      const uint32_t a[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dd = 0; dd < ND / 2; ++dd) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(
-            bf, ob + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                    16 * dd + (lane >> 4) * 8);
-        mma_bf16(dv[2 * dd], a, bf[0], bf[1]);
-        mma_bf16(dv[2 * dd + 1], a, bf[2], bf[3]);
-      }
-    }
-    // dP^T = V_w dO^T
-    float dp[NQ][4];
-#pragma unroll
-    for (int j = 0; j < NQ; ++j)
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t af[4];
-      ldmatrix_x4(af, sV + (16 * warp + (lane & 15)) * LD + 16 * kk +
-                          (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < NQ / 2; ++j) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, ob + (16 * j + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                            16 * kk + ((lane >> 3) & 1) * 8);
-        mma_bf16(dp[2 * j], af, bf[0], bf[1]);
-        mma_bf16(dp[2 * j + 1], af, bf[2], bf[3]);
-      }
-    }
-    // dS^T = P^T o (dP^T - D), over S^T's registers
-#pragma unroll
-    for (int j = 0; j < NQ; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float dl = db[8 * j + 2 * t + e];
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          s[j][2 * r + e] *= dp[j][2 * r + e] - dl;
-      }
-    // dK += T(dS^T) Q
-#pragma unroll
-    for (int kk = 0; kk < QB / 16; ++kk) {
-      const uint32_t a[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dd = 0; dd < ND / 2; ++dd) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(
-            bf, qb + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                    16 * dd + (lane >> 4) * 8);
-        mma_bf16(dk[2 * dd], a, bf[0], bf[1]);
-        mma_bf16(dk[2 * dd + 1], a, bf[2], bf[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();  // only empty groups are left; wait all the same
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = wk0 + g + 8 * r;
-    if (key >= p.S) continue;
-    T* dkr = static_cast<T*>(p.dk) + b * p.dk_sb + (int64_t)key * p.dk_ss +
-             hk * p.dk_sh + 2 * t;
-    T* dvr = static_cast<T*>(p.dv) + b * p.dv_sb + (int64_t)key * p.dv_ss +
-             hk * p.dv_sh + 2 * t;
-#pragma unroll
-    for (int d = 0; d < ND; ++d) {
-      store2(dkr + 8 * d, dk[d][2 * r] * p.scale, dk[d][2 * r + 1] * p.scale);
-      store2(dvr + 8 * d, dv[d][2 * r], dv[d][2 * r + 1]);
-    }
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(NT) fa_bwd_dq_bf16_kernel(
-    const BwdParams p) {
-  using T = __nv_bfloat16;
-  constexpr int LD = BwdBf16Shape<HD>::LD;
-  constexpr int KD = HD / 16;
-  constexpr int ND = HD / 8;
-  constexpr int NK = KT / 8;  // n-blocks of S over a key tile
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sO = sQ + QR * LD;  // dO
-  T* sKV = sO + QR * LD;  // stage i: K at sKV + 2 i KT LD, V KT rows on
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int hk = h / (p.H / p.Hkv);
-  const int q0 = qt * QR;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wq0 = q0 + 16 * warp;
-  const T* K = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* V = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-
-  const int k_begin = key_begin(p, q0);
-  const int k_end = min(p.S, q0 + QR);  // causal limit (Sq == Sk)
-  const int n_tiles = (k_end - k_begin + KT - 1) / KT;
-
-  auto stage = [&](int n) {
-    if (n < n_tiles) {
-      T* dst = sKV + (n % NSTAGE) * 2 * KT * LD;
-      const int k0 = k_begin + n * KT;
-      load_tile_async<T, HD, LD, KT, NT>(dst, K, p.k_ss, k0, p.S);
-      load_tile_async<T, HD, LD, KT, NT>(dst + KT * LD, V, p.v_ss, k0, p.S);
-    }
-    cp_async_commit();
-  };
-  load_tile_async<T, HD, LD, QR, NT>(
-      sQ, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, q0,
-      p.S);
-  load_tile_async<T, HD, LD, QR, NT>(
-      sO, static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh, p.do_ss,
-      q0, p.S);
-  stage(0);  // one group with Q and dO
-
-  // rows g and g + 8 of the warp: lse (exp2 domain) and D
-  float l2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int q = wq0 + g + 8 * r;
-    const bool ok = q < p.S;
-    l2[r] = ok ? p.lse[row_index(p, b, h, q)] * LOG2E : INFINITY;
-    dl[r] = ok ? p.delta[row_index(p, b, h, q)] : 0.f;
-  }
-  float dq[ND][4];
-#pragma unroll
-  for (int d = 0; d < ND; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
-  const float sl2 = p.scale * LOG2E;
-
-  for (int n = 0; n < n_tiles; ++n) {
-    cp_async_wait<0>();
-    __syncthreads();
-    stage(n + 1);
-    const int k0 = k_begin + n * KT;
-    const bool skip = wq0 >= p.S || k0 > wq0 + 15 ||
-                      (p.window > 0 && wq0 - (k0 + KT - 1) >= p.window);
-    if (skip) continue;
-    const T* kb = sKV + (n % NSTAGE) * 2 * KT * LD;
-    const T* vb = kb + KT * LD;
-    float s[NK][4], dp[NK][4];
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    // S = Q_w K^T and dP = dO_w V^T
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qa[4], oa[4];
-      ldmatrix_x4(qa, sQ + (16 * warp + (lane & 15)) * LD + 16 * kk +
-                          (lane >> 4) * 8);
-      ldmatrix_x4(oa, sO + (16 * warp + (lane & 15)) * LD + 16 * kk +
-                          (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < NK / 2; ++j) {
-        const int row = (16 * j + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                        16 * kk + ((lane >> 3) & 1) * 8;
-        uint32_t kf[4], vf[4];
-        ldmatrix_x4(kf, kb + row);
-        ldmatrix_x4(vf, vb + row);
-        mma_bf16(s[2 * j], qa, kf[0], kf[1]);
-        mma_bf16(s[2 * j + 1], qa, kf[2], kf[3]);
-        mma_bf16(dp[2 * j], oa, vf[0], vf[1]);
-        mma_bf16(dp[2 * j + 1], oa, vf[2], vf[3]);
-      }
-    }
-    // dS = P o (dP - D), P recomputed; column c = 8 j + 2 t + e is key
-    // k0 + c, row r query wq0 + g + 8 r
-    const bool edge = k0 + KT - 1 > wq0 || k0 + KT > p.S ||
-                      (p.window > 0 && wq0 + 15 - k0 >= p.window);
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float pv = fast_exp2(fmaf(s[j][2 * r + e], sl2, -l2[r]));
-          if (edge) {
-            const int key = k0 + 8 * j + 2 * t + e;
-            const int d = wq0 + g + 8 * r - key;  // query - key
-            if (d < 0 || key >= p.S || (p.window > 0 && d >= p.window))
-              pv = 0.f;
-          }
-          s[j][2 * r + e] = pv * (dp[j][2 * r + e] - dl[r]);
-        }
-    // dQ += T(dS) K
-#pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) {
-      const uint32_t a[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dd = 0; dd < ND / 2; ++dd) {
-        uint32_t kf[4];
-        ldmatrix_x4_trans(
-            kf, kb + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                    16 * dd + (lane >> 4) * 8);
-        mma_bf16(dq[2 * dd], a, kf[0], kf[1]);
-        mma_bf16(dq[2 * dd + 1], a, kf[2], kf[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int q = wq0 + g + 8 * r;
-    if (q >= p.S) continue;
-    T* row = static_cast<T*>(p.dq) + b * p.dq_sb + (int64_t)q * p.dq_ss +
-             h * p.dq_sh + 2 * t;
-#pragma unroll
-    for (int d = 0; d < ND; ++d)
-      store2(row + 8 * d, dq[d][2 * r] * p.scale, dq[d][2 * r + 1] * p.scale);
-  }
 }
 
 // ------------------------------------------------- 2./3. fp32 bodies
@@ -800,49 +432,58 @@ __global__ void __launch_bounds__(NT32) fa_bwd_dq_f32_kernel(
   }
 }
 
-// ------------------------------ 4. Hopper bf16 bodies (hd 64, 80, 96, 128)
+// ------------------------------------- 4. Hopper bf16 bodies (every hd)
 // wgmma with its operands in shared memory by TMA (128-byte swizzle) and a
-// producer warp; the header says why. HT rows a consumer warpgroup (keys
-// in dK/dV, queries in dQ) and a streamed tile; a tile's row of HD bf16 is
-// NB = ceil(HD / 64) boxes of 128 bytes, each box HT rows x 128 bytes (8
-// KB), which the swizzle's 8-row x 128-byte atoms tile with no padding. At
-// hd 80 and 96 the second box's columns past hd are TMA's zero fill.
+// producer warp; the header says why. HT rows a consumer warpgroup keeps
+// (keys in dK/dV, queries in dQ), ST rows a streamed tile; a tile's row of
+// HD bf16 is NB = ceil(HD / 64) boxes of 128 bytes, each box R rows x 128
+// bytes (box_bytes(R): 8 KB at 64 rows, 4 KB at 32), which the swizzle's
+// 8-row x 128-byte atoms tile with no padding. Where HD is not a multiple
+// of 64 the last box's columns past hd are TMA's zero fill.
 constexpr int HT = 64;
-constexpr int BOXB = box_bytes(HT);  // bytes of a box (BOX = 64 columns)
 constexpr int HNT = 256;   // a producer and a consumer warpgroup
-// TMA ring depth of the streamed tiles: two where a tile is two boxes,
-// where a third stage would leave room for one block an SM
+static_assert(HT == KB, "query_end counts the keys of a 64-key block");
+// rows of a streamed tile: 64, but 32 at hd 160, where a 64-row tile's
+// S^T and dP^T (32 + 32 registers a consumer thread) beside dK and dV (80
+// + 80) would not fit the consumer's 232
+template <int HD>
+constexpr int stream_rows() { return HD > 128 ? 32 : 64; }
+// TMA ring depth of the streamed tiles: two where a row is more than one
+// box, where a third stage would leave room for one block an SM
 // (tools/ablate_kernels.py)
 template <int HD>
 constexpr int hopper_stages() { return HD > BOX ? 2 : 3; }
 
-template <int HD, int NST>
+template <int HD, int ST, int NST>
 struct HopperShape {
   static constexpr int NB = (HD + BOX - 1) / BOX;  // boxes a tile row
-  static constexpr int TILE = NB * BOXB;  // bytes of a 64-row bf16 tile
+  static constexpr int TILE = NB * BOX64;  // bytes of a kept 64-row tile
+  static constexpr int SBOX = box_bytes(ST);  // of a streamed tile's box
+  static constexpr int STILE = NB * SBOX;     // of a streamed tile
   // dK/dV: K, V, then NST x (Q, dO); dQ: Q, dO, then NST x (K, V); then
   // (dK/dV) NST x (lse, D) floats; then the mbarriers
   static constexpr int OFF_STAGE = 2 * TILE;
-  static constexpr int OFF_LD = OFF_STAGE + NST * 2 * TILE;
-  static constexpr int OFF_BAR = OFF_LD + NST * 2 * HT * 4;
+  static constexpr int OFF_LD = OFF_STAGE + NST * 2 * STILE;
+  static constexpr int OFF_BAR = OFF_LD + NST * 2 * ST * 4;
   static constexpr int BYTES = OFF_BAR + (2 * NST + 1) * 8 + 1024;  // + align
 };
 
 // dK/dV: a block per (batch, KV head, 64-key tile). Warpgroup 0 is the
 // producer: its warp 0 loads K and V once, then walks the (query head,
-// 64-query tile) pairs that see the keys, putting Q and dO by TMA and lse
+// ST-query tile) pairs that see the keys, putting Q and dO by TMA and lse
 // and D by its lanes into an NST-stage ring. Warpgroup 1 computes: per
 // tile S^T = K Q^T and dP^T = V dO^T (wgmma, both operands in shared
 // memory), P^T and dS^T in registers, then dV += T(P^T) dO and dK +=
 // T(dS^T) Q with P^T and dS^T as the register A operand; dK and dV stay
-// in its registers for the whole block.
-template <int HD, int NST>
+// in its registers for the whole block. mq and mdo are the streamed maps
+// (ST-row boxes), mk and mv the kept ones (64-row boxes).
+template <int HD, int ST, int NST>
 __global__ void __launch_bounds__(HNT, 2) fa_bwd_dkdv_hopper_kernel(
     const __grid_constant__ CUtensorMap mq,
     const __grid_constant__ CUtensorMap mk,
     const __grid_constant__ CUtensorMap mv,
     const __grid_constant__ CUtensorMap mdo, const BwdParams p) {
-  using C = HopperShape<HD, NST>;
+  using C = HopperShape<HD, ST, NST>;
   using T = __nv_bfloat16;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
@@ -854,7 +495,7 @@ __global__ void __launch_bounds__(HNT, 2) fa_bwd_dkdv_hopper_kernel(
   const int b = blockIdx.y / p.Hkv, hk = blockIdx.y % p.Hkv;
   const int grp = p.H / p.Hkv;
   const int k0 = blockIdx.x * HT;  // the first key tiles see the most
-  const int per_head = (query_end(p, k0) - k0 + HT - 1) / HT;
+  const int per_head = (query_end(p, k0) - k0 + ST - 1) / ST;
   const int n_tiles = per_head * grp;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
@@ -874,29 +515,29 @@ __global__ void __launch_bounds__(HNT, 2) fa_bwd_dkdv_hopper_kernel(
     if (lane == 0) {
       mbar_expect_tx(kv_bar, 2 * C::TILE);
       for (int c = 0; c < C::NB; ++c) {
-        tma_box(smem + c * BOXB, &mk, kv_bar, BOX * c, hk, k0, b);
-        tma_box(smem + C::TILE + c * BOXB, &mv, kv_bar, BOX * c, hk, k0, b);
+        tma_box(smem + c * BOX64, &mk, kv_bar, BOX * c, hk, k0, b);
+        tma_box(smem + C::TILE + c * BOX64, &mv, kv_bar, BOX * c, hk, k0, b);
       }
     }
     for (int n = 0; n < n_tiles; ++n) {
       const int st = n % NST;
       if (n >= NST) mbar_wait(empty + st, ((n / NST) & 1) ^ 1);
-      const int h = hk * grp + n / per_head, q0 = k0 + (n % per_head) * HT;
-      float* ld = sLD + st * 2 * HT;
-      for (int i = lane; i < HT; i += 32) {
+      const int h = hk * grp + n / per_head, q0 = k0 + (n % per_head) * ST;
+      float* ld = sLD + st * 2 * ST;
+      for (int i = lane; i < ST; i += 32) {
         // a query past S gets lse = +inf: its P is 0
         const int q = q0 + i;
         const bool ok = q < p.S;
         ld[i] = ok ? p.lse[row_index(p, b, h, q)] * LOG2E : INFINITY;
-        ld[HT + i] = ok ? p.delta[row_index(p, b, h, q)] : 0.f;
+        ld[ST + i] = ok ? p.delta[row_index(p, b, h, q)] : 0.f;
       }
       if (lane == 0) {
-        unsigned char* dst = smem + C::OFF_STAGE + st * 2 * C::TILE;
-        mbar_expect_tx(full + st, 2 * C::TILE);
+        unsigned char* dst = smem + C::OFF_STAGE + st * 2 * C::STILE;
+        mbar_expect_tx(full + st, 2 * C::STILE);
         for (int c = 0; c < C::NB; ++c) {
-          tma_box(dst + c * BOXB, &mq, full + st, BOX * c, h, q0, b);
-          tma_box(dst + C::TILE + c * BOXB, &mdo, full + st, BOX * c, h, q0,
-                  b);
+          tma_box(dst + c * C::SBOX, &mq, full + st, BOX * c, h, q0, b);
+          tma_box(dst + C::STILE + c * C::SBOX, &mdo, full + st, BOX * c, h,
+                  q0, b);
         }
       } else {
         mbar_arrive(full + st);
@@ -908,6 +549,8 @@ __global__ void __launch_bounds__(HNT, 2) fa_bwd_dkdv_hopper_kernel(
   // ---- consumer: warp cw of the warpgroup holds keys wk0 + [0, 16)
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   constexpr int NA = HD / 2;  // a 64 x HD accumulator's floats a thread
+  constexpr int NS = ST / 2;  // a 64 x ST accumulator's
+  constexpr int KS = ST / 16;  // 16-query k-steps of dV and dK
   const int cw = warp - 4, g = lane >> 2, t = lane & 3;
   const int wk0 = k0 + 16 * cw;
   const uint32_t sK = smem_addr(smem), sV = sK + C::TILE;
@@ -920,33 +563,33 @@ __global__ void __launch_bounds__(HNT, 2) fa_bwd_dkdv_hopper_kernel(
   for (int n = 0; n < n_tiles; ++n) {
     const int st = n % NST;
     mbar_wait(full + st, (n / NST) & 1);
-    const int q0 = k0 + (n % per_head) * HT;
-    const uint32_t sQ = sK + C::OFF_STAGE + st * 2 * C::TILE;
-    const uint32_t sO = sQ + C::TILE;
-    const float* lb = sLD + st * 2 * HT;
-    const float* db = lb + HT;
+    const int q0 = k0 + (n % per_head) * ST;
+    const uint32_t sQ = sK + C::OFF_STAGE + st * 2 * C::STILE;
+    const uint32_t sO = sQ + C::STILE;
+    const float* lb = sLD + st * 2 * ST;
+    const float* db = lb + ST;
 
-    float s[32], dp[32];
+    float s[NS], dp[NS];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.f;
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_64(s, kmajor(sK, kk), kmajor(sQ, kk));
+      wgmma_ss<ST>(s, kmajor(sK, kk), kmajor(sQ, kk, C::SBOX));
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_64(dp, kmajor(sV, kk), kmajor(sO, kk));
+      wgmma_ss<ST>(dp, kmajor(sV, kk), kmajor(sO, kk, C::SBOX));
     wg_commit();
     wg_wait0();
-    keep<32>(s);
-    keep<32>(dp);
+    keep<NS>(s);
+    keep<NS>(dp);
 
     // P^T = 2^(S^T scale log2 e - lse log2 e) and dS^T = P^T o (dP^T - D);
     // s[4 j + 2 r + e] is key wk0 + g + 8 r, query q0 + 8 j + 2 t + e
     const bool edge = q0 < wk0 + 15 ||
-                      (p.window > 0 && q0 + HT - 1 - wk0 >= p.window);
+                      (p.window > 0 && q0 + ST - 1 - wk0 >= p.window);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < ST / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * j + 2 * t + e;
@@ -963,21 +606,23 @@ __global__ void __launch_bounds__(HNT, 2) fa_bwd_dkdv_hopper_kernel(
           dp[i] = pv * (dp[i] - dl);
         }
       }
-    uint32_t pa[4][4], sa[4][4];
-    to_frags(s, pa);
-    to_frags(dp, sa);
+    uint32_t pa[KS][4], sa[KS][4];
+    to_frags<KS>(s, pa);
+    to_frags<KS>(dp, sa);
     // dV += T(P^T) dO and dK += T(dS^T) Q, 16 queries a step
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(dv, pa[kk], sO, kk);
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_rs<HD, C::SBOX>(dv, pa[kk], sO, kk);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(dk, sa[kk], sQ, kk);
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_rs<HD, C::SBOX>(dk, sa[kk], sQ, kk);
     wg_commit();
     wg_wait0();
     keep<NA>(dv);
     keep<NA>(dk);
-    keep_frags(pa);
-    keep_frags(sa);
+    keep_frags<KS>(pa);
+    keep_frags<KS>(sa);
     mbar_arrive(empty + st);
   }
 
@@ -1000,17 +645,18 @@ __global__ void __launch_bounds__(HNT, 2) fa_bwd_dkdv_hopper_kernel(
 }
 
 // dQ: a block per (batch, head, 64-query tile), the heaviest tiles first.
-// The producer loads Q and dO once, then the 64-key tiles from the
+// The producer loads Q and dO once, then the ST-key tiles from the
 // window's edge to the causal limit, K and V by TMA into the ring; the
 // consumer warpgroup runs S = Q K^T and dP = dO V^T, P and dS in
-// registers, and dQ += T(dS) K with dS as the register A operand.
-template <int HD, int NST>
+// registers, and dQ += T(dS) K with dS as the register A operand. mq and
+// mdo are the kept maps (64-row boxes), mk and mv the streamed ones.
+template <int HD, int ST, int NST>
 __global__ void __launch_bounds__(HNT, 2) fa_bwd_dq_hopper_kernel(
     const __grid_constant__ CUtensorMap mq,
     const __grid_constant__ CUtensorMap mk,
     const __grid_constant__ CUtensorMap mv,
     const __grid_constant__ CUtensorMap mdo, const BwdParams p) {
-  using C = HopperShape<HD, NST>;
+  using C = HopperShape<HD, ST, NST>;
   using T = __nv_bfloat16;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
@@ -1023,9 +669,9 @@ __global__ void __launch_bounds__(HNT, 2) fa_bwd_dq_hopper_kernel(
   const int hk = h / (p.H / p.Hkv);
   const int q0 = qt * HT;
   const int k_begin =
-      p.window > 0 ? max(0, q0 - p.window + 1) / HT * HT : 0;
+      p.window > 0 ? max(0, q0 - p.window + 1) / ST * ST : 0;
   const int k_end = min(p.S, q0 + HT);  // causal limit (Sq == Sk)
-  const int n_tiles = (k_end - k_begin + HT - 1) / HT;
+  const int n_tiles = (k_end - k_begin + ST - 1) / ST;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
     for (int s = 0; s < NST; ++s) {
@@ -1042,18 +688,19 @@ __global__ void __launch_bounds__(HNT, 2) fa_bwd_dq_hopper_kernel(
     if (threadIdx.x != 0) return;
     mbar_expect_tx(q_bar, 2 * C::TILE);
     for (int c = 0; c < C::NB; ++c) {
-      tma_box(smem + c * BOXB, &mq, q_bar, BOX * c, h, q0, b);
-      tma_box(smem + C::TILE + c * BOXB, &mdo, q_bar, BOX * c, h, q0, b);
+      tma_box(smem + c * BOX64, &mq, q_bar, BOX * c, h, q0, b);
+      tma_box(smem + C::TILE + c * BOX64, &mdo, q_bar, BOX * c, h, q0, b);
     }
     for (int n = 0; n < n_tiles; ++n) {
       const int st = n % NST;
       if (n >= NST) mbar_wait(empty + st, ((n / NST) & 1) ^ 1);
-      unsigned char* dst = smem + C::OFF_STAGE + st * 2 * C::TILE;
-      const int k0 = k_begin + n * HT;
-      mbar_expect_tx(full + st, 2 * C::TILE);
+      unsigned char* dst = smem + C::OFF_STAGE + st * 2 * C::STILE;
+      const int k0 = k_begin + n * ST;
+      mbar_expect_tx(full + st, 2 * C::STILE);
       for (int c = 0; c < C::NB; ++c) {
-        tma_box(dst + c * BOXB, &mk, full + st, BOX * c, hk, k0, b);
-        tma_box(dst + C::TILE + c * BOXB, &mv, full + st, BOX * c, hk, k0, b);
+        tma_box(dst + c * C::SBOX, &mk, full + st, BOX * c, hk, k0, b);
+        tma_box(dst + C::STILE + c * C::SBOX, &mv, full + st, BOX * c, hk,
+                k0, b);
       }
     }
     return;
@@ -1061,6 +708,8 @@ __global__ void __launch_bounds__(HNT, 2) fa_bwd_dq_hopper_kernel(
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   constexpr int NA = HD / 2;
+  constexpr int NS = ST / 2;
+  constexpr int KS = ST / 16;  // 16-key k-steps of dQ
   const int cw = warp - 4, g = lane >> 2, t = lane & 3;
   const int wq0 = q0 + 16 * cw;
   const uint32_t sQ = smem_addr(smem), sO = sQ + C::TILE;
@@ -1082,29 +731,29 @@ __global__ void __launch_bounds__(HNT, 2) fa_bwd_dq_hopper_kernel(
   for (int n = 0; n < n_tiles; ++n) {
     const int st = n % NST;
     mbar_wait(full + st, (n / NST) & 1);
-    const int k0 = k_begin + n * HT;
-    const uint32_t sKt = sQ + C::OFF_STAGE + st * 2 * C::TILE;
-    const uint32_t sVt = sKt + C::TILE;
-    float s[32], dp[32];
+    const int k0 = k_begin + n * ST;
+    const uint32_t sKt = sQ + C::OFF_STAGE + st * 2 * C::STILE;
+    const uint32_t sVt = sKt + C::STILE;
+    float s[NS], dp[NS];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.f;
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_64(s, kmajor(sQ, kk), kmajor(sKt, kk));
+      wgmma_ss<ST>(s, kmajor(sQ, kk), kmajor(sKt, kk, C::SBOX));
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_64(dp, kmajor(sO, kk), kmajor(sVt, kk));
+      wgmma_ss<ST>(dp, kmajor(sO, kk), kmajor(sVt, kk, C::SBOX));
     wg_commit();
     wg_wait0();
-    keep<32>(s);
-    keep<32>(dp);
+    keep<NS>(s);
+    keep<NS>(dp);
     // dS = P o (dP - D), P recomputed; s[4 j + 2 r + e] is query wq0 + g +
     // 8 r, key k0 + 8 j + 2 t + e
-    const bool edge = k0 + HT - 1 > wq0 || k0 + HT > p.S ||
+    const bool edge = k0 + ST - 1 > wq0 || k0 + ST > p.S ||
                       (p.window > 0 && wq0 + 15 - k0 >= p.window);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < ST / 8; ++j)
 #pragma unroll
       for (int r = 0; r < 2; ++r)
 #pragma unroll
@@ -1119,15 +768,16 @@ __global__ void __launch_bounds__(HNT, 2) fa_bwd_dq_hopper_kernel(
           }
           dp[i] = pv * (dp[i] - dl[r]);
         }
-    uint32_t sa[4][4];
-    to_frags(dp, sa);
+    uint32_t sa[KS][4];
+    to_frags<KS>(dp, sa);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(dq, sa[kk], sKt, kk);
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_rs<HD, C::SBOX>(dq, sa[kk], sKt, kk);
     wg_commit();
     wg_wait0();
     keep<NA>(dq);
-    keep_frags(sa);
+    keep_frags<KS>(sa);
     mbar_arrive(empty + st);
   }
 
@@ -1144,57 +794,76 @@ __global__ void __launch_bounds__(HNT, 2) fa_bwd_dq_hopper_kernel(
   }
 }
 
+// the TMA maps of q, k, v and dout at `rows`-row boxes
+int make_maps(CUtensorMap* m, const BwdParams& p, int B, int hd, int rows) {
+  int err = make_map(&m[0], p.q, p.q_sb, p.q_ss, p.q_sh, B, p.S, p.H, hd,
+                     rows);
+  if (!err)
+    err = make_map(&m[1], p.k, p.k_sb, p.k_ss, p.k_sh, B, p.S, p.Hkv, hd,
+                   rows);
+  if (!err)
+    err = make_map(&m[2], p.v, p.v_sb, p.v_ss, p.v_sh, B, p.S, p.Hkv, hd,
+                   rows);
+  if (!err)
+    err = make_map(&m[3], p.dout, p.do_sb, p.do_ss, p.do_sh, B, p.S, p.H,
+                   hd, rows);
+  return err;
+}
+
 template <int HD>
 int launch_hopper(const BwdParams& p, int B, cudaStream_t stream) {
+  constexpr int ST = stream_rows<HD>();
+  // dQ's key tiles: as dK/dV's query tiles. At hd 160 its 80 + 32 + 32
+  // registers would take 64-key tiles, but two stages of them (144 KB)
+  // leave one block an SM and one stage loads nothing ahead: both were
+  // slower at pixtral-12b's shape (tools/ablate_kernels.py)
+  constexpr int KT = ST;
   constexpr int NST = hopper_stages<HD>();
-  using C = HopperShape<HD, NST>;
-  CUtensorMap mq, mk, mv, mdo;
-  int err =
-      make_map(&mq, p.q, p.q_sb, p.q_ss, p.q_sh, B, p.S, p.H, HD, HT);
-  if (!err)
-    err = make_map(&mk, p.k, p.k_sb, p.k_ss, p.k_sh, B, p.S, p.Hkv, HD, HT);
-  if (!err)
-    err = make_map(&mv, p.v, p.v_sb, p.v_ss, p.v_sh, B, p.S, p.Hkv, HD, HT);
-  if (!err)
-    err = make_map(&mdo, p.dout, p.do_sb, p.do_ss, p.do_sh, B, p.S, p.H, HD,
-                   HT);
+  using C = HopperShape<HD, ST, NST>;
+  using CQ = HopperShape<HD, KT, NST>;
+  // q, k, v, dout at the kept tiles' 64-row boxes, and at the streamed
+  // tiles' ST-row ones where those differ (hd 160)
+  CUtensorMap kept[4], rows_st[4];
+  int err = make_maps(kept, p, B, HD, HT);
+  if (!err && ST != HT) err = make_maps(rows_st, p, B, HD, ST);
   if (err) return err;
+  const CUtensorMap* streamed = ST != HT ? rows_st : kept;
+  const CUtensorMap* keys = KT != HT ? rows_st : kept;
+  static_assert(KT == ST || KT == HT, "dQ's key tiles have no maps");
   static const int attr = [] {
     // 256 threads x 128 = 128 x (24 + 232): see check_entry_registers
-    int e = check_entry_registers(fa_bwd_dkdv_hopper_kernel<HD, NST>, 128);
-    if (!e) e = check_entry_registers(fa_bwd_dq_hopper_kernel<HD, NST>, 128);
+    int e = check_entry_registers(fa_bwd_dkdv_hopper_kernel<HD, ST, NST>,
+                                  128);
     if (!e)
-      e = cudaFuncSetAttribute(fa_bwd_dkdv_hopper_kernel<HD, NST>,
+      e = check_entry_registers(fa_bwd_dq_hopper_kernel<HD, KT, NST>, 128);
+    if (!e)
+      e = cudaFuncSetAttribute(fa_bwd_dkdv_hopper_kernel<HD, ST, NST>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                C::BYTES);
     if (!e)
-      e = cudaFuncSetAttribute(fa_bwd_dq_hopper_kernel<HD, NST>,
+      e = cudaFuncSetAttribute(fa_bwd_dq_hopper_kernel<HD, KT, NST>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::BYTES);
+                               CQ::BYTES);
     return e;
   }();
   if (attr != cudaSuccess) return attr;
   const dim3 dkdv_grid((p.S + HT - 1) / HT, B * p.Hkv);
-  fa_bwd_dkdv_hopper_kernel<HD, NST>
-      <<<dkdv_grid, HNT, C::BYTES, stream>>>(mq, mk, mv, mdo, p);
+  fa_bwd_dkdv_hopper_kernel<HD, ST, NST>
+      <<<dkdv_grid, HNT, C::BYTES, stream>>>(streamed[0], kept[1], kept[2],
+                                              streamed[3], p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 dq_grid((p.S + HT - 1) / HT, B * p.H);
-  fa_bwd_dq_hopper_kernel<HD, NST>
-      <<<dq_grid, HNT, C::BYTES, stream>>>(mq, mk, mv, mdo, p);
+  fa_bwd_dq_hopper_kernel<HD, KT, NST>
+      <<<dq_grid, HNT, CQ::BYTES, stream>>>(kept[0], keys[1], keys[2],
+                                            kept[3], p);
   return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ launch
-// the bodies a (hd, dtype) pair runs: the Hopper bodies for bf16 at hd 64,
-// 80, 96 and 128, the mma.sync bodies for bf16 at hd 32 and 160, the
+// the bodies a (hd, dtype) pair runs: the Hopper bodies for bf16, the
 // CUDA-core bodies for fp32 (flash_attention_bwd_body below reports it)
-enum : int { BODY_CUDA_CORES = 0, BODY_MMA_SYNC = 1, BODY_WGMMA = 2 };
-constexpr int body_of(int hd, bool bf16) {
-  return !bf16 ? BODY_CUDA_CORES
-         : hd == 64 || hd == 80 || hd == 96 || hd == 128 ? BODY_WGMMA
-                                                          : BODY_MMA_SYNC;
-}
+enum : int { BODY_CUDA_CORES = 0, BODY_WGMMA = 1 };
 
 template <typename Kernel>
 int launch(Kernel kernel, size_t smem, dim3 grid, int threads,
@@ -1220,19 +889,9 @@ int launch_hd(const BwdParams& p, int B, bool bf16, cudaStream_t stream) {
         <<<delta_grid, 32 * DELTA_WARPS, 0, stream>>>(p, rows);
   int err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (bf16) return launch_hopper<HD>(p, B, stream);
   const dim3 dkdv_grid((p.S + KB - 1) / KB, B * p.Hkv);
   const dim3 dq_grid((p.S + QR - 1) / QR, B * p.H);
-  if (bf16) {
-    if constexpr (body_of(HD, true) == BODY_WGMMA) {
-      return launch_hopper<HD>(p, B, stream);
-    } else {
-      err = launch(fa_bwd_dkdv_bf16_kernel<HD>, BwdBf16Shape<HD>::DKDV,
-                   dkdv_grid, NT, p, stream);
-      if (err != cudaSuccess) return err;
-      return launch(fa_bwd_dq_bf16_kernel<HD>, BwdBf16Shape<HD>::DQ,
-                    dq_grid, NT, p, stream);
-    }
-  }
   err = launch(fa_bwd_dkdv_f32_kernel<HD>, BwdF32Shape<HD>::DKDV, dkdv_grid,
                NT32, p, stream);
   if (err != cudaSuccess) return err;
@@ -1248,12 +907,12 @@ bool is_head_dim(int hd) {
 }  // namespace
 
 // The body that flash_attention_bwd_launch runs for head dim `hd` and
-// `dtype`: 0 the fp32 CUDA-core bodies, 1 the mma.sync bodies, 2 the Hopper
-// (wgmma, TMA) bodies; -1 for a pair it refuses.
+// `dtype`: 0 the fp32 CUDA-core bodies, 1 the Hopper (wgmma, TMA) bodies;
+// -1 for a pair it refuses.
 extern "C" int flash_attention_bwd_body(int hd, int dtype) {
   if (!is_head_dim(hd) || (dtype != DTYPE_F32 && dtype != DTYPE_BF16))
     return -1;
-  return body_of(hd, dtype == DTYPE_BF16);
+  return dtype == DTYPE_BF16 ? BODY_WGMMA : BODY_CUDA_CORES;
 }
 
 // q, o, dout, dq: (B, S, H, hd); k, v, dk, dv: (B, S, Hkv, hd), one dtype

@@ -190,15 +190,35 @@ __device__ __forceinline__ void wgmma_ss_128(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(acc));
 }
 
-// d (64 x N) += A B with B K-major, N = 64 or 128; with acc 0, d = A B
+// d (64 x 32) += A B, A (64 x 16) and B (16 x 32) K-major in shared
+// memory; with acc 0, d = A B (the attention backward's 32-row streamed
+// tiles at hd 160)
+__device__ __forceinline__ void wgmma_ss_32(float* d, uint64_t da,
+                                             uint64_t db, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x N) += A B with B K-major, N = 32, 64 or 128; with acc 0, d = A B
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
                                          int acc = 1) {
   if constexpr (N == 128) {
     wgmma_ss_128(d, da, db, acc);
-  } else {
-    static_assert(N == 64, "wgmma_ss: N = 64 or 128");
+  } else if constexpr (N == 64) {
     wgmma_ss_64(d, da, db, acc);
+  } else {
+    static_assert(N == 32, "wgmma_ss: N = 32, 64 or 128");
+    wgmma_ss_32(d, da, db, acc);
   }
 }
 

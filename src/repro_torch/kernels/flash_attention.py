@@ -249,7 +249,7 @@ def _bwd_lib() -> ctypes.CDLL:
 
 # the bodies a C library reports by code (``flash_attention_body``,
 # ``flash_attention_bwd_body``)
-BODIES = ("cuda cores", "mma.sync", "wgmma")
+BODIES = ("cuda cores", "wgmma")
 
 
 def forward_body(hd: int, dtype: torch.dtype) -> str:
@@ -267,9 +267,9 @@ def forward_body(hd: int, dtype: torch.dtype) -> str:
 def backward_body(hd: int, dtype: torch.dtype) -> str:
     """The body that the backward kernels run on the card for head dim
     ``hd`` and ``dtype``, as the library's dispatch reports it: "wgmma"
-    (the Hopper bodies: wgmma on TMA tiles; bf16 at hd 64, 80, 96, 128),
-    "mma.sync" (bf16 at hd 32, 160) or "cuda cores" (fp32). Builds and
-    loads the library."""
+    (the Hopper bodies: wgmma on TMA tiles with a producer warp; bf16 at
+    every head dim) or "cuda cores" (fp32). Builds and loads the
+    library."""
     code = _bwd_lib().flash_attention_bwd_body(hd, DTYPE_CODES.get(dtype, -1))
     if code < 0:
         raise ValueError(f"flash_attention_backward: no body for hd={hd}, "

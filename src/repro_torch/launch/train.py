@@ -19,11 +19,18 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --preset tiny --steps 30
   PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
       --device cpu --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch pixtral-12b \\
+      --depth 9
+
+``--depth`` trains the first N layers of ``--arch`` at full width: a
+model whose state (16 bytes a parameter with AdamW) does not fit one card,
+such as pixtral-12b's 40 layers (193 GB), is cut in depth.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import tempfile
 import time
@@ -116,6 +123,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--arch", default=None)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config of --arch")
+    ap.add_argument("--depth", type=int, default=None,
+                    help="layers of --arch to train (default: all)")
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)
@@ -132,6 +141,11 @@ def main(argv=None) -> dict:
         cfg = get_arch(args.arch)
         if args.smoke:
             cfg = cfg.reduced()
+        if args.depth is not None:
+            if not 0 < args.depth <= cfg.n_layers:
+                ap.error(f"--depth {args.depth}: {cfg.name} has "
+                         f"{cfg.n_layers} layers")
+            cfg = dataclasses.replace(cfg, n_layers=args.depth)
     else:
         cfg = PRESETS["tiny"]
     shape = ShapeConfig("cli", "train", args.seq, args.batch)

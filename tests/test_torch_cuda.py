@@ -596,11 +596,44 @@ def test_flash_attention_forward_body_matches_plain(cuda, hd, b, s, h, hkv,
     close(lse, want_lse, 2e-2)
 
 
-@pytest.mark.parametrize("hd", [64, 80, 96, 128])
+def test_flash_attention_backward_at_pixtrals_heads(cuda):
+    """pixtral-12b's attention (32/8 heads of 160), S = 1000 ragged against
+    the 32-row streamed tiles and the 64-row kept ones: bf16 on the Hopper
+    bodies within TOL of the plain backward given the same out and lse,
+    within 2x the plain path's own error against the fp32 plain backward,
+    and the same bits from a second run."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(160)
+    q, k, v, dout = (torch.from_numpy((rng.standard_normal(shape) * scale)
+                                      .astype(np.float32)).to(
+                                          cuda, torch.bfloat16)
+                     for shape, scale in (((1, 1000, 32, 160), 1.0),
+                                          ((1, 1000, 8, 160), 1.0),
+                                          ((1, 1000, 8, 160), 0.5),
+                                          ((1, 1000, 32, 160), 1.0)))
+    out, lse = fa.flash_attention_train(q, k, v)
+    grads = fa.flash_attention_backward(q, k, v, out, lse, dout)
+    again = fa.flash_attention_backward(q, k, v, out, lse, dout)
+    want = fa.flash_attention_bwd(q, k, v, dout, out=out, lse=lse)
+    f32 = [t.float() for t in (q, k, v, dout)]
+    out32, lse32 = fa.flash_attention_train_plain(*f32[:3])
+    truth = fa.flash_attention_bwd(*f32, out=out32, lse=lse32)
+    for name, g, a, w, t in zip(("dq", "dk", "dv"), grads, again, want,
+                                truth):
+        assert torch.equal(g, a), name
+        close_to_max(g, w, TOL["bfloat16"], name)
+        err = (g.float() - t).norm() / t.norm()
+        assert err <= 2 * (w.float() - t).norm() / t.norm(), name
+
+
+@pytest.mark.parametrize("hd", BWD_HEAD_DIMS)
 def test_flash_attention_backward_gives_the_same_bits_twice(cuda, hd):
     """The attention backward sums in a fixed order: two runs on the same
-    inputs give the same bits (bf16, GQA 4x, a window)."""
+    inputs give the same bits (bf16, GQA 4x, a window), on the Hopper
+    (wgmma, TMA) bodies at every head dim (fp32 runs the CUDA-core ones)."""
     from repro_torch.kernels import flash_attention as fa
+    assert fa.backward_body(hd, torch.bfloat16) == "wgmma"
+    assert fa.backward_body(hd, torch.float32) == "cuda cores"
     q, k, v, dout = attention_train_inputs(cuda, 4, 700, hd, "bfloat16", hd)
     out, lse = fa.flash_attention_train(q, k, v, 300)
     first = fa.flash_attention_backward(q, k, v, out, lse, dout, 300)

@@ -87,8 +87,11 @@ ATTN_CASES = [
     (1, 1100, 6, 2, 8, 700),         # window wider than a chunk
     (1, 96, 8, 2, 80, 96),           # hd 80, GQA 4x, window = S (h2o-danube)
     (1, 80, 3, 3, 96, None),         # hd 96, MHA (phi3-mini)
+    (1, 100, 8, 2, 160, None),       # hd 160, GQA 4x (pixtral), S ragged
+    (2, 70, 4, 2, 32, 40),           # hd 32, GQA, a window
 ]
-# the rows held to jax.vjp: the small ones and the trained head dims
+# the rows held to jax.vjp: the small ones and the head dims of the Hopper
+# bodies (80, 96, 160, 32)
 VJP_CASES = ATTN_CASES[:3] + ATTN_CASES[5:]
 
 
@@ -561,3 +564,23 @@ def test_train_cli_on_cpu(capsys):
                               "--device", "cpu"])
     assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
     assert "checkpoint step 2 committed" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["pixtral-12b", "musicgen-large"])
+def test_train_cli_cuts_a_stub_model_in_depth(arch):
+    """``--depth`` trains the first layers of ``--arch`` at its width (the
+    stub-frontend models, fed embeddings from the data stub; reduced here),
+    and refuses more layers than the config has."""
+    cfg = ARCHS[arch].reduced()
+    with tempfile.TemporaryDirectory() as d:
+        out = train_cli.main(["--arch", arch, "--smoke", "--depth", "1",
+                              "--steps", "2", "--seq", "16", "--batch", "8",
+                              "--ckpt-dir", d, "--device", "cpu"])
+        with pytest.raises(SystemExit):
+            train_cli.main(["--arch", arch, "--smoke", "--depth",
+                            str(cfg.n_layers + 1), "--ckpt-dir", d,
+                            "--device", "cpu"])
+    assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
+    layers = out["state"]["params"]["layers"]
+    assert {t.shape[0] for t in flat(layers).values()} == {1}
+    assert out["state"]["params"]["embed"].shape[1] == cfg.d_model

@@ -19,9 +19,10 @@ Mamba scan: hymba's B=4, S=4096, di=1600, n=16, bf16; the backward
 kernels at the training microbatches: attention's at qwen3-8b's B=2,
 S=4096, 32/8 heads of 128, hymba-1.5b's B=4, 25/5 heads of 64, window
 1024, phi3-mini-3.8b's B=2, 32/32 heads of 96 and h2o-danube-1.8b's B=4,
-32/8 heads of 80, window 4096, bf16; WKV6's at rwkv6-3b's B=2, S=4096,
-H=40, hd=64, fp32, the model's decays; the scan's at hymba-1.5b's B=4,
-S=4096, bf16), beside the unedited kernel, in two rounds (the second in
+32/8 heads of 80, window 4096, pixtral-12b's B=1, 32/8 heads of 160
+and musicgen-large's B=2, 32/32 heads of 64, bf16; WKV6's at rwkv6-3b's
+B=2, S=4096, H=40, hd=64, fp32, the model's decays; the scan's at
+hymba-1.5b's B=4, S=4096, bf16), beside the unedited kernel, in two rounds (the second in
 reverse order), with chip_smoke.py's time_ms. With ``--previous DIR``
 (another checkout's ``src/repro_torch/kernels/csrc``, e.g. the parent
 commit's unpacked by ``git archive HEAD src | tar -x -C build/parent``)
@@ -216,22 +217,36 @@ VARIANTS = {
     },
     "flash_attention_bwd": {
         "as shipped": [],
-        "the mma.sync bodies at hd 64, 80, 96 and 128": [
-            ("    if constexpr (body_of(HD, true) == BODY_WGMMA) {",
-             "    if constexpr (false) {")],
-        "hd 80 and 96 as hd 128: N = 128 over the zero columns": [
-            ("wgmma_rs<HD>(", "wgmma_rs<(HD > 64 ? 128 : HD)>("),
-            ("  constexpr int NA = HD / 2;  // a 64 x HD accumulator's floats",
-             "  constexpr int NA = HD > 64 ? 64 : HD / 2;  //"),
-            ("  constexpr int NA = HD / 2;\n",
-             "  constexpr int NA = HD > 64 ? 64 : HD / 2;\n")],
+        # hd 160's design choices: 64-row streamed tiles (S^T and dP^T 32 +
+        # 32 registers beside dK and dV's 160: ptxas' spills show), and its
+        # ring one stage shallower or deeper (three: one block an SM)
+        "hd 160 with 64-row streamed tiles": [
+            ("return HD > 128 ? 32 : 64;", "return 64;")],
+        "hd 160 with a ring of 1 stage": [
+            ("return HD > BOX ? 2 : 3;",
+             "return HD > 128 ? 1 : HD > BOX ? 2 : 3;")],
+        "hd 160 with a ring of 3 stages (one block an SM)": [
+            ("return HD > BOX ? 2 : 3;",
+             "return HD > 128 ? 3 : HD > BOX ? 2 : 3;")],
+        # dQ's own key tiles at hd 160: 64 keys (80 + 32 + 32 registers;
+        # 144 KB, one block an SM), and 64 keys on a one-stage ring (96 KB,
+        # two blocks an SM)
+        "dQ at hd 160 on 64-key tiles": [
+            ("constexpr int KT = ST;", "constexpr int KT = HT;")],
+        "dQ at hd 160 on 64-key tiles, a ring of 1 stage": [
+            ("constexpr int KT = ST;", "constexpr int KT = HT;"),
+            ("<HD, KT, NST>", "<HD, KT, (KT == ST ? NST : 1)>")],
         "no dQ kernel": [
-            ("  fa_bwd_dq_hopper_kernel<HD, NST>\n"
-             "      <<<dq_grid, HNT, C::BYTES, stream>>>(mq, mk, mv, mdo, p);",
-             "  (void)dq_grid;")],
+            ("  fa_bwd_dq_hopper_kernel<HD, KT, NST>\n"
+             "      <<<dq_grid, HNT, CQ::BYTES, stream>>>(kept[0], keys[1], "
+             "keys[2],\n                                            kept[3], "
+             "p);",
+             "  (void)dq_grid; (void)keys;")],
         "no dK/dV kernel": [
-            ("  fa_bwd_dkdv_hopper_kernel<HD, NST>\n"
-             "      <<<dkdv_grid, HNT, C::BYTES, stream>>>(mq, mk, mv, mdo, p);",
+            ("  fa_bwd_dkdv_hopper_kernel<HD, ST, NST>\n"
+             "      <<<dkdv_grid, HNT, C::BYTES, stream>>>(streamed[0], kept[1], "
+             "kept[2],\n                                              "
+             "streamed[3], p);",
              "  (void)dkdv_grid;")],
         "no delta kernel": [
             ("    fa_bwd_delta_kernel<__nv_bfloat16>\n"
@@ -239,10 +254,8 @@ VARIANTS = {
              "    (void)rows;")],
         "TMA ring of 2 stages at every hd": [
             ("return HD > BOX ? 2 : 3;", "return HD > BOX ? 2 : 2;")],
-        "TMA ring of 3 stages at every hd (hd 80-128: one block an SM)": [
+        "TMA ring of 3 stages at every hd (hd 80-160: one block an SM)": [
             ("return HD > BOX ? 2 : 3;", "return HD > BOX ? 3 : 3;")],
-        "TMA ring of 4 stages at every hd": [
-            ("return HD > BOX ? 2 : 3;", "return HD > BOX ? 4 : 4;")],
         "no setmaxnreg (consumers keep 128 registers)": [
             ('    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\\n");\n',
              ""),
@@ -250,40 +263,9 @@ VARIANTS = {
              ""),
             # without setmaxnreg no block waits for registers, and ptxas
             # may use fewer than 128 at entry (127 at hd 80 and 96)
-            ("HD, NST>, 128);", "HD, NST>, 0);")],
-        "dQ: no producer warp (the first consumer thread loads each tile "
-        "once its stage is released)": [
-            ("    for (int n = 0; n < n_tiles; ++n) {\n"
-             "      const int st = n % NST;\n"
-             "      if (n >= NST) mbar_wait(empty + st, ((n / NST) & 1) ^ 1);\n"
-             "      unsigned char* dst = smem + C::OFF_STAGE + st * 2 * C::TILE;\n",
-             "    for (int n = 0; n < 0; ++n) {\n"
-             "      const int st = n % NST;\n"
-             "      unsigned char* dst = smem + C::OFF_STAGE + st * 2 * C::TILE;\n"),
-            ("  mbar_wait(q_bar, 0);\n\n"
-             "  for (int n = 0; n < n_tiles; ++n) {\n",
-             "  mbar_wait(q_bar, 0);\n"
-             "  auto issue = [&](int n) {\n"
-             "    const int st = n % NST, k0 = k_begin + n * HT;\n"
-             "    unsigned char* dst = smem + C::OFF_STAGE + st * 2 * C::TILE;\n"
-             "    mbar_expect_tx(full + st, 2 * C::TILE);\n"
-             "    for (int c = 0; c < C::NB; ++c) {\n"
-             "      tma_box(dst + c * BOXB, &mk, full + st, BOX * c, hk, k0, b);\n"
-             "      tma_box(dst + C::TILE + c * BOXB, &mv, full + st, BOX * c,\n"
-             "              hk, k0, b);\n"
-             "    }\n"
-             "  };\n"
-             "  if (threadIdx.x == 128)\n"
-             "    for (int n = 0; n < NST && n < n_tiles; ++n) issue(n);\n"
-             "  for (int n = 0; n < n_tiles; ++n) {\n"),
-            ("    keep<NA>(dq);\n    keep_frags(sa);\n"
-             "    mbar_arrive(empty + st);\n",
-             "    keep<NA>(dq);\n    keep_frags(sa);\n"
-             "    mbar_arrive(empty + st);\n"
-             "    if (threadIdx.x == 128 && n + NST < n_tiles) {\n"
-             "      mbar_wait(empty + st, (n / NST) & 1);\n"
-             "      issue(n + NST);\n"
-             "    }\n")],
+            ("<HD, ST, NST>,\n                                  128);",
+             "<HD, ST, NST>,\n                                  0);"),
+            ("<HD, KT, NST>, 128);", "<HD, KT, NST>, 0);")],
     },
     "wkv6_bwd": {
         "as shipped": [],
@@ -555,13 +537,16 @@ def main() -> int:
     attention = {}
     if "flash_attention_bwd" in kernels:
         # qwen3-8b's training microbatch (hd 128), hymba-1.5b's (hd 64, a
-        # 1024-token window), phi3-mini-3.8b's (hd 96) and h2o-danube-1.8b's
-        # (hd 80, a 4096-token window)
+        # 1024-token window), phi3-mini-3.8b's (hd 96), h2o-danube-1.8b's
+        # (hd 80, a 4096-token window), pixtral-12b's (hd 160) and
+        # musicgen-large's (hd 64, MHA)
         for label, b, h, hkv, hd, window in (
                 ("qwen3-8b", 2, 32, 8, 128, None),
                 ("hymba-1.5b", 4, 25, 5, 64, 1024),
                 ("phi3-mini-3.8b", 2, 32, 32, 96, None),
-                ("h2o-danube-1.8b", 4, 32, 8, 80, 4096)):
+                ("h2o-danube-1.8b", 4, 32, 8, 80, 4096),
+                ("pixtral-12b", 1, 32, 8, 160, None),
+                ("musicgen-large", 2, 32, 32, 64, None)):
             aq, ak, av, ado = (cs.randn(gen, shape, bf16, scale)
                                for shape, scale in (
                                    ((b, 4096, h, hd), 1.5),
