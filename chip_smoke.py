@@ -10,7 +10,9 @@ Phases; each raises on failure, so any failure exits non-zero:
      must not be 0 for WKV6 (its 3xTF32 products) and its backward, nor
      HGMMA and UTMALDG for flash attention and its backward (their Hopper
      bf16 bodies at every head dim), and the attention backward must have
-     no HMMA (no mma.sync body is left in it) and no spill;
+     no HMMA (no mma.sync body is left in it) and no spill; WKV6's
+     training forward's summaries and its chunked body must have HMMA in
+     their own SASS, and none of its three kernels may spill;
   2. each kernel against its plain PyTorch version on the card, at the
      serving shapes and in windowed, ragged, 3-D layout, hd 32 and 128,
      fp32, many-split, poisoned-cache and carried-state cases (flash
@@ -105,9 +107,11 @@ Phases; each raises on failure, so any failure exits non-zero:
      embedding's gradient and the other leaves' apart);
      run_training at the tiny preset on the card, 6 straight steps
      against 3, a commit, a resume and 3 more. The recurrences train
-     through Wkv6Fn and MambaScanFn (the kernels' forward one launch per
-     256-step chunk; the backwards the WKV6 and the Mamba scan backward
-     kernels, one C call each): both held to autograd through the plain
+     through Wkv6Fn and MambaScanFn (the training forwards one C call a
+     layer, WKV6's every 256-token chunk in flight at once, the scan's one
+     launch writing each chunk's start state; the backwards the WKV6 and
+     the Mamba scan backward kernels, one C call each): both held to
+     autograd through the plain
      loops at full width across two chunks (WKV6 fp32, the scan fp32 and
      bf16), each with a mutant that does not carry the state's gradient
      across a chunk (its backward kernel run chunk by chunk); each
@@ -115,7 +119,12 @@ Phases; each raises on failure, so any failure exits non-zero:
      model's decays and with exact 0s and 1s; mamba_scan_bwd in bf16;
      then both at B=1 over a ragged 1068 steps from a given final-state
      gradient, and the scan at n=8 in fp32; two runs bit-equal in every
-     case); each forward and backward timed at its model's
+     case); each forward at its model's training microbatch against the
+     plain version chunk by chunk (y or out, the final state and every
+     chunk's start; WKV6 also with exact 0 and 1 decays, the scan bit for
+     bit against its kernel launched once a chunk), with two mutants of
+     the starts that must fail (the carry without the fade, the starts
+     one chunk late); each forward and backward timed at its model's
      training microbatch; rwkv6-3b and hymba-1.5b trained at full width
      and full depth as qwen3-8b is (their WKV6, Mamba scan, flash
      attention and backward kernel launches a step asserted, the
@@ -475,6 +484,7 @@ def environment() -> str:
     # library, or a spill in its Hopper kernels at hd 160 (whose dK and dV
     # take 160 registers a consumer thread), is a body that does not run
     # as designed
+    check_wkv6_train_kernels(libs["wkv6"])
     spills = hopper_spills(libs["flash_attention_bwd"])
     for name, n in spills.items():
         log(f"  ptxas flash_attention_bwd: {name}: {n} bytes spill stores")
@@ -496,6 +506,54 @@ def hopper_spills(lib: Path) -> dict:
                        lib.with_suffix(".log").read_text())
     return {f"{name}<{','.join(re.findall(r'Li(\d+)E', args))}>": int(n)
             for name, args, n in props}
+
+
+# WKV6's training forward (wkv6_train_launch): {kernel: must it run
+# products on the tensor cores}
+WKV6_TRAIN_KERNELS = {"wkv6_summary_kernel": True,
+                      "wkv6_carry_kernel": False,
+                      "wkv6_chunk_kernel": True}
+
+
+def kernel_spills(lib: Path, names) -> dict:
+    """{kernel as name<template arguments>: bytes of spill stores} of the
+    kernels ``names`` in a library's ptxas report."""
+    found = re.findall(r"Function properties for \S*?(" + "|".join(names)
+                       + r")(\w*?)E?\s+\d+ bytes stack frame, (\d+) bytes "
+                       r"spill stores", lib.with_suffix(".log").read_text())
+    return {f"{name}<{','.join(re.findall(r'L[ib](\d+)E', args + 'E'))}>":
+            int(n) for name, args, n in found}
+
+
+def sass_of(lib: Path, name: str) -> str:
+    """The SASS of every function of a library whose name holds ``name``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    cuobjdump = Path(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    return "".join(part for part in sass.split("Function : ")[1:]
+                   if name in part.split("\n", 1)[0])
+
+
+def check_wkv6_train_kernels(lib: Path) -> None:
+    """WKV6's training forward as designed: its summaries and its chunked
+    body run their products on the tensor cores (HMMA in their own SASS),
+    and none of its kernels spills at any head dim (the chunked body's
+    training instances, <hd,1>; its serving ones are printed)."""
+    spills = kernel_spills(lib, WKV6_TRAIN_KERNELS)
+    for name, n in spills.items():
+        log(f"  ptxas wkv6: {name}: {n} bytes spill stores")
+    train = {name: n for name, n in spills.items()
+             if "chunk" not in name or name.endswith(",1>")}
+    if len(train) != 7 or any(train.values()):
+        raise AssertionError(f"wkv6's training kernels spill: {train}")
+    for name, mma in WKV6_TRAIN_KERNELS.items():
+        if mma:
+            n = len(re.findall(r"\bHMMA\b", sass_of(lib, name)))
+            log(f"  wkv6: {name}: {n} HMMA instructions")
+            if not n:
+                raise AssertionError(f"wkv6: {name} has no HMMA: its 3xTF32 "
+                                     f"products do not run as designed")
 
 
 # SASS opcodes counted per library: the tensor cores by mma.sync and by
@@ -2157,6 +2215,77 @@ def mamba_train_inputs(gen, b: int, s: int, dtype, n: int = MAMBA_N
             a_log, 1.0 + randn(gen, (MAMBA_DI,), f32, 0.5)]
 
 
+def wkv6_plain_chain(r, k, v, w, u) -> tuple:
+    """The plain recurrence (wkv6_plain) chunk by chunk, each TIME_CHUNK
+    tokens from the last chunk's state: (y, final state, the state at each
+    chunk's start)."""
+    from repro_torch.kernels.wkv6 import TIME_CHUNK, wkv6_plain
+    b, s, h, hd = r.shape
+    state = torch.zeros((b, h, hd, hd), device=r.device)
+    starts, ys = [], []
+    for c0 in range(0, s, TIME_CHUNK):
+        starts.append(state.clone())
+        ys.append(wkv6_plain(*(t[:, c0:c0 + TIME_CHUNK] for t in (r, k, v, w)),
+                             u, state)[0])
+    return torch.cat(ys, 1), state, torch.stack(starts, 1)
+
+
+def mamba_chain(plain: bool, dt, dt_bias, b, c, x, z, a_log, d_skip
+                ) -> tuple:
+    """The fused scan chunk by chunk, each TIME_CHUNK steps from the last
+    chunk's state: its kernel launched once a chunk (the training
+    forward's route before it kept the starts itself), or with ``plain``
+    its plain version. Returns (out, final state, the state at each
+    chunk's start)."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels.wkv6 import TIME_CHUNK
+    bsz, s, di = dt.shape
+    h = torch.zeros((bsz, di, a_log.shape[1]), device=dt.device)
+    fn = ms.mamba_scan_plain if plain else ms.mamba_scan
+    starts, outs = [], []
+    for c0 in range(0, s, TIME_CHUNK):
+        starts.append(h.clone())
+        dt_c, b_c, c_c, x_c, z_c = (t[:, c0:c0 + TIME_CHUNK]
+                                    for t in (dt, b, c, x, z))
+        outs.append(fn(dt_c, dt_bias, b_c, c_c, x_c, z_c, a_log, d_skip,
+                       h)[0])
+    return torch.cat(outs, 1), h, torch.stack(starts, 1)
+
+
+def check_starts(what: str, got, want, fade) -> None:
+    """A training forward's starts (B, chunks, ...) against the plain
+    chain's, within the scan's fp32 limits, and two mutants of the carry
+    that must fail them: start_{c+1} = start_c + G_c, the carry without
+    the fade (G_c = start_{c+1} - fade_c start_c, the chunk's own part),
+    and every start written one chunk late. ``fade``: each chunk's decay
+    of its start state, broadcast to a start's shape."""
+    assert_close_scan(f"{what}, every chunk's start", got, want)
+    g = want[:, 1:] - fade[:, :-1] * want[:, :-1]
+    mutants = {"the carry without the fade":
+               torch.cat([want[:, :1], want[:, :1] + g.cumsum(1)], 1),
+               "the starts one chunk late":
+               torch.cat([torch.zeros_like(want[:, :1]), want[:, :-1]], 1)}
+    for name, mutant in mutants.items():
+        assert_mutant_caught(f"{what}, starts", mutant, want, name)
+
+
+def wkv6_fades(w, chunk: int) -> torch.Tensor:
+    """Each chunk's decay of its start state, prod_t w_t (B, chunks, H, hd,
+    1); S a multiple of ``chunk``."""
+    b, s, h, hd = w.shape
+    return w.view(b, s // chunk, chunk, h, hd).prod(2)[..., None]
+
+
+def mamba_fades(dt_raw, dt_bias, a_log, chunk: int) -> torch.Tensor:
+    """Each chunk's decay of its start state, exp(a * the chunk's sum of
+    dt) (B, chunks, di, n); S a multiple of ``chunk``."""
+    import torch.nn.functional as F
+    b, s, di = dt_raw.shape
+    dt = F.softplus(dt_raw.float() + dt_bias)
+    return torch.exp(dt.view(b, s // chunk, chunk, di).sum(2)[..., None]
+                     * -torch.exp(a_log))
+
+
 def check_recurrence_backward() -> dict:
     """Wkv6Fn and MambaScanFn (the kernels' forward one launch per
     TIME_CHUNK steps; the backwards the two backward kernels) against
@@ -2246,13 +2375,14 @@ def time_recurrences_training() -> dict:
     b, s = TRAIN_BATCH // get_arch("rwkv6-3b").grad_accum, TRAIN_SEQ
     inputs = decay(wkv6_train_inputs(gen, b, s))
     dy = randn(gen, (b, s, RWKV_HEADS, RWKV_HD), torch.float32, 1.0)
-    y, _, starts = wk.wkv6_chunk_states(*inputs)
-    want, _ = wk.wkv6_plain(*inputs)
-    err = assert_close(f"wkv6 training forward B={b} S={s}, y", y, want)
-    del want
+    err = check_wkv6_train_forward(f"B={b} S={s}, the model's decays",
+                                   inputs)
+    y, final, starts = wk.wkv6_chunk_states(*inputs)
     fwd_f, bwd_f = wkv6_flops(b * s, RWKV_HEADS, RWKV_HD)
     size = inputs[0].numel() * 4
-    bound, by = bound_ms(5 * size + starts[:, 0].numel() * 4,
+    # r, k, v, w read, y written; every chunk's start and the final state
+    # written
+    bound, by = bound_ms(5 * size + (starts.numel() + final.numel()) * 4,
                          {torch.float32: fwd_f})
     bbound, bby = bound_ms(9 * size + starts.numel() * 4,
                            {torch.float32: bwd_f})
@@ -2262,6 +2392,8 @@ def time_recurrences_training() -> dict:
     pick = torch.rand(inputs[3].shape, generator=gen, device="cuda")
     edges = [*inputs[:3], torch.where(pick < 0.05, 0.0, torch.where(
         pick > 0.9, 1.0, inputs[3])), inputs[4]]
+    check_wkv6_train_forward(f"B={b} S={s}, exact 0 and 1 decays mixed in",
+                             edges)
     check_wkv6_backward(f"B={b} S={s}, exact 0 and 1 decays mixed in",
                         edges, wk.wkv6_chunk_states(*edges)[2], dy)
     del edges, pick
@@ -2271,8 +2403,9 @@ def time_recurrences_training() -> dict:
     t_plain = time_ms(lambda: wk.wkv6_bwd(*inputs, starts, dy), 3, warmup=1)
     bwd["wkv6_backward", "rwkv6-3b"] = t_bwd
     log(f"  wkv6 training shape (B={b}, S={s}, H={RWKV_HEADS}, "
-        f"hd={RWKV_HD}): forward {fwd:.4f} ms in {starts.shape[1]} "
-        f"launches (plain loop {plain:.4f} ms, bound {bound:.4f} ms by {by}); "
+        f"hd={RWKV_HD}): forward {fwd:.4f} ms in 1 C call of "
+        f"{starts.shape[1]} chunks (plain loop {plain:.4f} ms, bound "
+        f"{bound:.4f} ms by {by}); "
         f"backward kernel {t_bwd:.4f} ms in 1 launch, its plain version "
         f"(the torch-ops wkv6_bwd) {t_plain:.4f} ms, bound {bbound:.4f} ms "
         f"({bby}), {t_bwd / bbound:.2f}x the bound")
@@ -2287,17 +2420,15 @@ def time_recurrences_training() -> dict:
                     "max_abs_err": bwd_err, "ms": t_bwd, "plain_ms": t_plain,
                     "bound_ms": bbound, "bound_by": bby, "library_ms": None,
                     "torch_ops_ms": t_plain})
-    del inputs, dy, y, starts
+    del inputs, dy, y, final, starts
     b = TRAIN_BATCH // get_arch("hymba-1.5b").grad_accum
     inputs = mamba_train_inputs(gen, b, s, torch.bfloat16)
     dout = randn(gen, (b, s, MAMBA_DI), torch.bfloat16, 1.0)
+    err = check_mamba_train_forward(f"B={b} S={s} bf16", inputs)
     out, _, starts = ms.mamba_chunk_states(*inputs)
-    want, _ = ms.mamba_scan_plain(*inputs)
-    err = assert_close_scan(f"mamba_scan training forward B={b} S={s} "
-                            f"bf16, out", out, want)
-    del want
     n_bytes, flops = mamba_fused_cost(b, s, torch.bfloat16)
-    bound, by = bound_ms(n_bytes, flops)
+    # and every chunk's start written
+    bound, by = bound_ms(n_bytes + starts.numel() * 4, flops)
     fwd_f, bwd_f = mamba_flops(b * s, MAMBA_DI, MAMBA_N)
     bbound, bby = bound_ms(2 * n_bytes + out.numel() * 2 + starts.numel() * 4,
                            {torch.float32: bwd_f})
@@ -2311,8 +2442,9 @@ def time_recurrences_training() -> dict:
                       warmup=1)
     bwd["mamba_scan_backward", "hymba-1.5b"] = t_bwd
     log(f"  mamba_scan training shape (B={b}, S={s}, di={MAMBA_DI}, "
-        f"n={MAMBA_N}, bf16): forward {fwd:.4f} ms in {starts.shape[1]} "
-        f"launches (plain loop {plain:.4f} ms, bound {bound:.4f} ms by {by}); "
+        f"n={MAMBA_N}, bf16): forward {fwd:.4f} ms in 1 launch of "
+        f"{starts.shape[1]} chunks (plain loop {plain:.4f} ms, bound "
+        f"{bound:.4f} ms by {by}); "
         f"backward kernel {t_bwd:.4f} ms in 1 launch, its plain version "
         f"(the torch-ops mamba_scan_bwd) {t_plain:.4f} ms, bound "
         f"{bbound:.4f} ms ({bby}), {t_bwd / bbound:.2f}x the bound")
@@ -2329,6 +2461,55 @@ def time_recurrences_training() -> dict:
                     "bound_ms": bbound, "bound_by": bby, "library_ms": None,
                     "torch_ops_ms": t_plain})
     return {"entries": entries, "bwd_ms": bwd}
+
+
+def check_wkv6_train_forward(what: str, inputs: list) -> float:
+    """WKV6's training forward (wkv6_chunk_states: one C call, one launch
+    counted) against the plain version chunk by chunk: y, the final state
+    and every chunk's start within the scan's fp32 limits; the starts'
+    mutants must fail. Returns y's max_abs_err."""
+    from repro_torch.kernels import wkv6 as wk
+    before = wk.wkv6.launches
+    y, final, starts = wk.wkv6_chunk_states(*inputs)
+    if wk.wkv6.launches != before + 1:
+        raise AssertionError(f"wkv6 training forward: "
+                             f"{wk.wkv6.launches - before} calls counted")
+    want, want_final, want_starts = wkv6_plain_chain(*inputs)
+    what = f"wkv6 training forward {what}"
+    err = assert_close_scan(f"{what}, y", y, want)
+    assert_close_scan(f"{what}, final state", final, want_final)
+    check_starts(what, starts, want_starts,
+                 wkv6_fades(inputs[3], wk.TIME_CHUNK))
+    return err
+
+
+def check_mamba_train_forward(what: str, inputs: list) -> float:
+    """The scan's training forward (mamba_chunk_states: one launch that
+    writes every chunk's start) bit for bit against its kernel launched
+    once a chunk, and against the plain version chunk by chunk: out, the
+    final state and every chunk's start within the scan's limits; the
+    starts' mutants must fail. Returns out's max_abs_err."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels.wkv6 import TIME_CHUNK
+    before = ms.mamba_scan.launches
+    got = ms.mamba_chunk_states(*inputs)
+    if ms.mamba_scan.launches != before + 1:
+        raise AssertionError(f"mamba_scan training forward: "
+                             f"{ms.mamba_scan.launches - before} launches")
+    what = f"mamba_scan training forward {what}"
+    same = [torch.equal(g, c) for g, c in zip(got, mamba_chain(False,
+                                                               *inputs))]
+    log(f"  {what}: out, final state, starts bit-equal to one launch a "
+        f"chunk: {same}")
+    if not all(same):
+        raise AssertionError(f"{what}: differs from the chain of launches")
+    out, final, starts = got
+    want, want_final, want_starts = mamba_chain(True, *inputs)
+    err = assert_close_scan(f"{what}, out", out, want)
+    assert_close_scan(f"{what}, final state", final, want_final)
+    check_starts(what, starts, want_starts,
+                 mamba_fades(inputs[0], inputs[1], inputs[6], TIME_CHUNK))
+    return err
 
 
 def check_wkv6_backward(what: str, inputs: list, starts, dy,
@@ -2420,25 +2601,24 @@ def check_backward_edges() -> None:
                                   ms.mamba_chunk_states(*inputs)[2], dout, dh)
 
 
-def train_counts(cfg, seq: int = TRAIN_SEQ) -> dict:
-    """Launches of one train step of ``seq``-token sequences: remat runs
+def train_counts(cfg) -> dict:
+    """Launches of one train step: remat runs
     each layer's forward twice, so 2 per layer and microbatch of flash
-    attention, and of WKV6 and the Mamba scan 2 per layer, microbatch and
-    TIME_CHUNK chunk; 1 per layer and microbatch of each backward kernel
-    (one per Function backward); none of the other kernels."""
+    attention, and of WKV6's and the Mamba scan's training forward (one
+    call a forward, however many TIME_CHUNK chunks); 1 per layer and
+    microbatch of each backward kernel (one per Function backward); none
+    of the other kernels."""
     from repro_torch.kernels.ops import KERNELS
-    from repro_torch.kernels.wkv6 import TIME_CHUNK
     want = dict.fromkeys(KERNELS, 0)
     per = cfg.n_layers * cfg.grad_accum
-    chunks = -(-seq // TIME_CHUNK)
     if cfg.attn_free:
-        want["wkv6"] = 2 * per * chunks
+        want["wkv6"] = 2 * per
         want["wkv6_backward"] = per
     else:
         want["flash_attention"] = 2 * per
         want["flash_attention_backward"] = per
     if cfg.hybrid_ssm:
-        want["mamba_scan"] = 2 * per * chunks
+        want["mamba_scan"] = 2 * per
         want["mamba_scan_backward"] = per
     return want
 
@@ -3078,7 +3258,7 @@ def sharded_train(mesh, arch: str) -> None:
         f"{', '.join(f'{t1 - t0:.1f}' for t0, t1 in zip(ms0, ms1))} ms); "
         f"updated parameters rel L2 {err:.3e}, max abs {worst:.3e}; embed "
         f"placed {pl}; launches of a step {c0} and {c1}")
-    want = {**train_counts(cfg, s), "mamba_scan_token": 0}
+    want = {**train_counts(cfg), "mamba_scan_token": 0}
     if c0 != c1 or c0 != want:
         raise AssertionError(f"launch counts: unsharded {c0}, sharded {c1}, "
                              f"expected {want}")

@@ -65,6 +65,15 @@
 // its state equals the plain loop's bit for bit. One launch a layer does
 // the softplus, the step, the skip and the gating.
 //
+// Training (MambaScanFn's forward, one launch a layer from zeros): given
+// `starts`, the chunked body also writes the state it hands from tile to
+// tile at the start of every `chunk` steps (JAX's 256-step remat
+// boundaries, which the backward reads), whatever S. A chunk edge is a
+// tile edge, so the tiles are those of a chain of one launch a chunk, each
+// from the last one's state: out, the final state and every start equal
+// the chain's bit for bit (where its last chunk, at least T steps long,
+// also runs the chunked body).
+//
 // A given state is read at the start and the final state written back over
 // it (no two threads share an element, so in place is safe). Inputs are
 // read through their strides (b and c may be the two halves of one
@@ -104,6 +113,7 @@ struct ScanParams {
   const float* d_skip;  // (di)
   void* out;       // (B, S, di)
   float* h;        // (B, di, n), (di, n) contiguous per batch row
+  float* starts;   // training: (B, NC, di, n) contiguous, or null
   int64_t dt_sb, dt_ss;  // element strides (batch, step)
   int64_t b_sb, b_ss;
   int64_t c_sb, c_ss;
@@ -112,6 +122,7 @@ struct ScanParams {
   int64_t o_sb, o_ss;
   int64_t h_sb;
   int S, di, has_state;
+  int chunk;  // training: steps between the starts kept (a multiple of T)
 };
 
 // F.softplus with beta 1 and threshold 20, as PyTorch's CUDA kernel does it
@@ -295,6 +306,15 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     cp_async_wait<0>();
     __syncthreads();  // tile k landed; tile k-1's epilogue is done
     if (k + 1 < ntiles) stage(buf ^ 1, t0 + T);  // in flight under tile k
+    if (p.starts && t0 % p.chunk == 0) {
+      // training: the state at this chunk's start, as tile k-1 left it
+      const int nc = (p.S + p.chunk - 1) / p.chunk;
+      float* st = p.starts +
+                  ((int64_t)bi * nc + t0 / p.chunk) * p.di * N +
+                  (int64_t)d0 * N;
+      for (int i = tid; i < CH * N; i += NT)
+        if (d0 + i / N < p.di) st[i] = sH[buf * CH * N + i];
+    }
 
     // convert: dt's bias and softplus, dt * x, b and c, into fp32 rows;
     // four elements a thread at a time
@@ -449,7 +469,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 
 template <typename TIn, int N>
 int launch(const ScanParams& p, int B, cudaStream_t stream) {
-  if (p.S < T) {
+  if (p.S < T && !p.starts) {
     const dim3 grid((p.di + TOKEN_NT - 1) / TOKEN_NT, B);
     mamba_scan_token_kernel<TIn, N><<<grid, TOKEN_NT, 0, stream>>>(p);
     return cudaGetLastError();
@@ -491,20 +511,28 @@ int launch_n(const ScanParams& p, int B, int n, cudaStream_t stream) {
 // out: (B, S, di); b, c: (B, S, n). dt_bias, d_skip (di) and a_log (di, n)
 // fp32 contiguous. h: (B, di, n) fp32, its (di, n) block contiguous;
 // has_state = 0 starts from zero without reading it, and the final state
-// is written into h either way. n is 8 or 16, di a multiple of 8. One call
-// is one launch: the chunked body for S >= mamba_scan_time_tile(), the
-// token body below. Returns cudaGetLastError() after it.
+// is written into h either way. n is 8 or 16, di a multiple of 8.
+// `starts` (training; null: none): (B, ceil(S / chunk), di, n) fp32
+// contiguous, gets the state at the start of every `chunk` steps (a
+// multiple of mamba_scan_time_tile(), so every chunk edge is a tile edge),
+// the start state first; the call then runs the chunked body at any S. One
+// call is one launch: the chunked body for S >= mamba_scan_time_tile() or
+// with starts, the token body otherwise. Returns cudaGetLastError() after
+// it.
 extern "C" int mamba_scan_launch(const void* dt, const float* dt_bias,
                                  const void* b, const void* c, const void* x,
                                  const void* z, const float* a_log,
                                  const float* d_skip, void* out, float* h,
-                                 int has_state, const int64_t* strides,
-                                 int dtype, int B, int S, int di, int n,
-                                 void* stream) {
-  if (B <= 0 || S <= 0 || di <= 0 || di % 8) return cudaErrorInvalidValue;
+                                 int has_state, float* starts, int chunk,
+                                 const int64_t* strides, int dtype, int B,
+                                 int S, int di, int n, void* stream) {
+  if (B <= 0 || S <= 0 || di <= 0 || di % 8 ||
+      (starts && (chunk <= 0 || chunk % T)))
+    return cudaErrorInvalidValue;
   ScanParams p;
   p.dt = dt; p.dt_bias = dt_bias; p.b = b; p.c = c; p.x = x; p.z = z;
   p.a_log = a_log; p.d_skip = d_skip; p.out = out; p.h = h;
+  p.starts = starts; p.chunk = chunk;
   p.dt_sb = strides[0]; p.dt_ss = strides[1];
   p.b_sb = strides[2]; p.b_ss = strides[3];
   p.c_sb = strides[4]; p.c_ss = strides[5];

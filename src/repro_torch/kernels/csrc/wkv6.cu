@@ -74,6 +74,28 @@
 // COLS 16 (640 blocks of 4 warps, 5 an SM); T 32 needs twice the shared
 // memory and was slower. What the time is spent on: PERF.md.
 //
+// Training forward (wkv6_train_launch, one call from zeros): the chain of
+// chunks is cut too, at JAX's TIME_CHUNK = 256-token remat boundaries,
+// whose start states the backward reads. Run chunk after chunk, the
+// chunked body's grid is (B * H, hd / COLS): 160 blocks at rwkv6-3b's
+// training microbatch (B = 2, H = 40), 40 % of the card's resident slots,
+// each walking 16 rounds in sequence. Here every chunk is in flight at
+// once, in three kernels on one stream:
+//   1. summaries, a block per (b, h, chunk), 4 hd threads: the chunk's
+//      own state from zeros, G_c = (K o E)^T V summed over 16-token
+//      sub-chunks by S <- diag(A) S + (K o E)^T V (the backward's kernel
+//      1 update; E and A running products of w inside the sub-chunk;
+//      3xTF32 products into fresh accumulators added by FFMA), and its
+//      fade A_c = prod_t w_t;
+//   2. carry, a thread per state element: start_0 = 0, start_{c+1} = A_c o
+//      start_c + G_c, written over G in `starts` (exactly what the
+//      backward reads), and the final state;
+//   3. y: the chunked body above from each chunk's start (its CHUNKS
+//      instance), grid (B * H, hd / COLS, chunks): 2560 blocks at
+//      rwkv6-3b's microbatch, not 160.
+// A decay of exactly 0 wipes G and the carried start as the recurrence
+// wipes its state; a decay of 1 leaves both as they are.
+//
 // Token body, S < CT (every decode step, S = 1): the chunked form has
 // nothing to batch. A grid of (B * H, hd / COLS) blocks each owns COLS
 // columns of one head's state in registers; KS = hd / 8 neighbouring
@@ -114,7 +136,9 @@ struct WkvParams {
   int64_t y_sb, y_ss, y_sh;
   int64_t u_sh;
   int64_t st_sb, st_sh, st_si;  // (batch, head, key row)
+  int64_t st_sc;  // training: the stride of chunk z's start state
   int H, S, has_state;
+  int chunk;      // training: tokens of grid z's chunk
 };
 
 __device__ __forceinline__ void copy4(float* dst, const float* src) {
@@ -442,7 +466,23 @@ __device__ __forceinline__ FragA v_frag(const float* sv, int mt, int ks,
   return frag_a(v0[0], v0[8], v0[4 * LDV], v0[4 * LDV + 8]);
 }
 
-template <int HD>
+// The block's run of tokens in the chunked body: the whole sequence, or
+// in training (CHUNKS) chunk z of p.chunk tokens. A chunk's length is read
+// anew at each use (the volatile read of the block index is not hoisted),
+// which keeps it out of the registers held across the loop: at 80
+// registers a thread, one more is a spill.
+template <bool CHUNKS>
+__device__ __forceinline__ int run_length(const WkvParams& p) {
+  if (!CHUNKS) return p.S;
+  unsigned z;
+  asm volatile("mov.u32 %0, %%ctaid.z;" : "=r"(z));
+  return min(p.S - (int)z * p.chunk, p.chunk);
+}
+
+// CHUNKS: a block runs chunk blockIdx.z from its start state in p.state
+// (stride st_sc) and writes no final state (training); else the whole
+// sequence, from p.state or zeros, writing the final state back
+template <int HD, bool CHUNKS>
 __global__ void __launch_bounds__(ChunkShape<HD>::NT,
                                   ChunkShape<HD>::MIN_BLOCKS)
     wkv6_chunk_kernel(const WkvParams p) {
@@ -461,12 +501,14 @@ __global__ void __launch_bounds__(ChunkShape<HD>::NT,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wr = warp % NWR, wc = warp / NWR;
   const int g = lane / 4, tq = lane % 4;
-  const float* Rg = p.r + b * p.r_sb + h * p.r_sh;
-  const float* Kg = p.k + b * p.k_sb + h * p.k_sh;
-  const float* Vg = p.v + b * p.v_sb + h * p.v_sh + col0;
-  const float* Wg = p.w + b * p.w_sb + h * p.w_sh;
-  float* Yg = p.y + b * p.y_sb + h * p.y_sh + col0;
-  float* St = p.state + b * p.st_sb + h * p.st_sh;
+  const int64_t z0 = CHUNKS ? (int64_t)blockIdx.z * p.chunk : 0;
+  const float* Rg = p.r + b * p.r_sb + h * p.r_sh + z0 * p.r_ss;
+  const float* Kg = p.k + b * p.k_sb + h * p.k_sh + z0 * p.k_ss;
+  const float* Vg = p.v + b * p.v_sb + h * p.v_sh + z0 * p.v_ss + col0;
+  const float* Wg = p.w + b * p.w_sb + h * p.w_sh + z0 * p.w_ss;
+  float* Yg = p.y + b * p.y_sb + h * p.y_sh + z0 * p.y_ss + col0;
+  float* St = p.state + b * p.st_sb + h * p.st_sh +
+              (CHUNKS ? blockIdx.z * p.st_sc : 0);
 
   // S^T in the mma accumulator layout: st[nn][e] is S[i][j] for value
   // column j = col0 + 16 wc + g (+8 for e >= 2) and key row i = 16 wr +
@@ -499,13 +541,16 @@ __global__ void __launch_bounds__(ChunkShape<HD>::NT,
   // group; rows past S are zero-filled
   auto stage = [&](int buf, int t0) {
     float* sr = smem + buf * C::STAGE + ct * LDG + cq;
-    const int n = min(T, p.S - t0);
+    const int n = min(T, run_length<CHUNKS>(p) - t0);
 #pragma unroll
     for (int it = 0; it < T / RS; ++it) {
       const bool ok = ct + RS * it < n;
-      cp_async16(sr + RS * it * LDG, ok ? gr + it * rr : Rg, ok);
-      cp_async16(sr + (T + RS * it) * LDG, ok ? gk + it * kr : Kg, ok);
-      cp_async16(sr + (2 * T + RS * it) * LDG, ok ? gw + it * wr_ : Wg, ok);
+      // (a row past S reads nothing: any mapped address, the tensor's
+      // own, will do)
+      cp_async16(sr + RS * it * LDG, ok ? gr + it * rr : p.r, ok);
+      cp_async16(sr + (T + RS * it) * LDG, ok ? gk + it * kr : p.k, ok);
+      cp_async16(sr + (2 * T + RS * it) * LDG, ok ? gw + it * wr_ : p.w,
+                 ok);
     }
     gr += T * p.r_ss;
     gk += T * p.k_ss;
@@ -519,17 +564,17 @@ __global__ void __launch_bounds__(ChunkShape<HD>::NT,
     cp_async_commit();
   };
 
-  const int nchunk = (p.S + T - 1) / T;
+  // chunk t0 / T in buffer (t0 / T) & 1
   stage(0, 0);
-  for (int c = 0; c < nchunk; ++c) {
-    const int t0 = c * T, n = min(T, p.S - t0);
-    float* sr = smem + (c & 1) * C::STAGE;
+  for (int t0 = 0; t0 < run_length<CHUNKS>(p); t0 += T) {
+    const int n = min(T, run_length<CHUNKS>(p) - t0), buf = (t0 / T) & 1;
+    float* sr = smem + buf * C::STAGE;
     const float* sk = sr + T * LDG;
     const float* sw = sk + T * LDG;
     const float* sv = sr + C::RKW;
     cp_async_wait<0>();
     __syncthreads();  // this chunk landed; the last one is done everywhere
-    if (c + 1 < nchunk) stage((c + 1) & 1, t0 + T);
+    if (t0 + T < run_length<CHUNKS>(p)) stage(buf ^ 1, t0 + T);
 
     if (NT == 2 * HD || tid < 2 * HD)
       build_m<HD>(sr, sk, sw, uu, sM, tid);
@@ -606,6 +651,7 @@ __global__ void __launch_bounds__(ChunkShape<HD>::NT,
     }
   }
 
+  if (CHUNKS) return;
 #pragma unroll
   for (int nn = 0; nn < 2; ++nn)
 #pragma unroll
@@ -616,31 +662,240 @@ __global__ void __launch_bounds__(ChunkShape<HD>::NT,
     }
 }
 
-template <int HD>
-int launch_chunk(const WkvParams& p, int B, cudaStream_t stream) {
+template <int HD, bool CHUNKS>
+int launch_chunk(const WkvParams& p, int B, int chunks, cudaStream_t stream) {
   using C = ChunkShape<HD>;
   constexpr int bytes = C::FLOATS * sizeof(float);
   static const int attr = [] {
     const int e = cudaFuncSetAttribute(
-        wkv6_chunk_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        wkv6_chunk_kernel<HD, CHUNKS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     return e ? e
              : cudaFuncSetAttribute(
-                   wkv6_chunk_kernel<HD>,
+                   wkv6_chunk_kernel<HD, CHUNKS>,
                    cudaFuncAttributePreferredSharedMemoryCarveout,
                    cudaSharedmemCarveoutMaxShared);
   }();
   if (attr != cudaSuccess) return attr;
-  const dim3 grid(B * p.H, HD / C::COLS);
-  wkv6_chunk_kernel<HD><<<grid, C::NT, bytes, stream>>>(p);
+  const dim3 grid(B * p.H, HD / C::COLS, chunks);
+  wkv6_chunk_kernel<HD, CHUNKS><<<grid, C::NT, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 // the body by S: chunks of CT tokens, or token by token below that
 template <int HD>
 int launch(const WkvParams& p, int B, cudaStream_t stream) {
-  return p.S >= CT ? launch_chunk<HD>(p, B, stream)
+  return p.S >= CT ? launch_chunk<HD, false>(p, B, 1, stream)
                    : launch_token<HD>(p, B, stream);
+}
+
+// ------------------------------------------------------ training forward
+// wkv6_train_launch: the sequence from zeros in chunks of p.chunk tokens,
+// every chunk in flight at once (see the header). Kernel 1 (summaries)
+// walks a chunk in SL-token sub-chunks by the state update of the
+// backward's kernel 1, S <- diag(A) S + (K o E)^T V, from zeros.
+constexpr int SL = 16;  // summaries: tokens a sub-chunk (two mma k-steps)
+constexpr int SST = 2;  // summaries: buffers in the ring of copies
+
+template <int HD>
+struct SumShape {
+  static constexpr int NT = 4 * HD;   // threads: a (token, 4 key rows) each
+  static constexpr int G4 = HD / 4;   // key-row groups of 4
+  static constexpr int LDI = HD + 8;  // staged k, v, w rows ([t][i]: v is
+                                      // read as k-major B fragments)
+  static constexpr int LDP = HD + 8;  // k o E [t][i] (k-major A)
+  static constexpr int IN = 3 * SL * LDI;  // one buffer: k, v, w
+  static constexpr int FLOATS = SST * IN + SL * LDP + 2 * HD;
+  static_assert(NT / G4 == SL, "a token a row of threads");
+};
+
+// Start the copies of tokens [t0, t0 + SL) of k, v, w into `dst` (three
+// arrays of SL rows of LDI). Rows at or past `lim` are zero-filled, w's
+// with 1 (a decay of 1 and k = v = 0 leave the state as it is), stored by
+// the thread that owns the 16 bytes.
+template <int HD>
+__device__ __forceinline__ void stage_kvw(const WkvParams& p, float* dst,
+                                          int b, int h, int t0, int lim) {
+  using C = SumShape<HD>;
+  constexpr int CPR = HD / 4;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float* src = a == 0 ? p.k + b * p.k_sb + h * p.k_sh
+                     : a == 1 ? p.v + b * p.v_sb + h * p.v_sh
+                              : p.w + b * p.w_sb + h * p.w_sh;
+    const int64_t ss = a == 0 ? p.k_ss : a == 1 ? p.v_ss : p.w_ss;
+    for (int idx = threadIdx.x; idx < SL * CPR; idx += C::NT) {
+      const int t = idx / CPR, c = 4 * (idx % CPR);
+      float* d = dst + (a * SL + t) * C::LDI + c;
+      const bool ok = t0 + t < lim;
+      if (a == 2 && !ok)
+        *reinterpret_cast<float4*>(d) = make_float4(1.f, 1.f, 1.f, 1.f);
+      else
+        cp_async16(d, ok ? src + (int64_t)(t0 + t) * ss + c : src, ok);
+    }
+  }
+}
+
+// 1. A block per (b * H + h, chunk c): G_c, the state after the chunk from
+// zeros, written where the carry reads it (the chunk's slot of p.state,
+// which becomes its start), and the chunk's fade A_c = prod_t w_t. Warp w
+// keeps value columns [8w, 8w + 8) of G in registers (common.cuh's Mat);
+// E_t = prod_{t < tau < SL} w_tau inside the sub-chunk and A (the
+// sub-chunk's product) are running products of w, every factor <= 1 (no
+// log, no division: a decay of 0 zeroes them exactly).
+template <int HD>
+__global__ void __launch_bounds__(SumShape<HD>::NT, 2)
+    wkv6_summary_kernel(const WkvParams p, float* fade) {
+  using C = SumShape<HD>;
+  constexpr int NT = C::NT, LDI = C::LDI, LDP = C::LDP;
+  extern __shared__ __align__(16) float smem[];
+  float* sKE = smem + SST * C::IN;  // k o E [t][i]
+  float* sA = sKE + SL * LDP;       // the sub-chunk's A [i]
+  float* sF = sA + HD;              // the product of A over the sub-chunks
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H, c = blockIdx.y;
+  const int tid = threadIdx.x, w = tid / 32, g = tid % 32 / 4, tq = tid % 4;
+  const int t = tid / C::G4, r0 = 4 * (tid % C::G4);
+  const int c0 = c * p.chunk, c1 = min(p.S, c0 + p.chunk);
+
+  Mat<HD> s;
+#pragma unroll
+  for (int e = 0; e < HD / 16; ++e)
+    s[e][0] = s[e][1] = s[e][2] = s[e][3] = 0.f;
+  for (int i = tid; i < HD; i += NT) sF[i] = 1.f;
+
+  // a ring of SST buffers, SST - 1 sub-chunks in flight ahead of the one
+  // computed; one commit group a sub-chunk (empty past the end)
+  const int subs = (c1 - c0 + SL - 1) / SL;
+#pragma unroll
+  for (int q = 0; q < SST - 1; ++q) {
+    if (q < subs) stage_kvw<HD>(p, smem + q * C::IN, b, h, c0 + q * SL, c1);
+    cp_async_commit();
+  }
+  for (int q = 0; q < subs; ++q) {
+    const float* buf = smem + (q % SST) * C::IN;
+    cp_async_wait<SST - 2>();
+    __syncthreads();  // this sub-chunk landed; sF of the last one is set
+    // into the buffer the last sub-chunk used
+    if (q + SST - 1 < subs)
+      stage_kvw<HD>(p, smem + ((q + SST - 1) % SST) * C::IN, b, h,
+                    c0 + (q + SST - 1) * SL, c1);
+    cp_async_commit();
+    {
+      // E_t by a running product over the later tokens; A = w_0 E_0
+      const float* sW = buf + 2 * SL * LDI;
+      float ee[4] = {1.f, 1.f, 1.f, 1.f}, kt[4];
+#pragma unroll
+      for (int tau = 1; tau < SL; ++tau) {
+        float wv[4];
+        to4(wv, ld4(sW + tau * LDI + r0));
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          if (tau > t) ee[x] *= wv[x];
+      }
+      to4(kt, ld4(buf + t * LDI + r0));
+#pragma unroll
+      for (int x = 0; x < 4; ++x) kt[x] *= ee[x];
+      st4(sKE + t * LDP + r0, kt);
+      if (t == 0) {
+        float w0[4];
+        to4(w0, ld4(sW + r0));
+#pragma unroll
+        for (int x = 0; x < 4; ++x) w0[x] *= ee[x];
+        st4(sA + r0, w0);
+      }
+    }
+    __syncthreads();
+    FragB bf[2];
+    b_frags(bf, buf + SL * LDI, LDI, w, g, tq);
+    mat_update<HD>(s, sKE, LDP, bf, sA, g, tq);
+    __syncthreads();  // every read of this sub-chunk's buffers is done
+    for (int i = tid; i < HD; i += NT) sF[i] *= sA[i];
+  }
+  __syncthreads();
+  const int64_t at = (int64_t)(b * gridDim.y + c) * p.H + h;
+  mat_store<HD>(p.state + b * p.st_sb + c * p.st_sc + h * p.st_sh,
+                (int)p.st_si, s, w, g, tq);
+  for (int i = tid; i < HD; i += NT) fade[at * HD + i] = sF[i];
+}
+
+// 2. A thread per (b, h, i, j): start_0 = 0, start_{c+1} = A_c[i] start_c
+// + G_c, each G_c read from its slot and the start written over it; the
+// state after the last chunk to `final_state` (B, H, hd, hd) contiguous.
+// `starts` is (B, NC, H, hd, hd) contiguous, `fade` (B, NC, H, hd).
+__global__ void __launch_bounds__(256) wkv6_carry_kernel(
+    float* starts, const float* fade, float* final_state, int B, int NC,
+    int H, int hd) {
+  const int64_t per = (int64_t)H * hd * hd;  // (h, i, j)
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= B * per) return;
+  const int64_t b = idx / per, rem = idx % per, hi = rem / hd;
+  float* slot = starts + b * NC * per + rem;
+  const float* a = fade + b * NC * H * hd + hi;
+  // CU chunks' G and A loaded before any start is stored: the loads of a
+  // group are in flight together, not one latency a chunk
+  constexpr int CU = 16;
+  float carry = 0.f;
+  for (int c0 = 0; c0 < NC; c0 += CU) {
+    float g[CU], f[CU];
+#pragma unroll
+    for (int u = 0; u < CU; ++u)
+      if (c0 + u < NC) {
+        g[u] = slot[(c0 + u) * per];
+        f[u] = a[(int64_t)(c0 + u) * H * hd];
+      }
+#pragma unroll
+    for (int u = 0; u < CU; ++u)
+      if (c0 + u < NC) {
+        slot[(c0 + u) * per] = carry;
+        carry = fmaf(f[u], carry, g[u]);
+      }
+  }
+  final_state[idx] = carry;
+}
+
+template <int HD>
+int launch_train(WkvParams p, int B, float* fade, float* final_state,
+                 cudaStream_t stream) {
+  using C = SumShape<HD>;
+  constexpr int bytes = C::FLOATS * sizeof(float);
+  static const int attr = [] {
+    const int e = cudaFuncSetAttribute(
+        wkv6_summary_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    return e ? e
+             : cudaFuncSetAttribute(
+                   wkv6_summary_kernel<HD>,
+                   cudaFuncAttributePreferredSharedMemoryCarveout,
+                   cudaSharedmemCarveoutMaxShared);
+  }();
+  if (attr != cudaSuccess) return attr;
+  const int nc = (p.S + p.chunk - 1) / p.chunk;
+  wkv6_summary_kernel<HD><<<dim3(B * p.H, nc), C::NT, bytes, stream>>>(p,
+                                                                      fade);
+  int err = cudaGetLastError();
+  if (err) return err;
+  const int64_t n = (int64_t)B * p.H * HD * HD;
+  wkv6_carry_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      p.state, fade, final_state, B, nc, p.H, HD);
+  err = cudaGetLastError();
+  if (err) return err;
+  // 3. every chunk's y from its start, by the chunked body (grid z)
+  p.has_state = 1;
+  return launch_chunk<HD, true>(p, B, nc, stream);
+}
+
+WkvParams make_params(const float* r, const float* k, const float* v,
+                      const float* w, const float* u, float* y, float* state,
+                      const int64_t* strides) {
+  WkvParams p{};
+  p.r = r; p.k = k; p.v = v; p.w = w; p.u = u; p.y = y; p.state = state;
+  p.r_sb = strides[0]; p.r_ss = strides[1]; p.r_sh = strides[2];
+  p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
+  p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];
+  p.w_sb = strides[9]; p.w_ss = strides[10]; p.w_sh = strides[11];
+  p.y_sb = strides[12]; p.y_ss = strides[13]; p.y_sh = strides[14];
+  p.u_sh = strides[15];
+  return p;
 }
 
 }  // namespace
@@ -659,14 +914,7 @@ extern "C" int wkv6_launch(const float* r, const float* k, const float* v,
                            const int64_t* strides, int B, int H, int S,
                            int hd, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return cudaErrorInvalidValue;
-  WkvParams p;
-  p.r = r; p.k = k; p.v = v; p.w = w; p.u = u; p.y = y; p.state = state;
-  p.r_sb = strides[0]; p.r_ss = strides[1]; p.r_sh = strides[2];
-  p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
-  p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];
-  p.w_sb = strides[9]; p.w_ss = strides[10]; p.w_sh = strides[11];
-  p.y_sb = strides[12]; p.y_ss = strides[13]; p.y_sh = strides[14];
-  p.u_sh = strides[15];
+  WkvParams p = make_params(r, k, v, w, u, y, state, strides);
   p.st_sb = strides[16]; p.st_sh = strides[17]; p.st_si = strides[18];
   p.H = H; p.S = S; p.has_state = has_state;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -680,3 +928,34 @@ extern "C" int wkv6_launch(const float* r, const float* k, const float* v,
 
 // the chunked body's T: wkv6_launch takes it for S >= this
 extern "C" int wkv6_chunk_tokens() { return CT; }
+
+// The training forward from zeros, in chunks of `chunk` tokens, every
+// chunk in flight at once: r, k, v, w, y and u as for wkv6_launch
+// (strides[0..15]); `starts` (B, NC, H, hd, hd) fp32 contiguous, NC =
+// ceil(S / chunk), gets the state at each chunk's start (zeros for the
+// first); `final_state` (B, H, hd, hd) contiguous the state after the
+// last; `fade` (B, NC, H, hd) fp32 is scratch. Three kernels on `stream`
+// (summaries, carry, y) in one call. Returns the first launch's error, or
+// cudaGetLastError() after the last.
+extern "C" int wkv6_train_launch(const float* r, const float* k,
+                                 const float* v, const float* w,
+                                 const float* u, float* y, float* final_state,
+                                 float* starts, float* fade,
+                                 const int64_t* strides, int B, int H, int S,
+                                 int hd, int chunk, void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0 || chunk <= 0) return cudaErrorInvalidValue;
+  WkvParams p = make_params(r, k, v, w, u, y, starts, strides);
+  const int nc = (S + chunk - 1) / chunk;
+  p.st_si = hd;
+  p.st_sh = (int64_t)hd * hd;
+  p.st_sc = p.st_sh * H;
+  p.st_sb = p.st_sc * nc;
+  p.H = H; p.S = S; p.chunk = chunk;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return launch_train<16>(p, B, fade, final_state, s);
+    case 32: return launch_train<32>(p, B, fade, final_state, s);
+    case 64: return launch_train<64>(p, B, fade, final_state, s);
+    default: return cudaErrorInvalidValue;
+  }
+}

@@ -120,16 +120,6 @@ struct Shape {
   static_assert(G4 <= L && L % G4 == 0, "lane groups");
 };
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void st4(float* p, const float* x) {
-  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-}
-__device__ __forceinline__ void to4(float* x, float4 f) {
-  x[0] = f.x; x[1] = f.y; x[2] = f.z; x[3] = f.w;
-}
-
 // Start the copies of tokens [t0, t0 + L) of r, k, v, w, dy into `dst`
 // (NIN arrays of L rows of LDI). Rows at or past `lim` are zero-filled,
 // w's with 1 (a decay of 1 and k = v = 0 leave the state as it is), stored
@@ -153,69 +143,6 @@ __device__ __forceinline__ void stage_inputs(const BwdParams& p, float* dst,
                            h * p.sh[a] + c
                      : src, ok);
   }
-}
-
-// An hd x hd matrix held by a block, warp w value columns [8w, 8w + 8):
-// m[e] is the accumulator tile of key rows [16e, +16): m[e][0..3] at (i,
-// j) = (16e + g, 8w + 2tq), (.., +1), (16e + g + 8, 8w + 2tq), (.., +1).
-template <int HD>
-using Mat = float[HD / 16][4];
-
-// from [i][j] with row stride ld (shared or device memory)
-template <int HD>
-__device__ __forceinline__ void mat_load(Mat<HD>& m, const float* src,
-                                         int ld, int w, int g, int tq) {
-#pragma unroll
-  for (int e = 0; e < HD / 16; ++e) {
-    const float2 a = *reinterpret_cast<const float2*>(
-        src + (16 * e + g) * ld + 8 * w + 2 * tq);
-    const float2 c = *reinterpret_cast<const float2*>(
-        src + (16 * e + g + 8) * ld + 8 * w + 2 * tq);
-    m[e][0] = a.x; m[e][1] = a.y; m[e][2] = c.x; m[e][3] = c.y;
-  }
-}
-template <int HD>
-__device__ __forceinline__ void mat_store(float* dst, int ld,
-                                          const Mat<HD>& m, int w, int g,
-                                          int tq) {
-#pragma unroll
-  for (int e = 0; e < HD / 16; ++e) {
-    *reinterpret_cast<float2*>(dst + (16 * e + g) * ld + 8 * w + 2 * tq) =
-        make_float2(m[e][0], m[e][1]);
-    *reinterpret_cast<float2*>(dst + (16 * e + g + 8) * ld + 8 * w +
-                               2 * tq) = make_float2(m[e][2], m[e][3]);
-  }
-}
-
-// m <- diag(decay) m + Aop^T B over L tokens, Aop [t][i] (ld lda, k-major
-// A), B given as the warp's two k-step fragments of [t][j]: the product in
-// fresh accumulators, added by FFMA (decay null: m + the product)
-template <int HD>
-__device__ __forceinline__ void mat_update(Mat<HD>& m, const float* aop,
-                                           int lda, const FragB (&bf)[2],
-                                           const float* decay, int g,
-                                           int tq) {
-#pragma unroll
-  for (int e = 0; e < HD / 16; ++e) {
-    float up[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
-      mma3(up, lda_km(aop + 8 * kk * lda + 16 * e, lda, g, tq), bf[kk]);
-    const float d0 = decay ? decay[16 * e + g] : 1.f;
-    const float d1 = decay ? decay[16 * e + g + 8] : 1.f;
-    m[e][0] = fmaf(d0, m[e][0], up[0]);
-    m[e][1] = fmaf(d0, m[e][1], up[1]);
-    m[e][2] = fmaf(d1, m[e][2], up[2]);
-    m[e][3] = fmaf(d1, m[e][3], up[3]);
-  }
-}
-
-// the warp's B fragments of a [t][j] operand (ld) over the L tokens
-__device__ __forceinline__ void b_frags(FragB (&bf)[2], const float* src,
-                                        int ld, int w, int g, int tq) {
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
-    bf[kk] = ldb_km(src + 8 * kk * ld + 8 * w, ld, g, tq);
 }
 
 // The forward update's operands of a staged sub-chunk for the thread of

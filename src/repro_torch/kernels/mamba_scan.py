@@ -29,10 +29,11 @@ strides (the last dim contiguous, each row 16-byte aligned), so b and c go
 in as the two halves of one (B, S, 2n) projection and z as the second half
 of ``in_proj``'s output, without a copy.
 
-Training goes through ``MambaScanFn``: its forward launches the kernel once
-per ``TIME_CHUNK`` steps from the previous chunk's state and keeps the
-state at each chunk boundary, as JAX's ``chunked_time_scan`` keeps them
-(``repro/models/ssm.py:30-47``). JAX's gradient of its scan is XLA's,
+Training goes through ``MambaScanFn``: its forward keeps the state at
+each ``TIME_CHUNK`` boundary, as JAX's ``chunked_time_scan`` keeps them
+(``repro/models/ssm.py:30-47``); on the card that is one launch a layer
+(``mamba_scan_train``), whose chunked body writes each chunk's start
+state as it passes it. JAX's gradient of its scan is XLA's,
 fused on the TPU. On the card the backward is one C call of
 ``csrc/mamba_scan_bwd.cu`` (``mamba_scan_backward``), chunk-parallel: each
 chunk's adjoint is composed from its own steps, carried over the chunks
@@ -107,7 +108,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("mamba_scan")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mamba_scan_launch.argtypes = [vp] * 10 + [
-        i32, ctypes.POINTER(ctypes.c_int64), i32, i32, i32, i32, i32, vp]
+        i32, vp, i32, ctypes.POINTER(ctypes.c_int64), i32, i32, i32, i32,
+        i32, vp]
     lib.mamba_scan_launch.restype = i32
     lib.mamba_scan_time_tile.restype = i32
     return lib
@@ -157,16 +159,15 @@ torch.library.define(
     "bool has_state) -> Tensor")
 
 
-def _mamba_scan_cuda(dt: torch.Tensor, dt_bias: torch.Tensor,
-                     b: torch.Tensor, c: torch.Tensor, x: torch.Tensor,
-                     z: torch.Tensor, a_log: torch.Tensor,
-                     d_skip: torch.Tensor, h: torch.Tensor,
-                     has_state: bool) -> torch.Tensor:
-    """The kernel's launch, as an operator that writes the final state
-    into ``h`` (from zeros unless ``has_state``, else from it) and returns
-    out; with a fake implementation for meta tensors, its flops and what
-    the plain body would move (``reference_bytes``); see
-    ``flash_attention._flash_attention_cuda``."""
+def _launch(dt: torch.Tensor, dt_bias: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+            a_log: torch.Tensor, d_skip: torch.Tensor, h: torch.Tensor,
+            has_state: bool, starts: Optional[torch.Tensor] = None,
+            chunk: int = 0) -> torch.Tensor:
+    """One launch of the kernel: checks its operands, writes the final
+    state into ``h`` (from zeros unless ``has_state``, else from it) and,
+    if ``starts`` is given, the state at each ``chunk`` steps' start into
+    it; returns out. Counts the launch on ``mamba_scan``."""
     _check_shapes(dt, dt_bias, b, c, x, z, a_log, d_skip, h)
     bsz, s, di = dt.shape
     n = a_log.shape[-1]
@@ -198,15 +199,30 @@ def _mamba_scan_cuda(dt: torch.Tensor, dt_bias: torch.Tensor,
     err = lib.mamba_scan_launch(
         dt.data_ptr(), dt_bias.data_ptr(), b.data_ptr(), c.data_ptr(),
         x.data_ptr(), z.data_ptr(), a_log.data_ptr(), d_skip.data_ptr(),
-        out.data_ptr(), h.data_ptr(), int(has_state), strides,
+        out.data_ptr(), h.data_ptr(), int(has_state),
+        None if starts is None else starts.data_ptr(), chunk, strides,
         DTYPES[dt.dtype], bsz, s, di, n,
         torch.cuda.current_stream(dt.device).cuda_stream)
     _build.check(lib, err, "mamba_scan")
+    _MAMBA_SCAN.launches += 1
+    if starts is None and s < lib.mamba_scan_time_tile():
+        _MAMBA_SCAN.token_launches += 1
+    return out
+
+
+def _mamba_scan_cuda(dt: torch.Tensor, dt_bias: torch.Tensor,
+                     b: torch.Tensor, c: torch.Tensor, x: torch.Tensor,
+                     z: torch.Tensor, a_log: torch.Tensor,
+                     d_skip: torch.Tensor, h: torch.Tensor,
+                     has_state: bool) -> torch.Tensor:
+    """The kernel's launch, as an operator that writes the final state
+    into ``h`` (from zeros unless ``has_state``, else from it) and returns
+    out; with a fake implementation for meta tensors, its flops and what
+    the plain body would move (``reference_bytes``); see
+    ``flash_attention._flash_attention_cuda``."""
+    out = _launch(dt, dt_bias, b, c, x, z, a_log, d_skip, h, has_state)
     # the state was written in place, as an in-place op marks it
     torch.autograd.graph.increment_version(h)
-    mamba_scan.launches += 1
-    if s < lib.mamba_scan_time_tile():
-        mamba_scan.token_launches += 1
     return out
 
 
@@ -267,6 +283,9 @@ def mamba_scan(dt: torch.Tensor, dt_bias: torch.Tensor, b: torch.Tensor,
 # launches, and of them those that ran the token body (S < time_tile())
 mamba_scan.launches = 0
 mamba_scan.token_launches = 0
+# the operators count on the wrapper as defined here, also while a caller
+# has the module's name patched (a spy, a timing span)
+_MAMBA_SCAN = mamba_scan
 
 
 # ============================================================= training
@@ -322,15 +341,93 @@ def mamba_scan_chunked(dt: torch.Tensor, dt_bias: torch.Tensor,
     return y.to(x.dtype) * F.silu(z), h
 
 
+def _check_train(dt, dt_bias, b, c, x, z, a_log, d_skip, chunk) -> None:
+    bsz, _, di = dt.shape
+    _check_shapes(dt, dt_bias, b, c, x, z, a_log, d_skip,
+                  torch.empty((bsz, di, a_log.shape[-1]), device="meta"))
+    if chunk < 1:
+        raise ValueError(f"mamba_scan_train: chunk {chunk}")
+
+
+torch.library.define(
+    "repro_torch::mamba_scan_train",
+    "(Tensor dt, Tensor dt_bias, Tensor b, Tensor c, Tensor x, Tensor z, "
+    "Tensor a_log, Tensor d_skip, SymInt chunk) -> (Tensor, Tensor, Tensor)")
+
+
+def _mamba_scan_train_cuda(dt, dt_bias, b, c, x, z, a_log, d_skip, chunk):
+    """The training forward from zeros in one launch that also writes the
+    state at each ``chunk`` steps' start (a multiple of ``time_tile()``),
+    as the CUDA implementation of ``repro_torch::mamba_scan_train``;
+    returns (out, final state, starts). It counts in
+    ``mamba_scan.launches`` (the same kernel); its fake implementation,
+    flops and ``train_reference_bytes`` sit beside it."""
+    _check_train(dt, dt_bias, b, c, x, z, a_log, d_skip, chunk)
+    if chunk % _lib().mamba_scan_time_tile():
+        raise ValueError(f"mamba_scan_train: chunk {chunk} is no multiple "
+                         f"of the time tile {time_tile()}")
+    bsz, s, di = dt.shape
+    new = functools.partial(torch.empty, dtype=torch.float32,
+                            device=dt.device)
+    final = new((bsz, di, a_log.shape[-1]))
+    starts = new((bsz, -(-s // chunk), *final.shape[1:]))
+    out = _launch(dt, dt_bias, b, c, x, z, a_log, d_skip, final, False,
+                  starts, chunk)
+    return out, final, starts
+
+
+torch.library.impl("repro_torch::mamba_scan_train", "cuda",
+                   _mamba_scan_train_cuda)
+
+
+@torch.library.register_fake("repro_torch::mamba_scan_train")
+def _(dt, dt_bias, b, c, x, z, a_log, d_skip, chunk):
+    _check_train(dt, dt_bias, b, c, x, z, a_log, d_skip, chunk)
+    bsz, s, di = dt.shape
+    final = torch.empty((bsz, di, a_log.shape[-1]), device=dt.device)
+    return (torch.empty(dt.shape, dtype=dt.dtype, device=dt.device), final,
+            final.new_empty((bsz, -(-s // chunk), *final.shape[1:])))
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba_scan_train)
+def _(dt_shape, dt_bias_shape, b_shape, *args, out_shape=None, **kwargs):
+    """``mamba_scan``'s: the function is the same."""
+    bsz, s, di = dt_shape
+    return (7 * b_shape[-1] + 10) * di * bsz * s
+
+
+mamba_scan_train_op = torch.ops.repro_torch.mamba_scan_train.default
+
+
+def train_reference_bytes(dt, dt_bias, b, c, x, z, a_log, d_skip,
+                          chunk) -> int:
+    """HBM bytes of the plain body of JAX's training forward,
+    ``chunked_time_scan`` around ``step`` (``repro/models/ssm.py:30-47``,
+    ``:208-218``): ``reference_bytes``' token loop, and the fp32 state
+    (B, di, n) kept at each chunk's start."""
+    bsz, s, di = dt.shape
+    n = a_log.shape[-1]
+    return reference_bytes(dt, dt_bias, b, c, x, z, a_log, d_skip, None,
+                           False) + 4 * -(-s // chunk) * bsz * di * n
+
+
 def mamba_chunk_states(dt: torch.Tensor, dt_bias: torch.Tensor,
                        b: torch.Tensor, c: torch.Tensor, x: torch.Tensor,
                        z: torch.Tensor, a_log: torch.Tensor,
                        d_skip: torch.Tensor, chunk: int = TIME_CHUNK
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The fused function from zeros through ``mamba_scan`` (the kernel on
-    the card), one launch per ``chunk`` steps from the previous chunk's
-    state. Returns (out, final state, the state at each chunk's start
-    (B, chunks, di, n))."""
+    """The fused function from zeros, keeping the state at each ``chunk``
+    steps' start. A CUDA tensor makes one launch of the kernel
+    (``mamba_scan_train``), or raises; a meta tensor takes its fake
+    implementation; a CPU tensor runs the plain version through
+    ``mamba_scan``, chunk after chunk from the last one's state. Returns
+    (out, final state, the state at each chunk's start (B, chunks, di,
+    n))."""
+    if dt.device.type in ("cuda", "meta"):
+        return mamba_scan_train_op(dt, dt_bias, b, c, x, z, a_log, d_skip,
+                                   chunk)
+    if dt.device.type != "cpu":
+        raise ValueError(f"mamba_chunk_states: no kernel for {dt.device}")
     bsz, s, di = dt.shape
     h = torch.zeros((bsz, di, a_log.shape[1]), dtype=acc_dtype(x.dtype),
                     device=dt.device)
@@ -554,8 +651,9 @@ _MAMBA_SCAN_BACKWARD = mamba_scan_backward
 
 class MambaScanFn(torch.autograd.Function):
     """``mamba_scan`` from zeros under autograd, for training: the forward
-    is ``mamba_chunk_states`` (the kernel on the card, the plain version on
-    the CPU), which keeps the state at each ``TIME_CHUNK`` boundary; the
+    is ``mamba_chunk_states`` (one launch of the kernel on the card, the
+    plain version on the CPU), which keeps the state at each
+    ``TIME_CHUNK`` boundary; the
     backward is ``mamba_scan_backward`` (the backward kernel on the card,
     its plain version ``mamba_scan_bwd`` on the CPU). Returns (out, final
     state)."""

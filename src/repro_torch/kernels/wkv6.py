@@ -17,16 +17,18 @@ place: decode carries one state buffer per layer and never copies it. The
 kernel reads r, k, v, w, y through their strides (only the head dim must
 be contiguous), so views of the model's projections go in without a copy.
 
-Training goes through ``Wkv6Fn``: its forward launches the kernel once per
-``TIME_CHUNK`` tokens from the previous chunk's state and keeps the state
-at each chunk boundary, as JAX's ``chunked_time_scan`` keeps them
-(``repro/models/ssm.py:30-47``); its backward is ``wkv6_backward``: on the
-card the backward kernel ``csrc/wkv6_bwd.cu`` (its header says how it
-works), on the CPU its plain version ``wkv6_bwd``, which recomputes each
-chunk from its saved start state in the chunked form of ``wkv6_chunked``
-(torch operations), takes autograd's gradient of it and carries the
-state's gradient from chunk to chunk backwards (``_remat.py``). JAX has
-no backward kernel for the recurrence: its gradient is XLA's of the scan.
+Training goes through ``Wkv6Fn``: its forward keeps the state at each
+``TIME_CHUNK`` boundary, as JAX's ``chunked_time_scan`` keeps them
+(``repro/models/ssm.py:30-47``); on the card that is one C call a layer
+(``wkv6_train``: every chunk's own state from zeros, the carry over the
+chunks, then every chunk's y from its start at once); its backward is
+``wkv6_backward``: on the card the backward kernel ``csrc/wkv6_bwd.cu``
+(its header says how it works), on the CPU its plain version
+``wkv6_bwd``, which recomputes each chunk from its saved start state in
+the chunked form of ``wkv6_chunked`` (torch operations), takes autograd's
+gradient of it and carries the state's gradient from chunk to chunk
+backwards (``_remat.py``). JAX has no backward kernel for the recurrence:
+its gradient is XLA's of the scan.
 """
 
 from __future__ import annotations
@@ -86,6 +88,9 @@ def _lib() -> ctypes.CDLL:
                                 ctypes.POINTER(ctypes.c_int64),
                                 i32, i32, i32, i32, vp]
     lib.wkv6_launch.restype = i32
+    lib.wkv6_train_launch.argtypes = [vp] * 9 + [
+        ctypes.POINTER(ctypes.c_int64), i32, i32, i32, i32, i32, vp]
+    lib.wkv6_train_launch.restype = i32
     lib.wkv6_chunk_tokens.restype = i32
     return lib
 
@@ -107,6 +112,27 @@ def _check_shapes(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(u.shape)}, {tuple(state.shape)}")
 
 
+def _check_operands(r, k, v, w, u) -> torch.Tensor:
+    """Raise unless the kernel takes r, k, v, w and u; returns an empty
+    y."""
+    hd = r.shape[-1]
+    if r.dtype != torch.float32 or hd not in HEAD_DIMS:
+        raise ValueError(f"wkv6: unsupported {r.dtype}, hd={hd}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
+        _check_operand(name, t, r)
+    if u.device != r.device or u.dtype != r.dtype or u.stride(1) != 1:
+        raise ValueError("wkv6: u must be fp32 on r's device, with a "
+                         "contiguous head dim")
+    return torch.empty(r.shape, dtype=torch.float32, device=r.device)
+
+
+def _strides(r, k, v, w, y, u) -> list:
+    """The element strides (batch, step, head) of r, k, v, w and y, then
+    u's head stride: the kernel's strides[0..15]."""
+    return [*r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *w.stride()[:3], *y.stride()[:3], u.stride(0)]
+
+
 torch.library.define(
     "repro_torch::wkv6",
     "(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
@@ -123,17 +149,10 @@ def _wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention._flash_attention_cuda``."""
     _check_shapes(r, k, v, w, u, state)
     b, s, h, hd = r.shape
-    if r.dtype != torch.float32 or hd not in HEAD_DIMS:
-        raise ValueError(f"wkv6: unsupported {r.dtype}, hd={hd}")
-    out = torch.empty((b, s, h, hd), dtype=torch.float32, device=r.device)
-    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("state", state)):
-        _check_operand(name, t, r)
-    if u.device != r.device or u.dtype != r.dtype or u.stride(1) != 1:
-        raise ValueError("wkv6: u must be fp32 on r's device, with a "
-                         "contiguous head dim")
-    strides = (ctypes.c_int64 * 19)(
-        *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *w.stride()[:3],
-        *out.stride()[:3], u.stride(0), *state.stride()[:3])
+    out = _check_operands(r, k, v, w, u)
+    _check_operand("state", state, r)
+    strides = (ctypes.c_int64 * 19)(*_strides(r, k, v, w, out, u),
+                                    *state.stride()[:3])
     lib = _lib()
     err = lib.wkv6_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
@@ -142,7 +161,7 @@ def _wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(lib, err, "wkv6")
     # the state was written in place, as an in-place op marks it
     torch.autograd.graph.increment_version(state)
-    wkv6.launches += 1
+    _WKV6.launches += 1
     return out
 
 
@@ -194,6 +213,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
 
 
 wkv6.launches = 0
+# the operators count on the wrapper as defined here, also while a caller
+# has the module's name patched (a spy, a timing span)
+_WKV6 = wkv6
 
 
 # ============================================================= training
@@ -255,14 +277,93 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y[:, :s], state
 
 
+def _check_train(r, k, v, w, u, chunk) -> None:
+    b, _, h, hd = r.shape
+    _check_shapes(r, k, v, w, u, torch.empty((b, h, hd, hd), device="meta"))
+    if chunk < 1:
+        raise ValueError(f"wkv6_train: chunk {chunk}")
+
+
+torch.library.define(
+    "repro_torch::wkv6_train",
+    "(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, SymInt chunk) -> "
+    "(Tensor, Tensor, Tensor)")
+
+
+def _wkv6_train_cuda(r, k, v, w, u, chunk):
+    """The training forward from zeros in one C call
+    (``wkv6_train_launch``: each chunk's summary, the carry over chunks,
+    every chunk's y from its start), as the CUDA implementation of
+    ``repro_torch::wkv6_train``; returns (y, final state, the state at
+    each ``chunk`` tokens' start). It counts in ``wkv6.launches``; its
+    scratch (each chunk's fade) is allocated here."""
+    _check_train(r, k, v, w, u, chunk)
+    b, s, h, hd = r.shape
+    y = _check_operands(r, k, v, w, u)
+    nc = -(-s // chunk)
+    new = functools.partial(torch.empty, dtype=torch.float32,
+                            device=r.device)
+    final, starts = new((b, h, hd, hd)), new((b, nc, h, hd, hd))
+    fade = new((b, nc, h, hd))
+    strides = (ctypes.c_int64 * 16)(*_strides(r, k, v, w, y, u))
+    lib = _lib()
+    err = lib.wkv6_train_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        y.data_ptr(), final.data_ptr(), starts.data_ptr(), fade.data_ptr(),
+        strides, b, h, s, hd, chunk,
+        torch.cuda.current_stream(r.device).cuda_stream)
+    _build.check(lib, err, "wkv6_train")
+    _WKV6.launches += 1
+    return y, final, starts
+
+
+torch.library.impl("repro_torch::wkv6_train", "cuda", _wkv6_train_cuda)
+
+
+@torch.library.register_fake("repro_torch::wkv6_train")
+def _(r, k, v, w, u, chunk):
+    _check_train(r, k, v, w, u, chunk)
+    b, s, h, hd = r.shape
+    final = torch.empty((b, h, hd, hd), device=r.device)
+    return (torch.empty(r.shape, device=r.device), final,
+            final.new_empty((b, -(-s // chunk), h, hd, hd)))
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6_train)
+def _(r_shape, *args, out_shape=None, **kwargs):
+    """``wkv6``'s: the function is the same."""
+    b, s, h, hd = r_shape
+    return 5 * hd * hd * h * b * s
+
+
+wkv6_train_op = torch.ops.repro_torch.wkv6_train.default
+
+
+def train_reference_bytes(r, k, v, w, u, chunk) -> int:
+    """HBM bytes of the plain body of JAX's training forward,
+    ``chunked_time_scan`` around ``wkv_step`` (``repro/models/ssm.py:30-47``,
+    ``:97-103``): ``reference_bytes``' token loop, and the fp32 state
+    (B, H, hd, hd) kept at each chunk's start."""
+    b, s, h, hd = r.shape
+    return reference_bytes(r, k, v, w, u, None, False) \
+        + 4 * -(-s // chunk) * b * h * hd * hd
+
+
 def wkv6_chunk_states(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       w: torch.Tensor, u: torch.Tensor,
                       chunk: int = TIME_CHUNK
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The recurrence from zeros through ``wkv6`` (the kernel on the card),
-    one launch per ``chunk`` tokens from the previous chunk's state.
+    """The recurrence from zeros, keeping the state at each ``chunk``
+    tokens' start. A CUDA tensor makes one call of the training entry
+    (``wkv6_train``: every chunk in flight at once), or raises; a meta
+    tensor takes its fake implementation; a CPU tensor runs the plain
+    version through ``wkv6``, chunk after chunk from the last one's state.
     Returns (y, final state, the state at each chunk's start (B, chunks,
     H, hd, hd))."""
+    if r.device.type in ("cuda", "meta"):
+        return wkv6_train_op(r, k, v, w, u, chunk)
+    if r.device.type != "cpu":
+        raise ValueError(f"wkv6_chunk_states: no kernel for {r.device}")
     b, s, h, hd = r.shape
     state = torch.zeros((b, h, hd, hd), dtype=acc_dtype(r.dtype),
                         device=r.device)
@@ -437,8 +538,8 @@ _WKV6_BACKWARD = wkv6_backward
 
 class Wkv6Fn(torch.autograd.Function):
     """``wkv6`` from zeros under autograd, for training: the forward is
-    ``wkv6_chunk_states`` (the kernel on the card, the plain version on the
-    CPU), which keeps the state at each ``TIME_CHUNK`` boundary; the
+    ``wkv6_chunk_states`` (one C call on the card, the plain version on
+    the CPU), which keeps the state at each ``TIME_CHUNK`` boundary; the
     backward is ``wkv6_backward`` (the backward kernel on the card, its
     plain version ``wkv6_bwd`` on the CPU). Returns (y, final state)."""
 

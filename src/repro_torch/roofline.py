@@ -201,8 +201,9 @@ def _kernel_ops() -> dict:
     """{operator packet: (name, reference_bytes, the dtype its flops run
     in, or None for its first input's, whether its flops go to the
     autograd node running it)} of the kernels: the Mamba scan's recurrence
-    runs in fp32 whatever its inputs' dtype; the training forward counts
-    as the forward kernel it launches; a backward kernel's flops go to
+    runs in fp32 whatever its inputs' dtype; a training forward
+    (``flash_attention_train``, ``wkv6_train``, ``mamba_scan_train``)
+    counts as its forward kernel; a backward kernel's flops go to
     its Function's backward (``FlashAttentionFnBackward``,
     ``Wkv6FnBackward``, ``MambaScanFnBackward``), where the bounds count
     them."""
@@ -216,8 +217,13 @@ def _kernel_ops() -> dict:
             ("decode_attention", decode_attention.reference_bytes, None,
              False),
             ops.wkv6: ("wkv6", wkv6.reference_bytes, None, False),
+            ops.wkv6_train:
+            ("wkv6", wkv6.train_reference_bytes, None, False),
             ops.mamba_scan:
             ("mamba_scan", mamba_scan.reference_bytes, torch.float32, False),
+            ops.mamba_scan_train:
+            ("mamba_scan", mamba_scan.train_reference_bytes, torch.float32,
+             False),
             ops.flash_attention_backward:
             ("flash_attention_backward",
              flash_attention.backward_reference_bytes, None, True),

@@ -324,7 +324,7 @@ def test_mamba_scan_raises_rather_than_falling_back(cuda):
 
 
 # training: the recurrences under Wkv6Fn and MambaScanFn (the kernels'
-# forward one launch per 256-step chunk), S within one chunk, with a ragged
+# training forward one call a layer), S within one chunk, with a ragged
 # last chunk, and across two
 TRAIN_LENGTHS = [40, 300, 512]
 
@@ -358,7 +358,7 @@ def test_wkv6_training_carries_the_gradient(cuda, s):
     before = wkv6.launches
     check_grads(ops.wkv6, functools.partial(ops.wkv6, impl="reference"),
                 inputs, dy, 2e-5)
-    assert wkv6.launches == before + -(-s // 256)
+    assert wkv6.launches == before + 1
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -372,7 +372,121 @@ def test_mamba_scan_training_carries_the_gradient(cuda, s, dtype):
                 functools.partial(ops.mamba_scan, impl="reference"),
                 inputs, dout.to(inputs[0].dtype),
                 2e-5 if dtype == "float32" else TOL["bfloat16"])
-    assert mamba_scan.launches == before + -(-s // 256)
+    assert mamba_scan.launches == before + 1
+
+
+# the training forwards (one call a layer, every chunk's start state kept)
+# at ragged S: within a chunk, a ragged last chunk of 44 steps (under the
+# scan's 64-step tile) and of 100 (over it)
+TRAIN_FORWARD_LENGTHS = [40, 4 * 256 + 44, 4 * 256 + 100]
+
+
+def wkv6_chain(r, k, v, w, u, chunk=256):
+    """The plain version chunk by chunk from the last chunk's state, on
+    the inputs' device: (y, final state, starts)."""
+    from repro_torch.kernels.wkv6 import wkv6_plain
+    b, s, h, hd = r.shape
+    state = torch.zeros((b, h, hd, hd), device=r.device)
+    starts, ys = [], []
+    for c0 in range(0, s, chunk):
+        starts.append(state.clone())
+        ys.append(wkv6_plain(*(t[:, c0:c0 + chunk] for t in (r, k, v, w)),
+                             u, state)[0])
+    return torch.cat(ys, 1), state, torch.stack(starts, 1)
+
+
+@pytest.mark.parametrize("decays", ["inputs", "0 and 1"])
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("s", TRAIN_FORWARD_LENGTHS)
+def test_wkv6_train_forward_matches_plain(cuda, s, hd, decays):
+    """WKV6's training forward (summaries, carry, every chunk's y in one C
+    call, one launch counted) against the plain version chunk by chunk:
+    y, the final state and every chunk's start within the scan's limits;
+    with exact 0 (the state wiped) and 1 decays mixed in."""
+    from repro_torch.kernels import wkv6 as wk
+    r, k, v, w, u = wkv_on(cuda, (2, s, 3, hd), s + hd)
+    if decays == "0 and 1":
+        pick = torch.rand(w.shape, device=cuda,
+                          generator=torch.Generator(cuda).manual_seed(s))
+        w = torch.where(pick < 0.05, 0.0, torch.where(pick > 0.9, 1.0, w))
+    before = wkv6.launches
+    y, final, starts = wk.wkv6_chunk_states(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    want_y, want_final, want_starts = wkv6_chain(r, k, v, w, u)
+    assert starts.shape == want_starts.shape
+    assert torch.count_nonzero(starts[:, 0]) == 0
+    close_wkv(y, want_y)
+    close_wkv(final, want_final)
+    close_wkv(starts, want_starts)
+
+
+def mamba_chain(dt, dt_bias, b, c, x, z, a_log, d_skip, chunk=256):
+    """The scan kernel launched chunk by chunk, each from the last one's
+    state (the training forward before it kept its starts itself): (out,
+    final state, starts)."""
+    bsz, s, di = dt.shape
+    h = torch.zeros((bsz, di, a_log.shape[1]), device=dt.device)
+    starts, outs = [], []
+    for c0 in range(0, s, chunk):
+        starts.append(h.clone())
+        b_c, c_c, x_c, z_c = (t[:, c0:c0 + chunk] for t in (b, c, x, z))
+        outs.append(mamba_scan(dt[:, c0:c0 + chunk], dt_bias, b_c, c_c, x_c,
+                               z_c, a_log, d_skip, h)[0])
+    return torch.cat(outs, 1), h, torch.stack(starts, 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", TRAIN_FORWARD_LENGTHS)
+def test_mamba_train_forward_is_the_chain(cuda, s, dtype):
+    """The scan's training forward (one launch that writes every chunk's
+    start) against the chain of one launch a chunk: the starts bit-equal,
+    and out and the final state bit-equal wherever the chain ran the
+    chunked body (its last chunk at least a tile long); everything
+    against the plain version within the scan's limits."""
+    from repro_torch.kernels import mamba_scan as ms
+    *inputs, _ = mamba_on(cuda, 2, s, 48, 16, s, dtype, carried=False)
+    before = mamba_scan.launches, mamba_scan.token_launches
+    out, final, starts = ms.mamba_chunk_states(*inputs)
+    torch.cuda.synchronize()
+    assert (mamba_scan.launches, mamba_scan.token_launches) == \
+        (before[0] + 1, before[1])
+    chain = mamba_chain(*inputs)
+    assert torch.equal(starts, chain[2])
+    tail = s % 256
+    if tail == 0 or tail >= time_tile():
+        assert torch.equal(out, chain[0]) and torch.equal(final, chain[1])
+    else:
+        assert torch.equal(out[:, :s - tail], chain[0][:, :s - tail])
+    want, want_final = ops.mamba_scan(*inputs, impl="reference")
+    if out.dtype == torch.float32:
+        close_wkv(out, want)
+    else:
+        close(out, want, TOL["bfloat16"])
+    close_wkv(final, want_final)
+
+
+def test_train_forwards_raise_rather_than_fall_back(cuda):
+    """A CUDA tensor the training forwards do not take raises and launches
+    nothing: WKV6 in bf16 or at hd 128, the scan with a chunk that is no
+    multiple of its time tile or b in another dtype."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import wkv6 as wk
+    r, k, v, w, u = wkv_on(cuda, (2, 300, 3, 64), 4)
+    before = wkv6.launches, mamba_scan.launches
+    with pytest.raises(ValueError):
+        wk.wkv6_chunk_states(*(t.bfloat16() for t in (r, k, v, w, u)))
+    r2 = torch.zeros((2, 300, 3, 128), device=cuda)
+    with pytest.raises(ValueError):
+        wk.wkv6_chunk_states(r2, r2, r2, r2, torch.zeros((3, 128),
+                                                          device=cuda))
+    dt, bias, b, c, x, z, a_log, skip, _ = mamba_on(cuda, 2, 300, 48, 16, 3,
+                                                    "bfloat16")
+    with pytest.raises(ValueError):
+        ms.mamba_chunk_states(dt, bias, b, c, x, z, a_log, skip, chunk=100)
+    with pytest.raises(ValueError):
+        ms.mamba_chunk_states(dt, bias, b.float(), c, x, z, a_log, skip)
+    assert (wkv6.launches, mamba_scan.launches) == before
 
 
 # the backward kernels against their plain versions on the same inputs:
@@ -783,8 +897,8 @@ def test_wkv6_launches_on_local_shards(mesh11, s):
     kernel's. On this (1, 1) mesh the kernel writes the cache's own local
     tensor, so the write-back from ``local_map``'s temporary is not
     exercised: the 2 x 2 gloo tests and their mutant hold it. Under
-    autograd the call runs ``Wkv6Fn`` in the same map and launches per
-    chunk."""
+    autograd the call runs ``Wkv6Fn`` in the same map, one training
+    forward call."""
     r, k, v, w, u = wkv_on("cuda", (2, s, 4, 64), 11)
     state = torch.randn((2, 4, 64, 64), device="cuda",
                         generator=torch.Generator("cuda").manual_seed(2))
@@ -805,8 +919,8 @@ def test_wkv6_launches_on_local_shards(mesh11, s):
     leaves = [a.detach().requires_grad_() for a in args]
     before = wkv6.launches
     y, _ = ops.wkv6(*leaves, placed(mesh11, u, ("model", None)))
+    assert wkv6.launches == before + 1
     y.to_local().sum().backward()
-    assert wkv6.launches > before
     assert all(torch.isfinite(t.grad.to_local()).all() for t in leaves)
 
 
@@ -841,13 +955,48 @@ def test_mamba_scan_launches_on_local_shards(mesh11, s):
               for a in args]
     before = mamba_scan.launches
     out, _ = ops.mamba_scan(*leaves)
+    assert mamba_scan.launches == before + 1
     out.to_local().sum().backward()
-    assert mamba_scan.launches > before
     assert all(torch.isfinite(t.grad.to_local()).all() for t in leaves)
 
 
+@pytest.mark.parametrize("name", ["wkv6", "mamba_scan"])
+def test_train_forwards_on_local_shards(mesh11, name):
+    """The training forwards under a mesh: ``ops`` on DTensors with an
+    input that requires grad runs the Function inside ``local_map``, one
+    training call on the local shards, and its output (y or out) and
+    final state equal the unsharded training forward's bit for bit."""
+    seq = ("data", None, "model", None)
+    if name == "wkv6":
+        from repro_torch.kernels.wkv6 import wkv6_chunk_states as states
+        r, k, v, w, u = wkv_on("cuda", (2, 300, 4, 64), 12)
+        plain = (r, k, v, w, u)
+        args = [placed(mesh11, t, seq) for t in (r, k, v, w)] + [
+            placed(mesh11, u, ("model", None))]
+        counter, op = wkv6, ops.wkv6
+    else:
+        from repro_torch.kernels.mamba_scan import mamba_chunk_states \
+            as states
+        *plain, _ = mamba_on("cuda", 2, 300, 64, 16, 6, "float32",
+                             carried=False)
+        specs = [("data", None, "model"), ("model",), ("data", None, None),
+                 ("data", None, None), ("data", None, "model"),
+                 ("data", None, "model"), ("model", None), ("model",)]
+        args = [placed(mesh11, t, sp) for t, sp in zip(plain, specs)]
+        counter, op = mamba_scan, ops.mamba_scan
+    want, want_final, _ = states(*plain)
+    leaves = [a.detach().requires_grad_() for a in args]
+    before = counter.launches
+    got, final = op(*leaves)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert torch.equal(got.to_local(), want)
+    assert torch.equal(final.to_local(), want_final)
+
+
 @pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
-                                  "wkv6", "mamba_scan"])
+                                  "wkv6", "mamba_scan", "wkv6_train",
+                                  "mamba_scan_train"])
 def test_kernel_operators_pass_opcheck(cuda, name):
     """``torch.library.opcheck`` of each kernel's operator on card inputs:
     its schema (the recurrences' states mutated in place), its fake
@@ -877,6 +1026,17 @@ def test_kernel_operators_pass_opcheck(cuda, name):
         op, args = wk.wkv6_op, (r, r, r, rand(2, 40, 3, 64, low=0.9,
                                                high=0.999),
                                 rand(3, 64), rand(2, 3, 64, 64), True)
+    elif name == "wkv6_train":
+        r = rand(2, 300, 3, 64)
+        op, args = wk.wkv6_train_op, (r, r, r, rand(2, 300, 3, 64, low=0.9,
+                                                     high=0.999),
+                                      rand(3, 64), 256)
+    elif name == "mamba_scan_train":
+        dt, bc = rand(2, 300, 64, dtype=bf16), rand(2, 300, 32, dtype=bf16)
+        vec = rand(64)
+        op, args = ms.mamba_scan_train_op, (
+            dt, vec, bc[..., :16], bc[..., 16:], dt, dt,
+            rand(64, 16, low=0.0), vec, 256)
     else:
         dt, bc = rand(2, 70, 64, dtype=bf16), rand(2, 70, 32, dtype=bf16)
         vec = rand(64)

@@ -14,7 +14,8 @@ serving shapes (flash attention: FA_SHAPES, the serving prefills of
 qwen3-8b, phi3-mini-3.8b, pixtral-12b, h2o-danube-1.8b and hymba-1.5b
 and the training forward at qwen3-8b's, phi3-mini-3.8b's and
 h2o-danube-1.8b's microbatches; flash decode: B=4 x Hkv=8, grp 4, 544 slots, and batch 1 against 32,768 slots;
-bf16; WKV6's chunked body: B=4, S=1024, H=40, hd=64, fp32; the fused
+bf16; WKV6's chunked body: B=4, S=1024, H=40, hd=64, fp32, and its
+training forward at rwkv6-3b's B=2, S=4096, the model's decays; the fused
 Mamba scan: hymba's B=4, S=4096, di=1600, n=16, bf16; the backward
 kernels at the training microbatches: attention's at qwen3-8b's B=2,
 S=4096, 32/8 heads of 128, hymba-1.5b's B=4, 25/5 heads of 64, window
@@ -28,7 +29,9 @@ reverse order), with chip_smoke.py's time_ms. With ``--previous DIR``
 commit's unpacked by ``git archive HEAD src | tar -x -C build/parent``)
 each named kernel's source there is built with that directory's headers
 and timed in the same rounds behind the current wrapper, its C entry
-point keeping its arguments. Flash decode
+point keeping its arguments (the scan's gained two with its training
+forward's starts: an older scan raises; an older WKV6 without the
+training entry is timed at training through one launch a chunk). Flash decode
 is also timed on the same cache laid out head-major (B, Hkv, S, hd), which
 the kernel reads through its strides. Each WKV6 variant's relative L2
 error against an fp64 recurrence is printed too (B=2, S=1024, H=5, hd=64
@@ -125,10 +128,11 @@ VARIANTS = {
     "wkv6": {
         "as shipped": [],
         "the token-by-token body at every S": [
-            ("  return p.S >= CT ? launch_chunk<HD>(p, B, stream)",
-             "  return false ? launch_chunk<HD>(p, B, stream)")],
+            ("  return p.S >= CT ? launch_chunk<HD, false>(p, B, 1, stream)",
+             "  return false ? launch_chunk<HD, false>(p, B, 1, stream)")],
         "no chunk loads after the first": [
-            ("    if (c + 1 < nchunk) stage((c + 1) & 1, t0 + T);\n", "")],
+            ("    if (t0 + T < run_length<CHUNKS>(p)) stage(buf ^ 1, t0 + T);\n",
+             "")],
         "no 3xTF32 lo terms": TF32_ONLY,
         "no pairwise M": [
             ("      build_m<HD>(sr, sk, sw, uu, sM, tid);\n", "      (void)0;\n")],
@@ -164,6 +168,20 @@ VARIANTS = {
         "T = 32": [("constexpr int CT = 16;", "constexpr int CT = 32;")],
         "COLS = 16": [("constexpr int CCOLS = 32;",
                        "constexpr int CCOLS = 16;")],
+        "training summaries' copies three sub-chunks ahead (a ring of 4)": [
+            ("constexpr int SST = 2;", "constexpr int SST = 4;")],
+        "training summaries at 3 blocks an SM (80 registers)": [
+            ("__launch_bounds__(SumShape<HD>::NT, 2)",
+             "__launch_bounds__(SumShape<HD>::NT, 3)")],
+        "chunked body at 2 blocks an SM": [
+            ("  static constexpr int MIN_BLOCKS = (20 + NW - 1) / NW;",
+             "  static constexpr int MIN_BLOCKS = 2;")],
+
+        "training forward without its summaries kernel": [
+            ("  wkv6_summary_kernel<HD><<<",
+             "  if (false) wkv6_summary_kernel<HD><<<")],
+        "training forward without its carry kernel": [
+            ("  wkv6_carry_kernel<<<", "  if (false) wkv6_carry_kernel<<<")],
     },
     "mamba_scan": {
         "as shipped": [],
@@ -213,7 +231,8 @@ VARIANTS = {
         "8 warps a block (16 channels)": [
             ("constexpr int NW = 4;", "constexpr int NW = 8;"),
             ("constexpr int MIN_BLOCKS = 7;", "constexpr int MIN_BLOCKS = 3;")],
-        "the token body at every S": [("  if (p.S < T) {", "  if (true) {")],
+        "the token body at every S": [("  if (p.S < T && !p.starts) {",
+                                       "  if (true) {")],
     },
     "flash_attention_bwd": {
         "as shipped": [],
@@ -412,6 +431,12 @@ def build(kernels, previous: Path | None = None) -> dict:
                  str(lib), str(cu)], stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
         if previous is not None:
+            if kernel == "mamba_scan" and "float* starts" not in (
+                    previous / f"{kernel}.cu").read_text():
+                raise RuntimeError("mamba_scan_launch has taken starts and "
+                                   "chunk arguments since the training "
+                                   "forward kept its starts: an older "
+                                   "source cannot run behind this wrapper")
             lib = OUT / f"{kernel}_previous.so"
             procs[kernel, PREVIOUS] = (lib, subprocess.Popen(
                 [nvcc, *_build.NVCC_FLAGS, "-I", str(previous), "-o",
@@ -481,8 +506,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ablate_kernels: no CUDA device", file=sys.stderr)
         return 2
-    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT), str(ROOT / "tools")]
     import chip_smoke as cs
+    from time_train_forwards import wkv6_chain
     from repro_torch.kernels import decode_attention as dam
     from repro_torch.kernels import flash_attention as fam
     from repro_torch.kernels import mamba_scan as msm
@@ -495,13 +521,15 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}")
     libs = build(kernels, args.previous)
-    # the wrappers set each library's argument types on first load
-    types = {name: getattr(getattr(mods[name], LOADERS[name][1])(),
-                           f"{name}_launch").argtypes for name in kernels}
+    # the wrappers set each library's argument types on first load: every
+    # entry point they declared gets the same types in each variant
+    shipped = {name: getattr(mods[name], LOADERS[name][1])()
+               for name in kernels}
     for (kernel, _), lib in libs.items():
-        fn = getattr(lib, f"{kernel}_launch")
-        fn.argtypes = types[kernel]
-        fn.restype = ctypes.c_int
+        for attr, fn in vars(shipped[kernel]).items():
+            if isinstance(fn, ctypes._CFuncPtr) and hasattr(lib, attr):
+                getattr(lib, attr).argtypes = fn.argtypes
+                getattr(lib, attr).restype = fn.restype
 
     gen = torch.Generator("cuda").manual_seed(0)
     bf16 = torch.bfloat16
@@ -525,6 +553,9 @@ def main() -> int:
         cs.randn(gen, (4, 1024, 40, 64), torch.float32, 2.0) - 5)))
     wkv.append(cs.randn(gen, (40, 64), torch.float32, 0.5))
     wkv_state = torch.zeros((4, 40, 64, 64), device="cuda")
+    # the training forward at rwkv6-3b's microbatch
+    wkv_train = cs.decay(cs.wkv6_train_inputs(gen, 2, 4096)) \
+        if "wkv6" in kernels else None
     mbc = cs.randn(gen, (4, 4096, 32), bf16, 1.0)
     mzz = cs.randn(gen, (4, 4096, 3200), bf16, 1.0)
     mamba = ((cs.randn(gen, (4, 4096, 1600), torch.float32, 2.0) - 2.0)
@@ -596,6 +627,13 @@ def main() -> int:
             if kernel == "wkv6":
                 times.setdefault(f"wkv6 prefill: {name}", []).append(
                     cs.time_ms(lambda: wkm.wkv6(*wkv, wkv_state), 20))
+                # a library without the training entry (an older
+                # checkout's) trains through the chain it replaced
+                train = (lambda: wkm.wkv6_chunk_states(*wkv_train)) \
+                    if hasattr(lib, "wkv6_train_launch") \
+                    else (lambda: wkv6_chain(wkm, *wkv_train))
+                times.setdefault(f"wkv6 training forward: {name}",
+                                 []).append(cs.time_ms(train, 10))
                 continue
             if kernel == "mamba_scan":
                 times.setdefault(f"mamba scan prefill: {name}", []).append(
