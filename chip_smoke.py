@@ -23,9 +23,13 @@ Phases; each raises on failure, so any failure exits non-zero:
      time beside the plain version's and one PyTorch library call's where
      one computes the same function; flash decode is also timed at batch 1
      against a 32,768-slot cache; WKV6 also at its chunk edges (S of T-1,
-     T, T+1, 2T+3), with decays in the model's range and with exact 0s
-     and 1s, a decay-one-step-late mutant, and timed at the decode shape
-     (B=4, S=1, H=40, hd=64); the fused Mamba scan (dt's softplus, the
+     T, T+1, 2T+3, and S of 1 and 2 in the token body), with decays in
+     the model's range and with exact 0s and 1s, a decay-one-step-late
+     mutant; its token body at S of 1, 2 and T-1 at hd 16, 32 and 64, from
+     a state and from zero, in place in a stacked cache's layer slice; and
+     timed at the decode shape (B=4, S=1, H=40, hd=64) L2-warm and, walking
+     the 32 layers of a (32, 4, 40, 64, 64) cache past the L2, cold; the
+     fused Mamba scan (dt's softplus, the
      scan, the skip term, the gating) in bf16 and fp32 at hymba's serving
      prefill (B=4, S=4096, di=1600, n=16) from a zero and a carried state,
      at the decode shape (S=1) in place in a stacked state (its state
@@ -206,9 +210,13 @@ launches, both attention kernels
 once more for
 each of hd 96, 80 and 160, "_hd<n>", and for hymba's group of 5,
 "_hymba", at the shape and with the launches of the model served there,
-and the Mamba scan, "mamba_scan" at hymba's serving prefill with its
-chunked body's launches and "mamba_scan_decode" at S=1 with its token
-body's, both from hymba's run), the
+and the recurrences by body: "wkv6" at rwkv6-3b's serving prefill with
+its chunked body's launches and "wkv6_decode" at S=1 with its token
+body's (and "cold_ms", the token body's time a layer over a 32-layer
+cache past the L2), both from rwkv6-3b's run; "mamba_scan" at hymba's
+serving prefill with its chunked body's launches and
+"mamba_scan_decode" at S=1 with its token body's, both from hymba's
+run), the
 card's name and power limit from nvidia-smi, and {"ok": true, "device":
 {...}}.
 """
@@ -252,6 +260,9 @@ ATTENTION_SHAPES = {"hd96": "phi3-mini-3.8b", "hd80": "h2o-danube-1.8b",
 SWEEP_LEN = 256                      # phase 3b's prompt length
 REQUESTS, MAX_NEW = 4, 32
 PROMPT_LEN = SERVED["qwen3-8b"]      # the attention kernels' checks
+# rwkv6-3b's layers: its decode step walks one state slice a layer of a
+# (32, 4, 40, 64, 64) fp32 cache, 84 MB, past the 50 MB L2
+DECODE_LAYERS = 32
 RWKV_HEADS, RWKV_HD = 40, 64         # rwkv6-3b: d_model 2560 in heads of 64
 MAMBA_DI, MAMBA_N = 1600, 16         # hymba-1.5b: 25 x 64 channels, state 16
 # the Mamba scan against its plain version: the fp32 limits the tests hold
@@ -779,8 +790,13 @@ def time_long_cache(gen) -> None:
         f"{lib:.4f} ms (masked), bound {bound:.4f} ms ({by})")
 
 
-def check_wkv6() -> dict:
+def check_wkv6() -> list:
+    """WKV6 against its plain version at the serving prefill and the
+    decode step, its edges (check_wkv6_chunks) and its token body
+    (check_wkv6_token); timed. Returns the JSON entries "wkv6" (prefill)
+    and "wkv6_decode"."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.wkv6 import chunk_tokens
     gen = torch.Generator("cuda").manual_seed(2)
     log("wkv6 (RWKV6 WKV recurrence) vs its plain version:")
 
@@ -825,7 +841,7 @@ def check_wkv6() -> dict:
     y3, _ = ops.wkv6(r3, k3, v3, w3, u3, cache[1])
     plain_state = before[1].clone()
     y3p, _ = ops.wkv6(r3, k3, v3, w3, u3, plain_state, impl="reference")
-    assert_close("decode step, y", y3, y3p)
+    derr = assert_close("decode step, y", y3, y3p)
     assert_close("decode step, state in place", cache[1], plain_state)
     if not (torch.equal(cache[0], before[0])
             and torch.equal(cache[2], before[2])):
@@ -835,6 +851,7 @@ def check_wkv6() -> dict:
     assert_close("(BH, S, hd), hd 16", ops.wkv6(r4, k4, v4, w4, u4),
                  ops.wkv6(r4, k4, v4, w4, u4, impl="reference"))
     check_wkv6_chunks(gen, inputs)
+    check_wkv6_token(gen, inputs)
 
     # r, k, v, w read once, y written once, the state read and written
     # once; 5 hd^2 fp32 flops per (token, head): 2 hd^2 for r^T S and
@@ -846,29 +863,49 @@ def check_wkv6() -> dict:
                     2, warmup=1)
     log(f"  time: kernel {ms:.4f} ms, plain {plain:.4f} ms, no single "
         f"PyTorch call computes it, bound {bound:.4f} ms ({by})")
-    # the decode shape: one step from a carried state, the token body
+    # the decode shape: one step from a carried state, the token body;
+    # L2-warm (the slice just written), then cold: a layer's slice of a
+    # stacked DECODE_LAYERS-layer cache past the L2, the layers walked one
+    # after another as decode_step walks them
     n_bytes = (5 * r3.numel() + 2 * cache[1].numel() + u3.numel()) * 4
     dbound, dby = bound_ms(n_bytes, {torch.float32: 5 * hd * hd * b * h})
     dms = time_ms(lambda: ops.wkv6(r3, k3, v3, w3, u3, cache[1]), 200)
     dplain = time_ms(lambda: ops.wkv6(r3, k3, v3, w3, u3, cache[1],
                                       impl="reference"), 50)
+    layers = randn(gen, (DECODE_LAYERS, b, h, hd, hd), torch.float32, 1.0)
+
+    def walk():
+        for layer in layers:
+            ops.wkv6(r3, k3, v3, w3, u3, layer)
+    cold = time_ms(walk, 10) / DECODE_LAYERS
     log(f"wkv6 decode step (B={b}, S=1, H={h}, hd={hd}, "
-        f"{n_bytes / 1e6:.2f} MB): kernel {dms:.6f} ms, plain {dplain:.6f} "
-        f"ms, bound {dbound:.6f} ms ({dby})")
-    return {"name": "wkv6", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/wkv6.cu",
-            "replaces": "src/repro/kernels/rwkv6.py:49",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": by, "library_ms": None}
+        f"{n_bytes / 1e6:.2f} MB): kernel {dms:.6f} ms (L2-warm), "
+        f"{cold:.6f} ms a layer over a {DECODE_LAYERS}-layer cache of "
+        f"{layers.numel() * 4 / 1e6:.1f} MB (cold), plain {dplain:.6f} ms, "
+        f"bound {dbound:.6f} ms ({dby})")
+    for steps in (2, chunk_tokens() - 1):
+        rs, ks, vs, ws, us = inputs((b, steps, h, hd))
+        t_steps = time_ms(lambda: ops.wkv6(rs, ks, vs, ws, us, cache[1]),
+                          100)
+        log(f"  token body at S={steps} (B={b}, H={h}, hd={hd}): "
+            f"{t_steps:.6f} ms, {t_steps / steps:.6f} ms a step (L2-warm)")
+    del layers
+    entry = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+             "replaces": "src/repro/kernels/rwkv6.py:49", "library_ms": None}
+    return [{"name": "wkv6", **entry, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain, "bound_ms": bound, "bound_by": by},
+            {"name": "wkv6_decode", **entry, "max_abs_err": derr,
+             "ms": dms, "cold_ms": cold, "plain_ms": dplain,
+             "bound_ms": dbound, "bound_by": dby}]
 
 
 def check_wkv6_chunks(gen, inputs) -> None:
-    """The chunked body's edges and decays, at the serving heads: S of
+    """The bodies' edges and decays, at the serving heads: S of 1, 2 and
     T-1 (the token body), T, T+1 and 2T+3 (a ragged last chunk) from a
     nonzero state; decays in the model's range (0.99-0.9999, a state kept
-    over thousands of steps); decays with exact 0s (the state wiped) and
-    1s mixed in. A decay applied one step late, the slip a chunk's running
-    products invite, must fail the check."""
+    over thousands of steps) in both bodies; decays with exact 0s (the
+    state wiped) and 1s mixed in. A decay applied one step late, the slip
+    a chunk's running products invite, must fail the check."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.wkv6 import chunk_tokens
     t = chunk_tokens()
@@ -890,8 +927,16 @@ def check_wkv6_chunks(gen, inputs) -> None:
         assert_close(f"{name}, final state", st_k, st_p)
         return r, k, v, w, u, start, want
 
-    for s in (t - 1, t, t + 1, 2 * t + 3):
-        case(f"S={s} from a state (chunk T={t})", s, "serving")
+    for s in (1, 2, t - 1, t, t + 1, 2 * t + 3):
+        body = "token body" if s < t else "chunked body"
+        case(f"S={s} from a state (chunk T={t}, {body})", s, "serving")
+    r, k, v, w, u, start, want = case(f"S={t - 1}, decays 0.99-0.9999",
+                                      t - 1, "model")
+    late = torch.cat([torch.ones_like(w[:, :1]), w[:, :-1]], dim=1)
+    assert_mutant_caught(f"S={t - 1}", ops.wkv6(
+        r, k, v, late, u, start.clone(), impl="reference")[0], want,
+        "each decay one step late")
+    case(f"S={t - 1}, exact 0 and 1 decays", t - 1, "0 and 1")
     r, k, v, w, u, start, want = case(f"S={2 * t + 3}, decays 0.99-0.9999",
                                       2 * t + 3, "model")
     late = torch.cat([torch.ones_like(w[:, :1]), w[:, :-1]], dim=1)
@@ -901,6 +946,57 @@ def check_wkv6_chunks(gen, inputs) -> None:
     case("S=1024, decays 0.99-0.9999", 1024, "model")
     case(f"S={2 * t + 3}, exact 0 and 1 decays", 2 * t + 3, "0 and 1")
     case("S=1000, exact 0 and 1 decays", 1000, "0 and 1")
+
+
+def check_wkv6_token(gen, inputs) -> None:
+    """WKV6's token body at every S it serves below the chunked body's T
+    (1, 2 and T-1) and every head dim it takes (16, 32, 64), at the
+    serving batch and heads: into layer 1's slice of a stacked (3, B, H,
+    hd, hd) cache from the slice's contents, and from zero (the operator
+    with has_state false: the slice, poisoned with NaN, is not read and
+    gets the final state); y and the state against the plain version,
+    layers 0 and 2 unchanged, each call counted as a token-body launch.
+    The final state of the plain version with each decay one step late
+    must fail the check."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.wkv6 import chunk_tokens, wkv6, wkv6_op
+    b, h = REQUESTS, RWKV_HEADS
+    for hd in (16, 32, 64):
+        for steps in (1, 2, chunk_tokens() - 1):
+            r, k, v, w, u = inputs((b, steps, h, hd))
+            for start in ("a state", "zero"):
+                cache = randn(gen, (3, b, h, hd, hd), torch.float32, 1.0)
+                if start == "zero":
+                    cache[1] = float("nan")
+                before = cache.clone()
+                counts = wkv6.launches, wkv6.token_launches
+                if start == "a state":
+                    y, _ = ops.wkv6(r, k, v, w, u, cache[1])
+                    want_state = before[1].clone()
+                    held = before[1].clone(), want_state
+                else:
+                    y = wkv6_op(r, k, v, w, u, cache[1], False)
+                    want_state = torch.zeros_like(before[1])
+                if (wkv6.launches - counts[0],
+                        wkv6.token_launches - counts[1]) != (1, 1):
+                    raise AssertionError(f"wkv6 S={steps}: the call did not "
+                                         f"count one token-body launch")
+                want, _ = ops.wkv6(r, k, v, w, u, want_state,
+                                   impl="reference")
+                what = f"token body S={steps} hd {hd} from {start}"
+                assert_close(f"{what}, y", y, want)
+                assert_close(f"{what}, state in place", cache[1],
+                             want_state)
+                if not (torch.equal(cache[0], before[0])
+                        and torch.equal(cache[2], before[2])):
+                    raise AssertionError(f"{what}: wrote outside its "
+                                         f"state slice")
+            mutant, want_state = held
+            late = torch.cat([torch.ones_like(w[:, :1]), w[:, :-1]], dim=1)
+            ops.wkv6(r, k, v, late, u, mutant, impl="reference")
+            assert_mutant_caught(f"token body S={steps} hd {hd} from a "
+                                 f"state", mutant, want_state,
+                                 "each decay one step late, the final state")
 
 
 def assert_close_scan(name: str, got, want) -> float:
@@ -1239,21 +1335,28 @@ def check_counts(what: str, got: dict, want: dict) -> None:
         raise AssertionError(f"{what}: launch counts {got} != {want}")
 
 
-def check_scan_bodies(what: str, cfg, decode_steps: int) -> dict:
-    """The Mamba scan's launches since the last reset split by body: a
+def check_bodies(what: str, cfg, decode_steps: int) -> dict:
+    """The recurrences' launches since the last reset split by body: a
     prefill's must run the chunked body and each decode step's the token
-    body. Returns {"mamba_scan_chunked": n, "mamba_scan_token": n}."""
+    body (WKV6's in an attention-free model, the Mamba scan's in a
+    hybrid). Returns {"<kernel>_chunked": n, "<kernel>_token": n} for
+    "wkv6" and "mamba_scan"."""
     from repro_torch.kernels.mamba_scan import mamba_scan
-    token = mamba_scan.token_launches
-    bodies = {"mamba_scan_chunked": mamba_scan.launches - token,
-              "mamba_scan_token": token}
-    want = cfg.n_layers * decode_steps if cfg.hybrid_ssm else 0
-    if cfg.hybrid_ssm:
-        log(f"  mamba_scan by body in {what}: {bodies} (token body "
-            f"expected {want})")
-    if token != want:
-        raise AssertionError(f"{what}: {token} token-body launches of the "
-                             f"Mamba scan, expected {want}")
+    from repro_torch.kernels.wkv6 import wkv6
+    bodies = {}
+    for name, fn, runs in (("wkv6", wkv6, cfg.attn_free),
+                           ("mamba_scan", mamba_scan, cfg.hybrid_ssm)):
+        token = fn.token_launches
+        split = {f"{name}_chunked": fn.launches - token,
+                 f"{name}_token": token}
+        want = cfg.n_layers * decode_steps if runs else 0
+        if runs:
+            log(f"  {name} by body in {what}: {split} (token body expected "
+                f"{want})")
+        if token != want:
+            raise AssertionError(f"{what}: {token} token-body launches of "
+                                 f"{name}, expected {want}")
+        bodies.update(split)
     return bodies
 
 
@@ -1301,7 +1404,7 @@ def serve_full_width(arch: str) -> dict:
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     peak = torch.cuda.max_memory_allocated()
     check_counts("generate", launches, expected_counts(cfg, MAX_NEW - 1))
-    launches.update(check_scan_bodies("generate", cfg, MAX_NEW - 1))
+    launches.update(check_bodies("generate", cfg, MAX_NEW - 1))
     prefill_bound, decode_bound = serve_bounds(cfg, params, prompt_len)
     log(f"  bounds: prefill {prefill_bound[0]:.4f} ms ({prefill_bound[1]}), "
         f"decode {decode_bound[0]:.4f} ms/token ({decode_bound[1]})")
@@ -1315,7 +1418,7 @@ def serve_full_width(arch: str) -> dict:
                                                {"tokens": prompts}),
                     st["prefill_ms"]))
     check_counts("one prefill", ops.launch_counts(), expected_counts(cfg, 0))
-    check_scan_bodies("one prefill", cfg, 0)
+    check_bodies("one prefill", cfg, 0)
     _, pre, pos = prefill(params, cfg, {"tokens": prompts})
     caches = preallocate_cache(cfg, pre, prompt_len + MAX_NEW)
     del pre
@@ -1325,7 +1428,7 @@ def serve_full_width(arch: str) -> dict:
             st["decode_ms_per_token"])
     check_counts("one decode step", ops.launch_counts(),
                  expected_counts(cfg, 1, prefills=0))
-    check_scan_bodies("one decode step", cfg, 1)
+    check_bodies("one decode step", cfg, 1)
     del caches
     compare_paths(params, cfg, {"tokens": prompts},
                   [toks[:, i] for i in range(3)])
@@ -1767,7 +1870,7 @@ def sweep_depth_one() -> None:
             + ", ".join(f"{e:.3e}" for e in errs)
             + f" (tol {FP32_REL_TOL}); launches {counts}")
         check_counts(f"{name} depth 1", counts, expected_counts(cfg, 3))
-        check_scan_bodies(f"{name} depth 1", cfg, 3)
+        check_bodies(f"{name} depth 1", cfg, 3)
         if max(errs) > FP32_REL_TOL or not all(
                 torch.isfinite(g).all() and g.shape == (REQUESTS,
                                                          cfg.vocab_size)
@@ -2772,9 +2875,10 @@ def train_full_width(arch: str, bwd_ms: dict) -> dict:
         if any(torch_ops.values()):
             raise AssertionError(f"step {step} called the torch-ops "
                                  f"backwards {torch_ops}")
-        if mamba_scan.token_launches:
+        if mamba_scan.token_launches or wk.wkv6.token_launches:
             raise AssertionError(f"step {step}: {mamba_scan.token_launches}"
-                                 f" Mamba scan launches ran the token body")
+                                 f" Mamba scan and {wk.wkv6.token_launches}"
+                                 f" WKV6 launches ran the token body")
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
             raise AssertionError(f"step {step}: loss {loss}, norm {gnorm}")
         if step == 0 and abs(loss - math.log(cfg.vocab_size)) > 1.5:
@@ -3180,11 +3284,12 @@ def check_grouped_dispatch() -> None:
 
 
 def launch_counts() -> dict:
-    """Every kernel's launches since the last reset, and of the Mamba
-    scan's those that ran its token body."""
+    """Every kernel's launches since the last reset, and of WKV6's and the
+    Mamba scan's those that ran their token body."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.mamba_scan import mamba_scan
-    return {**ops.launch_counts(),
+    from repro_torch.kernels.wkv6 import wkv6
+    return {**ops.launch_counts(), "wkv6_token": wkv6.token_launches,
             "mamba_scan_token": mamba_scan.token_launches}
 
 
@@ -3258,7 +3363,7 @@ def sharded_train(mesh, arch: str) -> None:
         f"{', '.join(f'{t1 - t0:.1f}' for t0, t1 in zip(ms0, ms1))} ms); "
         f"updated parameters rel L2 {err:.3e}, max abs {worst:.3e}; embed "
         f"placed {pl}; launches of a step {c0} and {c1}")
-    want = {**train_counts(cfg), "mamba_scan_token": 0}
+    want = {**train_counts(cfg), "wkv6_token": 0, "mamba_scan_token": 0}
     if c0 != c1 or c0 != want:
         raise AssertionError(f"launch counts: unsharded {c0}, sharded {c1}, "
                              f"expected {want}")
@@ -3355,6 +3460,7 @@ def sharded_serve(mesh, arch: str, depth=None, prompt_len: int = 0) -> None:
         f"{ms1[1]:.1f} ms ({ms1[1] / ms0[1]:.2f}x); launches unsharded "
         f"{c0}, sharded {c1}")
     want = {**expected_counts(cfg, steps),
+            "wkv6_token": cfg.n_layers * steps if cfg.attn_free else 0,
             "mamba_scan_token": cfg.n_layers * steps if cfg.hybrid_ssm
             else 0}
     if c0 != c1 or c0 != want:
@@ -3793,7 +3899,7 @@ def main() -> int:
         smi = environment()
     with phase("2, kernels against their plain versions"):
         kernels = [check_flash_attention(), check_decode_attention(),
-                   check_wkv6()]
+                   *check_wkv6()]
         kernels += check_mamba_scan()
         for tag in ATTENTION_SHAPES:
             kernels += check_attention_shape(tag)
@@ -3802,7 +3908,8 @@ def main() -> int:
     # shape: {entry: (model, kernel)}
     launched_by = {"flash_attention": ("qwen3-8b", "flash_attention"),
                    "decode_attention": ("qwen3-8b", "decode_attention"),
-                   "wkv6": ("rwkv6-3b", "wkv6"),
+                   "wkv6": ("rwkv6-3b", "wkv6_chunked"),
+                   "wkv6_decode": ("rwkv6-3b", "wkv6_token"),
                    "mamba_scan": ("hymba-1.5b", "mamba_scan_chunked"),
                    "mamba_scan_decode": ("hymba-1.5b", "mamba_scan_token")}
     for tag, arch in ATTENTION_SHAPES.items():
@@ -3839,7 +3946,7 @@ def main() -> int:
     # that the card ran before them
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "torch_ops_ms"]
+             "library_ms", "cold_ms", "torch_ops_ms"]
     print(json.dumps({"kernels": [{key: k[key] for key in order if key in k}
                                   for k in kernels]}))
     print(smi)

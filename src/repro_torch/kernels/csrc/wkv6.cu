@@ -21,8 +21,9 @@
 //
 // Chunked body, S >= CT. Token by token the recurrence is a chain of 3
 // dependent FMAs per state element per token, and only the (b, h, value
-// column) axes are parallel: the token body runs 5.3x the bound at the
-// serving shape on that chain. The chunked form cuts the chain. For a
+// column) axes are parallel: run at the serving prefill, the token body
+// waits on that chain (tools/ablate_kernels.py wkv6, "the token-by-token
+// body at every S"). The chunked form cuts the chain. For a
 // run of L tokens with D[t][i] = prod_{tau<t} w[tau][i], E[s][i] =
 // prod_{s<tau<L} w[tau][i], A[i] = prod_tau w[tau][i] (running products:
 // every factor <= 1, so no division, no log, nothing to overflow, and a
@@ -96,29 +97,61 @@
 // A decay of exactly 0 wipes G and the carried start as the recurrence
 // wipes its state; a decay of 1 leaves both as they are.
 //
-// Token body, S < CT (every decode step, S = 1): the chunked form has
-// nothing to batch. A grid of (B * H, hd / COLS) blocks each owns COLS
-// columns of one head's state in registers; KS = hd / 8 neighbouring
-// lanes share a column, each holding 8 key rows, and a shuffle sum over
-// the KS lanes gives y_j (640 blocks of 128 threads at hd 64, all
-// resident: the launch bounds hold a thread to 102 registers). Steps are
-// staged by cp.async in 16-step chunks, two buffers; a thread's 8 rows
-// are two runs of 4, so the 8 lanes of a quarter warp read 128
-// contiguous bytes.
+// Token body, S < CT (every decode step, S = 1, and a prompt shorter
+// than a chunk): the chunked form has nothing to batch, and a step is
+// bytes: it reads and writes the (B, H, hd, hd) state, 96 % of the 5.46
+// MB a decode step moves at rwkv6-3b's shape (B=4, H=40, hd=64). The body
+// this one replaced ran 3.3x that bound: its thread held one value column
+// of 8 key rows, so the 8 lanes of a column touched 8 rows 1 KB apart and
+// used 16 of each 32-byte sector; it staged the steps by cp.async in
+// shared memory behind barriers, with y's round trip through shared
+// memory, for a single token; it read u as scalars and held 8 state
+// values a thread.
+//
+// Here a block of NT threads owns COLS = hd / TSPLIT value columns of one
+// (b, h) state (two blocks a head: 320 blocks of 64 threads at rwkv6-3b's
+// batch of 4, all resident). A thread owns a float4 of neighbouring value
+// columns for a run of R = hd / RG neighbouring key rows: the LR = COLS / 4
+// lanes of a row group lie along the value dim, so a warp reads and writes
+// whole rows of the block's columns, 16 bytes a thread (full 32-byte
+// sectors). The thread's whole slice (32 values at hd 64, 8 KB a block) is
+// loaded before any arithmetic, all of it in flight at once. r, k, w of its
+// rows and u come straight into registers by 16-byte loads (the lanes of a
+// row group read the same bytes), v as one float4; nothing is staged. A
+// step: y_j = sum_i r_i S_ij + (sum_i r_i u_i k_i) v_j over the thread's
+// rows, and S_ij <- fmaf(w_i, S_ij, k_i v_j); the row groups' partials are
+// summed by shuffles inside a warp and across warps through shared memory
+// behind one barrier (a buffer a step parity: a step's readers are done
+// before the next step's barrier); y is stored as a float4. Steps 2 to 15
+// keep the state in registers, each step's operands loaded while the one
+// before it computes.
+//
+// A launch costs about what the step's own work does (an empty kernel
+// back to back takes 0.0019 ms on the H100): what the body's work adds
+// to it is about the bound. TRG and TSPLIT were chosen by timing their
+// alternatives (tools/ablate_kernels.py wkv6; PERF.md).
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int TS = 16;  // token body: steps staged per buffer, 2 buffers
-constexpr int R = 8;    // token body: key rows of the state per thread
-constexpr int G = R / 4;
+constexpr int TRG = 8;     // token body: key-row groups of a head
+constexpr int TSPLIT = 2;  // token body: blocks a head, by value columns
 
 template <int HD>
 struct TokenShape {
-  static constexpr int KS = HD / R;  // lanes per value column
-  static constexpr int COLS = HD < 128 / KS ? HD : 128 / KS;
-  static constexpr int NT = COLS * KS;
+  // value columns a block: a warp's lanes must find a row each
+  static constexpr int COLS = HD / TSPLIT >= 128 / HD ? HD / TSPLIT
+                                                       : 128 / HD;
+  static constexpr int SPLIT = HD / COLS;   // blocks a head
+  static constexpr int LR = COLS / 4;       // lanes along a row, a float4 each
+  // row groups: at least a warp's worth of lanes
+  static constexpr int RG = TRG * LR >= 32 ? TRG : 32 / LR;
+  static constexpr int R = HD / RG;  // key rows a thread
+  static constexpr int NT = LR * RG;
+  static constexpr int NW = NT / 32;
+  static_assert(RG <= HD && R * RG == HD && NT % 32 == 0, "token lanes");
+  static_assert(R % 4 == 0 || R <= 2, "token rows");
 };
 
 struct WkvParams {
@@ -141,121 +174,124 @@ struct WkvParams {
   int chunk;      // training: tokens of grid z's chunk
 };
 
-__device__ __forceinline__ void copy4(float* dst, const float* src) {
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+// N neighbouring floats into registers, 16 bytes a load where N allows
+template <int N>
+__device__ __forceinline__ void load_run(float* dst, const float* src) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < N; e += 4) to4(dst + e, ld4(src + e));
+  } else if constexpr (N == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(src);
+    dst[0] = f.x;
+    dst[1] = f.y;
+  } else {
+    dst[0] = src[0];
+  }
 }
 
+__device__ __forceinline__ float4 fma4(float a, float4 x, float4 y) {
+  return make_float4(fmaf(a, x.x, y.x), fmaf(a, x.y, y.y), fmaf(a, x.z, y.z),
+                     fmaf(a, x.w, y.w));
+}
+
+// a step's operands for one thread: r, k, w of its key rows, v of its
+// four value columns
+template <int R>
+struct TokenStep {
+  float r[R], k[R], w[R];
+  float4 v;
+};
+
 template <int HD>
-__global__ void __launch_bounds__(TokenShape<HD>::NT, 5) wkv6_token_kernel(
+__global__ void __launch_bounds__(TokenShape<HD>::NT) wkv6_token_kernel(
     const WkvParams p) {
-  constexpr int KS = TokenShape<HD>::KS;
-  constexpr int COLS = TokenShape<HD>::COLS;
-  constexpr int NT = TokenShape<HD>::NT;
-  __shared__ __align__(16) float sR[2][TS * HD];
-  __shared__ __align__(16) float sK[2][TS * HD];
-  __shared__ __align__(16) float sW[2][TS * HD];
-  __shared__ __align__(16) float sV[2][TS * COLS];
-  __shared__ __align__(16) float sY[TS * COLS];
+  using C = TokenShape<HD>;
+  constexpr int R = C::R, LR = C::LR, NW = C::NW;
+  // the warps' y partials, a buffer a step parity
+  __shared__ __align__(16) float sY[2][NW][C::COLS];
 
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
-  const int col0 = blockIdx.y * COLS;
-  const int tid = threadIdx.x, ks = tid % KS, c = tid / KS, j = col0 + c;
-  const float* Rg = p.r + b * p.r_sb + h * p.r_sh;
-  const float* Kg = p.k + b * p.k_sb + h * p.k_sh;
-  const float* Vg = p.v + b * p.v_sb + h * p.v_sh + col0;
-  const float* Wg = p.w + b * p.w_sb + h * p.w_sh;
-  float* Yg = p.y + b * p.y_sb + h * p.y_sh + col0;
-  float* St = p.state + b * p.st_sb + h * p.st_sh;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int i0 = R * (tid / LR);                        // first key row
+  const int j = blockIdx.y * C::COLS + 4 * (tid % LR);  // first value column
+  float* St = p.state + b * p.st_sb + h * p.st_sh + i0 * p.st_si + j;
 
-  // rows of this thread: 4 * (g * KS + ks) + e for g < G, e < 4
-  float s[R], u[R];
+  // the thread's state slice first, every load issued before any use
+  float4 s[R];
 #pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = 4 * (g * KS + ks) + e;
-      u[4 * g + e] = p.u[h * p.u_sh + i];
-      s[4 * g + e] = p.has_state ? St[i * p.st_si + j] : 0.f;
-    }
-
-  constexpr int CPR = HD / 4;    // 16-byte chunks per r, k, w row
-  constexpr int VPR = COLS / 4;  // 16-byte chunks per v, y row
-  // start the copies of steps [t0, t0 + TS) into buffer `buf` as one group
-  auto stage = [&](int buf, int t0) {
-    const int n = min(TS, p.S - t0);
-    for (int idx = tid; idx < n * CPR; idx += NT) {
-      const int t = idx / CPR, q = 4 * (idx % CPR);
-      const int64_t step = t0 + t;
-      cp_async16(sR[buf] + t * HD + q, Rg + step * p.r_ss + q);
-      cp_async16(sK[buf] + t * HD + q, Kg + step * p.k_ss + q);
-      cp_async16(sW[buf] + t * HD + q, Wg + step * p.w_ss + q);
-    }
-    for (int idx = tid; idx < n * VPR; idx += NT) {
-      const int t = idx / VPR, q = 4 * (idx % VPR);
-      cp_async16(sV[buf] + t * COLS + q,
-                  Vg + (int64_t)(t0 + t) * p.v_ss + q);
-    }
-    cp_async_commit();
+  for (int e = 0; e < R; ++e)
+    s[e] = p.has_state ? ld4(St + e * p.st_si)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* Rg = p.r + b * p.r_sb + h * p.r_sh + i0;
+  const float* Kg = p.k + b * p.k_sb + h * p.k_sh + i0;
+  const float* Wg = p.w + b * p.w_sb + h * p.w_sh + i0;
+  const float* Vg = p.v + b * p.v_sb + h * p.v_sh + j;
+  float* Yg = p.y + b * p.y_sb + h * p.y_sh + j;
+  // step t's operands, straight into registers
+  auto load = [&](TokenStep<R>& x, int t) {
+    load_run<R>(x.r, Rg + t * p.r_ss);
+    load_run<R>(x.k, Kg + t * p.k_ss);
+    load_run<R>(x.w, Wg + t * p.w_ss);
+    x.v = ld4(Vg + t * p.v_ss);
   };
+  TokenStep<R> cur, nxt;
+  load(cur, 0);
+  float u[R];
+  load_run<R>(u, p.u + h * p.u_sh + i0);
 
-  stage(0, 0);
-  for (int t0 = 0, cur = 0; t0 < p.S; t0 += TS, cur ^= 1) {
-    const int n = min(TS, p.S - t0);
-    // the other buffer's readers finished before the last chunk's y store
-    if (t0 + TS < p.S)
-      stage(cur ^ 1, t0 + TS);
-    else
-      cp_async_commit();  // keep the count
-    cp_async_wait<1>();  // this chunk's copies
-    __syncthreads();
-    const float* cR = sR[cur];
-    const float* cK = sK[cur];
-    const float* cW = sW[cur];
-    const float* cV = sV[cur];
-
-#pragma unroll 2
-    for (int t = 0; t < n; ++t) {
-      const float vj = cV[t * COLS + c];
-      float yp = 0.f;
+#pragma unroll 1
+  for (int t = 0; t < p.S; ++t) {
+    if (t + 1 < p.S) load(nxt, t + 1);
+    // this thread's rows: r^T S and a = r . (u * k), then the update
+    float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+    float a = 0.f;
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const int off = t * HD + 4 * (g * KS + ks);
-        const float4 r4 = *reinterpret_cast<const float4*>(cR + off);
-        const float4 k4 = *reinterpret_cast<const float4*>(cK + off);
-        const float4 w4 = *reinterpret_cast<const float4*>(cW + off);
-        const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
-        const float kk[4] = {k4.x, k4.y, k4.z, k4.w};
-        const float ww[4] = {w4.x, w4.y, w4.z, w4.w};
+    for (int e = 0; e < R; ++e) {
+      const float ke = cur.k[e], we = cur.w[e];
+      a = fmaf(cur.r[e], u[e] * ke, a);
+      y = fma4(cur.r[e], s[e], y);
+      s[e] = make_float4(fmaf(we, s[e].x, ke * cur.v.x),
+                         fmaf(we, s[e].y, ke * cur.v.y),
+                         fmaf(we, s[e].z, ke * cur.v.z),
+                         fmaf(we, s[e].w, ke * cur.v.w));
+    }
+    y = fma4(a, cur.v, y);
+    // summed over the row groups: a warp's by shuffles, then the warps'
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int m = 4 * g + e;
-          const float kv = kk[e] * vj;
-          yp = fmaf(rr[e], fmaf(u[m], kv, s[m]), yp);
-          s[m] = fmaf(ww[e], s[m], kv);
+    for (int o = LR; o < 32; o <<= 1) {
+      y.x += __shfl_xor_sync(0xffffffffu, y.x, o);
+      y.y += __shfl_xor_sync(0xffffffffu, y.y, o);
+      y.z += __shfl_xor_sync(0xffffffffu, y.z, o);
+      y.w += __shfl_xor_sync(0xffffffffu, y.w, o);
+    }
+    if constexpr (NW > 1) {
+      float(*part)[C::COLS] = sY[t & 1];
+      if (lane < LR) *reinterpret_cast<float4*>(part[warp] + 4 * lane) = y;
+      __syncthreads();
+      if (tid < LR) {
+        y = ld4(part[0] + 4 * tid);
+#pragma unroll
+        for (int q = 1; q < NW; ++q) {
+          const float4 o = ld4(part[q] + 4 * tid);
+          y.x += o.x;
+          y.y += o.y;
+          y.z += o.z;
+          y.w += o.w;
         }
       }
-#pragma unroll
-      for (int o = KS / 2; o > 0; o >>= 1)
-        yp += __shfl_xor_sync(0xffffffffu, yp, o);
-      if (ks == 0) sY[t * COLS + c] = yp;
     }
-    __syncthreads();
-    for (int idx = tid; idx < n * VPR; idx += NT) {
-      const int t = idx / VPR, q = 4 * (idx % VPR);
-      copy4(Yg + (int64_t)(t0 + t) * p.y_ss + q, sY + t * COLS + q);
-    }
+    if (tid < LR) *reinterpret_cast<float4*>(Yg + t * p.y_ss) = y;
+    cur = nxt;
   }
 
 #pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      St[(4 * (g * KS + ks) + e) * p.st_si + j] = s[4 * g + e];
+  for (int e = 0; e < R; ++e)
+    *reinterpret_cast<float4*>(St + e * p.st_si) = s[e];
 }
 
 template <int HD>
 int launch_token(const WkvParams& p, int B, cudaStream_t stream) {
-  const dim3 grid(B * p.H, HD / TokenShape<HD>::COLS);
+  const dim3 grid(B * p.H, TokenShape<HD>::SPLIT);
   wkv6_token_kernel<HD><<<grid, TokenShape<HD>::NT, 0, stream>>>(p);
   return cudaGetLastError();
 }

@@ -28,8 +28,8 @@ no JAX kernel: it takes the model's (B, S, ...) layout only.
 
 Each wrapper counts its launches in ``.launches`` (the backward kernels'
 too: one call of ``flash_attention_backward`` is one C call of three
-kernels, counted once); ``mamba_scan`` also counts in
-``.token_launches`` those that ran its token body (decode).
+kernels, counted once); ``wkv6`` and ``mamba_scan`` also count in
+``.token_launches`` those that ran their token body (decode).
 
 Under a mesh (``sharding.ctx``) every function takes DTensors and runs
 the kernel, or on the CPU its plain version, on each rank's local shards
@@ -78,6 +78,7 @@ KERNELS = {"flash_attention": _flash.flash_attention,
 def reset_launches() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    _wkv6.wkv6.token_launches = 0
     _mamba.mamba_scan.token_launches = 0
 
 

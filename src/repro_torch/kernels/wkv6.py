@@ -3,7 +3,10 @@
 Replaces the Pallas TPU kernel ``repro/kernels/rwkv6.py`` (``wkv6_chunked``).
 The kernel is ``csrc/wkv6.cu``; its header says what bounds it on the H100
 and how its design answers that: a chunked body on the tensor cores for
-S >= ``chunk_tokens()``, the token-by-token body below it (decode).
+S >= ``chunk_tokens()``, the token-by-token body below it (decode), which
+reads and writes the state 16 bytes a thread along whole rows. The wrapper
+counts its launches in ``wkv6.launches`` and, of them, those that ran the
+token body in ``wkv6.token_launches``.
 
 Layout is the model's: r, k, v, w (B, S, H, hd), u (H, hd), all fp32, and
 a state (B, H, hd, hd) indexed [key dim i, value dim j]. It computes, for
@@ -95,6 +98,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
 def chunk_tokens() -> int:
     """T of the kernel's chunked body: a call with S >= T runs the chunked
     body, a shorter one (a decode step) the token-by-token body."""
@@ -123,6 +127,8 @@ def _check_operands(r, k, v, w, u) -> torch.Tensor:
     if u.device != r.device or u.dtype != r.dtype or u.stride(1) != 1:
         raise ValueError("wkv6: u must be fp32 on r's device, with a "
                          "contiguous head dim")
+    if u.data_ptr() % 16 or u.stride(0) % 4:
+        raise ValueError("wkv6: u needs 16-byte aligned rows")
     return torch.empty(r.shape, dtype=torch.float32, device=r.device)
 
 
@@ -150,6 +156,7 @@ def _wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_shapes(r, k, v, w, u, state)
     b, s, h, hd = r.shape
     out = _check_operands(r, k, v, w, u)
+    # the token body reads each state row 16 bytes a load
     _check_operand("state", state, r)
     strides = (ctypes.c_int64 * 19)(*_strides(r, k, v, w, out, u),
                                     *state.stride()[:3])
@@ -162,6 +169,8 @@ def _wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # the state was written in place, as an in-place op marks it
     torch.autograd.graph.increment_version(state)
     _WKV6.launches += 1
+    if s < chunk_tokens():
+        _WKV6.token_launches += 1
     return out
 
 
@@ -212,7 +221,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     return wkv6_op(r, k, v, w, u, final, state is not None), final
 
 
+# launches, and of them those that ran the token body (S < chunk_tokens())
 wkv6.launches = 0
+wkv6.token_launches = 0
 # the operators count on the wrapper as defined here, also while a caller
 # has the module's name patched (a spy, a timing span)
 _WKV6 = wkv6

@@ -46,6 +46,9 @@ FA_CARD_CASES = [
 # range, or exact 0s and 1s mixed in
 WKV_CHUNK_CASES = [(s, decays) for s in ("T-1", "T", "T+1", "2T+3", "1000")
                    for decays in ("inputs", "0.99-0.9999", "0 and 1")]
+# WKV6's token body: S of 1 (a decode step), 2 and T-1 (the longest run
+# below the chunked body), at every head dim the kernel takes
+WKV_TOKEN_STEPS = ["1", "2", "T-1"]
 # caches long enough to split over many blocks; grp 16, the largest group
 DECODE_CARD_CASES = [
     (2, 2, 4, 4096, 128, 64, "bfloat16"),
@@ -216,13 +219,77 @@ def test_wkv6_chunk_edges_and_decays(cuda, s, decays):
                              .astype(np.float32))
     r, k, v, w, u, start = (x.to(cuda) for x in (r, k, v, w, u, start))
     st_k, st_p = start.clone(), start.clone()
-    before = wkv6.launches
+    before = wkv6.launches, wkv6.token_launches
     y, _ = ops.wkv6(r, k, v, w, u, st_k)
     torch.cuda.synchronize()
-    assert wkv6.launches == before + 1
+    assert (wkv6.launches, wkv6.token_launches) == \
+        (before[0] + 1, before[1] + (steps < t))
     want, _ = ops.wkv6(r, k, v, w, u, st_p, impl="reference")
     close_wkv(y, want)
     close_wkv(st_k, st_p)
+
+
+@pytest.mark.parametrize("start", ["state", "zero"])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("s", WKV_TOKEN_STEPS)
+def test_wkv6_token_body_matches_plain(cuda, s, hd, start):
+    """The token body into layer 1's slice of a stacked (3, B, H, hd, hd)
+    cache, from the slice's contents or from zero (the slice poisoned
+    with NaN: has_state 0 reads none of it and writes the final state
+    there), against the plain version; layers 0 and 2 unchanged; each
+    launch counted as the token body's. From zero the public call with no
+    state gives the same y."""
+    from repro_torch.kernels.wkv6 import wkv6_op
+    steps = {"1": 1, "2": 2, "T-1": chunk_tokens() - 1}[s]
+    r, k, v, w, u = wkv_on(cuda, (3, steps, 5, hd), steps * hd)
+    cache = torch.randn((3, 3, 5, hd, hd), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(hd))
+    if start == "zero":
+        cache[1] = float("nan")
+    before = cache.clone()
+    counts = wkv6.launches, wkv6.token_launches
+    if start == "state":
+        y, final = ops.wkv6(r, k, v, w, u, cache[1])
+        assert final.data_ptr() == cache[1].data_ptr()
+        want_state = before[1].clone()
+    else:
+        y = wkv6_op(r, k, v, w, u, cache[1], False)
+        y_none, final_none = ops.wkv6(r, k, v, w, u)
+        want_state = torch.zeros_like(before[1])
+    torch.cuda.synchronize()
+    calls = 1 if start == "state" else 2
+    assert (wkv6.launches, wkv6.token_launches) == \
+        (counts[0] + calls, counts[1] + calls)
+    want, _ = ops.wkv6(r, k, v, w, u, want_state, impl="reference")
+    close_wkv(y, want)
+    close_wkv(cache[1], want_state)
+    if start == "zero":
+        close_wkv(y_none, want)
+        close_wkv(final_none, want_state)
+    assert torch.equal(cache[0], before[0]) and \
+        torch.equal(cache[2], before[2])
+
+
+def test_wkv6_raises_on_a_misaligned_state(cuda):
+    """A state whose rows are not 16-byte aligned (its start 4 bytes off,
+    or a key-row stride of 65 floats) raises and launches nothing; so
+    does a u whose start is 4 bytes off, and the state is left as it
+    was."""
+    r, k, v, w, u = wkv_on(cuda, (2, 1, 3, 64), 9)
+    counts = wkv6.launches, wkv6.token_launches
+    flat = torch.zeros(2 * 3 * 64 * 64 + 1, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.wkv6(r, k, v, w, u, flat[1:].view(2, 3, 64, 64))
+    wide = torch.zeros((2, 3, 64, 65), device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.wkv6(r, k, v, w, u, wide[..., :64])
+    u_off = torch.zeros(3 * 64 + 1, device=cuda)[1:].view(3, 64)
+    u_off.copy_(u)
+    state = torch.ones((2, 3, 64, 64), device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.wkv6(r, k, v, w, u_off, state)
+    assert (wkv6.launches, wkv6.token_launches) == counts
+    assert torch.equal(state, torch.ones_like(state))
 
 
 def mamba_on(cuda, bsz, s, di, n, seed, dtype, carried=True):

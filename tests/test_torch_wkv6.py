@@ -103,11 +103,14 @@ def test_wkv6_state_carries_across_a_split(hd):
     assert y[:, 40:].abs().max() > 1e-3
 
 
-@pytest.mark.parametrize("s", [1, 48])
-def test_wkv6_matches_jax_time_scan_from_a_state(s):
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("s", [1, 2, 15, 48])
+def test_wkv6_matches_jax_time_scan_from_a_state(s, hd):
     """Against the model's own recurrence in JAX, ``chunked_time_scan`` of
-    ``wkv_step``, from a nonzero state in the model layout."""
-    b, h, hd = 2, 3, 16
+    ``wkv_step``, from a nonzero state in the model layout: at every S
+    the kernel's token body serves (1 to 15, below its chunked body's T)
+    and past it, at each head dim the kernel takes."""
+    b, h = 2, 3
     r, k, v, w, u = wkv_inputs((b, s, h, hd), s)
     state0 = rand(np.random.default_rng(s + 1), (b, h, hd, hd))
     seq = tuple(jnp.asarray(a).transpose(1, 0, 2, 3) for a in (r, k, v, w))
@@ -142,7 +145,7 @@ def test_wkv6_does_not_fall_back_off_the_cpu():
         wkv6(types.SimpleNamespace(device=torch.device("mps")), r, r, r, u)
     with pytest.raises(ValueError):
         ops.wkv6(r, r, r, r, u, impl="pallas")
-    assert wkv6.launches == 0
+    assert wkv6.launches == 0 and wkv6.token_launches == 0
 
 
 # ------------------------------------------------- chunked algebra (CPU)

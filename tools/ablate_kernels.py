@@ -3,7 +3,7 @@
   python3 tools/ablate_kernels.py [flash_attention] [decode_attention] [wkv6]
                                   [mamba_scan] [flash_attention_bwd]
                                   [wkv6_bwd] [mamba_scan_bwd]
-                                  [--previous DIR]
+                                  [--previous DIR] [--match TEXT]
 
 Builds variants of the named sources under src/repro_torch/kernels/csrc/
 (all seven when none is named), each with one part of the kernel taken
@@ -14,8 +14,10 @@ serving shapes (flash attention: FA_SHAPES, the serving prefills of
 qwen3-8b, phi3-mini-3.8b, pixtral-12b, h2o-danube-1.8b and hymba-1.5b
 and the training forward at qwen3-8b's, phi3-mini-3.8b's and
 h2o-danube-1.8b's microbatches; flash decode: B=4 x Hkv=8, grp 4, 544 slots, and batch 1 against 32,768 slots;
-bf16; WKV6's chunked body: B=4, S=1024, H=40, hd=64, fp32, and its
-training forward at rwkv6-3b's B=2, S=4096, the model's decays; the fused
+bf16; WKV6's chunked body: B=4, S=1024, H=40, hd=64, fp32, its
+training forward at rwkv6-3b's B=2, S=4096, the model's decays, and its
+token body at the decode shape B=4, H=40, hd=64 from a state, S=1 and
+S=15 L2-warm and S=1 a layer walking a 32-layer (84 MB) cache, cold; the fused
 Mamba scan: hymba's B=4, S=4096, di=1600, n=16, bf16; the backward
 kernels at the training microbatches: attention's at qwen3-8b's B=2,
 S=4096, 32/8 heads of 128, hymba-1.5b's B=4, 25/5 heads of 64, window
@@ -36,8 +38,10 @@ is also timed on the same cache laid out head-major (B, Hkv, S, hd), which
 the kernel reads through its strides. Each WKV6 variant's relative L2
 error against an fp64 recurrence is printed too (B=2, S=1024, H=5, hd=64
 from a nonzero state, decays in the model's range 0.99-0.9999), beside
-the plain fp32 version's. An edit that no longer applies to the sources
-raises.
+the plain fp32 version's, and at S=15 (B=4, H=40: the token body). An
+edit that no longer applies to the sources raises. ``--match TEXT``
+builds only the variants whose name holds TEXT, beside the unedited
+kernel (e.g. ``wkv6 --match "token body"``).
 """
 
 from __future__ import annotations
@@ -182,6 +186,64 @@ VARIANTS = {
              "  if (false) wkv6_summary_kernel<HD><<<")],
         "training forward without its carry kernel": [
             ("  wkv6_carry_kernel<<<", "  if (false) wkv6_carry_kernel<<<")],
+        # the token body (decode): its layouts, its launch's cost, and what
+        # it no longer does
+        "token body: 16 row groups (4 key rows a thread)": [
+            ("constexpr int TRG = 8;", "constexpr int TRG = 16;")],
+        "token body: 4 row groups (16 key rows a thread)": [
+            ("constexpr int TRG = 8;", "constexpr int TRG = 4;")],
+        "token body: one block a head (all its columns, the first design)": [
+            ("constexpr int TSPLIT = 2;", "constexpr int TSPLIT = 1;")],
+        "token body: four blocks a head": [
+            ("constexpr int TSPLIT = 2;", "constexpr int TSPLIT = 4;")],
+        "token body: launch only (returns at once)": [
+            ("  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;\n",
+             "  if (p.H > 0) return;\n"
+             "  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;\n")],
+        "token body: no state loads": [
+            ("    s[e] = p.has_state ? ld4(St + e * p.st_si)",
+             "    s[e] = false ? ld4(St + e * p.st_si)")],
+        "token body: no state stores": [
+            ("    *reinterpret_cast<float4*>(St + e * p.st_si) = s[e];\n",
+             "    if (s[e].x == 12345.f)\n"
+             "      *reinterpret_cast<float4*>(St + e * p.st_si) = s[e];\n")],
+        "token body: u as scalars": [
+            ("  load_run<R>(u, p.u + h * p.u_sh + i0);\n",
+             "#pragma unroll\n  for (int e = 0; e < R; ++e) u[e] = "
+             "p.u[h * p.u_sh + i0 + e];\n")],
+        "token body: no look-ahead loads": [
+            ("  load(cur, 0);\n", ""),
+            ("    if (t + 1 < p.S) load(nxt, t + 1);\n", "    load(cur, t);\n"),
+            ("    cur = nxt;\n", "")],
+        # each step's r, k, w, v by cp.async through shared memory, behind
+        # a barrier before the copies and one after them
+        "token body: the steps staged in shared memory": [
+            ("""  auto load = [&](TokenStep<R>& x, int t) {
+    load_run<R>(x.r, Rg + t * p.r_ss);
+    load_run<R>(x.k, Kg + t * p.k_ss);
+    load_run<R>(x.w, Wg + t * p.w_ss);
+    x.v = ld4(Vg + t * p.v_ss);
+  };
+""", """  __shared__ __align__(16) float sStep[3 * HD + C::COLS];
+  auto load = [&](TokenStep<R>& x, int t) {
+    constexpr int Q = HD / 4;
+    __syncthreads();
+    for (int q = tid; q < 3 * Q + C::COLS / 4; q += C::NT) {
+      const float* src = q < Q ? Rg - i0 + t * p.r_ss + 4 * q
+          : q < 2 * Q ? Kg - i0 + t * p.k_ss + 4 * (q - Q)
+          : q < 3 * Q ? Wg - i0 + t * p.w_ss + 4 * (q - 2 * Q)
+          : Vg - 4 * (tid % LR) + t * p.v_ss + 4 * (q - 3 * Q);
+      cp_async16(sStep + 4 * q, src);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    load_run<R>(x.r, sStep + i0);
+    load_run<R>(x.k, sStep + HD + i0);
+    load_run<R>(x.w, sStep + 2 * HD + i0);
+    x.v = ld4(sStep + 3 * HD + 4 * (tid % LR));
+  };
+""")],
     },
     "mamba_scan": {
         "as shipped": [],
@@ -405,9 +467,10 @@ LOADERS = {"flash_attention": ("flash_attention", "_lib"),
            "mamba_scan_bwd": ("mamba_scan", "_bwd_lib")}
 
 
-def build(kernels, previous: Path | None = None) -> dict:
-    """{(kernel, variant): loaded library}, all variants built in parallel;
-    with ``previous`` (another checkout's csrc) also each kernel's source
+def build(kernels, previous: Path | None = None, match: str = "") -> dict:
+    """{(kernel, variant): loaded library}, all variants whose name holds
+    ``match`` (and the unedited kernel) built in parallel; with
+    ``previous`` (another checkout's csrc) also each kernel's source
     there, with that directory's headers, as the variant PREVIOUS."""
     from repro_torch.kernels import _build
     OUT.mkdir(parents=True, exist_ok=True)
@@ -417,6 +480,8 @@ def build(kernels, previous: Path | None = None) -> dict:
         variants = VARIANTS[kernel]
         src = (_build.CSRC / f"{kernel}.cu").read_text()
         for i, (name, edits) in enumerate(variants.items()):
+            if match not in name and edits:
+                continue
             text = src
             for old, new in edits:
                 if old not in text:
@@ -445,8 +510,12 @@ def build(kernels, previous: Path | None = None) -> dict:
     libs = {}
     for key, (lib, proc) in procs.items():
         log = proc.communicate()[0]
-        if proc.returncode:
+        if proc.returncode and key[1] in ("as shipped", PREVIOUS):
             raise RuntimeError(f"nvcc failed for {key}:\n{log[-3000:]}")
+        if proc.returncode:
+            print(f"{key[0]}, {key[1]}: nvcc failed, variant skipped:\n"
+                  f"{log[-1500:]}")
+            continue
         print(f"{key[0]}, {key[1]}: ptxas " + "; ".join(
             line.split(":", 1)[-1].strip() for line in log.splitlines()
             if "registers" in line or "spill stores" in line))
@@ -458,23 +527,10 @@ def build(kernels, previous: Path | None = None) -> dict:
 
 def wkv6_errors(libs: dict, wkm) -> None:
     """Relative L2 error of y and of the final state against an fp64
-    recurrence, for the plain fp32 version and each WKV6 variant."""
+    recurrence, for the plain fp32 version and each WKV6 variant: the
+    chunked body at S=1024 and the token body at S=15."""
     import numpy as np
     gen = torch.Generator("cuda").manual_seed(3)
-    shape = (2, 1024, 5, 64)
-    r, k, v = (0.5 * torch.randn(shape, generator=gen, device="cuda")
-               for _ in range(3))
-    w = 0.99 + 0.0099 * torch.rand(shape, generator=gen, device="cuda")
-    u = 0.5 * torch.randn((5, 64), generator=gen, device="cuda")
-    start = torch.randn((2, 5, 64, 64), generator=gen, device="cuda")
-    cur = start.double()
-    ys = []
-    for t in range(shape[1]):
-        kv = k[:, t, :, :, None].double() * v[:, t, :, None, :].double()
-        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t].double(),
-                               cur + u.double()[None, :, :, None] * kv))
-        cur = w[:, t, :, :, None].double() * cur + kv
-    y64 = torch.stack(ys, dim=1)
 
     def rel(a, b):
         return float(np.linalg.norm((a.double() - b).cpu().numpy())
@@ -485,17 +541,33 @@ def wkv6_errors(libs: dict, wkm) -> None:
         if kernel == "wkv6":
             runs[name] = lambda *a, lib=lib: (
                 setattr(wkm, "_lib", lambda: lib), wkm.wkv6(*a))[1]
-    for name, fn in runs.items():
-        state = start.clone()
-        y, _ = fn(r, k, v, w, u, state)
-        print(f"wkv6 vs fp64, decays 0.99-0.9999, S=1024: {name}: y "
-              f"{rel(y, y64):.3e}, state {rel(state, cur):.3e}")
+    for shape in ((2, 1024, 5, 64), (4, 15, 40, 64)):
+        r, k, v = (0.5 * torch.randn(shape, generator=gen, device="cuda")
+                   for _ in range(3))
+        w = 0.99 + 0.0099 * torch.rand(shape, generator=gen, device="cuda")
+        u = 0.5 * torch.randn(shape[2:], generator=gen, device="cuda")
+        start = torch.randn((shape[0], *shape[2:], shape[3]), generator=gen,
+                            device="cuda")
+        cur = start.double()
+        ys = []
+        for t in range(shape[1]):
+            kv = k[:, t, :, :, None].double() * v[:, t, :, None, :].double()
+            ys.append(torch.einsum("bhi,bhij->bhj", r[:, t].double(),
+                                   cur + u.double()[None, :, :, None] * kv))
+            cur = w[:, t, :, :, None].double() * cur + kv
+        y64 = torch.stack(ys, dim=1)
+        for name, fn in runs.items():
+            state = start.clone()
+            y, _ = fn(r, k, v, w, u, state)
+            print(f"wkv6 vs fp64, decays 0.99-0.9999, S={shape[1]}: {name}: "
+                  f"y {rel(y, y64):.3e}, state {rel(state, cur):.3e}")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("kernels", nargs="*")
     parser.add_argument("--previous", type=Path, default=None)
+    parser.add_argument("--match", default="")
     args = parser.parse_args()
     kernels = args.kernels or list(VARIANTS)
     unknown = set(kernels) - set(VARIANTS)
@@ -520,7 +592,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}")
-    libs = build(kernels, args.previous)
+    libs = build(kernels, args.previous, args.match)
     # the wrappers set each library's argument types on first load: every
     # entry point they declared gets the same types in each variant
     shipped = {name: getattr(mods[name], LOADERS[name][1])()
@@ -553,6 +625,18 @@ def main() -> int:
         cs.randn(gen, (4, 1024, 40, 64), torch.float32, 2.0) - 5)))
     wkv.append(cs.randn(gen, (40, 64), torch.float32, 0.5))
     wkv_state = torch.zeros((4, 40, 64, 64), device="cuda")
+    # the token body at the decode shape, S=1 and S=15, from a carried
+    # state; and S=1 over rwkv6-3b's 32 layers of a stacked cache, 84 MB,
+    # past the L2, walked as decode_step walks it (cold)
+    wkv_steps = {}
+    for steps in (1, 15):
+        ops4 = [cs.randn(gen, (4, steps, 40, 64), torch.float32, 0.5)
+                for _ in range(3)]
+        ops4.append(torch.exp(-torch.exp(
+            cs.randn(gen, (4, steps, 40, 64), torch.float32, 2.0) - 5)))
+        wkv_steps[steps] = (*ops4, wkv[4])
+    wkv_layers = cs.randn(gen, (32, 4, 40, 64, 64), torch.float32, 1.0) \
+        if "wkv6" in kernels else None
     # the training forward at rwkv6-3b's microbatch
     wkv_train = cs.decay(cs.wkv6_train_inputs(gen, 2, 4096)) \
         if "wkv6" in kernels else None
@@ -634,6 +718,17 @@ def main() -> int:
                     else (lambda: wkv6_chain(wkm, *wkv_train))
                 times.setdefault(f"wkv6 training forward: {name}",
                                  []).append(cs.time_ms(train, 10))
+                for steps, args in wkv_steps.items():
+                    times.setdefault(f"wkv6 token body, S={steps} (warm): "
+                                     f"{name}", []).append(cs.time_ms(
+                        lambda: wkm.wkv6(*args, wkv_layers[0]), 200))
+
+                def walk(args=wkv_steps[1]):
+                    for layer in wkv_layers:
+                        wkm.wkv6(*args, layer)
+                times.setdefault(f"wkv6 token body, S=1 a layer over 32 "
+                                 f"layers (cold): {name}", []).append(
+                    cs.time_ms(walk, 10) / len(wkv_layers))
                 continue
             if kernel == "mamba_scan":
                 times.setdefault(f"mamba scan prefill: {name}", []).append(
