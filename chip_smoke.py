@@ -265,6 +265,10 @@ PROMPT_LEN = SERVED["qwen3-8b"]      # the attention kernels' checks
 DECODE_LAYERS = 32
 RWKV_HEADS, RWKV_HD = 40, 64         # rwkv6-3b: d_model 2560 in heads of 64
 MAMBA_DI, MAMBA_N = 1600, 16         # hymba-1.5b: 25 x 64 channels, state 16
+# the Mamba token body's cold time walks one state slice a layer of a
+# (192, 4, 1600, 16) fp32 stack, 78.6 MB, past the 50 MB L2 (hymba's own
+# 32 layers, 13.1 MB, would fit in it)
+MAMBA_COLD_LAYERS = 192
 # the Mamba scan against its plain version: the fp32 limits the tests hold
 # JAX's scans to (atol 2e-5, rtol 1e-4), and REL_TOL's relative L2
 SCAN_ATOL, SCAN_RTOL = 2e-5, 1e-4
@@ -1072,16 +1076,19 @@ def check_mamba_scan() -> list:
     Two mutants of the plain version must fail: each decay one step late,
     and the epilogue without the d_skip term. b and c are the two halves of
     one (B, S, 2n) projection and z the second half of a (B, S, 2 di) one,
-    as the model passes them. Then timed in bf16 beside the plain version
-    and its bound, at the prefill and the decode shape. Returns the JSON
-    entries "mamba_scan" (prefill) and "mamba_scan_decode"."""
+    as the model passes them. The token body at each S and n it serves
+    (check_mamba_token). Then timed in bf16 beside the plain version and
+    its bound, at the prefill and the decode shape; the token body also
+    cold (a layer of a MAMBA_COLD_LAYERS-layer stack of states walked in
+    turn) and at S = 2, 15 and T-1. Returns the JSON entries "mamba_scan"
+    (prefill) and "mamba_scan_decode" (with its cold time)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.mamba_scan import time_tile
     gen = torch.Generator("cuda").manual_seed(4)
     log("mamba_scan (hymba's selective scan, fused with dt's softplus, the "
         "skip term and the gating) vs its plain version:")
 
-    def inputs(b, s, dtype):
+    def inputs(b, s, dtype, n=MAMBA_N):
         """dt_raw ~ N(-2, 2) and dt_bias ~ N(0, 0.3): dt from ~0.005 (a
         decay near 1, the state kept for hundreds of steps) to ~6; x, z, b,
         c ~ N(0, 1), in ``dtype``; a_log = log(1..n) + N(0, 0.3), the
@@ -1090,15 +1097,14 @@ def check_mamba_scan() -> list:
         f32 = torch.float32
         dt_raw = (randn(gen, (b, s, MAMBA_DI), f32, 2.0) - 2.0).to(dtype)
         dt_bias = randn(gen, (MAMBA_DI,), f32, 0.3)
-        bc = randn(gen, (b, s, 2 * MAMBA_N), dtype, 1.0)
+        bc = randn(gen, (b, s, 2 * n), dtype, 1.0)
         x = randn(gen, (b, s, MAMBA_DI), dtype, 1.0)
         zz = randn(gen, (b, s, 2 * MAMBA_DI), dtype, 1.0)
-        a_log = torch.log(torch.arange(1, MAMBA_N + 1, device="cuda")
-                          .float()) + randn(gen, (MAMBA_DI, MAMBA_N), f32,
-                                            0.3)
+        a_log = torch.log(torch.arange(1, n + 1, device="cuda").float()) \
+            + randn(gen, (MAMBA_DI, n), f32, 0.3)
         d_skip = 1.0 + randn(gen, (MAMBA_DI,), f32, 0.5)
-        h = randn(gen, (b, MAMBA_DI, MAMBA_N), f32, 1.0)
-        return [dt_raw, dt_bias, bc[..., :MAMBA_N], bc[..., MAMBA_N:], x,
+        h = randn(gen, (b, MAMBA_DI, n), f32, 1.0)
+        return [dt_raw, dt_bias, bc[..., :n], bc[..., n:], x,
                 zz[..., MAMBA_DI:], a_log, d_skip], h
 
     b, s, t = REQUESTS, SERVED["hymba-1.5b"], time_tile()
@@ -1156,6 +1162,7 @@ def check_mamba_scan() -> list:
                 *skipless, e_h.clone(), impl="reference")[0], want_e,
                 "the epilogue without d_skip")
         timed[dtype] = (args, h, d_args, cache)
+    check_mamba_token(gen, inputs)
 
     entries = []
     for label, s_run in (("prefill", s), ("decode", 1)):
@@ -1185,7 +1192,78 @@ def check_mamba_scan() -> list:
                     "max_abs_err": errs[label, dtype], "ms": ms,
                     "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                     "library_ms": None})
+    # the token body cold: a layer's slice of a stacked state past the L2,
+    # the layers walked one after another as decode_step walks them; then
+    # S = 2, 15 and T-1 from a carried state, L2-warm
+    _, _, d_args, cache = timed[torch.bfloat16]
+    layers = randn(gen, (MAMBA_COLD_LAYERS, b, MAMBA_DI, MAMBA_N),
+                   torch.float32, 1.0)
+
+    def walk():
+        for layer in layers:
+            ops.mamba_scan(*d_args, layer)
+    # 3 walks: time_ms needs every timed launch queued behind its spin,
+    # and 10 walks' 1920 launches were not
+    cold = time_ms(walk, 3) / MAMBA_COLD_LAYERS
+    entries[-1]["cold_ms"] = cold
+    log(f"  decode bf16 token body: {cold:.6f} ms a layer over a "
+        f"{MAMBA_COLD_LAYERS}-layer stack of states of "
+        f"{layers.numel() * 4 / 1e6:.1f} MB (cold), against "
+        f"{entries[-1]['ms']:.6f} ms L2-warm")
+    del layers
+    for steps in (2, 15, t - 1):
+        s_args, _ = inputs(b, steps, torch.bfloat16)
+        t_steps = time_ms(lambda: ops.mamba_scan(*s_args, cache[1]), 100)
+        log(f"  token body at S={steps} (B={b}, di={MAMBA_DI}, n={MAMBA_N}, "
+            f"bf16): {t_steps:.6f} ms, {t_steps / steps:.6f} ms a step "
+            f"(L2-warm)")
     return entries
+
+
+def check_mamba_token(gen, inputs) -> None:
+    """The fused scan's token body at every S it serves below the chunked
+    body's T (1, 2, 15 and T-1) and both n it takes (8, 16), in bf16 and
+    fp32 at hymba's batch and channels: into layer 1's slice of a stacked
+    (3, B, di, n) cache from the slice's contents, and from zero (the
+    operator with has_state false: the slice, poisoned with NaN, is not
+    read and gets the final state); out against the plain version, the
+    state bit-equal to the plain loop's, layers 0 and 2 unchanged, each
+    call counted as one token-body launch."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mamba_scan import (mamba_scan, mamba_scan_op,
+                                                time_tile)
+    b = REQUESTS
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in (8, 16):
+            for steps in (1, 2, 15, time_tile() - 1):
+                args, _ = inputs(b, steps, dtype, n)
+                for start in ("a state", "zero"):
+                    cache = randn(gen, (3, b, MAMBA_DI, n), torch.float32,
+                                  1.0)
+                    if start == "zero":
+                        cache[1] = float("nan")
+                    before = cache.clone()
+                    counts = mamba_scan.launches, mamba_scan.token_launches
+                    if start == "a state":
+                        out, _ = ops.mamba_scan(*args, cache[1])
+                        want_state = before[1].clone()
+                    else:
+                        out = mamba_scan_op(*args, cache[1], False)
+                        want_state = None
+                    what = (f"{str(dtype)[6:]} token body S={steps} n {n} "
+                            f"from {start}")
+                    if (mamba_scan.launches - counts[0],
+                            mamba_scan.token_launches - counts[1]) != (1, 1):
+                        raise AssertionError(f"{what}: the call did not "
+                                             f"count one token-body launch")
+                    want, want_final = ops.mamba_scan(*args, want_state,
+                                                      impl="reference")
+                    assert_close_scan(f"{what}, out", out, want)
+                    assert_state_equal(what, cache[1], want_final)
+                    if not (torch.equal(cache[0], before[0])
+                            and torch.equal(cache[2], before[2])):
+                        raise AssertionError(f"{what}: wrote outside its "
+                                             f"state slice")
 
 
 def sdpa_operands(q, k, v, window):

@@ -58,13 +58,40 @@
 // 8 of them the exact expf, beside the staging, softplus and epilogue;
 // taking out any one part saves at most 15 %.
 //
-// Token body, S < T (decode). A thread owns (batch row, channel) with its
-// n states in registers and keeps JAX's step order exactly: da = exp(dt *
-// a), h = da * h + (dt * x) * b, each product and the sum rounded on its
-// own (__fmul_rn / __fadd_rn: no FMA contraction), expf and not __expf, so
-// its state equals the plain loop's bit for bit. One launch a layer does
-// the softplus, the step, the skip and the gating.
+// Token body, S < T (every decode step, and a prompt shorter than a tile):
+// the chunked form has nothing to batch, and a step is bytes: it reads and
+// writes the (B, di, n) fp32 state, 0.82 of the 0.98 MB a decode step
+// moves at hymba's shape (B=4, di=1600, n=16, bf16), and reads a_log. The
+// body this one replaced gave a thread a (batch row, channel) with all n
+// states: 52 blocks of 128 threads on 132 SMs, each reading its 16 states
+// and 16 a_log values one scalar at a time, 64 bytes from its neighbour's,
+// into one serial chain of 32 expf a step.
 //
+// Here a group of N / TSL neighbouring lanes owns a (batch row, channel),
+// a lane TSL = 4 consecutive states (4 lanes a channel at n 16, 2 at n 8):
+// a warp reads and writes 8 channels' 512 contiguous bytes of the state at
+// n 16 as float4s, and a_log alike; hymba's decode runs 25,600 threads,
+// 200 blocks of 128. Every load of a launch (the lane's states and a_log,
+// dt_raw, x, z, its b and c as one vector each, the bias and the skip) is
+// issued before any arithmetic. Each state keeps JAX's step order exactly:
+// da = exp(dt * a), h = da * h + (dt * x) * b, each product and the sum
+// rounded on its own (__fmul_rn / __fadd_rn: no FMA contraction), expf and
+// not __expf, so the state equals the plain loop's bit for bit. Only y's
+// order of summation differs: a lane sums its states' h * c, xor shuffles
+// sum over the group, and the group's first lane adds the skip term, gates
+// by silu(z) and stores out. A step's operands are kept as loaded, in the
+// model's dtype, until the step converts them and takes what of it does
+// not depend on the state (the softplus, the decays, silu(z)); then the
+// next step's loads go out while this one updates the state (S >= 2). A
+// plain launch.
+//
+// What holds it (tools/ablate_kernels.py mamba_scan; PERF.md): at S = 1
+// the launch (an empty kernel is two thirds of its time) and one step's
+// chain behind the loads; cold, the state's reads too. From S = 2 on each
+// step's chain of dependent instructions, the softplus, a decay's expf,
+// the update, the shuffles and the gating, which loading further ahead
+// does not shorten.
+
 // Training (MambaScanFn's forward, one launch a layer from zeros): given
 // `starts`, the chunked body also writes the state it hands from tile to
 // tile at the start of every `chunk` steps (JAX's 256-step remat
@@ -99,7 +126,8 @@ constexpr int JU = 4;   // chunked body: states a pass of the state loop
 // di=1600) are then resident on the H100's 132 SMs at once, none left for
 // a second wave
 constexpr int MIN_BLOCKS = 7;
-constexpr int TOKEN_NT = 128;      // token body: channels a block
+constexpr int TOKEN_NT = 128;  // token body: threads a block
+constexpr int TSL = 4;         // token body: states a lane
 static_assert(R % 4 == 0 && 32 % (L * G) == 0 && CH % 4 == 0, "tile shape");
 
 struct ScanParams {
@@ -131,14 +159,23 @@ __device__ __forceinline__ float softplus(float v) {
 }
 
 // out = T(T(y) * T(silu(z))): the gating of the plain version, with
-// PyTorch's silu z / (1 + exp(-z)) and each rounding to the dtype
-__device__ __forceinline__ float gate(float y, float z, float) {
-  return __fmul_rn(y, __fdiv_rn(z, __fadd_rn(1.f, expf(-z))));
+// PyTorch's silu z / (1 + exp(-z)) and each rounding to the dtype T; its
+// factor T(silu(z)) apart, which the token body takes before y is known
+__device__ __forceinline__ float silu(float z, float) {
+  return __fdiv_rn(z, __fadd_rn(1.f, expf(-z)));
 }
-__device__ __forceinline__ float gate(float y, float z, __nv_bfloat16) {
-  const float g = __bfloat162float(
-      __float2bfloat16(__fdiv_rn(z, __fadd_rn(1.f, expf(-z)))));
+__device__ __forceinline__ float silu(float z, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16(silu(z, 0.f)));
+}
+__device__ __forceinline__ float gated(float y, float g, float) {
+  return __fmul_rn(y, g);
+}
+__device__ __forceinline__ float gated(float y, float g, __nv_bfloat16) {
   return __fmul_rn(__bfloat162float(__float2bfloat16(y)), g);
+}
+template <typename TIn>
+__device__ __forceinline__ float gate(float y, float z, TIn) {
+  return gated(y, silu(z, TIn()), TIn());
 }
 
 // four neighbouring elements (16 bytes of fp32, 8 of bf16) as floats,
@@ -163,43 +200,122 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
       make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
 }
 
+// K neighbouring fp32 values (K of 2, 4 or 8) into registers and back,
+// 16 bytes a load or store where K allows
+template <int K>
+__device__ __forceinline__ void load_k(const float* p, float* v) {
+  if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < K; e += 4) load4(p + e, v + e);
+  } else {
+    static_assert(K == 2, "values a lane");
+    const float2 f = load2(p);
+    v[0] = f.x;
+    v[1] = f.y;
+  }
+}
+template <int K>
+__device__ __forceinline__ void store_k(float* p, const float* v) {
+  if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < K; e += 4) store4(p + e, v + e);
+  } else {
+    static_assert(K == 2, "values a lane");
+    store2(p, v[0], v[1]);
+  }
+}
+
+// K neighbouring elements of the model's dtype, as they lie in memory:
+// copied by vector loads of up to 16 bytes, converted where used
+template <typename TIn, int K>
+struct alignas(K * sizeof(TIn) < 16 ? K * sizeof(TIn) : 16) Elems {
+  TIn v[K];
+};
+
 // ------------------------------------------------------------ token body
+template <int N>
+struct TokenShape {
+  static constexpr int K = TSL < N ? TSL : N;  // states a lane
+  static constexpr int LPC = N / K;            // lanes a channel
+  static constexpr int CPB = TOKEN_NT / LPC;   // channels a block
+  static_assert(N % K == 0 && 32 % LPC == 0, "a channel's lanes in a warp");
+};
+
+// a step's operands for one lane as they lie in memory: dt_raw, x and z
+// of its channel, b and c of its states
+template <typename TIn, int K>
+struct ScanStep {
+  TIn dt, x, z;
+  Elems<TIn, K> b, c;
+};
+
 template <typename TIn, int N>
 __global__ void __launch_bounds__(TOKEN_NT)
     mamba_scan_token_kernel(const ScanParams p) {
-  const int bi = blockIdx.y, d = blockIdx.x * TOKEN_NT + threadIdx.x;
+  using C = TokenShape<N>;
+  constexpr int K = C::K, LPC = C::LPC;
+  const int bi = blockIdx.y, tid = threadIdx.x;
+  const int d = blockIdx.x * C::CPB + tid / LPC, j0 = tid % LPC * K;
+  // a channel's lanes leave together, so each group's shuffles below name
+  // only lanes that run them
   if (d >= p.di) return;
+  const unsigned group = ((1u << LPC) - 1u) << (tid % 32 / LPC * LPC);
+  float* hg = p.h + bi * p.h_sb + (int64_t)d * N + j0;
   const TIn* dtg = static_cast<const TIn*>(p.dt) + bi * p.dt_sb + d;
   const TIn* xg = static_cast<const TIn*>(p.x) + bi * p.x_sb + d;
   const TIn* zg = static_cast<const TIn*>(p.z) + bi * p.z_sb + d;
-  const TIn* bg = static_cast<const TIn*>(p.b) + bi * p.b_sb;
-  const TIn* cg = static_cast<const TIn*>(p.c) + bi * p.c_sb;
+  const TIn* bg = static_cast<const TIn*>(p.b) + bi * p.b_sb + j0;
+  const TIn* cg = static_cast<const TIn*>(p.c) + bi * p.c_sb + j0;
   TIn* og = static_cast<TIn*>(p.out) + bi * p.o_sb + d;
-  float* hg = p.h + bi * p.h_sb + (int64_t)d * N;
-  const float bias = p.dt_bias[d], skip = p.d_skip[d];
-  float a[N], h[N];
+
+  // every load of the first step issued before any arithmetic
+  float h[K], al[K];
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    a[j] = -expf(p.a_log[(int64_t)d * N + j]);
-    h[j] = p.has_state ? hg[j] : 0.f;
-  }
+  for (int e = 0; e < K; ++e) h[e] = 0.f;
+  if (p.has_state) load_k<K>(hg, h);
+  load_k<K>(p.a_log + (int64_t)d * N + j0, al);
+  auto load = [&](ScanStep<TIn, K>& s, int t) {
+    s.dt = dtg[t * p.dt_ss];
+    s.x = xg[t * p.x_ss];
+    s.z = zg[t * p.z_ss];
+    s.b = *reinterpret_cast<const Elems<TIn, K>*>(bg + t * p.b_ss);
+    s.c = *reinterpret_cast<const Elems<TIn, K>*>(cg + t * p.c_ss);
+  };
+  ScanStep<TIn, K> raw;
+  load(raw, 0);
+  const float bias = p.dt_bias[d], skip = p.d_skip[d];
+  float a[K];
+#pragma unroll
+  for (int e = 0; e < K; ++e) a[e] = -expf(al[e]);
+
+#pragma unroll 1
   for (int t = 0; t < p.S; ++t) {
-    const float dt = softplus(__fadd_rn(to_float(dtg[t * p.dt_ss]), bias));
-    const float xv = to_float(xg[t * p.x_ss]);
+    // step t's operands into fp32, its softplus, decays and silu(z); then
+    // the next step's loads go out while this one updates the state
+    const float dt = softplus(__fadd_rn(to_float(raw.dt), bias));
+    const float xv = to_float(raw.x), g = silu(to_float(raw.z), TIn());
     const float dtx = __fmul_rn(dt, xv);
+    float da[K], bv[K], cv[K];
+#pragma unroll
+    for (int e = 0; e < K; ++e) {
+      da[e] = expf(__fmul_rn(dt, a[e]));
+      bv[e] = to_float(raw.b.v[e]);
+      cv[e] = to_float(raw.c.v[e]);
+    }
+    if (t + 1 < p.S) load(raw, t + 1);
     float y = 0.f;
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const float da = expf(__fmul_rn(dt, a[j]));
-      const float u = __fmul_rn(dtx, to_float(bg[t * p.b_ss + j]));
-      h[j] = __fadd_rn(__fmul_rn(da, h[j]), u);
-      y = fmaf(h[j], to_float(cg[t * p.c_ss + j]), y);
+    for (int e = 0; e < K; ++e) {
+      h[e] = __fadd_rn(__fmul_rn(da[e], h[e]), __fmul_rn(dtx, bv[e]));
+      y = fmaf(h[e], cv[e], y);
     }
-    y = __fadd_rn(y, __fmul_rn(skip, xv));
-    from_float(og + t * p.o_ss, gate(y, to_float(zg[t * p.z_ss]), TIn()));
-  }
 #pragma unroll
-  for (int j = 0; j < N; ++j) hg[j] = h[j];
+    for (int o = 1; o < LPC; o <<= 1) y += __shfl_xor_sync(group, y, o);
+    if (j0 == 0)
+      from_float(og + t * p.o_ss,
+                 gated(__fadd_rn(y, __fmul_rn(skip, xv)), g, TIn()));
+  }
+  store_k<K>(hg, h);
 }
 
 // ---------------------------------------------------------- chunked body
@@ -470,7 +586,8 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 template <typename TIn, int N>
 int launch(const ScanParams& p, int B, cudaStream_t stream) {
   if (p.S < T && !p.starts) {
-    const dim3 grid((p.di + TOKEN_NT - 1) / TOKEN_NT, B);
+    constexpr int cpb = TokenShape<N>::CPB;
+    const dim3 grid((p.di + cpb - 1) / cpb, B);
     mamba_scan_token_kernel<TIn, N><<<grid, TOKEN_NT, 0, stream>>>(p);
     return cudaGetLastError();
   }

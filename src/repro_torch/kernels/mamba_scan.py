@@ -10,7 +10,8 @@ eager PyTorch the loop launches a few kernels a step and the rest a dozen
 elementwise passes a layer; the kernel, ``csrc/mamba_scan.cu``, does all of
 it in one launch. Its header says what bounds it and how its two bodies
 are laid out: a chunked parallel scan for S >= ``time_tile()`` (prefill),
-one thread per channel below it (decode).
+below it (decode) a group of lanes a channel, 4 states and one 16-byte
+vector of the state a lane.
 
 Layout is the model's. dt_raw (the product ``x_c @ dt_a @ dt_b``), x, z
 (B, S, di) and b, c (B, S, n) in the model's dtype (fp32 or bf16);
@@ -115,6 +116,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
 def time_tile() -> int:
     """T of the kernel's chunked body: a call with S >= T runs the chunked
     body (its tile edges at multiples of T), a shorter one (a decode step)
@@ -186,12 +188,15 @@ def _launch(dt: torch.Tensor, dt_bias: torch.Tensor, b: torch.Tensor,
         if t.device != dt.device or t.dtype != dtype:
             raise ValueError(f"mamba_scan: {name} is {t.dtype} on "
                              f"{t.device}, expected {dtype} on {dt.device}")
-    for name, t in (("dt", dt), ("b", b), ("c", c), ("x", x), ("z", z)):
-        _aligned(name, t)
     if not (dt_bias.is_contiguous() and d_skip.is_contiguous()
             and a_log.is_contiguous()) or h.stride()[1:] != (n, 1):
         raise ValueError("mamba_scan: dt_bias, d_skip, a_log and each "
                          "batch row of h must be contiguous")
+    # the token body reads and writes h and a_log as 16-byte vectors: a
+    # misaligned one raises rather than being copied
+    for name, t in (("dt", dt), ("b", b), ("c", c), ("x", x), ("z", z),
+                    ("a_log", a_log), ("h", h)):
+        _aligned(name, t)
     strides = (ctypes.c_int64 * 13)(
         *dt.stride()[:2], *b.stride()[:2], *c.stride()[:2], *x.stride()[:2],
         *z.stride()[:2], *out.stride()[:2], h.stride(0))
@@ -205,7 +210,7 @@ def _launch(dt: torch.Tensor, dt_bias: torch.Tensor, b: torch.Tensor,
         torch.cuda.current_stream(dt.device).cuda_stream)
     _build.check(lib, err, "mamba_scan")
     _MAMBA_SCAN.launches += 1
-    if starts is None and s < lib.mamba_scan_time_tile():
+    if starts is None and s < time_tile():
         _MAMBA_SCAN.token_launches += 1
     return out
 
@@ -363,7 +368,7 @@ def _mamba_scan_train_cuda(dt, dt_bias, b, c, x, z, a_log, d_skip, chunk):
     ``mamba_scan.launches`` (the same kernel); its fake implementation,
     flops and ``train_reference_bytes`` sit beside it."""
     _check_train(dt, dt_bias, b, c, x, z, a_log, d_skip, chunk)
-    if chunk % _lib().mamba_scan_time_tile():
+    if chunk % time_tile():
         raise ValueError(f"mamba_scan_train: chunk {chunk} is no multiple "
                          f"of the time tile {time_tile()}")
     bsz, s, di = dt.shape

@@ -54,9 +54,13 @@ WKV_CASES = [
 # Mamba scans: (B, S, di, n, carried state); S = 1 is a decode step, 64 the
 # kernel's time tile (its chunked body from there on, its token body
 # below), 130 = 2 x 64 + 2 a ragged last tile, 512 steps JAX's
-# chunked_time_scan in rematerialised 256-step chunks
+# chunked_time_scan in rematerialised 256-step chunks; di 40 and 24 are
+# not multiples of the token body's channels a block (32 at n 16, 64 at
+# n 8)
 MAMBA_CASES = [
     (2, 1, 32, 16, True),
+    (4, 2, 40, 16, True),
+    (1, 15, 24, 8, True),
     (2, 63, 48, 16, False),
     (2, 64, 32, 16, True),
     (1, 65, 16, 8, True),

@@ -66,6 +66,9 @@ DECODE_CARD_CASES = [
 # (the token body below T), and one decode step
 MAMBA_CARD_CASES = [(4, 1000, 1600, 16, True), (2, 333, 200, 8, False)]
 MAMBA_TILE_EDGES = ["1", "T-1", "T", "T+1", "2T+3"]
+# the token body: S of 1 (a decode step), 2 (the first with a step loaded
+# ahead), 15 and T-1 (the longest run below the chunked body)
+MAMBA_TOKEN_STEPS = ["1", "2", "15", "T-1"]
 
 
 @pytest.fixture
@@ -369,6 +372,74 @@ def test_mamba_scan_one_step_updates_the_state_in_place(cuda, dtype):
     close(out, want, TOL[dtype] if dtype == "bfloat16" else 2e-5)
     assert torch.equal(cache[1], want_state)
     assert torch.equal(cache[0], start[0]) and torch.equal(cache[2], start[2])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("start", ["state", "zero"])
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("s", MAMBA_TOKEN_STEPS)
+def test_mamba_token_body_matches_plain(cuda, s, n, start, dtype):
+    """The token body into layer 1's slice of a stacked (3, B, di, n)
+    cache, from the slice's contents or from zero (the slice poisoned with
+    NaN: the operator with has_state false reads none of it and writes the
+    final state there), against the plain loop: out within the scan's
+    fp32 limits or a bf16 step, the state bit-equal, layers 0 and 2
+    unchanged, one launch counted as the token body's. di 40 is no
+    multiple of a block's channels."""
+    from repro_torch.kernels.mamba_scan import mamba_scan_op
+    steps = {"1": 1, "2": 2, "15": 15, "T-1": time_tile() - 1}[s]
+    *inputs, _ = mamba_on(cuda, 3, steps, 40, n, steps + n, dtype)
+    cache = torch.randn((3, 3, 40, n), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(n))
+    if start == "zero":
+        cache[1] = float("nan")
+    before = cache.clone()
+    counts = mamba_scan.launches, mamba_scan.token_launches
+    if start == "state":
+        out, final = ops.mamba_scan(*inputs, cache[1])
+        assert final.data_ptr() == cache[1].data_ptr()
+        want_state = before[1].clone()
+    else:
+        out = mamba_scan_op(*inputs, cache[1], False)
+        want_state = None
+    torch.cuda.synchronize()
+    assert (mamba_scan.launches, mamba_scan.token_launches) == \
+        (counts[0] + 1, counts[1] + 1)
+    want, want_final = ops.mamba_scan(*inputs, want_state, impl="reference")
+    if dtype == "float32":
+        close_wkv(out, want)
+    else:
+        close(out, want, TOL[dtype])
+    assert torch.equal(cache[1], want_final)
+    assert torch.equal(cache[0], before[0]) and \
+        torch.equal(cache[2], before[2])
+
+
+def test_mamba_scan_raises_on_a_misaligned_state(cuda):
+    """The token body reads and writes the state and a_log as 16-byte
+    vectors: a state whose start is 4 bytes off, or whose batch stride is
+    not a multiple of 4 floats, raises and launches nothing, as does an
+    a_log 4 bytes off; the state is left as it was and nothing is
+    copied."""
+    dt, bias, b, c, x, z, a_log, skip, h = mamba_on(cuda, 2, 1, 48, 16, 5,
+                                                    "bfloat16")
+    counts = mamba_scan.launches, mamba_scan.token_launches
+    flat = torch.zeros(2 * 48 * 16 + 1, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.mamba_scan(dt, bias, b, c, x, z, a_log, skip,
+                       flat[1:].view(2, 48, 16))
+    wide = torch.zeros(2 * 48 * 16 + 1, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.mamba_scan(dt, bias, b, c, x, z, a_log, skip,
+                       wide.as_strided((2, 48, 16), (48 * 16 + 1, 16, 1)))
+    a_off = torch.zeros(48 * 16 + 1, device=cuda)[1:].view(48, 16)
+    a_off.copy_(a_log)
+    state = torch.ones((2, 48, 16), device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.mamba_scan(dt, bias, b, c, x, z, a_off, skip, state)
+    assert (mamba_scan.launches, mamba_scan.token_launches) == counts
+    assert torch.equal(state, torch.ones_like(state))
+    assert torch.equal(wide, torch.zeros_like(wide))
 
 
 def test_mamba_scan_raises_rather_than_falling_back(cuda):

@@ -18,9 +18,11 @@ bf16; WKV6's chunked body: B=4, S=1024, H=40, hd=64, fp32, its
 training forward at rwkv6-3b's B=2, S=4096, the model's decays, and its
 token body at the decode shape B=4, H=40, hd=64 from a state, S=1 and
 S=15 L2-warm and S=1 a layer walking a 32-layer (84 MB) cache, cold; the fused
-Mamba scan: hymba's B=4, S=4096, di=1600, n=16, bf16; the backward
-kernels at the training microbatches: attention's at qwen3-8b's B=2,
-S=4096, 32/8 heads of 128, hymba-1.5b's B=4, 25/5 heads of 64, window
+Mamba scan: hymba's B=4, S=4096, di=1600, n=16, bf16, and its token body
+at the decode shape B=4, di=1600, n=16 from a state, S=1 and S=15 L2-warm
+and S=1 a layer walking a 192-layer (78.6 MB) stack of states, cold; the
+backward kernels at the training microbatches: attention's at qwen3-8b's
+B=2, S=4096, 32/8 heads of 128, hymba-1.5b's B=4, 25/5 heads of 64, window
 1024, phi3-mini-3.8b's B=2, 32/32 heads of 96 and h2o-danube-1.8b's B=4,
 32/8 heads of 80, window 4096, pixtral-12b's B=1, 32/8 heads of 160
 and musicgen-large's B=2, 32/32 heads of 64, bf16; WKV6's at rwkv6-3b's
@@ -295,6 +297,36 @@ VARIANTS = {
             ("constexpr int MIN_BLOCKS = 7;", "constexpr int MIN_BLOCKS = 3;")],
         "the token body at every S": [("  if (p.S < T && !p.starts) {",
                                        "  if (true) {")],
+        # the token body (decode): its launch's cost, its state traffic,
+        # its lanes a channel (TSL states a lane), its look-ahead, and the
+        # parts of a step's chain
+        "token body: launch only (returns at once)": [
+            ("  const int bi = blockIdx.y, tid = threadIdx.x;\n",
+             "  if (p.S > 0) return;\n"
+             "  const int bi = blockIdx.y, tid = threadIdx.x;\n")],
+        "token body: no state loads": [
+            ("  if (p.has_state) load_k<K>(hg, h);\n", "")],
+        "token body: no state stores": [
+            ("  store_k<K>(hg, h);\n",
+             "  if (h[0] == 12345.f) store_k<K>(hg, h);\n")],
+        "token body: 2 lanes a channel at n 16 (8 states a lane)": [
+            ("constexpr int TSL = 4;", "constexpr int TSL = 8;")],
+        "token body: 8 lanes a channel at n 16 (2 states a lane)": [
+            ("constexpr int TSL = 4;", "constexpr int TSL = 2;")],
+        "token body: no look-ahead loads": [
+            ("    if (t + 1 < p.S) load(raw, t + 1);\n", ""),
+            ("    // step t's operands into fp32,",
+             "    if (t > 0) load(raw, t);\n    // step t's operands into fp32,")],
+        "token body: no out stores": [
+            ("    if (j0 == 0)\n      from_float(og + t * p.o_ss,",
+             "    if (j0 == 0 && y == 12345.f)\n"
+             "      from_float(og + t * p.o_ss,")],
+        "token body: no y shuffles": [
+            ("    for (int o = 1; o < LPC; o <<= 1) y += __shfl_xor_sync(",
+             "    for (int o = LPC; o < LPC; o <<= 1) y += __shfl_xor_sync(")],
+        "token body: no softplus": [
+            ("    const float dt = softplus(__fadd_rn(to_float(raw.dt), bias));",
+             "    const float dt = __fadd_rn(to_float(raw.dt), bias);")],
     },
     "flash_attention_bwd": {
         "as shipped": [],
@@ -649,6 +681,22 @@ def main() -> int:
                  1, 17, device="cuda").float()).expand(1600, 16).contiguous(),
              torch.ones(1600, device="cuda"),
              torch.zeros((4, 1600, 16), device="cuda"))
+    # the scan's token body at hymba's decode shape, S=1 and S=15, bf16,
+    # from a carried state; and S=1 a layer walking a stack of
+    # chip_smoke.py's MAMBA_COLD_LAYERS (4, 1600, 16) states, 78.6 MB,
+    # past the L2 (cold)
+    mamba_steps = {}
+    for steps in (1, 15):
+        mbc_s = cs.randn(gen, (4, steps, 32), bf16, 1.0)
+        mzz_s = cs.randn(gen, (4, steps, 3200), bf16, 1.0)
+        mamba_steps[steps] = (
+            (cs.randn(gen, (4, steps, 1600), torch.float32, 2.0) - 2.0)
+            .to(bf16), mamba[1], mbc_s[..., :16], mbc_s[..., 16:],
+            cs.randn(gen, (4, steps, 1600), bf16, 1.0), mzz_s[..., 1600:],
+            mamba[6], mamba[7])
+    mamba_layers = cs.randn(gen, (cs.MAMBA_COLD_LAYERS, 4, 1600, 16),
+                            torch.float32, 1.0) \
+        if "mamba_scan" in kernels else None
     attention = {}
     if "flash_attention_bwd" in kernels:
         # qwen3-8b's training microbatch (hd 128), hymba-1.5b's (hd 64, a
@@ -733,6 +781,20 @@ def main() -> int:
             if kernel == "mamba_scan":
                 times.setdefault(f"mamba scan prefill: {name}", []).append(
                     cs.time_ms(lambda: msm.mamba_scan(*mamba), 20))
+                for steps, args in mamba_steps.items():
+                    times.setdefault(f"mamba scan token body, S={steps} "
+                                     f"(warm): {name}", []).append(
+                        cs.time_ms(lambda: msm.mamba_scan(
+                            *args, mamba_layers[0]), 200))
+
+                def walk(args=mamba_steps[1]):
+                    for layer in mamba_layers:
+                        msm.mamba_scan(*args, layer)
+                # 3 walks, as chip_smoke.py times them
+                times.setdefault(f"mamba scan token body, S=1 a layer over "
+                                 f"{len(mamba_layers)} layers (cold): "
+                                 f"{name}", []).append(
+                    cs.time_ms(walk, 3) / len(mamba_layers))
                 continue
             for label, (qd, kc, vc, lens) in decode.items():
                 times.setdefault(f"flash decode {label}: {name}", []).append(
