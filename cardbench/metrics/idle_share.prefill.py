@@ -1,0 +1,9 @@
+"""1 - the union of device intervals over the traced cycle's length, in
+%."""
+
+from cardbench import readers
+
+
+def read(run):
+    return readers.idle_share(run) if readers.is_kind(run, "prefill") \
+        else None
